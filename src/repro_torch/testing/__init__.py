@@ -1,0 +1,11 @@
+"""Test/chaos support utilities shipped with the library.
+
+``repro_torch.testing.faults`` is imported by production modules (the fault
+check is a no-op two-instruction fast path when nothing is armed), so
+this package must stay dependency-free and cheap to import.
+"""
+from .equivalence import results_equivalent, topk_agree
+from .faults import FAULTS, FaultError, FaultRegistry, FaultRule
+
+__all__ = ["FAULTS", "FaultError", "FaultRegistry", "FaultRule",
+           "results_equivalent", "topk_agree"]
