@@ -33,7 +33,7 @@ from .embedder import CachingEmbedder, Embedder, HashProjectionEmbedder
 from .hash_store import HashStore
 from .hot_tier import HotTier
 from .integrity import Scrubber, StoreIntegrity
-from ..kernels.common import Q8_NOT_PORTED, resolve_device
+from ..kernels.common import resolve_device
 from ..obs import REGISTRY, span
 from ..testing.faults import FAULTS
 from .tenancy import TenantRegistry, Visibility
@@ -81,11 +81,11 @@ class LiveVectorLake:
         (the historical behavior).
 
         ``device``: where the hot tier's exact scans and the temporal
-        engine's resident history run. None (default) = the CUDA
-        device, and an error where there is none; pass "cpu" to run the
-        kernels' plain PyTorch versions. Quantized stores (``quantized``
-        True, or a STORE.json that says so) are not ported yet and
-        raise ``NotImplementedError`` before anything is written."""
+        engine's resident history run (int8 columns in a quantized
+        store; the fp32 rescore and the IVF member scans stay on the
+        host). None (default) = the CUDA device, and an error where
+        there is none; pass "cpu" to run the kernels' plain PyTorch
+        versions."""
         self.device = resolve_device(device)
         self.root = root
         os.makedirs(root, exist_ok=True)
@@ -153,8 +153,6 @@ class LiveVectorLake:
                 cfg = {}
         out = (bool(cfg.get("quantized", False)) if quantized is None
                else bool(quantized))
-        if out:
-            raise NotImplementedError(Q8_NOT_PORTED)
         # the store manifest names its tenancy sidecar so tools can
         # find the registry without hard-coding the layout
         changed = cfg.get("tenants_file") != TenantRegistry.FILENAME

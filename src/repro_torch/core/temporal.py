@@ -31,6 +31,7 @@ Execution paths (DESIGN.md §9):
 from __future__ import annotations
 
 import dataclasses
+import os
 import re
 import threading
 from datetime import datetime, timezone
@@ -41,7 +42,7 @@ import torch
 
 from .. import obs
 from .cold_tier import ColdSnapshot, ColdTier
-from ..kernels.common import Q8_NOT_PORTED, resolve_device
+from ..kernels.common import resolve_device
 from .integrity import CorruptionError
 from .tenancy import visible_rows
 from .types import SearchResult, VALID_TO_OPEN, pad_queries
@@ -99,18 +100,40 @@ class ResidentHistory:
     ``vt``, ``ver``, ``pos``, ``tids`` and the string columns. Every
     validity write goes through ``_push`` (appended rows) or ``_close``
     (closures), which write host and device together — a closure missed
-    on the device would be a temporal leak."""
+    on the device would be a temporal leak.
+
+    QUANTIZED mode (DESIGN.md §11): ``emb`` is int8 under the fixed
+    1/127 scale — 4x less device memory AND 4x less scan traffic for
+    the fused temporal kernel — while the exact fp32 rows spill to an
+    append-only host file (``f32_path``) read back lazily (OS page
+    cache) ONLY to rescore candidate pools. ``_push`` writes the spill
+    with the device rows: it is rewritten when rows land at 0 (a
+    re-seed) and appended to otherwise, so row r of the spill is always
+    row r of the column. Validity metadata is unchanged, so the leakage
+    guard is untouched."""
 
     _HOST = ("vf", "vt", "ver", "pos", "tids")
     _DEVICE = ("emb", "vf_dev", "vt_dev", "tids_dev")
 
-    def __init__(self, dim: int, device=None):
+    def __init__(self, dim: int, quantized: bool = False,
+                 f32_path: Optional[str] = None, device=None):
+        from ..index.quant import AppendOnlyF32File, fixed_scale
         self.dim = dim
         self.n = 0
+        self.quantized = bool(quantized)
         self.device = resolve_device(device)
         cap = 1024
         dev = self.device
-        self.emb = torch.zeros((cap, dim), dtype=torch.float32, device=dev)
+        if self.quantized:
+            assert f32_path is not None, "quantized history needs f32 spill"
+            self.scale = fixed_scale(dim)
+            self.f32 = AppendOnlyF32File(f32_path, dim)
+        else:
+            self.scale = None
+            self.f32 = None
+        self.emb = torch.zeros(
+            (cap, dim), dtype=torch.int8 if self.quantized else torch.float32,
+            device=dev)
         self.vf_dev = torch.zeros(cap, dtype=torch.int64, device=dev)
         self.vt_dev = torch.zeros(cap, dtype=torch.int64, device=dev)
         self.tids_dev = torch.zeros(cap, dtype=torch.int32, device=dev)
@@ -144,10 +167,24 @@ class ResidentHistory:
             new[:self.n] = old[:self.n]
             setattr(self, name, new)
 
-    def _push(self, lo: int, hi: int, emb_f32: np.ndarray) -> None:
+    def _push(self, lo: int, hi: int, emb_f32: np.ndarray,
+              q8_rows: Optional[np.ndarray] = None) -> None:
         """Land rows [lo, hi) on the device: their embeddings, and their
-        validity and tenant columns as the host now holds them."""
-        self.emb[lo:hi] = torch.as_tensor(np.asarray(emb_f32, np.float32))
+        validity and tenant columns as the host now holds them. A
+        quantized history stores int8 rows (``q8_rows`` verbatim where
+        given, else quantized here) and spills the exact fp32 rows."""
+        emb_f32 = np.asarray(emb_f32, np.float32)
+        if self.quantized:
+            from ..index.quant import quantize_rows
+            rows = (q8_rows if q8_rows is not None
+                    else quantize_rows(emb_f32, self.scale))
+            self.emb[lo:hi] = torch.as_tensor(np.asarray(rows, np.int8))
+            if lo == 0:
+                self.f32.reset(emb_f32)
+            else:
+                self.f32.append(emb_f32)
+        else:
+            self.emb[lo:hi] = torch.as_tensor(emb_f32)
         self.vf_dev[lo:hi] = torch.from_numpy(self.vf[lo:hi])
         self.vt_dev[lo:hi] = torch.from_numpy(self.vt[lo:hi])
         self.tids_dev[lo:hi] = torch.from_numpy(self.tids[lo:hi])
@@ -166,8 +203,27 @@ class ResidentHistory:
             self.vt_dev[torch.from_numpy(rows).to(self.device)] = \
                 torch.from_numpy(self.vt[rows]).to(self.device)
 
-    def seed(self, snap: ColdSnapshot, applied_version: int) -> None:
-        """Initialize from a full-history (include_closed) snapshot."""
+    def fetch_f32(self, rows: np.ndarray) -> np.ndarray:
+        """Exact fp32 rows by resident row id (rescore source)."""
+        rows = np.asarray(rows, np.int64)
+        if not self.quantized:
+            return self.emb[torch.from_numpy(rows).to(self.device)] \
+                .cpu().numpy()
+        return self.f32.fetch(rows)
+
+    def emb_nbytes(self) -> int:
+        """Resident embedding bytes (allocated scan column)."""
+        n = self.emb.numel() * self.emb.element_size()
+        if self.quantized:
+            n += int(self.scale.nbytes)
+        return n
+
+    def seed(self, snap: ColdSnapshot, applied_version: int,
+             q8_rows: Optional[np.ndarray] = None) -> None:
+        """Initialize from a full-history (include_closed) snapshot.
+        ``q8_rows``: the persisted checkpoint quantization sidecar, when
+        one exists at exactly this version — adopted verbatim so the
+        round-trip is bit-deterministic across restarts."""
         m = len(snap)
         self._reserve(m)
         self.vf[:m] = snap.valid_from
@@ -175,7 +231,7 @@ class ResidentHistory:
         self.ver[:m] = snap.version
         self.pos[:m] = snap.position
         self.tids[:m] = snap.tenants()
-        self._push(0, m, snap.embeddings)
+        self._push(0, m, snap.embeddings, q8_rows)
         self.chunk_ids = list(snap.chunk_ids)
         self.doc_ids = list(snap.doc_ids)
         self.texts = list(snap.texts)
@@ -244,7 +300,9 @@ class ResidentHistory:
         return m
 
     def views(self) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-        """(embedding column, valid_from, valid_to) device views."""
+        """(embedding column, valid_from, valid_to) device views — the
+        embedding column is f32, or int8 in quantized mode (scored via
+        ``scale``, rescored exactly through ``fetch_f32``)."""
         return self.emb[:self.n], self.vf_dev[:self.n], self.vt_dev[:self.n]
 
     def visible(self, visible: np.ndarray) -> torch.Tensor:
@@ -295,10 +353,9 @@ class TemporalEngine:
                  device=None):
         """``device``: where the resident history lives and the fused
         kernel runs (None = the CUDA device; raises without one — pass
-        "cpu" for the plain path). ``quantized=True`` (the int8 history)
-        is not ported yet and raises."""
-        if quantized:
-            raise NotImplementedError(Q8_NOT_PORTED)
+        "cpu" for the plain path). ``quantized=True`` keeps the history
+        as int8 on the device and rescores each candidate pool in fp32
+        on the host, from a spill file beside the cold tier."""
         self.cold = cold
         self.device = resolve_device(device)
         self.fused = fused
@@ -379,10 +436,22 @@ class TemporalEngine:
                 # ``_advance`` nulls a resident poisoned by a rotten
                 # segment, and the quarantine-skipping fold rebuilds the
                 # columns here without the lost rows
-                res = ResidentHistory(self.cold.dim, device=self.device)
+                res = ResidentHistory(
+                    self.cold.dim, quantized=self.quantized,
+                    f32_path=os.path.join(self.cold.root,
+                                          "resident_f32.bin"),
+                    device=self.device)
                 snap = self.cold.snapshot(include_closed=True)
                 latest = self.cold.latest_version()
-                res.seed(snap, latest)
+                q8_rows = None
+                if self.quantized:
+                    # reuse the checkpoint's persisted quantization
+                    # verbatim when one exists at exactly the latest
+                    # version (bit-deterministic across restarts)
+                    got = self.cold.checkpoint_q8_at(latest, len(snap))
+                    if got is not None:
+                        q8_rows = got[0]
+                res.seed(snap, latest, q8_rows=q8_rows)
                 self._resident = res
                 self.resident_builds += 1
             return self._resident
@@ -448,22 +517,44 @@ class TemporalEngine:
         always-empty validity interval — so the UNCHANGED fused kernel
         masks them to -inf/-1 BEFORE ranking, exactly like a temporally
         invalid row. The pushdown runs on the device (``torch.where``
-        over the resident tenant column)."""
-        with obs.span("fused_temporal"):
+        over the resident tenant column), so the rescore pool can never
+        contain a cross-tenant row either (same idx=-1 contract as the
+        leakage guard).
+
+        Quantized mode scans the int8 column (4x less traffic), then
+        exactly rescores the over-fetched pool in fp32 from the spill
+        file on the host — the pool holds only in-window rows, so the
+        leakage guarantee is untouched and the returned scores are
+        fp32-exact. Padding query rows are sliced off before the rescore
+        (no spill reads for discarded rows)."""
+        with obs.span("fused_temporal") as sp:
             emb, vf, vt = res.views()
             if visible is not None:
                 vf = torch.where(res.visible(visible), vf, VALID_TO_OPEN)
-            from ..kernels.temporal_mask_score.ops import (
-                temporal_window_topk)
             qd = torch.as_tensor(np.ascontiguousarray(qp), device=res.device)
-            scores, idx = temporal_window_topk(qd, emb, vf, vt, t0s, t1s, k)
+            if res.quantized:
+                from ..index.quant import pool_k, rescore_topk
+                from ..kernels.temporal_mask_score.ops import (
+                    temporal_window_topk_q8)
+                kp = pool_k(k, res.n, self.rescore_factor)
+                sp.add("rescore_pool", int(kp) * nq)
+                _, pool = temporal_window_topk_q8(qd, emb, res.scale, vf, vt,
+                                                  t0s, t1s, kp)
+                scores, idx = rescore_topk(qp[:nq], pool.cpu().numpy()[:nq],
+                                           res.fetch_f32, k)
+            else:
+                from ..kernels.temporal_mask_score.ops import (
+                    temporal_window_topk)
+                scores, idx = temporal_window_topk(qd, emb, vf, vt, t0s, t1s,
+                                                   k)
+                scores, idx = scores.cpu().numpy(), idx.cpu().numpy()
             # the fused temporal block reads the whole resident history
             # once per BATCH, same convention as the hot fused scan
             obs.scan_row_reads(
                 res.n, nq, per_query=False, source="fused_temporal",
-                row_bytes=emb.shape[1] * 4)
+                row_bytes=emb.shape[1] * emb.element_size())
             self.fused_dispatches += 1
-            return scores.cpu().numpy(), idx.cpu().numpy()
+            return scores, idx
 
     def _oracle_at_batch(self, queries: np.ndarray, ts: int, k: int = 5,
                          visible: Optional[np.ndarray] = None

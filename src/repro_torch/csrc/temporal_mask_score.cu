@@ -1,9 +1,15 @@
-// Validity-masked temporal top-k (the point-in-time leakage guard), fp32,
-// for sm_90a.
+// Validity-masked temporal top-k (the point-in-time leakage guard), fp32
+// and int8, for sm_90a.
 //
-// Replaces the TPU kernel
-// src/repro/kernels/temporal_mask_score/temporal_mask_score.py, `_kernel`
-// launched by `temporal_block_candidates`: a row is a candidate for query
+// Replaces the TPU kernels of
+// src/repro/kernels/temporal_mask_score/temporal_mask_score.py:
+//   temporal_window_topk_f32 <- `_kernel`, launched by
+//                               `temporal_block_candidates`;
+//   temporal_window_topk_q8  <- `_kernel_q8`, launched by
+//                               `temporal_block_candidates_q8`
+//                               (int8 history, scale folded into the
+//                               queries, rows widened to float as staged).
+// Both: a row is a candidate for query
 // q only if its validity interval overlaps the query's window,
 // valid_from < t1[q] and t0[q] < valid_to, and every other row is -inf
 // BEFORE ranking, so an out-of-window row can never be returned. The TPU
@@ -12,14 +18,16 @@
 // VALID_TO_OPEN (int64 max) are compared as they are.
 //
 // What bounds it on an H100 SXM: the larger of
-//   bytes:      N*D*4 (history) + 16*N (valid_from, valid_to) + Q*D*4
-//               + 16*Q (windows), read once, over 3.35 TB/s of HBM3;
+//   bytes:      N*D*4 (history; N*D for int8) + 16*N (valid_from,
+//               valid_to) + Q*D*4 + 16*Q (windows), read once, over
+//               3.35 TB/s of HBM3;
 //   operations: 2*Q*N*D fp32 FLOPs over the 67 TFLOP/s fp32 CUDA-core
 //               rate.
-// Over a resident history of a million 384-wide rows the bytes bound at
-// small Q and the FLOPs above Q ~ 20. Scores are computed for masked
-// pairs too (the tile is dense), so the work does not shrink with the
-// window. The shared body and its batch-invariance argument are in
+// Over a resident history of 384-wide rows, with every row in window,
+// the bytes bound below Q ~ 40 and the FLOPs above it; for int8 the
+// crossing is at Q ~ 10, since the FMAs do not shrink with the bytes.
+// Scores are computed for masked pairs too (the tile is dense), so the
+// work does not shrink with the window. The shared body and its batch-invariance argument are in
 // topk_tile.cuh.
 #include "topk_tile.cuh"
 
@@ -55,4 +63,15 @@ extern "C" int temporal_window_topk_f32(
     long long grid_x, void* stream) {
   return topk_tile::launch(q, corpus, WindowMask{vf, vt, t0, t1}, out_s,
                            out_i, Q, N, D, k, grid_x, stream);
+}
+
+// qs (Q, D) f32 scale-folded queries, c8 (N, D) int8 history, the rest
+// as temporal_window_topk_f32.
+extern "C" int temporal_window_topk_q8(
+    const float* qs, const int8_t* c8, const int64_t* vf,
+    const int64_t* vt, const int64_t* t0, const int64_t* t1, float* out_s,
+    int* out_i, long long Q, long long N, long long D, long long k,
+    long long grid_x, void* stream) {
+  return topk_tile::launch(qs, c8, WindowMask{vf, vt, t0, t1}, out_s, out_i,
+                           Q, N, D, k, grid_x, stream);
 }

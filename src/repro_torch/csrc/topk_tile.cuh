@@ -1,7 +1,7 @@
-// Shared body of the two masked top-k scan kernels (topk_search.cu and
-// temporal_mask_score.cu): fp32 scores on CUDA cores, a validity mask
-// applied before ranking, and an exact per-block top-k under the order
-// (score descending, row id ascending).
+// Shared body of the masked top-k scan kernels (topk_search.cu and
+// temporal_mask_score.cu, fp32 and int8): fp32 scores on CUDA cores, a
+// validity mask applied before ranking, and an exact per-block top-k
+// under the order (score descending, row id ascending).
 //
 // Layout of one launch: grid (gx, ceil(Q / TQ)). Block (bx, by) owns
 // the query tile [by*TQ, by*TQ + TQ) and a contiguous run of row tiles
@@ -11,13 +11,17 @@
 //   1. computes the TQ x TR score tile: each thread owns QPT x RPT
 //      scores and sums the D products of each score in ascending d with
 //      one fmaf per product, staging DK-deep slices of the query and
-//      corpus tiles through shared memory;
+//      corpus tiles through shared memory (an int8 corpus is widened to
+//      float as it is staged: exact, so the sum is the same fmaf chain
+//      as over the dequantized fp32 rows with the scale in the query);
 //   2. writes the tile to shared memory with -inf at masked pairs and at
 //      the ragged edge past N (the mask policy decides per (query, row));
 //   3. folds the tile into a running top-k per query kept in registers:
 //      one warp per query, repeated warp-argmax of the tile's remaining
 //      scores, each winner inserted in order, until the best remaining
-//      score no longer beats the list's k-th entry.
+//      score no longer beats the list's k-th entry. The list holds SLOTS
+//      entries per lane (k <= 32 * SLOTS); the launch takes the smallest
+//      depth that holds k.
 // It then writes its lists as candidates (gx, Q, k): score and row id,
 // (-inf, -1) where fewer than k rows were valid. The caller merges the
 // gx lists of each query with one stable sort.
@@ -26,12 +30,14 @@
 // whatever Q, gx or the tile a query lands in, so a query scores
 // bit-identically alone or inside any batch. The selection is exact
 // under a total order, so its result does not depend on the launch
-// shape either.
+// shape or the list depth either.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace topk_tile {
 
@@ -46,7 +52,8 @@ constexpr int RPT = TR / TX;            // rows per thread (8)
 constexpr int WARPS = THREADS / 32;
 constexpr int QPW = TQ / WARPS;         // queries selected per warp (4)
 constexpr int RPL = TR / 32;            // tile scores per lane (4)
-constexpr int KMAX = 64;                // two list entries per lane
+constexpr int SLOTS_MAX = 4;            // list entries per lane, at most
+constexpr int KMAX = 32 * SLOTS_MAX;    // largest k a launch keeps (128)
 
 struct Smem {
   float qs[DK][TQ + 1];                 // query slice, transposed
@@ -59,12 +66,46 @@ __device__ __forceinline__ bool better(float a, int ia, float b, int ib) {
   return a > b || (a == b && ia < ib);
 }
 
-template <class Mask>
+// Stage the DK-deep slice [d0, d0 + DK) of corpus rows [r0, r0 + TR)
+// into sm.cs, transposed and widened to float, zero past N and D. An
+// int8 corpus with 4-byte aligned rows (vec4) is read a char4 at a time.
+template <class T>
+__device__ __forceinline__ void stage_corpus(Smem& sm,
+                                             const T* __restrict__ c,
+                                             int r0, int d0, int N, int D,
+                                             bool vec4, int tid) {
+  if constexpr (std::is_same<T, int8_t>::value) {
+    if (vec4) {
+      constexpr int V = DK / 4;                 // char4 per row slice
+      for (int e = tid; e < TR * V; e += THREADS) {
+        const int rr = e / V, dd = (e % V) * 4;
+        const int gr = r0 + rr, gd = d0 + dd;
+        char4 v = make_char4(0, 0, 0, 0);
+        if (gr < N && gd < D)                   // D % 4 == 0: gd + 3 < D
+          v = *reinterpret_cast<const char4*>(c + (size_t)gr * D + gd);
+        sm.cs[dd][rr] = static_cast<float>(v.x);
+        sm.cs[dd + 1][rr] = static_cast<float>(v.y);
+        sm.cs[dd + 2][rr] = static_cast<float>(v.z);
+        sm.cs[dd + 3][rr] = static_cast<float>(v.w);
+      }
+      return;
+    }
+  }
+  for (int e = tid; e < TR * DK; e += THREADS) {
+    const int rr = e / DK, dd = e % DK;
+    const int gr = r0 + rr, gd = d0 + dd;
+    sm.cs[dd][rr] = (gr < N && gd < D)
+                        ? static_cast<float>(c[(size_t)gr * D + gd])
+                        : 0.0f;
+  }
+}
+
+template <class T, int SLOTS, class Mask>
 __global__ void __launch_bounds__(THREADS)
-topk_tile_kernel(const float* __restrict__ q, const float* __restrict__ c,
+topk_tile_kernel(const float* __restrict__ q, const T* __restrict__ c,
                  Mask mask, float* __restrict__ out_s,
                  int* __restrict__ out_i, int Q, int N, int D, int k,
-                 int tiles_per_block) {
+                 int tiles_per_block, bool vec4) {
   __shared__ Smem sm;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
@@ -78,14 +119,17 @@ topk_tile_kernel(const float* __restrict__ q, const float* __restrict__ c,
 
   // running top-k of each of this warp's queries: entry j lives in lane
   // j % 32, slot j / 32; (-inf, -1) marks an empty entry
-  float ls[QPW][2];
-  int li[QPW][2];
+  float ls[QPW][SLOTS];
+  int li[QPW][SLOTS];
   float thr_s[QPW];                     // entry k-1: the bar to beat
   int thr_i[QPW];
 #pragma unroll
   for (int t = 0; t < QPW; ++t) {
-    ls[t][0] = ls[t][1] = -CUDART_INF_F;
-    li[t][0] = li[t][1] = -1;
+#pragma unroll
+    for (int s = 0; s < SLOTS; ++s) {
+      ls[t][s] = -CUDART_INF_F;
+      li[t][s] = -1;
+    }
     thr_s[t] = -CUDART_INF_F;
     thr_i[t] = -1;
   }
@@ -111,11 +155,7 @@ topk_tile_kernel(const float* __restrict__ q, const float* __restrict__ c,
         const int gq = q0 + qq, gd = d0 + dd;
         sm.qs[dd][qq] = (gq < Q && gd < D) ? q[(size_t)gq * D + gd] : 0.0f;
       }
-      for (int e = tid; e < TR * DK; e += THREADS) {
-        const int rr = e / DK, dd = e % DK;
-        const int gr = r0 + rr, gd = d0 + dd;
-        sm.cs[dd][rr] = (gr < N && gd < D) ? c[(size_t)gr * D + gd] : 0.0f;
-      }
+      stage_corpus<T>(sm, c, r0, d0, N, D, vec4, tid);
       __syncthreads();
 #pragma unroll
       for (int dd = 0; dd < DK; ++dd) {
@@ -179,43 +219,53 @@ topk_tile_kernel(const float* __restrict__ q, const float* __restrict__ c,
         if (!(bv > -CUDART_INF_F)) break;            // nothing valid left
         if (!better(bv, bi, thr_s[t], thr_i[t])) break;
         // insert at pos = number of entries that rank before (bv, bi)
-        const bool a_before = lane < k && better(ls[t][0], li[t][0], bv, bi);
-        const bool b_before =
-            lane + 32 < k && better(ls[t][1], li[t][1], bv, bi);
-        const int pos = __popc(__ballot_sync(0xffffffffu, a_before)) +
-                        __popc(__ballot_sync(0xffffffffu, b_before));
-        float a_prev_s = __shfl_up_sync(0xffffffffu, ls[t][0], 1);
-        int a_prev_i = __shfl_up_sync(0xffffffffu, li[t][0], 1);
-        float b_prev_s = __shfl_up_sync(0xffffffffu, ls[t][1], 1);
-        int b_prev_i = __shfl_up_sync(0xffffffffu, li[t][1], 1);
-        const float a31_s = __shfl_sync(0xffffffffu, ls[t][0], 31);
-        const int a31_i = __shfl_sync(0xffffffffu, li[t][0], 31);
-        if (lane == 0) {
-          b_prev_s = a31_s;
-          b_prev_i = a31_i;
+        int pos = 0;
+#pragma unroll
+        for (int sl = 0; sl < SLOTS; ++sl)
+          pos += __popc(__ballot_sync(
+              0xffffffffu, lane + 32 * sl < k &&
+                               better(ls[t][sl], li[t][sl], bv, bi)));
+        // entry j - 1 of every entry j: the lane below, or lane 31 of the
+        // slot below for lane 0 (read before anything moves)
+        float prev_s[SLOTS];
+        int prev_i[SLOTS];
+#pragma unroll
+        for (int sl = 0; sl < SLOTS; ++sl) {
+          prev_s[sl] = __shfl_up_sync(0xffffffffu, ls[t][sl], 1);
+          prev_i[sl] = __shfl_up_sync(0xffffffffu, li[t][sl], 1);
         }
-        const int ja = lane, jb = lane + 32;
-        if (ja == pos) {
-          ls[t][0] = bv;
-          li[t][0] = bi;
-        } else if (ja > pos) {
-          ls[t][0] = a_prev_s;
-          li[t][0] = a_prev_i;
+#pragma unroll
+        for (int sl = 1; sl < SLOTS; ++sl) {
+          const float w_s = __shfl_sync(0xffffffffu, ls[t][sl - 1], 31);
+          const int w_i = __shfl_sync(0xffffffffu, li[t][sl - 1], 31);
+          if (lane == 0) {
+            prev_s[sl] = w_s;
+            prev_i[sl] = w_i;
+          }
         }
-        if (jb == pos) {
-          ls[t][1] = bv;
-          li[t][1] = bi;
-        } else if (jb > pos) {
-          ls[t][1] = b_prev_s;
-          li[t][1] = b_prev_i;
+#pragma unroll
+        for (int sl = 0; sl < SLOTS; ++sl) {
+          const int j = lane + 32 * sl;
+          if (j == pos) {
+            ls[t][sl] = bv;
+            li[t][sl] = bi;
+          } else if (j > pos) {
+            ls[t][sl] = prev_s[sl];
+            li[t][sl] = prev_i[sl];
+          }
         }
+        // the new bar: entry k - 1, in lane (k-1) % 32, slot (k-1) / 32
         const int last = k - 1;
-        const float la_s = __shfl_sync(0xffffffffu, ls[t][0], last & 31);
-        const int la_i = __shfl_sync(0xffffffffu, li[t][0], last & 31);
-        const float lb_s = __shfl_sync(0xffffffffu, ls[t][1], last & 31);
-        const int lb_i = __shfl_sync(0xffffffffu, li[t][1], last & 31);
-        thr_s[t] = last < 32 ? la_s : lb_s;
-        thr_i[t] = last < 32 ? la_i : lb_i;
+        float mine_s = ls[t][0];
+        int mine_i = li[t][0];
+#pragma unroll
+        for (int sl = 1; sl < SLOTS; ++sl)
+          if ((last >> 5) == sl) {
+            mine_s = ls[t][sl];
+            mine_i = li[t][sl];
+          }
+        thr_s[t] = __shfl_sync(0xffffffffu, mine_s, last & 31);
+        thr_i[t] = __shfl_sync(0xffffffffu, mine_i, last & 31);
         // retire the winner from its lane
 #pragma unroll
         for (int m = 0; m < RPL; ++m)
@@ -230,13 +280,13 @@ topk_tile_kernel(const float* __restrict__ q, const float* __restrict__ c,
     const int gq = q0 + warp * QPW + t;
     if (gq >= Q) continue;
     const size_t base = ((size_t)blockIdx.x * Q + gq) * k;
-    if (lane < k) {
-      out_s[base + lane] = ls[t][0];
-      out_i[base + lane] = li[t][0];
-    }
-    if (lane + 32 < k) {
-      out_s[base + lane + 32] = ls[t][1];
-      out_i[base + lane + 32] = li[t][1];
+#pragma unroll
+    for (int sl = 0; sl < SLOTS; ++sl) {
+      const int j = lane + 32 * sl;
+      if (j < k) {
+        out_s[base + j] = ls[t][sl];
+        out_i[base + j] = li[t][sl];
+      }
     }
   }
 }
@@ -256,16 +306,27 @@ inline long long grid_x_for(long long N, long long Q, long long sms) {
 
 // Any grid_x >= 1 is correct: block bx scans tiles
 // [bx * per, (bx + 1) * per) and a block past the end writes empty lists.
-template <class Mask>
-int launch(const float* q, const float* c, Mask mask, float* out_s,
+// T is the corpus element type: float, or int8_t (scale folded into q).
+// The list depth is the smallest that holds k: 2 entries a lane for
+// k <= 64, 4 for k <= 128.
+template <class T, class Mask>
+int launch(const float* q, const T* c, Mask mask, float* out_s,
            int* out_i, long long Q, long long N, long long D, long long k,
            long long grid_x, void* stream) {
   if (k < 1 || k > KMAX || Q < 1 || N < 1 || D < 1 || grid_x < 1)
     return (int)cudaErrorInvalidValue;
   const long long per = ceil_div(ceil_div(N, TR), grid_x);
   const dim3 grid((unsigned)grid_x, (unsigned)ceil_div(Q, TQ));
-  topk_tile_kernel<Mask><<<grid, THREADS, 0, (cudaStream_t)stream>>>(
-      q, c, mask, out_s, out_i, (int)Q, (int)N, (int)D, (int)k, (int)per);
+  const bool vec4 = D % 4 == 0 && reinterpret_cast<uintptr_t>(c) % 4 == 0;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (k <= 64)
+    topk_tile_kernel<T, 2, Mask><<<grid, THREADS, 0, st>>>(
+        q, c, mask, out_s, out_i, (int)Q, (int)N, (int)D, (int)k, (int)per,
+        vec4);
+  else
+    topk_tile_kernel<T, SLOTS_MAX, Mask><<<grid, THREADS, 0, st>>>(
+        q, c, mask, out_s, out_i, (int)Q, (int)N, (int)D, (int)k, (int)per,
+        vec4);
   return (int)cudaGetLastError();
 }
 

@@ -51,12 +51,12 @@ from ..core.integrity import CorruptionError, Quarantine
 from ..core.tenancy import visible_rows
 from ..core.types import (ChunkRecord, SearchResult, VALID_TO_OPEN,
                           pad_queries)
-from ..kernels.common import Q8_NOT_PORTED, resolve_device
+from ..kernels.common import resolve_device
 from ..testing.faults import FAULTS
 from .compaction import CompactionStats, SizeTieredCompactor
 from .manifest import Manifest
 from .memtable import Memtable
-from .quant import fixed_scale
+from .quant import fixed_scale, pool_k, rescore_topk
 from .segment import Segment
 
 
@@ -718,19 +718,27 @@ class SegmentedIndex:
         # to the device per dispatch (N bools); only (Q, k) comes back.
         fmask = auth[cat.fused_gids]
         if fmask.any():
-            with obs.span("fused_scan"):
+            with obs.span("fused_scan") as fsp:
                 qp, _ = pad_queries(q)
                 k_eff = min(k, cat.fused_emb.shape[0])
-                if self.quantized:
-                    raise NotImplementedError(Q8_NOT_PORTED)
-                from ..kernels.topk_search.ops import topk_search
                 dev = self.device
                 qd = torch.as_tensor(np.ascontiguousarray(qp), device=dev)
-                s, idx = topk_search(qd, cat.fused_emb,
-                                     torch.as_tensor(fmask, device=dev),
-                                     k_eff)
-                s = s.cpu().numpy()[:nq]
-                idx = idx.cpu().numpy()[:nq]
+                fmask_d = torch.as_tensor(fmask, device=dev)
+                if self.quantized:
+                    from ..kernels.topk_search.ops import topk_search_q8
+                    kp = pool_k(k_eff, cat.fused_emb.shape[0],
+                                self.rescore_factor)
+                    _, pool = topk_search_q8(qd, cat.fused_emb,
+                                             fixed_scale(self.dim),
+                                             fmask_d, kp)
+                    fsp.add("rescore_pool", int(kp) * nq)
+                    s, idx = rescore_topk(q, pool.cpu().numpy()[:nq],
+                                          cat.fused_f32, k_eff)
+                else:
+                    from ..kernels.topk_search.ops import topk_search
+                    s, idx = topk_search(qd, cat.fused_emb, fmask_d, k_eff)
+                    s = s.cpu().numpy()[:nq]
+                    idx = idx.cpu().numpy()[:nq]
                 g = np.where(np.isfinite(s),
                              cat.fused_gids[np.clip(idx, 0, None)], -1)
                 blocks_s.append(np.asarray(s, np.float32))

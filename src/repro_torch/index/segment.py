@@ -39,10 +39,10 @@ import torch
 from ..core.hashing import blob_checksum, file_checksum
 from ..core.integrity import CorruptionError
 from ..core.ivf import IVFIndex
-from ..kernels.common import Q8_NOT_PORTED, resolve_device
+from ..kernels.common import resolve_device
 from ..testing.faults import FAULTS
 from .quant import (F32Rows, data_scale, fixed_scale, mmap_f32_fetch,
-                    quantize_rows)
+                    pool_k, quantize_rows, rescore_topk)
 
 
 def verify_segment_files(root: str, filename: str,
@@ -88,8 +88,9 @@ class Segment:
                  f32_fetch=None, rescore_factor: int = 4,
                  tenant_ids: np.ndarray | None = None, device=None):
         self.seg_id = seg_id
-        # the exact scan runs on this device over a copy of ``emb`` made
-        # at the first exact search and kept for the segment's lifetime
+        # the exact scan runs on this device over a copy of ``emb`` (or
+        # of ``q8``, quantized) made at the first exact search and kept
+        # for the segment's lifetime
         self.device = resolve_device(device)
         self._emb_dev: torch.Tensor | None = None
         self.valid_from = np.asarray(valid_from, np.int64)
@@ -250,16 +251,22 @@ class Segment:
                                           mask=mask)
             return s, i, int(round(stats.fraction_scanned * len(self)))
         from ..core.types import pad_queries
+        from ..kernels.topk_search.ops import topk_search, topk_search_q8
         qp, _ = pad_queries(q)
-        if self.quantized:
-            raise NotImplementedError(Q8_NOT_PORTED)
-        from ..kernels.topk_search.ops import topk_search
         dev = self.device
         if self._emb_dev is None:
-            self._emb_dev = torch.as_tensor(self.emb, device=dev)
+            self._emb_dev = torch.as_tensor(
+                self.q8 if self.quantized else self.emb, device=dev)
         qd = torch.as_tensor(np.ascontiguousarray(qp), device=dev)
-        s, i = topk_search(qd, self._emb_dev,
-                           torch.as_tensor(mask, device=dev), k_eff)
+        mask_d = torch.as_tensor(mask, device=dev)
+        if self.quantized:
+            kp = pool_k(k_eff, len(self), self.rescore_factor)
+            _, pool = topk_search_q8(qd, self._emb_dev, self.scale, mask_d,
+                                     kp)
+            s, i = rescore_topk(q, pool.cpu().numpy()[:nq], self.fetch_f32,
+                                k_eff)
+            return s, i, n_mask
+        s, i = topk_search(qd, self._emb_dev, mask_d, k_eff)
         return s.cpu().numpy()[:nq], i.cpu().numpy()[:nq], n_mask
 
     # -- persistence -------------------------------------------------------

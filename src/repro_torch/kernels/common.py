@@ -15,6 +15,8 @@ import torch
 
 from .build import check
 
+KMAX = 128  # largest k a tile-scan launch keeps (csrc/topk_tile.cuh)
+
 
 def resolve_device(device=None) -> torch.device:
     """``None`` -> the current CUDA device; anything else as given. No
@@ -103,10 +105,3 @@ def merge_candidates(cand_s: torch.Tensor, cand_i: torch.Tensor,
     top_i = torch.where(torch.isfinite(top_s), top_i,
                         torch.full_like(top_i, -1))
     return top_s, top_i
-
-
-# Raised by every int8 (quantized=True) branch of the port: those scans
-# are a later slice of the port, and nothing falls back to another path.
-Q8_NOT_PORTED = ("quantized (int8) scans are not ported to repro_torch yet: "
-                 "ROADMAP.md, Queue 2 items 3-4 (topk_search_q8, "
-                 "temporal_window_topk_q8 and the device rescore)")

@@ -1,11 +1,13 @@
-"""Wrappers of the temporal validity-masked top-k kernel
+"""Wrappers of the temporal validity-masked top-k kernels
 (csrc/temporal_mask_score.cu).
 
 ``temporal_window_topk`` is the general fused primitive: one launch
 scores a (Q, d) query block against a device-resident full-history
 corpus with a PER-QUERY validity window — no per-timestamp materialized
 snapshot copy ever exists. ``temporal_topk`` (point-in-time, one shared
-ts) is the degenerate window [ts, ts+1).
+ts) is the degenerate window [ts, ts+1). ``temporal_window_topk_q8`` is
+the same scan over an int8 history: the candidate pool of the quantized
+temporal tier.
 """
 from __future__ import annotations
 
@@ -13,17 +15,19 @@ import torch
 
 from ... import obs
 from .. import build
-from ..common import bind, check_tensor, launch_tile_scan
-from .plain import temporal_window_topk_plain
+from ..common import KMAX, bind, check_tensor, launch_tile_scan
+from .plain import (temporal_window_topk_plain,
+                    temporal_window_topk_q8_plain)
 
-KMAX = 64             # largest k the kernel keeps (csrc/topk_tile.cuh)
 launches = 0          # CUDA launches of ``temporal_window_topk``
+launches_q8 = 0       # CUDA launches of ``temporal_window_topk_q8``
 
 
 def _lib():
     lib = build.load("temporal_mask_score")
     if lib.temporal_window_topk_f32.argtypes is None:
         bind(lib, "temporal_window_topk_f32", 6)
+        bind(lib, "temporal_window_topk_q8", 6)
     return lib
 
 
@@ -37,24 +41,51 @@ def temporal_window_topk(q, corpus, valid_from, valid_to, t0s, t1s, k: int):
     Returns (scores (Q, k) f32, idx (Q, k) int32) on the device, k
     clipped to N; rows with no overlapping candidate come back (-inf,
     -1). A CPU corpus runs the plain PyTorch version; a CUDA corpus
-    launches the kernel."""
-    global launches
-    with obs.span("kernel:temporal_window_topk") as sp:
+    launches the kernel (k <= 128)."""
+    return _window(q, corpus, None, valid_from, valid_to, t0s, t1s, k)
+
+
+def temporal_window_topk_q8(q, c8, scale, valid_from, valid_to, t0s, t1s,
+                            k: int):
+    """Quantized fused window-overlap scoring (DESIGN.md §11): the
+    candidate pool of the temporal tier's int8 scan. Callers over-fetch
+    (k' = rescore_factor * k) and rescore the pool exactly in fp32.
+
+    q: (Q, D) f32 unscaled queries; c8: (N, D) int8 history; scale: (D,)
+    per-dimension quantization scale, moved to c8's device and folded
+    into the queries once (q * scale); validity columns and windows as
+    ``temporal_window_topk``. The overlap filter runs before ranking on
+    every path, so the leakage guard is the fp32 path's."""
+    return _window(q, c8, scale, valid_from, valid_to, t0s, t1s, k)
+
+
+def _window(q, corpus, scale, valid_from, valid_to, t0s, t1s, k: int):
+    global launches, launches_q8
+    q8 = scale is not None
+    name = "temporal_window_topk_q8" if q8 else "temporal_window_topk"
+    with obs.span(f"kernel:{name}") as sp:
         corpus = torch.as_tensor(corpus)
         dev = corpus.device
         q = torch.atleast_2d(torch.as_tensor(q))
         vf = torch.as_tensor(valid_from)
         vt = torch.as_tensor(valid_to)
-        check_tensor("corpus", corpus, torch.float32, 2, dev)
+        check_tensor("corpus", corpus, torch.int8 if q8 else torch.float32,
+                     2, dev)
         check_tensor("q", q, torch.float32, 2, dev)
         check_tensor("valid_from", vf, torch.int64, 1, dev)
         check_tensor("valid_to", vt, torch.int64, 1, dev)
         nq, (n, d) = q.shape[0], corpus.shape
-        if q.shape[1] != d or vf.shape[0] != n or vt.shape[0] != n:
+        if q8:
+            scale = torch.as_tensor(scale, dtype=torch.float32).to(dev)
+            check_tensor("scale", scale, torch.float32, 1, dev)
+        if (q.shape[1] != d or vf.shape[0] != n or vt.shape[0] != n
+                or (q8 and scale.shape[0] != d)):
             raise ValueError(f"shapes q {tuple(q.shape)}, corpus "
                              f"{tuple(corpus.shape)}, valid_from "
                              f"{tuple(vf.shape)}, valid_to "
-                             f"{tuple(vt.shape)} do not match")
+                             f"{tuple(vt.shape)}"
+                             + (f", scale {tuple(scale.shape)}" if q8
+                                else "") + " do not match")
         t0 = torch.as_tensor(t0s, dtype=torch.int64).to(dev)
         t1 = torch.as_tensor(t1s, dtype=torch.int64).to(dev)
         t0 = torch.broadcast_to(t0, (nq,)).contiguous()
@@ -65,18 +96,26 @@ def temporal_window_topk(q, corpus, valid_from, valid_to, t0s, t1s, k: int):
             return (torch.zeros((nq, 0), dtype=torch.float32, device=dev),
                     torch.zeros((nq, 0), dtype=torch.int32, device=dev))
         sp.add("rows", n)
-        sp.add("bytes_streamed", n * d * 4)
+        sp.add("bytes_streamed", n * d * (1 if q8 else 4))
         if dev.type == "cpu":
+            if q8:
+                return temporal_window_topk_q8_plain(q, corpus, scale, vf,
+                                                     vt, t0, t1, k)
             return temporal_window_topk_plain(q, corpus, vf, vt, t0, t1, k)
         if dev.type != "cuda":
-            raise ValueError(
-                f"temporal_window_topk runs on cpu or cuda, not {dev}")
+            raise ValueError(f"{name} runs on cpu or cuda, not {dev}")
         if k > KMAX:
-            raise ValueError(f"temporal_window_topk: k={k} exceeds the "
-                             f"kernel's largest k, {KMAX}")
-        out = launch_tile_scan(_lib(), "temporal_window_topk_f32",
-                               [q, corpus, vf, vt, t0, t1], nq, n, d, k)
-        launches += 1
+            raise ValueError(f"{name}: k={k} exceeds the kernel's largest "
+                             f"k, {KMAX}")
+        if q8:
+            out = launch_tile_scan(_lib(), "temporal_window_topk_q8",
+                                   [q * scale, corpus, vf, vt, t0, t1],
+                                   nq, n, d, k)
+            launches_q8 += 1
+        else:
+            out = launch_tile_scan(_lib(), "temporal_window_topk_f32",
+                                   [q, corpus, vf, vt, t0, t1], nq, n, d, k)
+            launches += 1
         if sp is not obs.NOOP_SPAN:            # traced: span = device time
             torch.cuda.current_stream(dev).synchronize()
         return out

@@ -1,6 +1,6 @@
-"""Plain PyTorch version of the validity-masked temporal top-k: the CPU
-path of ``ops.temporal_window_topk`` and the yardstick the CUDA kernel
-is held to."""
+"""Plain PyTorch versions of the validity-masked temporal top-k: the CPU
+path of ``ops.temporal_window_topk`` / ``ops.temporal_window_topk_q8``
+and the yardsticks the CUDA kernels are held to."""
 from __future__ import annotations
 
 import torch
@@ -29,3 +29,17 @@ def temporal_window_topk_plain(q: torch.Tensor, corpus: torch.Tensor,
     top_i = torch.where(torch.isfinite(top_s), top_i,
                         torch.full_like(top_i, -1))
     return top_s, top_i
+
+
+def temporal_window_topk_q8_plain(q: torch.Tensor, c8: torch.Tensor,
+                                  scale: torch.Tensor,
+                                  valid_from: torch.Tensor,
+                                  valid_to: torch.Tensor, t0s: torch.Tensor,
+                                  t1s: torch.Tensor, k: int
+                                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The int8 scan: q (Q, D) f32 unscaled, c8 (N, D) int8, scale (D,)
+    f32. Scores the scale-folded queries (q * scale) against the int8
+    rows widened to f32 (exact), then as ``temporal_window_topk_plain``:
+    the overlap filter still precedes ranking."""
+    return temporal_window_topk_plain(q * scale, c8.float(), valid_from,
+                                      valid_to, t0s, t1s, k)

@@ -1,5 +1,6 @@
-"""Plain PyTorch version of the masked top-k search: the CPU path of
-``ops.topk_search`` and the yardstick the CUDA kernel is held to."""
+"""Plain PyTorch versions of the masked top-k search: the CPU path of
+``ops.topk_search`` / ``ops.topk_search_q8`` and the yardsticks the CUDA
+kernels are held to."""
 from __future__ import annotations
 
 import torch
@@ -22,3 +23,13 @@ def topk_search_plain(q: torch.Tensor, corpus: torch.Tensor,
     top_i = torch.where(torch.isfinite(top_s), top_i,
                         torch.full_like(top_i, -1))
     return top_s, top_i
+
+
+def topk_search_q8_plain(q: torch.Tensor, c8: torch.Tensor,
+                         scale: torch.Tensor, mask: torch.Tensor, k: int
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The int8 scan: q (Q, D) f32 unscaled, c8 (N, D) int8, scale (D,)
+    f32, mask (N,) bool. Scores the scale-folded queries (q * scale)
+    against the int8 rows widened to f32 (exact), then as
+    ``topk_search_plain``."""
+    return topk_search_plain(q * scale, c8.float(), mask, k)

@@ -77,6 +77,11 @@ def topk_agree(s_a, i_a, s_b, i_b, score_atol: float = 1e-4,
     scores are within ``score_atol``, and the ids are equal at every
     slot whose reference score is more than ``gap`` away from both
     neighbours (inside a closer band, float noise may reorder ties).
+
+    ``b`` may hold more columns than ``a``: its next entries are read
+    only as the right-hand neighbours of ``a``'s last slot, which can
+    then be exempted like any other near-tie. Without them the last slot
+    is held to its id whatever the unseen next score.
     Returns (agree, largest finite score difference, reason)."""
     import numpy as np
 
@@ -84,6 +89,11 @@ def topk_agree(s_a, i_a, s_b, i_b, score_atol: float = 1e-4,
         return np.asarray(x.cpu() if hasattr(x, "cpu") else x)
 
     s_a, i_a, s_b, i_b = (host(x) for x in (s_a, i_a, s_b, i_b))
+    k = s_a.shape[1] if s_a.ndim == 2 else 0
+    nxt = np.full((s_b.shape[0], 1), -np.inf)
+    if s_b.ndim == 2 and s_b.shape[1] > k and i_b.shape == s_b.shape:
+        nxt = s_b[:, k:k + 1]
+        s_b, i_b = s_b[:, :k], i_b[:, :k]
     if s_a.shape != s_b.shape or i_a.shape != i_b.shape:
         return False, float("inf"), f"shapes {s_a.shape} vs {s_b.shape}"
     fin_a, fin_b = np.isfinite(s_a), np.isfinite(s_b)
@@ -94,13 +104,23 @@ def topk_agree(s_a, i_a, s_b, i_b, score_atol: float = 1e-4,
     err = float(np.max(np.abs(s_a[fin_a] - s_b[fin_b]), initial=0.0))
     if err > score_atol:
         return False, err, f"scores differ by {err}"
-    if s_b.shape[1] == 0:
+    if k == 0:
         return True, err, ""
     pad = np.full((s_b.shape[0], 1), np.inf, np.float64)
-    sb = np.where(fin_b, s_b, -1e30).astype(np.float64)
+
+    def finite(x):
+        return np.where(np.isfinite(x), x, -1e30).astype(np.float64)
+
+    sb = finite(s_b)
     left = np.abs(np.diff(np.concatenate([pad, sb], axis=1), axis=1))
-    right = np.abs(np.diff(np.concatenate([sb, -pad], axis=1), axis=1))
+    right = np.abs(np.diff(np.concatenate([sb, finite(nxt)], axis=1),
+                           axis=1))
     clear = fin_b & (np.minimum(left, right) > gap)
-    if not np.array_equal(i_a[clear], i_b[clear]):
-        return False, err, "ids differ at a slot clear of ties"
+    bad = np.argwhere(clear & (i_a != i_b))
+    if len(bad):
+        qi, j = (int(x) for x in bad[0])
+        return False, err, (
+            f"ids differ at a slot clear of ties: query {qi} slot {j}, id "
+            f"{i_a[qi, j]} vs reference {i_b[qi, j]} (score "
+            f"{s_b[qi, j]!r}, gaps {left[qi, j]!r} and {right[qi, j]!r})")
     return True, err, ""

@@ -8,17 +8,20 @@ no JAX, so it runs on a machine that has only PyTorch:
 Tolerances: scores within 1e-4 absolute (the kernel sums each dot
 product in one fixed fmaf order, the plain version through cuBLAS), ids
 equal wherever the reference scores are more than 1e-5 apart, the empty
-(-inf, -1) slots identical."""
+(-inf, -1) slots identical. The int8 kernels are held to their plain
+versions the same way, at both list depths (k <= 64 and 64 < k <= 128)."""
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core.types import VALID_TO_OPEN
+from repro_torch.index.quant import fixed_scale, quantize_rows
 from repro_torch.kernels.temporal_mask_score import ops as tops
 from repro_torch.kernels.temporal_mask_score.plain import (
-    temporal_window_topk_plain)
+    temporal_window_topk_plain, temporal_window_topk_q8_plain)
 from repro_torch.kernels.topk_search import ops as kops
-from repro_torch.kernels.topk_search.plain import topk_search_plain
+from repro_torch.kernels.topk_search.plain import (topk_search_plain,
+                                                   topk_search_q8_plain)
 from repro_torch.testing import topk_agree
 
 pytestmark = pytest.mark.cuda
@@ -39,6 +42,8 @@ def _rand(shape, seed):
 
 
 def _agree(got, want):
+    """``want``: the plain version at k + 1 (or all N rows), its last
+    entry read only as the neighbour of the k-th slot (topk_agree)."""
     ok, err, why = topk_agree(got[0], got[1], want[0], want[1])
     assert ok, why
     return err
@@ -48,6 +53,7 @@ def _agree(got, want):
     (1, 256, 128, 5), (4, 1000, 384, 10), (8, 512, 64, 3),
     (2, 130, 384, 7), (3, 64, 256, 64), (33, 5000, 384, 10),
     (256, 8191, 384, 64), (2, 8192, 384, 5), (5, 300, 100, 17),
+    (4, 3000, 384, 100), (33, 1000, 64, 128),      # the deeper list
 ])
 def test_topk_kernel_matches_plain(dev, nq, n, d, k):
     q = torch.tensor(_rand((nq, d), 1), device=dev)
@@ -57,7 +63,7 @@ def test_topk_kernel_matches_plain(dev, nq, n, d, k):
     before = kops.launches
     got = kops.topk_search(q, c, mask, k)
     assert kops.launches == before + 1
-    _agree(got, topk_search_plain(q, c, mask, min(k, n)))
+    _agree(got, topk_search_plain(q, c, mask, k + 1))
 
 
 def test_topk_kernel_ties_lower_row_first(dev):
@@ -86,9 +92,9 @@ def test_topk_kernel_all_masked_and_k_equals_n(dev):
 
 def test_topk_kernel_rejects_bad_input(dev):
     q = torch.tensor(_rand((2, 16), 8), device=dev)
-    c = torch.tensor(_rand((100, 16), 9), device=dev)
-    m = torch.ones(100, dtype=torch.bool, device=dev)
-    with pytest.raises(ValueError):
+    c = torch.tensor(_rand((200, 16), 9), device=dev)
+    m = torch.ones(200, dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError, match="128"):
         kops.topk_search(q, c, m, kops.KMAX + 1)
     with pytest.raises(TypeError):
         kops.topk_search(q.double(), c, m, 5)
@@ -120,7 +126,7 @@ def test_kernel_batch_invariant_bitwise(dev, which):
 
 @pytest.mark.parametrize("nq,n,d,k", [
     (2, 1000, 384, 10), (37, 4096, 384, 64), (1, 130, 64, 7),
-    (256, 20000, 384, 10),
+    (256, 20000, 384, 10), (5, 3000, 384, 128),
 ])
 def test_temporal_kernel_matches_plain(dev, nq, n, d, k):
     rng = np.random.default_rng(13)
@@ -138,7 +144,7 @@ def test_temporal_kernel_matches_plain(dev, nq, n, d, k):
     assert tops.launches == before + 1
     want = temporal_window_topk_plain(q, c, vf_t, vt_t,
                                       torch.tensor(t0, device=dev),
-                                      torch.tensor(t1, device=dev), k)
+                                      torch.tensor(t1, device=dev), k + 1)
     _agree(got, want)
     s, i = (x.cpu().numpy() for x in got)
     for qi in range(nq):                      # no out-of-window id
@@ -158,3 +164,142 @@ def test_temporal_kernel_boundary_instants(dev):
         for qi in range(3):
             got = sorted(int(x) for x in i[qi] if x >= 0)
             assert got == live, (ts, got)
+
+
+# ---------------------------------------------------------------------------
+# int8 (quantized) kernels
+# ---------------------------------------------------------------------------
+def _q8(n, d, seed):
+    """(N, D) int8 rows of unit vectors under the fixed 1/127 scale, as
+    the quantized store keeps them, with the scale."""
+    scale = fixed_scale(d)
+    return quantize_rows(_rand((n, d), seed), scale), scale
+
+
+@pytest.mark.parametrize("nq,n,d,k", [
+    (2, 8192, 384, 40), (32, 8192, 384, 128), (256, 8191, 384, 40),
+    (1, 130, 64, 7), (5, 300, 100, 65), (3, 64, 256, 64), (7, 999, 36, 100),
+])
+def test_topk_q8_kernel_matches_plain(dev, nq, n, d, k):
+    c8, scale = _q8(n, d, 20)
+    c8 = torch.tensor(c8, device=dev)
+    sc = torch.tensor(scale, device=dev)
+    q = torch.tensor(_rand((nq, d), 21), device=dev)
+    mask = torch.tensor(np.random.default_rng(22).random(n) > 0.3,
+                        device=dev)
+    before, before_f32 = kops.launches_q8, kops.launches
+    got = kops.topk_search_q8(q, c8, scale, mask, k)
+    assert kops.launches_q8 == before + 1 and kops.launches == before_f32
+    _agree(got, topk_search_q8_plain(q, c8, sc, mask, k + 1))
+
+
+@pytest.mark.parametrize("nq,n,d,k", [
+    (2, 4096, 384, 40), (32, 20000, 384, 128), (256, 5000, 384, 40),
+    (3, 130, 64, 70), (1, 777, 100, 9),
+])
+def test_temporal_q8_kernel_matches_plain(dev, nq, n, d, k):
+    rng = np.random.default_rng(23)
+    c8, scale = _q8(n, d, 24)
+    c8 = torch.tensor(c8, device=dev)
+    q = torch.tensor(_rand((nq, d), 25), device=dev)
+    vf = T0 + rng.integers(0, 1000, n)
+    vt = np.where(rng.random(n) < 0.3, VALID_TO_OPEN,
+                  vf + rng.integers(1, 500, n))
+    vf = np.where(rng.random(n) < 0.1, VALID_TO_OPEN, vf)   # invisible
+    t0 = T0 + rng.integers(0, 1000, nq)
+    t1 = t0 + np.where(rng.random(nq) < 0.5, 1, rng.integers(1, 300, nq))
+    vf_t, vt_t = torch.tensor(vf, device=dev), torch.tensor(vt, device=dev)
+    before, before_f32 = tops.launches_q8, tops.launches
+    got = tops.temporal_window_topk_q8(q, c8, scale, vf_t, vt_t, t0, t1, k)
+    assert tops.launches_q8 == before + 1 and tops.launches == before_f32
+    _agree(got, temporal_window_topk_q8_plain(
+        q, c8, torch.tensor(scale, device=dev), vf_t, vt_t,
+        torch.tensor(t0, device=dev), torch.tensor(t1, device=dev),
+        k + 1))
+    s, i = (x.cpu().numpy() for x in got)
+    for qi in range(nq):                      # no out-of-window id
+        rows = i[qi][np.isfinite(s[qi])]
+        assert np.all((vf[rows] < t1[qi]) & (t0[qi] < vt[rows]))
+
+
+def test_q8_kernels_ties_lower_row_first(dev):
+    c8, scale = _q8(40, 64, 26)
+    c8 = torch.tensor(np.repeat(c8, 4, axis=0), device=dev)  # 4 copies
+    q = torch.tensor(_rand((6, 64), 27), device=dev)
+    mask = torch.ones(160, dtype=torch.bool, device=dev)
+    sc = torch.tensor(scale, device=dev)
+    for k in (20, 100):
+        s, i = kops.topk_search_q8(q, c8, scale, mask, k)
+        ps, pi = topk_search_q8_plain(q, c8, sc, mask, k)
+        assert torch.equal(i, pi)          # ties: lower row id first
+        assert torch.allclose(s, ps, atol=1e-4, rtol=0)
+        vf = torch.full((160,), T0, device=dev)
+        vt = torch.full((160,), VALID_TO_OPEN, device=dev)
+        s, i = tops.temporal_window_topk_q8(q, c8, scale, vf, vt, T0,
+                                            T0 + 1, k)
+        assert torch.equal(i, pi)
+
+
+@pytest.mark.parametrize("which", ["topk", "temporal"])
+@pytest.mark.parametrize("k", [40, 128])
+def test_q8_kernel_batch_invariant_bitwise(dev, which, k):
+    d, n = 384, 3000
+    q = torch.tensor(_rand((70, d), 28), device=dev)
+    c8, scale = _q8(n, d, 29)
+    c8 = torch.tensor(c8, device=dev)
+    rng = np.random.default_rng(30)
+    if which == "topk":
+        m = torch.tensor(rng.random(n) > 0.2, device=dev)
+        run = lambda qq: kops.topk_search_q8(qq, c8, scale, m, k)
+    else:
+        vf = torch.tensor(T0 + rng.integers(0, 100, n), device=dev)
+        vt = vf + torch.tensor(rng.integers(1, 100, n), device=dev)
+        run = lambda qq: tops.temporal_window_topk_q8(
+            qq, c8, scale, vf, vt, T0 + 50, T0 + 51, k)
+    full_s, full_i = run(q)
+    for lo, hi in [(0, 1), (3, 5), (5, 38), (40, 70)]:
+        s, i = run(q[lo:hi].contiguous())
+        assert torch.equal(s, full_s[lo:hi]) and torch.equal(i, full_i[lo:hi])
+
+
+def test_q8_kernels_all_masked_and_k_equals_n(dev):
+    c8, scale = _q8(100, 32, 31)
+    c8 = torch.tensor(c8, device=dev)
+    q = torch.tensor(_rand((3, 32), 32), device=dev)
+    s, i = kops.topk_search_q8(q, c8, scale, torch.zeros(
+        100, dtype=torch.bool, device=dev), 40)
+    assert torch.all(torch.isneginf(s)) and torch.all(i == -1)
+    vf = torch.full((100,), VALID_TO_OPEN, device=dev)      # all invisible
+    s, i = tops.temporal_window_topk_q8(q, c8, scale, vf, vf, T0, T0 + 1, 40)
+    assert torch.all(torch.isneginf(s)) and torch.all(i == -1)
+    small = c8[:5].contiguous()
+    m = torch.tensor([True, False, True, True, False], device=dev)
+    got = kops.topk_search_q8(q, small, scale, m, 5)
+    _agree(got, topk_search_q8_plain(q, small, torch.tensor(scale,
+                                                            device=dev),
+                                     m, 5))
+    assert torch.all(got[1][:, 3:] == -1)
+
+
+def test_q8_kernels_reject_bad_input(dev):
+    c8, scale = _q8(200, 16, 33)
+    c8 = torch.tensor(c8, device=dev)
+    q = torch.tensor(_rand((2, 16), 34), device=dev)
+    m = torch.ones(200, dtype=torch.bool, device=dev)
+    vf = torch.full((200,), T0, device=dev)
+    with pytest.raises(ValueError, match="128"):
+        kops.topk_search_q8(q, c8, scale, m, 129)
+    with pytest.raises(ValueError, match="128"):
+        tops.temporal_window_topk_q8(q, c8, scale, vf, vf + 1, T0, T0 + 1,
+                                     129)
+    with pytest.raises(TypeError):
+        kops.topk_search_q8(q, c8.float(), scale, m, 5)     # not int8
+    with pytest.raises(TypeError):
+        tops.temporal_window_topk_q8(q, c8.float(), scale, vf, vf + 1, T0,
+                                     T0 + 1, 5)
+    with pytest.raises(ValueError):
+        kops.topk_search_q8(q, c8, scale[:8], m, 5)         # scale width
+    with pytest.raises(ValueError):
+        kops.topk_search_q8(q, c8.T, scale, m, 5)           # not contiguous
+    with pytest.raises(ValueError):
+        kops.topk_search_q8(q.cpu(), c8, scale, m, 5)       # mixed devices

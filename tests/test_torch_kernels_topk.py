@@ -164,3 +164,19 @@ def test_plain_is_the_cpu_path():
     b = topk_search_plain(torch.from_numpy(q), torch.from_numpy(c),
                           torch.from_numpy(mask), 7)
     assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+@pytest.mark.parametrize("ref_cols,agree", [(3, False), (4, True)],
+                         ids=["next-unseen", "next-given"])
+def test_topk_agree_reads_the_next_reference_entry(ref_cols, agree):
+    """Two rows 1e-7 apart swap at the last slot: a near-tie, forgiven
+    only when the reference's next entry shows the neighbour; an early
+    swap across a wide gap is never forgiven."""
+    s = np.array([[0.5, 0.4, 0.3000001]], np.float32)
+    ref_s = np.array([[0.5, 0.4, 0.3000001, 0.3]], np.float32)[:, :ref_cols]
+    ref_i = np.array([[1, 2, 4, 3]])[:, :ref_cols]
+    ok, err, why = topk_agree(s, np.array([[1, 2, 3]]), ref_s, ref_i)
+    assert ok == agree and err == 0.0
+    assert agree or "query 0 slot 2" in why
+    ok, _, why = topk_agree(s, np.array([[2, 1, 4]]), ref_s, ref_i)
+    assert not ok and "slot 0" in why
