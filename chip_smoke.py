@@ -4,24 +4,46 @@
     python3 chip_smoke.py          # from the root of a checkout, one GPU
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` with nvcc,
-holds each kernel (fp32 and int8) against its plain PyTorch version on
-the card at the shapes the serving path gives it, runs the temporal
-engine over a quarter-million-row history, and drives ``LiveVectorLake``
-end to end, fp32 and quantized (ingest on the host; current,
-point-in-time and window queries on the card), holding every answer
-against the same store reopened on the CPU.
+holds each kernel against its plain PyTorch version on the card at the
+shapes the serving path gives it, runs the temporal engine over a
+quarter-million-row history, drives ``LiveVectorLake`` end to end, fp32
+and quantized, then the paper's RAG path: the MiniLM embedder at full
+width embedding the paper's corpus into stores on the card, and a
+Mistral-NeMo-12B generator at full width (seeded random weights)
+answering requests grounded in them.
 
 Phases (any failure stops the script with a non-zero exit):
   1. setup: card name and power limit, kernel build time;
   2. kernels vs plain versions, with times (kernel, plain, library) and
-     the least time the card could take (bound);
+     the least time the card could take (bound): the four top-k scans
+     (k up to 128 on their register lists, k in {129, 500, 4096} on
+     their sort path), flash attention (the MiniLM encoder, Mistral-NeMo
+     prefill at 256 and 4096 tokens) and split-K decode (the engine's
+     cache; decode_32k, 16 x 32768, at full and partial length);
   3. TemporalEngine, fp32 and int8, on a >= 250k-row cold tier (5
      commits) vs the CPU; the int8 engine also by recall@10 vs fp32;
   4. LiveVectorLake on the paper's corpus (100 docs x 5 versions) at two
      hot-tier capacities, fp32 then quantized: batch == sequential, CPU
      reopen equivalent, no out-of-window id, both kernels of the path
      launched at each capacity; the quantized store also by recall@10
-     vs the fp32 one. Its launch counts are the "launches" below.
+     vs the fp32 one. Its launch counts are the top-k kernels'
+     "launches" below;
+  5. the MiniLM embedder (6L, d 384, fp32): bulk encode at the
+     encode_corpus shape (4096 x 128) and encode_query (16 x 64), card
+     vs CPU on 64 texts with the same weights; then the paper's corpus
+     ingested into an fp32 and a quantized store that embed with it:
+     CURRENT / HISTORICAL / COMPARATIVE ``query_batch`` at batch 1, 8,
+     32 and k 10, 50 (a quantized pool of 200: the sort path), batch ==
+     sequential bit for bit, no out-of-window id, CPU reopen (CPU
+     embedder, same weights) equivalent;
+  6. RAG generation: Mistral-NeMo-12B at full width (40L, d 5120, bf16,
+     ~24.5 GB made on the card) behind ``RAGEngine`` over the phase-5
+     fp32 store answers 8 requests (4 current, 4 as-of), 16 new tokens
+     each; retrieved contexts equal ``store.query``, ids in range. Phases
+     5-6 (store and generation) are the attention kernels' main path:
+     their "launches" below. Then a decode-vs-prefill cross-check at full
+     width, fp32, 4 layers: prefill 256 tokens + decode 128 against one
+     prefill of 384 (logits within 1e-3 of their max abs, same argmax).
 It prints a ``{"kernels": [...]}`` line, then, last, the one-line
 ``{"ok": true, "device": {...}}`` result. Without a CUDA device, or
 without the package beside it, it exits non-zero and prints no result.
@@ -41,6 +63,8 @@ SRC = Path(__file__).resolve().parent / "src"
 D = 384                    # all-MiniLM-L6-v2 width, the paper's embedder
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, data sheet
 FP32_FLOPS = 67e12         # H100 SXM fp32 outside the tensor cores
+BF16_FLOPS = 989e12        # H100 SXM bf16 dense on the tensor cores
+BIG_K = (129, 500, 4096)   # k above the register lists: the sort path
 SEED = 0
 T_COMMIT = [1_700_000_000_000_000 + c * 30 * 24 * 3600 * 1_000_000
             for c in range(5)]
@@ -56,7 +80,14 @@ KERNELS = {
     "temporal_window_topk_q8": (
         "src/repro_torch/csrc/temporal_mask_score.cu",
         "src/repro/kernels/temporal_mask_score/temporal_mask_score.py:74"),
+    "flash_attention": (
+        "src/repro_torch/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention/flash_attention.py:27"),
+    "flash_decode": ("src/repro_torch/csrc/flash_decode.cu",
+                     "src/repro/kernels/flash_decode/flash_decode.py:25"),
 }
+TILE_KERNELS = ("topk_search", "temporal_window_topk", "topk_search_q8",
+                "temporal_window_topk_q8")
 
 
 def check(cond: bool, msg: str) -> None:
@@ -84,9 +115,10 @@ def cuda_ms(torch, fn, iters: int, warmup: int = 2) -> float:
     return a.elapsed_time(b) / iters
 
 
-def bound_ms(in_bytes: int, out_bytes: int, flops: int) -> tuple[float, str]:
+def bound_ms(in_bytes: int, out_bytes: int, flops: int,
+             peak: float = FP32_FLOPS) -> tuple[float, str]:
     t_bytes = (in_bytes + out_bytes) / HBM_BYTES_PER_S
-    t_ops = flops / FP32_FLOPS
+    t_ops = flops / peak
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -138,7 +170,7 @@ def phase_kernels(torch, dev) -> dict:
     from repro_torch.testing import topk_agree
 
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    out = {name: {"err": 0.0, "times": []} for name in KERNELS}
+    out = {name: {"err": 0.0, "times": []} for name in TILE_KERNELS}
     # the fixed 1/127 scale of the store's fused block and resident
     # history; rows are quantized as index/quant.quantize_rows does
     scale = torch.from_numpy(fixed_scale(D)).to(dev)
@@ -187,6 +219,14 @@ def phase_kernels(torch, dev) -> dict:
                      f"N={n} Q={nq} k={k}")
             if n != 8192:
                 continue
+            for k in (BIG_K if nq != 32 else ()):
+                hold("topk_search", kops.topk_search(q, corpus, alive, k),
+                     topk_search_plain(q, corpus, alive, k + 1),
+                     f"N={n} Q={nq} k={k}")
+                hold("topk_search_q8",
+                     kops.topk_search_q8(q, c8, scale, alive, k),
+                     topk_search_q8_plain(q, c8, scale, alive, k + 1),
+                     f"N={n} Q={nq} k={k}")
             # the work this data needs: alive rows only
             k = 10
             timed("topk_search", n, nq, k,
@@ -203,6 +243,24 @@ def phase_kernels(torch, dev) -> dict:
                       q * scale, c8.float().T).masked_fill(
                       ~alive, -math.inf), kp, dim=1),
                   live * D + n + nq * D * 4 + D * 4, 2 * nq * live * D)
+            if nq == 32:
+                continue
+            k = 500                                    # the sort path
+            timed("topk_search", n, nq, k,
+                  lambda: kops.topk_search(q, corpus, alive, k),
+                  lambda: topk_search_plain(q, corpus, alive, k),
+                  lambda: torch.topk(torch.matmul(q, corpus.T).masked_fill(
+                      ~alive, -math.inf), k, dim=1),
+                  live * D * 4 + n + nq * D * 4, 2 * nq * live * D,
+                  iters=20, plain_iters=3)
+            timed("topk_search_q8", n, nq, k,
+                  lambda: kops.topk_search_q8(q, c8, scale, alive, k),
+                  lambda: topk_search_q8_plain(q, c8, scale, alive, k),
+                  lambda: torch.topk(torch.matmul(
+                      q * scale, c8.float().T).masked_fill(
+                      ~alive, -math.inf), k, dim=1),
+                  live * D + n + nq * D * 4 + D * 4, 2 * nq * live * D,
+                  iters=20, plain_iters=3)
     q = unit_rows(torch, gen, 4, D, dev)
     dead = torch.zeros(corpus.shape[0], dtype=torch.bool, device=dev)
     for s, i in (kops.topk_search(q, corpus, dead, 10),
@@ -287,6 +345,21 @@ def phase_kernels(torch, dev) -> dict:
                                                    t1, k + 1), what)
                 in_window("temporal_window_topk_q8", got, vf_h, vt_h, t0, t1,
                           what)
+            for k in (BIG_K if fp32 and nq != 32 else ()):
+                what = f"N={n} Q={nq} k={k}"
+                got = tops.temporal_window_topk(q, hist, vf, vt, t0, t1, k)
+                hold("temporal_window_topk", got, temporal_window_topk_plain(
+                    q, hist, vf, vt, t0, t1, k + 1), what)
+                in_window("temporal_window_topk", got, vf_h, vt_h, t0, t1,
+                          what)
+                got = tops.temporal_window_topk_q8(q, c8, scale, vf, vt, t0,
+                                                   t1, k)
+                hold("temporal_window_topk_q8", got,
+                     temporal_window_topk_q8_plain(q, c8, scale, vf, vt, t0,
+                                                   t1, k + 1), what)
+                in_window("temporal_window_topk_q8", got, vf_h, vt_h, t0, t1,
+                          what)
+                del got
             # the work this data needs: rows valid for some query are read,
             # (query, row) pairs in window are scored
             valid = (vf[None, :] < t1[:, None]) & (t0[:, None] < vt[None, :])
@@ -317,6 +390,25 @@ def phase_kernels(torch, dev) -> dict:
                   lambda: library(c8.float(), q * scale, kp),
                   rows_any * D + 16 * n + nq * D * 4 + 16 * nq + D * 4,
                   2 * pairs * D, iters=10, plain_iters=2)
+            if not fp32 or nq == 32:
+                continue
+            k = 500                                    # the sort path
+            timed("temporal_window_topk", n, nq, k,
+                  lambda: tops.temporal_window_topk(q, hist, vf, vt, t0,
+                                                    t1, k),
+                  lambda: temporal_window_topk_plain(q, hist, vf, vt, t0,
+                                                     t1, k),
+                  lambda: library(hist, q, k),
+                  rows_any * D * 4 + 16 * n + nq * D * 4 + 16 * nq,
+                  2 * pairs * D, iters=5, plain_iters=2)
+            timed("temporal_window_topk_q8", n, nq, k,
+                  lambda: tops.temporal_window_topk_q8(q, c8, scale, vf, vt,
+                                                       t0, t1, k),
+                  lambda: temporal_window_topk_q8_plain(q, c8, scale, vf, vt,
+                                                        t0, t1, k),
+                  lambda: library(c8.float(), q * scale, k),
+                  rows_any * D + 16 * n + nq * D * 4 + 16 * nq + D * 4,
+                  2 * pairs * D, iters=5, plain_iters=2)
         del hist, c8
         torch.cuda.empty_cache()
     for name, r in out.items():
@@ -553,6 +645,446 @@ def phase_store(torch, workdir: str, quantized: bool,
     return launches, answers
 
 
+# ---------------------------------------------------------------------------
+# phase 2 (attention): flash attention and split-K decode vs plain
+# ---------------------------------------------------------------------------
+def visible_pairs(sq: int, skv: int, causal: bool) -> int:
+    """(query, key) pairs a row of attention scores: all, or those the
+    causal mask keeps (row r sees columns c <= r + skv - sq)."""
+    if not causal:
+        return sq * skv
+    off = skv - sq
+    return sum(min(skv, max(0, r + off + 1)) for r in range(sq))
+
+
+def phase_attention(torch, dev) -> dict:
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_attention.plain import (
+        flash_attention_plain)
+    from repro_torch.kernels.flash_decode import ops as fd
+    from repro_torch.kernels.flash_decode.plain import (
+        flash_decode_partials_plain, flash_decode_plain)
+    from repro_torch.testing import partials_agree, rounding_agree
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    out = {name: {"err": 0.0, "times": []}
+           for name in ("flash_attention", "flash_decode")}
+    # kernel vs plain: both compute in fp32 from the same inputs and round
+    # to the output's dtype. Each output is held within rel of its own
+    # value plus 1e-4 of its row's largest: fp32 outputs differ by the sum
+    # order (~1e-6 relative), bf16 outputs by at most one rounding step
+    # (2^-7 of the value). The outputs here are small (0.01 to 0.1 on
+    # N(0, 1) inputs), so an absolute limit alone would pass wrong
+    # kernels; the absolute limits stay as an outer bound.
+    tol = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+    rel = {torch.float32: 1e-4, torch.bfloat16: 2 ** -7}
+    peak = {torch.float32: FP32_FLOPS, torch.bfloat16: BF16_FLOPS}
+
+    def randn(shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def record(name, what, got, want, dtype, fn, plain, library, in_bytes,
+               out_bytes, flops, iters, plain_iters):
+        check(bool(torch.isfinite(got).all()), f"{name} {what}: not finite")
+        err = float((got.float() - want.float()).abs().max())
+        check(err <= tol[dtype], f"{name} {what}: max abs err {err} > "
+                                 f"{tol[dtype]}")
+        ok, ratio = rounding_agree(got, want, rel[dtype])
+        check(ok, f"{name} {what}: an output differs from plain by {ratio:.3g}"
+                  f" x its limit ({rel[dtype]:.3g} of its value + 1e-4 of "
+                  f"its row's largest)")
+        out[name]["err"] = max(out[name]["err"], err)
+        t = cuda_ms(torch, fn, iters)
+        tp = cuda_ms(torch, plain, plain_iters, 1)
+        tl = cuda_ms(torch, library, iters, 1)
+        b, by = bound_ms(in_bytes, out_bytes, flops, peak[dtype])
+        out[name]["times"].append(dict(
+            what=what, dtype=str(dtype).removeprefix("torch."), ms=t,
+            plain_ms=tp, library_ms=tl, bound_ms=b, bound_by=by,
+            max_abs_err=err, median_abs_value=float(
+                want.float().abs().median()), err_over_limit=ratio))
+
+    # (what, (B, H, KV, Sq, Skv, D), dtype, causal): the MiniLM encoder at
+    # the main path's chunk x 8; Mistral-NeMo's RAG prefill; a prefill_32k
+    # layer cut to 4096 tokens
+    for what, (b, h, kv, sq, skv, d), dtype, causal, iters in (
+            ("minilm encode 256x128", (256, 12, 12, 128, 128, 32),
+             torch.float32, False, 20),
+            ("nemo prefill 256", (1, 32, 8, 256, 256, 128), torch.bfloat16,
+             True, 50),
+            ("nemo prefill 4096", (1, 32, 8, 4096, 4096, 128),
+             torch.bfloat16, True, 5)):
+        q = randn((b, h, sq, d), dtype)
+        k = randn((b, kv, skv, d), dtype)
+        v = randn((b, kv, skv, d), dtype)
+        got = fa.flash_attention(q, k, v, causal=causal)
+        want = flash_attention_plain(q, k, v, causal)
+        es = q.element_size()
+        record("flash_attention", what, got, want, dtype,
+               lambda: fa.flash_attention(q, k, v, causal=causal),
+               lambda: flash_attention_plain(q, k, v, causal),
+               lambda: F.scaled_dot_product_attention(
+                   q, k, v, is_causal=causal, enable_gqa=True),
+               (b * h * sq + 2 * b * kv * skv) * d * es, b * h * sq * d * es,
+               4 * b * h * visible_pairs(sq, skv, causal) * d, iters, 2)
+        del q, k, v, got, want
+    # (what, (B, H, KV, S, D), cache_len, dtype): the engine's cache
+    # (max_prompt 256 + 64) after 15 decode steps; decode_32k at full and
+    # partial length, in bf16 and (partial) in fp32. The kernel's fp32
+    # split partials are held to the plain partials before the shared
+    # merge: the merge would blur a split's error into 64 others.
+    caches = {}
+    for what, (b, h, kv, s, d), cache_len, dtype, iters in (
+            ("engine cache 320", (1, 32, 8, 320, 128), 271, torch.bfloat16,
+             50),
+            ("decode_32k full", (16, 32, 8, 32768, 128), 32768,
+             torch.bfloat16, 20),
+            ("decode_32k partial", (16, 32, 8, 32768, 128), 30000,
+             torch.bfloat16, 20),
+            ("decode_32k partial fp32", (16, 32, 8, 32768, 128), 30000,
+             torch.float32, 10)):
+        if (b, kv, s, d, dtype) not in caches:
+            caches.clear()
+            torch.cuda.empty_cache()
+            caches[b, kv, s, d, dtype] = (randn((b, kv, s, d), dtype),
+                                          randn((b, kv, s, d), dtype))
+        kc, vc = caches[b, kv, s, d, dtype]
+        q = randn((b, h, d), dtype)
+        ok, ratio, why = partials_agree(
+            fd.flash_decode_partials(q, kc, vc, cache_len, 512),
+            flash_decode_partials_plain(q, kc, vc, cache_len, 512), 1e-4)
+        check(ok, f"flash_decode {what}: split partials vs plain: {why}")
+        log(f"  flash_decode {what}: partials (m, l, acc) within "
+            f"{ratio:.3g} x their 1e-4 limits")
+        got = fd.flash_decode(q, kc, vc, cache_len=cache_len)
+        want = flash_decode_plain(q, kc, vc, cache_len, 512)
+        es = q.element_size()
+        record("flash_decode", what, got, want, dtype,
+               lambda: fd.flash_decode(q, kc, vc, cache_len=cache_len),
+               lambda: flash_decode_plain(q, kc, vc, cache_len, 512),
+               lambda: F.scaled_dot_product_attention(
+                   q[:, :, None], kc[:, :, :cache_len], vc[:, :, :cache_len],
+                   enable_gqa=True),
+               (b * h * d + 2 * b * kv * cache_len * d) * es, b * h * d * es,
+               4 * b * h * cache_len * d, iters, 3)
+        del q, got, want
+    del caches
+    torch.cuda.empty_cache()
+    for name, r in out.items():
+        for row in r["times"]:
+            log(f"  {name}: " + " ".join(
+                f"{key}={val:.4g}" if isinstance(val, float) else
+                f"{key}={val}" for key, val in row.items()))
+        log(f"  {name}: max_abs_err={r['err']:.3g}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the MiniLM embedder, and stores that embed with it
+# ---------------------------------------------------------------------------
+def query_texts(corpus) -> list[str]:
+    texts = [f"{f.name} equals units" for f in corpus.facts[:22]]
+    texts += [f"{t} policy requires review" for t in
+              ("security", "billing", "network", "storage", "compliance",
+               "deployment", "monitoring", "identity", "backup", "capacity")]
+    return texts                                   # 32
+
+
+def phase_embedder(torch, dev):
+    """Bulk and query encode on the card, and card vs CPU with the same
+    weights. Returns (card embedder, CPU embedder)."""
+    import numpy as np
+
+    from repro_torch.configs.minilm_embedder import CONFIG, SHAPES
+    from repro_torch.data.corpus import generate_corpus
+    from repro_torch.models.embedder import TransformerEmbedder
+    from repro_torch.models.transformer import forward_pooled
+
+    emb = TransformerEmbedder(CONFIG, seed=SEED, device=dev)
+    n_params = sum(p.numel() for p in emb.params.parameters())
+    log(f"  MiniLM: {n_params} parameters ({CONFIG.n_layers}L, "
+        f"d {CONFIG.d_model}, {CONFIG.n_heads}H, d_ff {CONFIG.d_ff}, vocab "
+        f"{CONFIG.vocab}, {CONFIG.dtype})")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 3)
+    for shape, info in SHAPES.items():
+        b, s = info["batch"], info["seq"]
+        toks = torch.randint(4, CONFIG.vocab, (b, s), generator=gen,
+                             device=dev)
+        with torch.no_grad():
+            vecs = forward_pooled(emb.params, toks, CONFIG)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            reps = 3
+            for _ in range(reps):
+                vecs = forward_pooled(emb.params, toks, CONFIG)
+            torch.cuda.synchronize()
+            t = (time.perf_counter() - t) / reps
+        norms = vecs.float().norm(dim=1)
+        check(vecs.shape == (b, CONFIG.d_model)
+              and bool(torch.isfinite(vecs).all())
+              and bool(((norms - 1).abs() < 1e-4).all()),
+              f"MiniLM {shape}: not {b} finite unit vectors")
+        log(f"  MiniLM {shape} ({b} x {s}): {t * 1e3:.2f} ms, "
+            f"{b / t:.0f} sequences/s on the host clock")
+        del toks, vecs
+    torch.cuda.empty_cache()
+    cpu = TransformerEmbedder(CONFIG, params=emb.params, device="cpu")
+    corpus = generate_corpus(n_docs=100, n_versions=5)
+    texts = [corpus.versions[0][doc][:600] for doc in corpus.doc_ids()[:32]]
+    texts += query_texts(corpus)
+    a, b = emb.embed(texts), cpu.embed(texts)
+    err = float(np.abs(a - b).max())
+    check(a.shape == (64, CONFIG.d_model) and bool(np.isfinite(a).all()),
+          "MiniLM card embed: bad shape or not finite")
+    check(err <= 1e-4, f"MiniLM card vs CPU: max abs err {err} > 1e-4")
+    log(f"  MiniLM card vs CPU on 64 texts: max abs err {err:.3g}")
+    return emb, cpu
+
+
+def phase_rag_store(torch, workdir: str, emb, cpu_emb) -> dict:
+    """The paper's corpus into an fp32 and a quantized store embedding
+    with the MiniLM encoder on the card; queries at k 10 and 50; CPU
+    reopen with the CPU embedder. Returns {quantized: root}."""
+    from repro_torch.core.store import LiveVectorLake
+    from repro_torch.data.corpus import generate_corpus
+    from repro_torch.kernels.temporal_mask_score import ops as tops
+    from repro_torch.kernels.topk_search import ops as kops
+    from repro_torch.testing import results_equivalent
+
+    corpus = generate_corpus(n_docs=100, n_versions=5)
+    ts = corpus.timestamps
+    texts = query_texts(corpus)
+    mixes = [("current", {}), ("at v2", {"at": ts[2] + 1}),
+             ("window v1-v3", {"window": (ts[1], ts[3])})]
+    roots = {}
+    for quantized in (False, True):
+        mode = "quantized" if quantized else "fp32"
+        root = f"{workdir}/rag-{mode}"
+        roots[quantized] = root
+        q8_before = (kops.launches_q8, tops.launches_q8)
+        lake = LiveVectorLake(root, embedder=emb, quantized=quantized,
+                              device="cuda")
+        t = time.perf_counter()
+        for v, t_v in enumerate(ts):
+            for doc in corpus.doc_ids():
+                lake.ingest(doc, corpus.versions[v][doc], ts=t_v)
+        t = time.perf_counter() - t
+        log(f"  {mode} store with MiniLM: ingested {corpus.n_docs} docs x "
+            f"{len(ts)} versions in {t:.1f} s ({lake.embedder.misses} "
+            f"chunks embedded); {len(lake.hot)} live chunks")
+        got = {}
+        for name, kw in mixes:
+            for k in (10, 50):
+                for bs in (1, 8, 32):
+                    batch = texts[:bs]
+                    t = time.perf_counter()
+                    res = lake.query_batch(batch, k=k, **kw)
+                    t = (time.perf_counter() - t) * 1e3
+                    seq = [lake.query(x, k=k, **kw) for x in batch]
+                    check(res == seq, f"{mode} MiniLM store {name} k={k} "
+                                      f"batch={bs}: query_batch != [query]")
+                    if bs == 32:
+                        log(f"  {mode} MiniLM store query_batch {name} k={k} "
+                            f"batch=32: {t:.3f} ms on the host clock")
+                check(all(len(r) == k for r in res),
+                      f"{mode} MiniLM store {name} k={k}: short result")
+                for r in res:
+                    if "at" in kw:
+                        lake.temporal.assert_no_leakage(r, kw["at"])
+                    elif "window" in kw:
+                        lake.temporal.assert_no_window_leakage(
+                            r, *kw["window"])
+                got[name, k] = res
+        if quantized:           # k = 50: pools of 200, the sort path
+            check(kops.launches_q8 > q8_before[0]
+                  and tops.launches_q8 > q8_before[1],
+                  "quantized MiniLM store: the q8 scans were not launched")
+        del lake
+        cpu = LiveVectorLake(root, embedder=cpu_emb, device="cpu")
+        for name, kw in mixes:
+            ext = cpu.query_batch(texts, k=200, **kw)
+            for k in (10, 50):
+                want = cpu.query_batch(texts, k=k, **kw)
+                # the query vectors differ between card and CPU by the
+                # embedder's error (<= 1e-4 a component, phase 5 check)
+                for qi in range(len(texts)):
+                    check(results_equivalent(want[qi], got[name, k][qi],
+                                             ext[qi], rtol=1e-4, atol=1e-4),
+                          f"{mode} MiniLM store {name} k={k} query {qi}: "
+                          f"card != cpu reopen")
+        del cpu
+        log(f"  {mode} MiniLM store: batch == sequential, no leakage, "
+            f"equivalent to the CPU reopen at k 10 and 50")
+    return roots
+
+
+# ---------------------------------------------------------------------------
+# phase 6: RAG generation with Mistral-NeMo-12B at full width
+# ---------------------------------------------------------------------------
+def phase_rag_generate(torch, root: str, emb) -> None:
+    from repro_torch.configs.mistral_nemo_12b import CONFIG
+    from repro_torch.core.store import LiveVectorLake
+    from repro_torch.data.corpus import generate_corpus
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve.engine import RAGEngine
+
+    corpus = generate_corpus(n_docs=100, n_versions=5)
+    ts = corpus.timestamps
+    t = time.perf_counter()
+    params = init_params(CONFIG, seed=SEED, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in params.parameters())
+    log(f"  Mistral-NeMo-12B: {n_params} parameters ({CONFIG.n_layers}L, "
+        f"d {CONFIG.d_model}, {CONFIG.n_heads}H / {CONFIG.n_kv} KV, d_head "
+        f"{CONFIG.d_head}, d_ff {CONFIG.d_ff}, vocab {CONFIG.vocab}, "
+        f"{CONFIG.dtype}), {n_params * 2 / 1e9:.2f} GB made on the card in "
+        f"{time.perf_counter() - t:.1f} s")
+    check(n_params == CONFIG.n_params(), "parameter count")
+    store = LiveVectorLake(root, embedder=emb, device="cuda")
+    engine = RAGEngine(store, CONFIG, params=params, max_prompt=256,
+                       device="cuda")
+    current = [f"{f.name} equals units" for f in corpus.facts[:4]]
+    as_of = [f"{f.name} equals units" for f in corpus.facts[4:8]]
+    at = ts[1] + 1
+    new = 16
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    results = engine.answer_batch(current, max_new_tokens=new)
+    results += engine.answer_batch(as_of, at=at, max_new_tokens=new)
+    torch.cuda.synchronize()
+    t = time.perf_counter() - t
+    for res, q in zip(results, current + as_of):
+        want = store.query(q, k=engine.retrieval_k, at=res.at)
+        check(res.retrieved == want, f"RAG {q!r}: retrieved != store.query")
+        check(len(res.token_ids) == new
+              and all(0 <= x < CONFIG.vocab for x in res.token_ids),
+              f"RAG {q!r}: bad token ids {res.token_ids}")
+        check(res.n_context_chunks == engine.retrieval_k
+              and res.prompt.startswith("Context:"), f"RAG {q!r}: prompt")
+    log(f"  RAG: 8 requests (4 current, 4 at v1), {new} new tokens each, in "
+        f"{t:.2f} s on the host clock ({t / 8 * 1e3:.1f} ms a request, "
+        f"{8 * new / t:.1f} tokens/s)")
+    log(f"  RAG first answer: {results[0].token_ids}")
+
+    # where a request's time goes, warm: prefill and decode steps timed
+    # apart on the host clock (synchronized), then one profiled request
+    from repro_torch.models.transformer import decode_step, prefill
+    toks = torch.from_numpy(engine.tokenizer.encode(
+        results[0].prompt, max_len=engine.max_prompt))[None, :].to("cuda")
+    with torch.no_grad():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits, cache, n = prefill(params, toks, CONFIG, engine.cache_size)
+        torch.cuda.synchronize()
+        t_pre = time.perf_counter() - t
+        cur = logits.argmax(-1)[:, None]
+        t = time.perf_counter()
+        steps = 15
+        for _ in range(steps):
+            logits, cache, n = decode_step(params, cur, cache, n, CONFIG)
+            cur = logits.argmax(-1)[:, None]
+        torch.cuda.synchronize()
+        t_dec = (time.perf_counter() - t) / steps
+    log(f"  RAG warm: prefill of {toks.shape[1]} tokens {t_pre * 1e3:.2f} "
+        f"ms, decode {t_dec * 1e3:.2f} ms a step (weights alone bound a "
+        f"step at {n_params * 2 / HBM_BYTES_PER_S * 1e3:.2f} ms)")
+    profile_request(torch, engine, current[0], new)
+    del engine, store, params
+    torch.cuda.empty_cache()
+
+
+def profile_request(torch, engine, query: str, new: int) -> None:
+    """One RAG request under torch.profiler: device busy time against
+    the host clock, and the kernels that take the device's time. The
+    request is checked like the others and its failure is fatal; only
+    a profiler that cannot trace the card is logged and passed over."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    try:
+        prof = profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+        prof.__enter__()
+    except Exception as exc:                       # noqa: BLE001
+        log(f"  profiler: could not start tracing the card ({exc!r})")
+        prof = None
+    try:
+        t = time.perf_counter()
+        res = engine.answer(query, max_new_tokens=new)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    finally:
+        if prof is not None:
+            try:
+                prof.__exit__(None, None, None)
+            except Exception as exc:               # noqa: BLE001
+                log(f"  profiler: could not stop tracing ({exc!r})")
+                prof = None
+    want = engine.store.query(query, k=engine.retrieval_k, at=res.at)
+    check(res.retrieved == want, f"profiled RAG {query!r}: retrieved != "
+                                 f"store.query")
+    check(len(res.token_ids) == new
+          and all(0 <= x < engine.cfg.vocab for x in res.token_ids),
+          f"profiled RAG {query!r}: bad token ids {res.token_ids}")
+    if prof is None:
+        return
+    try:
+        kern = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA]
+    except Exception as exc:                       # noqa: BLE001
+        log(f"  profiler: could not read the trace ({exc!r})")
+        return
+    busy = sum(e.self_device_time_total for e in kern) / 1e6
+    if not kern:
+        log("  profiler: no device time recorded")
+        return
+    log(f"  profiled request: {wall * 1e3:.1f} ms on the host clock, device "
+        f"busy {busy * 1e3:.1f} ms ({busy / wall:.1%}; idle "
+        f"{1 - busy / wall:.1%})")
+    kern.sort(key=lambda e: -e.self_device_time_total)
+    for e in kern[:8]:
+        log(f"    {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d}x  "
+            f"{e.key[:90]}")
+
+
+def phase_decode_vs_prefill(torch) -> None:
+    """Prefill 256 tokens, decode 128 given tokens, against one prefill
+    of all 384: the two attention kernels held against each other at
+    Mistral-NeMo's full width (fp32, 4 layers)."""
+    import dataclasses
+
+    from repro_torch.configs.mistral_nemo_12b import CONFIG
+    from repro_torch.models.transformer import (decode_step, init_params,
+                                                prefill)
+
+    cfg = dataclasses.replace(CONFIG, n_layers=4, dtype=torch.float32)
+    params = init_params(cfg, seed=SEED + 1, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    toks = torch.randint(4, cfg.vocab, (1, 384), generator=gen,
+                         device="cuda")
+    with torch.no_grad():
+        _, cache, n = prefill(params, toks[:, :256], cfg, 384)
+        for i in range(256, 384):
+            logits, cache, n = decode_step(params, toks[:, i:i + 1], cache,
+                                           n, cfg)
+        want, _, _ = prefill(params, toks, cfg, 384)
+    scale = float(want.abs().max())
+    err = float((logits - want).abs().max())
+    check(bool(torch.isfinite(logits).all()), "decode logits not finite")
+    check(err <= 1e-3 * scale, f"decode vs prefill: max abs err {err} > "
+                               f"1e-3 x {scale}")
+    check(bool((logits.argmax(-1) == want.argmax(-1)).all()),
+          "decode vs prefill: argmax differs")
+    log(f"  decode vs prefill (full width, fp32, 4 layers, 256 + 128 "
+        f"tokens): max abs logit err {err:.3g} of max |logit| {scale:.3g}; "
+        f"argmax equal")
+    del params, cache
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     try:
         import torch
@@ -585,6 +1117,7 @@ def main() -> int:
 
     log("phase 2: kernels against their plain versions")
     kern = phase_kernels(torch, dev)
+    kern.update(phase_attention(torch, dev))
     with tempfile.TemporaryDirectory(prefix="chip_smoke-") as work:
         log("phase 3: temporal engine at scale")
         phase_engine(torch, work)
@@ -592,12 +1125,35 @@ def main() -> int:
         launches, fp32_answers = phase_store(torch, work, quantized=False)
         launches_q8, _ = phase_store(torch, work, quantized=True,
                                      fp32_answers=fp32_answers)
-    launches.update(launches_q8)
+        launches.update(launches_q8)
+        log("phase 5: the MiniLM embedder and stores that embed with it")
+        emb, cpu_emb = phase_embedder(torch, dev)
+        from repro_torch.kernels.flash_attention import ops as fa
+        from repro_torch.kernels.flash_decode import ops as fd
+        fa.launches = fd.launches = 0
+        roots = phase_rag_store(torch, work, emb, cpu_emb)
+        log("phase 6: RAG generation, Mistral-NeMo-12B at full width")
+        phase_rag_generate(torch, roots[False], emb)
+        launches["flash_attention"] = fa.launches
+        launches["flash_decode"] = fd.launches
+        log(f"  launches on the RAG path (phases 5-6): flash_attention "
+            f"{fa.launches}, flash_decode {fd.launches}")
+        for name in ("flash_attention", "flash_decode"):
+            check(launches[name] > 0, f"{name} was never launched on the "
+                                      f"RAG path")
+        phase_decode_vs_prefill(torch)
 
     rows = []
+    main_shape = {"flash_attention": "nemo prefill 256",
+                  "flash_decode": "engine cache 320"}
     for name, (source, tpu) in KERNELS.items():
-        at = next(r for r in kern[name]["times"]
-                  if r["Q"] == 32 and r["N"] in (8192, 1 << 20))
+        if name in main_shape:
+            at = next(r for r in kern[name]["times"]
+                      if r["what"] == main_shape[name])
+        else:
+            at = next(r for r in kern[name]["times"]
+                      if r["Q"] == 32 and r["N"] in (8192, 1 << 20)
+                      and r["k"] <= 128)
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": tpu, "launches": launches[name],
                      "max_abs_err": kern[name]["err"], "ms": at["ms"],

@@ -54,15 +54,17 @@ struct WindowMask {
 }  // namespace
 
 // q (Q, D) f32, corpus (N, D) f32, vf/vt (N,) int64, t0/t1 (Q,) int64,
-// all contiguous on one device; out_s/out_i (grid_x, Q, k) with grid_x
-// from topk_tile_grid_x. Returns cudaGetLastError().
+// all contiguous on one device; out_s/out_i (grid_x, q_count,
+// topk_tile_list_len(k)) for the queries [q_begin, q_begin + q_count),
+// grid_x from topk_tile_grid_x. Returns cudaGetLastError().
 extern "C" int temporal_window_topk_f32(
     const float* q, const float* corpus, const int64_t* vf,
     const int64_t* vt, const int64_t* t0, const int64_t* t1, float* out_s,
     int* out_i, long long Q, long long N, long long D, long long k,
-    long long grid_x, void* stream) {
+    long long grid_x, long long q_begin, long long q_count, void* stream) {
   return topk_tile::launch(q, corpus, WindowMask{vf, vt, t0, t1}, out_s,
-                           out_i, Q, N, D, k, grid_x, stream);
+                           out_i, Q, N, D, k, grid_x, q_begin, q_count,
+                           stream);
 }
 
 // qs (Q, D) f32 scale-folded queries, c8 (N, D) int8 history, the rest
@@ -71,7 +73,8 @@ extern "C" int temporal_window_topk_q8(
     const float* qs, const int8_t* c8, const int64_t* vf,
     const int64_t* vt, const int64_t* t0, const int64_t* t1, float* out_s,
     int* out_i, long long Q, long long N, long long D, long long k,
-    long long grid_x, void* stream) {
+    long long grid_x, long long q_begin, long long q_count, void* stream) {
   return topk_tile::launch(qs, c8, WindowMask{vf, vt, t0, t1}, out_s, out_i,
-                           Q, N, D, k, grid_x, stream);
+                           Q, N, D, k, grid_x, q_begin, q_count,
+                           stream);
 }

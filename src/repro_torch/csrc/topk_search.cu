@@ -41,14 +41,17 @@ struct BoolMask {
 }  // namespace
 
 // q (Q, D) f32, corpus (N, D) f32, mask (N,) bool, all contiguous on one
-// device; out_s/out_i (grid_x, Q, k) with grid_x from topk_tile_grid_x.
+// device; out_s/out_i (grid_x, q_count, topk_tile_list_len(k)) for the
+// queries [q_begin, q_begin + q_count), grid_x from topk_tile_grid_x.
 // Returns cudaGetLastError().
 extern "C" int topk_search_f32(const float* q, const float* corpus,
                                const uint8_t* mask, float* out_s, int* out_i,
                                long long Q, long long N, long long D,
-                               long long k, long long grid_x, void* stream) {
+                               long long k, long long grid_x,
+                               long long q_begin, long long q_count,
+                               void* stream) {
   return topk_tile::launch(q, corpus, BoolMask{mask}, out_s, out_i, Q, N, D,
-                           k, grid_x, stream);
+                           k, grid_x, q_begin, q_count, stream);
 }
 
 // qs (Q, D) f32 scale-folded queries, c8 (N, D) int8, mask (N,) bool,
@@ -56,7 +59,9 @@ extern "C" int topk_search_f32(const float* q, const float* corpus,
 extern "C" int topk_search_q8(const float* qs, const int8_t* c8,
                               const uint8_t* mask, float* out_s, int* out_i,
                               long long Q, long long N, long long D,
-                              long long k, long long grid_x, void* stream) {
+                              long long k, long long grid_x,
+                              long long q_begin, long long q_count,
+                              void* stream) {
   return topk_tile::launch(qs, c8, BoolMask{mask}, out_s, out_i, Q, N, D, k,
-                           grid_x, stream);
+                           grid_x, q_begin, q_count, stream);
 }

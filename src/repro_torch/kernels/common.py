@@ -15,7 +15,11 @@ import torch
 
 from .build import check
 
-KMAX = 128  # largest k a tile-scan launch keeps (csrc/topk_tile.cuh)
+# candidate entries (scores and row ids) one tile-scan launch may write;
+# a scan whose (row blocks x queries x list length) exceeds it launches
+# over chunks of the queries, down to one query a launch (whose own row
+# blocks x list length is the floor)
+CAND_BUDGET = 1 << 25
 
 
 def resolve_device(device=None) -> torch.device:
@@ -59,33 +63,55 @@ def batch_invariant_scores(q: torch.Tensor,
 def bind(lib: ctypes.CDLL, entry: str, n_tensors: int) -> None:
     """Declare the C signatures of a tile-scan library: ``entry`` takes
     ``n_tensors`` input pointers, the two candidate outputs, (Q, N, D, k,
-    grid_x) and the stream; ``topk_tile_grid_x`` sizes the grid."""
+    grid_x, q_begin, q_count) and the stream; ``topk_tile_grid_x`` sizes
+    the grid and ``topk_tile_list_len`` the candidate lists."""
     fn = getattr(lib, entry)
     fn.argtypes = ([ctypes.c_void_p] * (n_tensors + 2)
-                   + [ctypes.c_longlong] * 5 + [ctypes.c_void_p])
+                   + [ctypes.c_longlong] * 7 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    lib.topk_tile_grid_x.argtypes = [ctypes.c_longlong] * 3
+    lib.topk_tile_grid_x.argtypes = [ctypes.c_longlong] * 4
     lib.topk_tile_grid_x.restype = ctypes.c_longlong
+    lib.topk_tile_list_len.argtypes = [ctypes.c_longlong]
+    lib.topk_tile_list_len.restype = ctypes.c_longlong
 
 
 def launch_tile_scan(lib: ctypes.CDLL, entry: str, inputs: list,
                      nq: int, n: int, d: int, k: int
-                     ) -> tuple[torch.Tensor, torch.Tensor]:
+                     ) -> tuple[torch.Tensor, torch.Tensor, int]:
     """Launch a tile-scan kernel (csrc/topk_tile.cuh) on the current
     stream of the inputs' device and merge its per-block candidates.
-    ``inputs`` are the kernel's input tensors in argument order."""
+    ``inputs`` are the kernel's input tensors in argument order. Any
+    1 <= k <= N: k <= 128 keeps a register list per query, a larger k
+    sorts blocks of rows in shared memory. The queries go in chunks
+    that keep each launch's candidates within ``CAND_BUDGET``. Returns
+    (scores (Q, k), ids (Q, k), number of kernel launches)."""
     dev = inputs[0].device
     with torch.cuda.device(dev):
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        gx = int(lib.topk_tile_grid_x(n, nq, sms))
-        cand_s = torch.empty((gx, nq, k), dtype=torch.float32, device=dev)
-        cand_i = torch.empty((gx, nq, k), dtype=torch.int32, device=dev)
-        err = getattr(lib, entry)(
-            *[t.data_ptr() for t in inputs], cand_s.data_ptr(),
-            cand_i.data_ptr(), nq, n, d, k, gx,
-            torch.cuda.current_stream(dev).cuda_stream)
-        check(lib, err, entry)
-        return merge_candidates(cand_s, cand_i, k)
+        gx = int(lib.topk_tile_grid_x(n, nq, sms, k))
+        kk = int(lib.topk_tile_list_len(k))
+        # queries a launch, within the budget (one query at the least);
+        # whole 32-query tiles where more than one fits
+        step = max(1, CAND_BUDGET // (gx * kk))
+        if step < nq and step >= 32:
+            step = step // 32 * 32
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        ptrs = [t.data_ptr() for t in inputs]
+        outs = []
+        for q_begin in range(0, nq, step):
+            qc = min(step, nq - q_begin)
+            cand_s = torch.empty((gx, qc, kk), dtype=torch.float32,
+                                 device=dev)
+            cand_i = torch.empty((gx, qc, kk), dtype=torch.int32, device=dev)
+            err = getattr(lib, entry)(
+                *ptrs, cand_s.data_ptr(), cand_i.data_ptr(), nq, n, d, k,
+                gx, q_begin, qc, stream)
+            check(lib, err, entry)
+            outs.append(merge_candidates(cand_s, cand_i, k))
+        if len(outs) == 1:
+            return (*outs[0], 1)
+        return (torch.cat([o[0] for o in outs]),
+                torch.cat([o[1] for o in outs]), len(outs))
 
 
 def merge_candidates(cand_s: torch.Tensor, cand_i: torch.Tensor,

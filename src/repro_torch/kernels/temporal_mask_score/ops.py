@@ -15,12 +15,12 @@ import torch
 
 from ... import obs
 from .. import build
-from ..common import KMAX, bind, check_tensor, launch_tile_scan
+from ..common import bind, check_tensor, launch_tile_scan
 from .plain import (temporal_window_topk_plain,
                     temporal_window_topk_q8_plain)
 
-launches = 0          # CUDA launches of ``temporal_window_topk``
-launches_q8 = 0       # CUDA launches of ``temporal_window_topk_q8``
+launches = 0          # CUDA kernel launches of ``temporal_window_topk``
+launches_q8 = 0       # CUDA kernel launches of ``temporal_window_topk_q8``
 
 
 def _lib():
@@ -41,7 +41,7 @@ def temporal_window_topk(q, corpus, valid_from, valid_to, t0s, t1s, k: int):
     Returns (scores (Q, k) f32, idx (Q, k) int32) on the device, k
     clipped to N; rows with no overlapping candidate come back (-inf,
     -1). A CPU corpus runs the plain PyTorch version; a CUDA corpus
-    launches the kernel (k <= 128)."""
+    launches the kernel."""
     return _window(q, corpus, None, valid_from, valid_to, t0s, t1s, k)
 
 
@@ -104,21 +104,19 @@ def _window(q, corpus, scale, valid_from, valid_to, t0s, t1s, k: int):
             return temporal_window_topk_plain(q, corpus, vf, vt, t0, t1, k)
         if dev.type != "cuda":
             raise ValueError(f"{name} runs on cpu or cuda, not {dev}")
-        if k > KMAX:
-            raise ValueError(f"{name}: k={k} exceeds the kernel's largest "
-                             f"k, {KMAX}")
         if q8:
-            out = launch_tile_scan(_lib(), "temporal_window_topk_q8",
-                                   [q * scale, corpus, vf, vt, t0, t1],
-                                   nq, n, d, k)
-            launches_q8 += 1
+            *out, nl = launch_tile_scan(_lib(), "temporal_window_topk_q8",
+                                        [q * scale, corpus, vf, vt, t0, t1],
+                                        nq, n, d, k)
+            launches_q8 += nl
         else:
-            out = launch_tile_scan(_lib(), "temporal_window_topk_f32",
-                                   [q, corpus, vf, vt, t0, t1], nq, n, d, k)
-            launches += 1
+            *out, nl = launch_tile_scan(_lib(), "temporal_window_topk_f32",
+                                        [q, corpus, vf, vt, t0, t1], nq, n,
+                                        d, k)
+            launches += nl
         if sp is not obs.NOOP_SPAN:            # traced: span = device time
             torch.cuda.current_stream(dev).synchronize()
-        return out
+        return tuple(out)
 
 
 def temporal_topk(q, corpus, valid_from, valid_to, ts: int, k: int):

@@ -7,11 +7,11 @@ import torch
 
 from ... import obs
 from .. import build
-from ..common import KMAX, bind, check_tensor, launch_tile_scan
+from ..common import bind, check_tensor, launch_tile_scan
 from .plain import topk_search_plain, topk_search_q8_plain
 
-launches = 0          # CUDA launches of ``topk_search``
-launches_q8 = 0       # CUDA launches of ``topk_search_q8``
+launches = 0          # CUDA kernel launches of ``topk_search``
+launches_q8 = 0       # CUDA kernel launches of ``topk_search_q8``
 
 
 def _lib():
@@ -29,7 +29,7 @@ def topk_search(q, corpus, mask, k: int):
     one device. Returns (scores (Q, k) f32, idx (Q, k) int32) on that
     device, k clipped to N; descending, lower row id first on ties, and
     (-inf, -1) at every slot with no active row. A CPU corpus runs the
-    plain PyTorch version; a CUDA corpus launches the kernel (k <= 128).
+    plain PyTorch version; a CUDA corpus launches the kernel.
     """
     return _search(q, corpus, None, mask, k)
 
@@ -84,17 +84,15 @@ def _search(q, corpus, scale, mask, k: int):
                     else topk_search_plain(q, corpus, mask, k))
         if dev.type != "cuda":
             raise ValueError(f"{name} runs on cpu or cuda, not {dev}")
-        if k > KMAX:
-            raise ValueError(f"{name}: k={k} exceeds the kernel's largest "
-                             f"k, {KMAX}")
         if q8:
-            out = launch_tile_scan(_lib(), "topk_search_q8",
-                                   [q * scale, corpus, mask], nq, n, d, k)
-            launches_q8 += 1
+            *out, nl = launch_tile_scan(_lib(), "topk_search_q8",
+                                        [q * scale, corpus, mask], nq, n, d,
+                                        k)
+            launches_q8 += nl
         else:
-            out = launch_tile_scan(_lib(), "topk_search_f32",
-                                   [q, corpus, mask], nq, n, d, k)
-            launches += 1
+            *out, nl = launch_tile_scan(_lib(), "topk_search_f32",
+                                        [q, corpus, mask], nq, n, d, k)
+            launches += nl
         if sp is not obs.NOOP_SPAN:            # traced: span = device time
             torch.cuda.current_stream(dev).synchronize()
-        return out
+        return tuple(out)

@@ -1,0 +1,83 @@
+"""Carry transformer weights between repro's param pytree and the port's
+modules, so that both packages compute the same function.
+
+repro keeps a transformer's params as nested dicts of arrays, with every
+layer's params stacked on a leading (L, ...) axis:
+
+    {"embed": (V, D), "final_ln": (D,), "lm_head": (D, V),
+     "layers": {"ln1": (L, D), "ln2": (L, D),
+                "attn": {"wq": (L, D, H*Dh), "wk", "wv", "wo", ["bq", ...]},
+                "mlp": {"win": (L, D, F'), "wout": (L, F, D)}}}
+
+Pass it as numpy arrays (``jax.tree.map(np.asarray, params)``): this
+module imports no JAX. bf16 arrays (numpy's ``ml_dtypes`` bfloat16) are
+widened to fp32 on the way, which is exact.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..kernels.common import resolve_device
+from .transformer import (TransformerConfig, _check, layer_module,
+                          model_module)
+
+
+def _tensor(a, dtype: torch.dtype, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.kind not in "fiub":      # bfloat16 and other extension types
+        a = a.astype(np.float32)
+    return torch.from_numpy(np.array(a)).to(device=device, dtype=dtype)
+
+
+def params_from_repro(np_tree: dict, cfg: TransformerConfig, device=None):
+    """repro's param pytree (numpy leaves) -> the port's modules, in
+    ``cfg.dtype`` on ``device`` (None = the card)."""
+    _check(cfg)
+    device = resolve_device(device)
+    lay = np_tree["layers"]
+    n = np.asarray(lay["ln1"]).shape[0]
+    if n != cfg.n_layers:
+        raise ValueError(f"params hold {n} layers, config {cfg.n_layers}")
+
+    def conv(a):
+        return _tensor(a, cfg.dtype, device)
+
+    layers = []
+    for i in range(n):
+        layers.append(layer_module({
+            "ln1": conv(lay["ln1"][i]), "ln2": conv(lay["ln2"][i]),
+            "attn": {k: conv(v[i]) for k, v in lay["attn"].items()},
+            "mlp": {k: conv(v[i]) for k, v in lay["mlp"].items()},
+        }))
+    return model_module(conv(np_tree["embed"]), layers,
+                        conv(np_tree["final_ln"]), conv(np_tree["lm_head"]))
+
+
+def params_to_repro(params) -> dict:
+    """The port's modules -> repro's param pytree, numpy leaves (fp32 for
+    bf16 parameters), layers stacked on a leading axis."""
+    def host(t):
+        t = t.detach().cpu()
+        if t.dtype == torch.bfloat16:
+            t = t.float()
+        return t.numpy()
+
+    layers = list(params["layers"])
+
+    def stack(get):
+        return np.stack([host(get(lp)) for lp in layers])
+
+    return {
+        "embed": host(params["embed"]),
+        "final_ln": host(params["final_ln"]),
+        "lm_head": host(params["lm_head"]),
+        "layers": {
+            "ln1": stack(lambda lp: lp["ln1"]),
+            "ln2": stack(lambda lp: lp["ln2"]),
+            "attn": {name: stack(lambda lp, n=name: lp["attn"][n])
+                     for name, _ in layers[0]["attn"].named_parameters()},
+            "mlp": {name: stack(lambda lp, n=name: lp["mlp"][n])
+                    for name, _ in layers[0]["mlp"].named_parameters()},
+        },
+    }

@@ -1,0 +1,242 @@
+"""Decoder/encoder transformer family, inference (PyTorch).
+
+One parametric implementation covers the MiniLM-class embedder
+(``causal=False``, mean-pooled) and the dense GQA generators of RAG
+serving (Mistral-NeMo-12B). Layers are ``nn.Module``s holding frozen
+parameters in a ``ModuleList``; the functions below take them with the
+config, as repro's take its param pytree. repro stacks layer params on a
+leading (L, ...) axis for ``lax.scan``; here each layer is its own
+module and the loop over layers is a Python loop (models/bridge.py
+converts between the two).
+
+Attention goes through kernels/flash_attention (encoder, prefill) and
+kernels/flash_decode (decode): the hand-written kernels for CUDA tensors,
+their plain versions for CPU tensors. The KV cache is allocated once at
+``cache_size`` by ``prefill`` and written in place by ``decode_step``
+(repro's functions return a new cache each step).
+
+Not ported yet (ROADMAP Queue 1): MoE layers (``moe`` must be None),
+``loss_fn`` (training), and repro's ``remat``, ``unroll_layers``,
+``moe_mesh`` and ``attn_impl`` options, which have no counterpart here.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional
+
+import torch
+from torch import nn
+
+from ..kernels.common import resolve_device
+from ..kernels.flash_decode.ops import flash_decode
+from .layers import (AttentionConfig, attention_block, attention_impl,
+                     attention_params, attention_qkv, dense_init,
+                     embed_init, mlp_block, mlp_params, rmsnorm)
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerConfig:
+    name: str
+    vocab: int
+    d_model: int
+    n_layers: int
+    n_heads: int
+    n_kv: int
+    d_head: int
+    d_ff: int
+    act: str = "swiglu"
+    qkv_bias: bool = False
+    rope_theta: float = 10_000.0
+    causal: bool = True
+    moe: Optional[Any] = None          # not ported: must stay None
+    dtype: torch.dtype = torch.float32  # parameter / activation dtype
+
+    @property
+    def attn(self) -> AttentionConfig:
+        return AttentionConfig(self.d_model, self.n_heads, self.n_kv,
+                               self.d_head, self.qkv_bias, self.rope_theta,
+                               self.causal)
+
+    def n_params(self) -> int:
+        """Total parameter count."""
+        _check(self)
+        d, dh = self.d_model, self.d_head
+        attn = d * dh * (self.n_heads + 2 * self.n_kv) + self.n_heads * dh * d
+        gated = self.act in ("swiglu", "geglu")
+        ffn = d * self.d_ff * (2 if gated else 1) + self.d_ff * d
+        return self.n_layers * (attn + ffn + 2 * d) + 2 * self.vocab * d + d
+
+
+def _check(cfg: TransformerConfig) -> None:
+    if cfg.moe is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: MoE layers are not ported yet (ROADMAP Queue 1 "
+            f"item 11, models/moe.py)")
+
+
+class ParamModule(nn.Module):
+    """Named tensors as frozen parameters, plus named submodules, read as
+    ``p["name"]`` like repro's dict pytrees."""
+
+    def __init__(self, tensors: Optional[dict] = None, **modules):
+        super().__init__()
+        for name, t in (tensors or {}).items():
+            self.register_parameter(name, nn.Parameter(t,
+                                                       requires_grad=False))
+        for name, m in modules.items():
+            self.add_module(name, m)
+
+    def __getitem__(self, name: str):
+        return getattr(self, name)
+
+
+def layer_module(tensors: dict) -> ParamModule:
+    """One layer from {"ln1", "ln2", "attn": {...}, "mlp": {...}}."""
+    return ParamModule({"ln1": tensors["ln1"], "ln2": tensors["ln2"]},
+                       attn=ParamModule(tensors["attn"]),
+                       mlp=ParamModule(tensors["mlp"]))
+
+
+def model_module(embed: torch.Tensor, layers: list, final_ln: torch.Tensor,
+                 lm_head: torch.Tensor) -> ParamModule:
+    return ParamModule({"embed": embed, "final_ln": final_ln,
+                        "lm_head": lm_head},
+                       layers=nn.ModuleList(layers))
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+def _layer_params(gen: torch.Generator, cfg: TransformerConfig,
+                  device) -> dict:
+    return {
+        "ln1": torch.ones((cfg.d_model,), dtype=cfg.dtype, device=device),
+        "ln2": torch.ones((cfg.d_model,), dtype=cfg.dtype, device=device),
+        "attn": attention_params(gen, cfg.attn, cfg.dtype, device),
+        "mlp": mlp_params(gen, cfg.d_model, cfg.d_ff, cfg.act, cfg.dtype,
+                          device),
+    }
+
+
+@torch.no_grad()
+def init_params(cfg: TransformerConfig, seed: int = 0,
+                device=None) -> ParamModule:
+    """Seeded random weights at ``cfg``'s widths, made on ``device`` (None
+    = the card) from one ``torch.Generator`` there. JAX's PRNG cannot be
+    reproduced: to compute repro's function, carry its params across with
+    models/bridge.py."""
+    _check(cfg)
+    device = resolve_device(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    embed = embed_init(gen, cfg.vocab, cfg.d_model, cfg.dtype, device)
+    layers = [layer_module(_layer_params(gen, cfg, device))
+              for _ in range(cfg.n_layers)]
+    lm_head = dense_init(gen, cfg.d_model, cfg.vocab, cfg.dtype,
+                         device=device)
+    return model_module(embed, layers,
+                        torch.ones((cfg.d_model,), dtype=cfg.dtype,
+                                   device=device), lm_head)
+
+
+# ---------------------------------------------------------------------------
+# forward
+# ---------------------------------------------------------------------------
+def _layer_fn(lp, x, cfg: TransformerConfig, positions):
+    x = x + attention_block(lp["attn"], rmsnorm(x, lp["ln1"]), cfg.attn,
+                            positions=positions)
+    return x + mlp_block(lp["mlp"], rmsnorm(x, lp["ln2"]), cfg.act)
+
+
+def forward(params, tokens: torch.Tensor, cfg: TransformerConfig,
+            positions: Optional[torch.Tensor] = None
+            ) -> tuple[torch.Tensor, torch.Tensor]:
+    """tokens (B, S) int -> (hidden (B, S, D), aux_loss). aux_loss is 0:
+    only MoE layers have one."""
+    _check(cfg)
+    x = params["embed"][tokens]
+    if positions is None:
+        positions = torch.arange(tokens.shape[1], dtype=torch.int32,
+                                 device=x.device)[None, :]
+    for lp in params["layers"]:
+        x = _layer_fn(lp, x, cfg, positions)
+    return (rmsnorm(x, params["final_ln"]),
+            torch.zeros((), dtype=torch.float32, device=x.device))
+
+
+def logits_fn(params, hidden: torch.Tensor) -> torch.Tensor:
+    return torch.matmul(hidden, params["lm_head"])
+
+
+def forward_pooled(params, tokens: torch.Tensor, cfg: TransformerConfig,
+                   mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean-pooled L2-normalized sequence embedding (embedder path). PAD
+    positions are attended to by the encoder (no key mask, as in repro)
+    and left out only of the mean."""
+    hidden, _ = forward(params, tokens, cfg)
+    if mask is None:
+        mask = (tokens > 0).to(hidden.dtype)
+    pooled = (hidden * mask[..., None]).sum(1) / \
+        torch.clamp(mask.sum(1)[..., None], min=1.0)
+    norm = torch.linalg.vector_norm(pooled.float(), dim=-1, keepdim=True)
+    return (pooled.float() / torch.clamp(norm, min=1e-9)).to(hidden.dtype)
+
+
+# ---------------------------------------------------------------------------
+# serving: prefill + decode with KV cache
+# ---------------------------------------------------------------------------
+def prefill(params, tokens: torch.Tensor, cfg: TransformerConfig,
+            cache_size: int) -> tuple[torch.Tensor, dict, int]:
+    """Process the full prompt; return (last-position logits (B, V),
+    cache {k, v: (L, B, KV, cache_size, Dh)}, cache_len). The cache holds
+    the prompt's keys and values in [0, S) and zeros after."""
+    _check(cfg)
+    b, s = tokens.shape
+    if s > cache_size:
+        raise ValueError(f"prefill: {s} tokens exceed cache_size "
+                         f"{cache_size}")
+    x = params["embed"][tokens]
+    positions = torch.arange(s, dtype=torch.int32, device=x.device)[None, :]
+    shape = (cfg.n_layers, b, cfg.n_kv, cache_size, cfg.d_head)
+    ck = torch.zeros(shape, dtype=x.dtype, device=x.device)
+    cv = torch.zeros(shape, dtype=x.dtype, device=x.device)
+    for i, lp in enumerate(params["layers"]):
+        q, k, v = attention_qkv(lp["attn"], rmsnorm(x, lp["ln1"]), cfg.attn,
+                                positions)
+        ck[i, :, :, :s] = k
+        cv[i, :, :, :s] = v
+        o = attention_impl(q, k, v, cfg.causal)
+        o = o.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.d_head)
+        x = x + torch.matmul(o, lp["attn"]["wo"])
+        x = x + mlp_block(lp["mlp"], rmsnorm(x, lp["ln2"]), cfg.act)
+    hidden = rmsnorm(x[:, -1:], params["final_ln"])
+    return logits_fn(params, hidden)[:, 0], {"k": ck, "v": cv}, s
+
+
+def decode_step(params, tokens: torch.Tensor, cache: dict, cache_len: int,
+                cfg: TransformerConfig) -> tuple[torch.Tensor, dict, int]:
+    """One-token decode. tokens (B, 1); cache k/v (L, B, KV, S, Dh);
+    cache_len = number of valid entries. Writes the new token's keys and
+    values at ``cache_len`` IN PLACE and returns (logits (B, V), the same
+    cache, cache_len + 1)."""
+    _check(cfg)
+    cache_len = int(cache_len)
+    size = cache["k"].shape[3]
+    if not 0 <= cache_len < size:
+        raise ValueError(f"decode_step: cache_len {cache_len} outside the "
+                         f"cache's {size} entries")
+    b = tokens.shape[0]
+    x = params["embed"][tokens]                                # (B, 1, D)
+    positions = torch.full((b, 1), cache_len, dtype=torch.int32,
+                           device=x.device)
+    for i, lp in enumerate(params["layers"]):
+        q, k_new, v_new = attention_qkv(lp["attn"], rmsnorm(x, lp["ln1"]),
+                                        cfg.attn, positions)
+        ck, cv = cache["k"][i], cache["v"][i]                  # views
+        ck[:, :, cache_len:cache_len + 1] = k_new
+        cv[:, :, cache_len:cache_len + 1] = v_new
+        o = flash_decode(q[:, :, 0], ck, cv, cache_len=cache_len + 1)
+        o = o.reshape(b, 1, cfg.n_heads * cfg.d_head).to(x.dtype)
+        x = x + torch.matmul(o, lp["attn"]["wo"])
+        x = x + mlp_block(lp["mlp"], rmsnorm(x, lp["ln2"]), cfg.act)
+    hidden = rmsnorm(x, params["final_ln"])
+    return logits_fn(params, hidden)[:, 0], cache, cache_len + 1

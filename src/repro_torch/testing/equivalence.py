@@ -124,3 +124,59 @@ def topk_agree(s_a, i_a, s_b, i_b, score_atol: float = 1e-4,
             f"{i_a[qi, j]} vs reference {i_b[qi, j]} (score "
             f"{s_b[qi, j]!r}, gaps {left[qi, j]!r} and {right[qi, j]!r})")
     return True, err, ""
+
+
+def rounding_agree(got, want, rel: float, slack: float = 1e-4
+                   ) -> tuple[bool, float]:
+    """Hold ``got`` to the reference ``want`` (tensors of one shape)
+    element by element, each within ``rel * |want|`` plus ``slack``
+    times the largest |want| of its row (the last axis). For outputs
+    that both sides compute in fp32 and round to bf16, ``rel = 2**-7``
+    is one rounding step (bf16 keeps 8 significant bits), and the slack
+    covers the fp32 sums' differences where a value is near 0; for fp32
+    outputs, ``rel`` is the relative error allowed. A limit scaled to
+    each value catches errors that a fixed absolute limit would miss
+    where the values are small. Returns (agree, largest ratio of an
+    error to its limit)."""
+    import torch
+
+    g, w = got.float(), want.float()
+    if g.shape != w.shape:
+        return False, float("inf")
+    lim = rel * w.abs() + slack * w.abs().amax(-1, keepdim=True)
+    diff = (g - w).abs()
+    ratio = torch.where(diff == 0, torch.zeros_like(diff), diff / lim)
+    worst = float(ratio.max()) if ratio.numel() else 0.0
+    return worst <= 1.0, worst
+
+
+def partials_agree(got, want, rel: float = 1e-4) -> tuple[bool, float, str]:
+    """Hold split-softmax partials ``got = (m, l, acc)`` (m, l: (..., ns),
+    acc: (..., ns, D), fp32) to the reference ``want``: the empty splits
+    (m = -inf) are the same and hold l = 0 and acc = 0; elsewhere m is
+    within ``rel * max(1, |m|)``, l within ``rel * l`` and acc within
+    ``rel`` of each value plus ``rel`` of its split's largest |acc|.
+    Returns (agree, largest ratio of an error to its limit, reason)."""
+    import torch
+
+    (gm, gl, ga), (wm, wl, wa) = got, want
+    if gm.shape != wm.shape or gl.shape != wl.shape or ga.shape != wa.shape:
+        return False, float("inf"), "shapes differ"
+    empty = torch.isneginf(wm)
+    if not torch.equal(torch.isneginf(gm), empty):
+        return False, float("inf"), "the empty splits differ"
+    if not (bool((gl[empty] == 0).all()) and bool((ga[empty] == 0).all())):
+        return False, float("inf"), "an empty split has l or acc != 0"
+    live = ~empty
+    worst = 0.0
+    for name, diff, lim in (
+            ("m", (gm - wm)[live].abs(), rel * wm[live].abs().clamp_min(1)),
+            ("l", (gl - wl)[live].abs(), rel * wl[live])):
+        r = float((diff / lim).max()) if diff.numel() else 0.0
+        if not r <= 1.0:
+            return False, r, f"{name} differs by {r:.3g} x its limit"
+        worst = max(worst, r)
+    ok, r = rounding_agree(ga, wa, rel, rel)
+    if not ok:
+        return False, r, f"acc differs by {r:.3g} x its limit"
+    return True, max(worst, r), ""

@@ -1,0 +1,267 @@
+"""Port parity for the attention kernels: repro_torch's flash_attention and
+flash_decode on CPU tensors (their plain PyTorch versions) against
+repro's Pallas kernels in interpret mode and its jnp oracles, on the same
+numpy inputs: the shapes of tests/test_kernels_attention.py, plus head
+dim 32 without the causal mask (the embedder's encoder), a fully masked
+row, ragged decode caches and split invariance.
+
+Tolerances: rtol = atol = 2e-5 in fp32 (the packages sum in different
+orders); 5e-2 in bf16, as repro's own bf16 test (bf16 keeps ~3 decimal
+digits and the packages round at different places)."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_attention.ops import flash_attention as repro_fa
+from repro.kernels.flash_attention.ref import attention_ref as repro_aref
+from repro.kernels.flash_decode.ops import flash_decode as repro_fd
+from repro.kernels.flash_decode.ref import decode_attention_ref as repro_dref
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention.plain import flash_attention_plain
+from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_decode import ops as fd_ops
+from repro_torch.kernels.flash_decode.plain import (
+    flash_decode_partials_plain, flash_decode_plain, merge_partials)
+from repro_torch.kernels.flash_decode.ref import decode_attention_ref
+from repro_torch.testing import partials_agree, rounding_agree
+
+F32 = dict(rtol=2e-5, atol=2e-5)
+BF16 = dict(rtol=5e-2, atol=5e-2)
+
+
+def _rand(shape, seed):
+    return np.random.default_rng(seed).standard_normal(shape).astype(
+        np.float32)
+
+
+def _t(*xs):
+    return [torch.from_numpy(x) for x in xs]
+
+
+@pytest.mark.parametrize("b,h,kv,sq,skv,d,causal", [
+    (1, 4, 4, 128, 128, 64, True),      # MHA causal
+    (2, 8, 2, 128, 256, 64, True),      # GQA group=4, prefill vs longer kv
+    (1, 4, 1, 256, 256, 32, False),     # MQA bidirectional
+    (1, 2, 2, 128, 384, 128, True),     # d=128
+    (3, 12, 12, 16, 16, 32, False),     # the embedder's encoder (MiniLM)
+    (1, 8, 2, 48, 48, 128, True),       # a short prefill, GQA 4
+])
+def test_flash_attention_matches_repro(b, h, kv, sq, skv, d, causal):
+    q, k, v = (_rand((b, h, sq, d), 1), _rand((b, kv, skv, d), 2),
+               _rand((b, kv, skv, d), 3))
+    got = fa_ops.flash_attention(*_t(q, k, v), causal=causal)
+    assert got.dtype == torch.float32 and got.shape == (b, h, sq, d)
+    want = repro_fa(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                    causal=causal, mode="interpret")
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
+    want = repro_aref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                      causal=causal)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
+    np.testing.assert_allclose(attention_ref(*_t(q, k, v), causal=causal),
+                               np.asarray(want), **F32)
+
+
+def test_flash_attention_bf16():
+    q = _rand((1, 4, 128, 64), 1)
+    k, v = _rand((1, 2, 128, 64), 2), _rand((1, 2, 128, 64), 3)
+    got = fa_ops.flash_attention(*[x.to(torch.bfloat16) for x in _t(q, k, v)],
+                                 causal=True)
+    assert got.dtype == torch.bfloat16
+    want = repro_fa(*(jnp.asarray(x, jnp.bfloat16) for x in (q, k, v)),
+                    causal=True, mode="interpret")
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), **BF16)
+
+
+def test_fully_masked_rows_are_zero():
+    """More queries than keys under the causal mask: the first Sq - Skv
+    rows see no key. The kernel's function gives 0 there (the oracle
+    NaN); the rest agree with the oracle."""
+    q, k, v = (_rand((1, 2, 64, 32), 4), _rand((1, 2, 40, 32), 5),
+               _rand((1, 2, 40, 32), 6))
+    got = fa_ops.flash_attention(*_t(q, k, v), causal=True).numpy()
+    assert np.all(got[:, :, :24] == 0.0)
+    want = np.asarray(repro_fa(jnp.asarray(q), jnp.asarray(k),
+                               jnp.asarray(v), causal=True, bq=64, bk=40,
+                               mode="interpret"))
+    np.testing.assert_allclose(got, want, **F32)
+    ref = attention_ref(*_t(q, k, v), causal=True).numpy()
+    assert np.all(np.isnan(ref[:, :, :24]))
+    np.testing.assert_allclose(got[:, :, 24:], ref[:, :, 24:], **F32)
+
+
+def test_flash_attention_cpu_path_is_plain_and_counts_no_launch():
+    q, k, v = _t(_rand((2, 4, 32, 32), 7), _rand((2, 2, 32, 32), 8),
+                 _rand((2, 2, 32, 32), 9))
+    before = fa_ops.launches
+    a = fa_ops.flash_attention(q, k, v, causal=True)
+    assert fa_ops.launches == before
+    assert torch.equal(a, flash_attention_plain(q, k, v, True))
+    with pytest.raises(ValueError):
+        fa_ops.flash_attention(q, k[:, :, :, :16], v, causal=True)
+    with pytest.raises(ValueError):
+        fa_ops.flash_attention(q, k[:, :1].repeat(1, 3, 1, 1),
+                               v[:, :1].repeat(1, 3, 1, 1))   # 4 % 3
+    with pytest.raises(TypeError):
+        fa_ops.flash_attention(q.double(), k.double(), v.double())
+    with pytest.raises(TypeError):
+        fa_ops.flash_attention(q, k.to(torch.bfloat16), v)
+
+
+@pytest.mark.parametrize("b,h,kv,s,d,bs,cache_len", [
+    (1, 4, 4, 512, 64, 256, None),       # full cache
+    (2, 8, 2, 1024, 64, 256, 700),       # partial cache, GQA
+    (1, 4, 1, 512, 128, 512, 512),       # MQA single split
+    (1, 2, 2, 2048, 32, 256, 1),         # single valid token
+    (1, 32, 8, 320, 128, 512, 257),      # the engine's cache, one split
+])
+def test_flash_decode_matches_repro(b, h, kv, s, d, bs, cache_len):
+    q, kc, vc = (_rand((b, h, d), 1), _rand((b, kv, s, d), 2),
+                 _rand((b, kv, s, d), 3))
+    cl = s if cache_len is None else cache_len
+    got = fd_ops.flash_decode(*_t(q, kc, vc), cache_len=cache_len, bs=bs)
+    assert got.shape == (b, h, d) and got.dtype == torch.float32
+    want = np.asarray(repro_fd(jnp.asarray(q), jnp.asarray(kc),
+                               jnp.asarray(vc), cache_len=cl, bs=bs,
+                               mode="interpret"))
+    np.testing.assert_allclose(got.numpy(), want, **F32)
+    want = np.asarray(repro_dref(jnp.asarray(q), jnp.asarray(kc),
+                                 jnp.asarray(vc),
+                                 cache_len=jnp.full((b,), cl, jnp.int32)))
+    np.testing.assert_allclose(got.numpy(), want, **F32)
+    np.testing.assert_allclose(
+        decode_attention_ref(*_t(q, kc, vc), cache_len=torch.full((b,), cl)),
+        want, **F32)
+
+
+@pytest.mark.parametrize("s,bs,cache_len", [
+    (1088, 512, 1088), (1088, 512, 1000), (700, 256, 513), (300, 128, 1),
+])
+def test_flash_decode_ragged_cache(s, bs, cache_len):
+    """S not a multiple of bs (repro's Pallas wrapper asserts S % bs ==
+    0; the port's last split is ragged), held against repro's oracle."""
+    q, kc, vc = (_rand((2, 8, 64), 10), _rand((2, 2, s, 64), 11),
+                 _rand((2, 2, s, 64), 12))
+    got = fd_ops.flash_decode(*_t(q, kc, vc), cache_len=cache_len, bs=bs)
+    want = np.asarray(repro_dref(jnp.asarray(q), jnp.asarray(kc),
+                                 jnp.asarray(vc),
+                                 cache_len=jnp.full((2,), cache_len,
+                                                    jnp.int32)))
+    np.testing.assert_allclose(got.numpy(), want, **F32)
+    m, l, acc = flash_decode_partials_plain(*_t(q, kc, vc), cache_len, bs)
+    ns = -(-s // bs)
+    assert m.shape == (2, 8, ns) and acc.shape == (2, 8, ns, 64)
+    dead = np.arange(ns) * bs >= cache_len          # splits past the prefix
+    assert np.all(np.isneginf(m.numpy()[:, :, dead]))
+    assert np.all(l.numpy()[:, :, dead] == 0) and np.all(
+        acc.numpy()[:, :, dead] == 0)
+
+
+def test_flash_decode_split_invariance():
+    """Split count must not change the result (merge correctness)."""
+    q, kc, vc = _t(_rand((1, 4, 64), 1), _rand((1, 4, 1024, 64), 2),
+                   _rand((1, 4, 1024, 64), 3))
+    outs = [fd_ops.flash_decode(q, kc, vc, cache_len=900, bs=bs).numpy()
+            for bs in (128, 256, 1024, 300)]
+    for o in outs[1:]:
+        np.testing.assert_allclose(o, outs[0], rtol=1e-5, atol=1e-5)
+
+
+def test_flash_decode_bf16():
+    q, kc, vc = _rand((1, 8, 128), 1), _rand((1, 2, 512, 128), 2), \
+        _rand((1, 2, 512, 128), 3)
+    got = fd_ops.flash_decode(*[x.to(torch.bfloat16) for x in _t(q, kc, vc)],
+                              cache_len=400, bs=256)
+    assert got.dtype == torch.bfloat16
+    want = repro_fd(*(jnp.asarray(x, jnp.bfloat16) for x in (q, kc, vc)),
+                    cache_len=400, bs=256, mode="interpret")
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), **BF16)
+
+
+def test_decode_matches_flash_attention_last_token():
+    """Consistency across kernels: decode(q_last) == attention last row."""
+    b, h, s, d = 1, 2, 256, 64
+    k, v = _t(_rand((b, h, s, d), 5), _rand((b, h, s, d), 6))
+    q_full = torch.from_numpy(_rand((b, h, s, d), 7))
+    full = fa_ops.flash_attention(q_full, k, v, causal=True)
+    dec = fd_ops.flash_decode(q_full[:, :, -1].contiguous(), k, v,
+                              cache_len=s, bs=128)
+    np.testing.assert_allclose(dec.numpy(), full[:, :, -1].numpy(), **F32)
+
+
+def test_flash_decode_cpu_path_is_plain_and_checks_inputs():
+    q, kc, vc = _t(_rand((1, 4, 32), 13), _rand((1, 2, 100, 32), 14),
+                   _rand((1, 2, 100, 32), 15))
+    before = fd_ops.launches
+    a = fd_ops.flash_decode(q, kc, vc, cache_len=77, bs=32)
+    assert fd_ops.launches == before
+    assert torch.equal(a, flash_decode_plain(q, kc, vc, 77, 32))
+    with pytest.raises(ValueError):
+        fd_ops.flash_decode(q, kc, vc, cache_len=101)
+    with pytest.raises(ValueError):
+        fd_ops.flash_decode(q[:, :3], kc, vc)
+    with pytest.raises(TypeError):
+        fd_ops.flash_decode(q, kc.to(torch.bfloat16), vc)
+
+
+def test_flash_decode_partials_cpu_path_is_plain():
+    q, kc, vc = _t(_rand((2, 8, 64), 16), _rand((2, 2, 700, 64), 17),
+                   _rand((2, 2, 700, 64), 18))
+    before = fd_ops.launches
+    got = fd_ops.flash_decode_partials(q, kc, vc, 600, 256)
+    assert fd_ops.launches == before
+    for a, b in zip(got, flash_decode_partials_plain(q, kc, vc, 600, 256)):
+        assert torch.equal(a, b)
+    assert torch.equal(merge_partials(*got).to(q.dtype),
+                       fd_ops.flash_decode(q, kc, vc, 600, 256))
+
+
+def _decode_bf16(cache_len, s=16384):
+    q, kc, vc = (torch.from_numpy(x).to(torch.bfloat16) for x in (
+        _rand((2, 8, 128), 19), _rand((2, 2, s, 128), 20),
+        _rand((2, 2, s, 128), 21)))
+    return q, kc, vc, flash_decode_plain(q, kc, vc, cache_len, 512)
+
+
+@pytest.mark.parametrize("fault", ["one rounding step", "ignores cache_len",
+                                   "drops a split"])
+def test_rounding_agree_scales_to_the_values(fault):
+    """The card's bf16 check: one rounding step of each output passes;
+    a decode that reads past cache_len or loses one of 32 splits fails,
+    although its error stays under a fixed 2e-2 (the outputs of N(0, 1)
+    inputs are ~0.01)."""
+    q, kc, vc, want = _decode_bf16(16200)
+    if fault == "one rounding step":
+        up = want.float().abs() * (1 + 2 ** -8)       # next bf16 up or same
+        got = (torch.sign(want.float()) * up).to(torch.bfloat16)
+        assert not torch.equal(got, want)
+    elif fault == "ignores cache_len":
+        got = flash_decode_plain(q, kc, vc, 16384, 512)
+    else:
+        m, l, acc = flash_decode_partials_plain(q, kc, vc, 16200, 512)
+        l, acc = l.clone(), acc.clone()
+        l[..., 3], acc[..., 3, :] = 0, 0
+        got = merge_partials(m, l, acc).to(torch.bfloat16)
+    assert float((got.float() - want.float()).abs().max()) < 2e-2
+    ok, ratio = rounding_agree(got, want, 2 ** -7)
+    assert ok == (fault == "one rounding step"), ratio
+
+
+def test_partials_agree_holds_each_split():
+    q, kc, vc = _t(_rand((1, 4, 64), 22), _rand((1, 2, 1000, 64), 23),
+                   _rand((1, 2, 1000, 64), 24))
+    want = flash_decode_partials_plain(q, kc, vc, 700, 128)
+    assert partials_agree(want, want)[0]
+    near = (want[0], want[1] * (1 + 1e-6), want[2] * (1 + 1e-6))
+    assert partials_agree(near, want)[0]
+    ok, _, why = partials_agree(
+        flash_decode_partials_plain(q, kc, vc, 1000, 128), want)
+    assert not ok and "empty splits" in why            # past cache_len
+    ok, _, why = partials_agree(
+        flash_decode_partials_plain(q, kc, vc, 650, 128), want)
+    assert not ok                                      # a ragged split short
+    acc = want[2].clone()
+    acc[0, 1, 2, 5] *= 1.01
+    assert not partials_agree((want[0], want[1], acc), want)[0]

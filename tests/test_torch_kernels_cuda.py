@@ -9,12 +9,24 @@ Tolerances: scores within 1e-4 absolute (the kernel sums each dot
 product in one fixed fmaf order, the plain version through cuBLAS), ids
 equal wherever the reference scores are more than 1e-5 apart, the empty
 (-inf, -1) slots identical. The int8 kernels are held to their plain
-versions the same way, at both list depths (k <= 64 and 64 < k <= 128)."""
+versions the same way, at both list depths (k <= 64 and 64 < k <= 128)
+and on the sort path (k > 128). The attention kernels, against their
+plain versions on the same inputs: max abs error <= 1e-4 in fp32 and
+<= 2e-2 in bf16, and each output within 1e-4 (fp32: different sum
+orders over D and the key columns) or 2**-7 (bf16: one rounding step of
+8 significant bits) of its own value, plus 1e-4 of its row's largest.
+The decode kernel's fp32 split partials are held to the plain partials
+at 1e-4 before their merge."""
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core.types import VALID_TO_OPEN
+from repro_torch.kernels.flash_attention import ops as fa_ops
+from repro_torch.kernels.flash_attention.plain import flash_attention_plain
+from repro_torch.kernels.flash_decode import ops as fd_ops
+from repro_torch.kernels.flash_decode.plain import (
+    flash_decode_partials_plain, flash_decode_plain)
 from repro_torch.index.quant import fixed_scale, quantize_rows
 from repro_torch.kernels.temporal_mask_score import ops as tops
 from repro_torch.kernels.temporal_mask_score.plain import (
@@ -22,7 +34,8 @@ from repro_torch.kernels.temporal_mask_score.plain import (
 from repro_torch.kernels.topk_search import ops as kops
 from repro_torch.kernels.topk_search.plain import (topk_search_plain,
                                                    topk_search_q8_plain)
-from repro_torch.testing import topk_agree
+from repro_torch.kernels import common
+from repro_torch.testing import partials_agree, rounding_agree, topk_agree
 
 pytestmark = pytest.mark.cuda
 
@@ -94,8 +107,6 @@ def test_topk_kernel_rejects_bad_input(dev):
     q = torch.tensor(_rand((2, 16), 8), device=dev)
     c = torch.tensor(_rand((200, 16), 9), device=dev)
     m = torch.ones(200, dtype=torch.bool, device=dev)
-    with pytest.raises(ValueError, match="128"):
-        kops.topk_search(q, c, m, kops.KMAX + 1)
     with pytest.raises(TypeError):
         kops.topk_search(q.double(), c, m, 5)
     with pytest.raises(ValueError):
@@ -287,11 +298,6 @@ def test_q8_kernels_reject_bad_input(dev):
     q = torch.tensor(_rand((2, 16), 34), device=dev)
     m = torch.ones(200, dtype=torch.bool, device=dev)
     vf = torch.full((200,), T0, device=dev)
-    with pytest.raises(ValueError, match="128"):
-        kops.topk_search_q8(q, c8, scale, m, 129)
-    with pytest.raises(ValueError, match="128"):
-        tops.temporal_window_topk_q8(q, c8, scale, vf, vf + 1, T0, T0 + 1,
-                                     129)
     with pytest.raises(TypeError):
         kops.topk_search_q8(q, c8.float(), scale, m, 5)     # not int8
     with pytest.raises(TypeError):
@@ -303,3 +309,161 @@ def test_q8_kernels_reject_bad_input(dev):
         kops.topk_search_q8(q, c8.T, scale, m, 5)           # not contiguous
     with pytest.raises(ValueError):
         kops.topk_search_q8(q.cpu(), c8, scale, m, 5)       # mixed devices
+
+
+# ---------------------------------------------------------------------------
+# k above the register list: the sort path
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("nq,n,k", [
+    (2, 8192, 129), (33, 3000, 500), (3, 1000, 1000), (1, 20000, 4096),
+    (256, 5000, 200), (5, 700, 513),
+])
+def test_large_k_kernels_match_plain(dev, nq, n, k):
+    d = 384
+    rng = np.random.default_rng(50)
+    q = torch.tensor(_rand((nq, d), 51), device=dev)
+    c = torch.tensor(_rand((n, d), 52), device=dev)
+    mask = torch.tensor(rng.random(n) > 0.3, device=dev)
+    before = kops.launches
+    got = kops.topk_search(q, c, mask, k)
+    assert kops.launches > before
+    _agree(got, topk_search_plain(q, c, mask, min(k + 1, n)))
+    live = int(mask.sum())
+    assert torch.all(got[1][:, live:] == -1)
+    c8, scale = _q8(n, d, 53)
+    c8 = torch.tensor(c8, device=dev)
+    sc = torch.tensor(scale, device=dev)
+    _agree(kops.topk_search_q8(q, c8, scale, mask, k),
+           topk_search_q8_plain(q, c8, sc, mask, min(k + 1, n)))
+    vf = T0 + rng.integers(0, 1000, n)
+    vt = np.where(rng.random(n) < 0.3, VALID_TO_OPEN,
+                  vf + rng.integers(1, 500, n))
+    t0 = T0 + rng.integers(0, 1000, nq)
+    t1 = t0 + rng.integers(1, 300, nq)
+    vf_t, vt_t = torch.tensor(vf, device=dev), torch.tensor(vt, device=dev)
+    t0_t, t1_t = torch.tensor(t0, device=dev), torch.tensor(t1, device=dev)
+    for q8 in (False, True):
+        if q8:
+            got = tops.temporal_window_topk_q8(q, c8, scale, vf_t, vt_t, t0,
+                                               t1, k)
+            want = temporal_window_topk_q8_plain(q, c8, sc, vf_t, vt_t, t0_t,
+                                                 t1_t, min(k + 1, n))
+        else:
+            got = tops.temporal_window_topk(q, c, vf_t, vt_t, t0, t1, k)
+            want = temporal_window_topk_plain(q, c, vf_t, vt_t, t0_t, t1_t,
+                                              min(k + 1, n))
+        _agree(got, want)
+        s, i = (x.cpu().numpy() for x in got)
+        for qi in range(nq):
+            rows = i[qi][np.isfinite(s[qi])]
+            assert np.all((vf[rows] < t1[qi]) & (t0[qi] < vt[rows]))
+
+
+def test_large_k_ties_and_batch_invariance(dev):
+    base = _rand((100, 64), 54)
+    c = torch.tensor(np.repeat(base, 5, axis=0), device=dev)   # 5 copies
+    q = torch.tensor(_rand((40, 64), 55), device=dev)
+    mask = torch.ones(500, dtype=torch.bool, device=dev)
+    s, i = kops.topk_search(q, c, mask, 300)
+    ps, pi = topk_search_plain(q, c, mask, 300)
+    assert torch.equal(i, pi)              # ties: lower row id first
+    assert torch.allclose(s, ps, atol=1e-4, rtol=0)
+    for lo, hi in [(0, 1), (3, 5), (5, 38)]:
+        s2, i2 = kops.topk_search(q[lo:hi].contiguous(), c, mask, 300)
+        assert torch.equal(s2, s[lo:hi]) and torch.equal(i2, i[lo:hi])
+
+
+@pytest.mark.parametrize("budget_queries", [1, 5, 31])
+def test_large_k_query_chunks_within_budget(dev, monkeypatch,
+                                            budget_queries):
+    """Where fewer than 32 queries' candidates fit the budget, each
+    launch takes no more queries than fit, and the answers are those of
+    one launch."""
+    nq, n, d, k = 40, 3000, 64, 300
+    q = torch.tensor(_rand((nq, d), 56), device=dev)
+    c = torch.tensor(_rand((n, d), 57), device=dev)
+    mask = torch.ones(n, dtype=torch.bool, device=dev)
+    whole = kops.topk_search(q, c, mask, k)
+    lib = kops._lib()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    per_query = (int(lib.topk_tile_grid_x(n, nq, sms, k))
+                 * int(lib.topk_tile_list_len(k)))
+    monkeypatch.setattr(common, "CAND_BUDGET", budget_queries * per_query)
+    before = kops.launches
+    s, i = kops.topk_search(q, c, mask, k)
+    assert kops.launches - before == -(-nq // budget_queries)
+    assert torch.equal(s, whole[0]) and torch.equal(i, whole[1])
+
+
+# ---------------------------------------------------------------------------
+# attention kernels
+# ---------------------------------------------------------------------------
+def _randn(shape, seed, dev, dtype):
+    x = np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
+    return torch.tensor(x, device=dev).to(dtype)
+
+
+def _attention_agree(got, want, dtype):
+    tol, rel = (1e-4, 1e-4) if dtype == torch.float32 else (2e-2, 2 ** -7)
+    assert float((got.float() - want.float()).abs().max()) <= tol
+    ok, ratio = rounding_agree(got, want, rel)
+    assert ok, f"an output is {ratio:.3g} x its limit from plain"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,kv,sq,skv,d,causal", [
+    (4, 12, 12, 128, 128, 32, False), (1, 32, 8, 256, 256, 128, True),
+    (2, 8, 2, 100, 300, 64, True), (1, 4, 1, 77, 77, 32, False),
+    (1, 2, 2, 64, 40, 128, True),          # rows that see no key: 0
+])
+def test_flash_attention_kernel_matches_plain(dev, dtype, b, h, kv, sq, skv,
+                                              d, causal):
+    q = _randn((b, h, sq, d), 60, dev, dtype)
+    k = _randn((b, kv, skv, d), 61, dev, dtype)
+    v = _randn((b, kv, skv, d), 62, dev, dtype)
+    before = fa_ops.launches
+    got = fa_ops.flash_attention(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert fa_ops.launches == before + 1 and got.dtype == dtype
+    want = flash_attention_plain(q, k, v, causal)
+    _attention_agree(got, want, dtype)
+    if sq > skv and causal:
+        assert torch.all(got[:, :, :sq - skv] == 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,kv,s,d,cache_len,bs", [
+    (1, 32, 8, 320, 128, 257, 512), (2, 8, 2, 1088, 64, 1000, 512),
+    (3, 4, 4, 700, 32, 1, 256), (1, 32, 8, 4096, 128, 4096, 512),
+    (2, 16, 2, 300, 128, 0, 128),          # empty prefix: 0
+])
+def test_flash_decode_kernel_matches_plain(dev, dtype, b, h, kv, s, d,
+                                           cache_len, bs):
+    q = _randn((b, h, d), 63, dev, dtype)
+    kc = _randn((b, kv, s, d), 64, dev, dtype)
+    vc = _randn((b, kv, s, d), 65, dev, dtype)
+    before = fd_ops.launches
+    got = fd_ops.flash_decode(q, kc, vc, cache_len=cache_len, bs=bs)
+    torch.cuda.synchronize()
+    assert fd_ops.launches == before + 1 and got.dtype == dtype
+    want = flash_decode_plain(q, kc, vc, cache_len, bs)
+    _attention_agree(got, want, dtype)
+    ok, _, why = partials_agree(
+        fd_ops.flash_decode_partials(q, kc, vc, cache_len, bs),
+        flash_decode_partials_plain(q, kc, vc, cache_len, bs))
+    assert ok, why
+    if cache_len == 0:
+        assert torch.all(got == 0)
+
+
+def test_attention_kernels_reject_bad_input(dev):
+    q = _randn((1, 4, 16, 48), 66, dev, torch.float32)        # D = 48
+    with pytest.raises(ValueError, match="head dim"):
+        fa_ops.flash_attention(q, q, q)
+    with pytest.raises(ValueError, match="head dim"):
+        fd_ops.flash_decode(q[:, :, 0].contiguous(), q, q)
+    q = _randn((1, 4, 16, 32), 67, dev, torch.float32)
+    with pytest.raises(ValueError):
+        fa_ops.flash_attention(q, q.cpu(), q.cpu())
+    with pytest.raises(TypeError):
+        fa_ops.flash_attention(q.half(), q.half(), q.half())

@@ -261,3 +261,22 @@ def test_quantized_ivf_search_is_repro_bitwise(masked):
     np.testing.assert_array_equal(i, i_r)
     assert st.fraction_scanned == st_r.fraction_scanned
     assert np.all(i >= 0) and (mask is None or np.all(mask[i]))
+
+
+# k above the card's register list (128): a quantized store's pool at
+# query k > 32 (rescore_factor 4)
+@pytest.mark.parametrize("nq,n,d,k", [
+    (2, 1000, 384, 129), (3, 2000, 96, 500), (1, 5000, 32, 4096),
+])
+def test_q8_large_k_matches_repro_ref(nq, n, d, k):
+    q = _rand((nq, d), 40)
+    c8, sc = _q8(n, d, 41)
+    mask = np.random.default_rng(42).random(n) > 0.3
+    assert_parity(port_topk_q8(q, c8, sc, mask, k),
+                  repro_topk_q8(q, c8, sc, mask, k, mode="ref"))
+    vf, vt = _history(n, 43)
+    t0s, t1s = _windows(nq, 44)
+    got = port_window_q8(q, c8, sc, vf, vt, t0s, t1s, k)
+    assert_parity(got, repro_window_q8(q, c8, sc, vf, vt, t0s, t1s, k,
+                                       mode="ref"))
+    assert_in_window(got[1], got[0], vf, vt, t0s, t1s)

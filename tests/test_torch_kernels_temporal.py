@@ -177,3 +177,16 @@ def test_cpu_path_counts_no_launch_and_checks_inputs():
         tops.temporal_window_topk(
             torch.from_numpy(q), torch.from_numpy(c),
             torch.from_numpy(vf[:30]), torch.from_numpy(vt), T0, T0 + 1, 5)
+
+
+@pytest.mark.parametrize("nq,n,d,k", [
+    (2, 1000, 384, 129), (3, 3000, 64, 500), (1, 5000, 32, 4096),
+])
+def test_window_large_k_matches_repro_ref(nq, n, d, k):
+    q, c = _rand((nq, d), 23), _rand((n, d), 24)
+    vf, vt = _history(n, 25)
+    t0s, t1s = _windows(nq, 26)
+    got = port_window(q, c, vf, vt, t0s, t1s, k)
+    assert got[0].shape == (nq, min(k, n))
+    assert_parity(got, repro_window(q, c, vf, vt, t0s, t1s, k, mode="ref"))
+    assert_in_window(got[1], got[0], vf, vt, t0s, t1s)

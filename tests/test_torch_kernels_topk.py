@@ -180,3 +180,20 @@ def test_topk_agree_reads_the_next_reference_entry(ref_cols, agree):
     assert agree or "query 0 slot 2" in why
     ok, _, why = topk_agree(s, np.array([[2, 1, 4]]), ref_s, ref_i)
     assert not ok and "slot 0" in why
+
+
+# k above the card's register list (128): the card takes its sort path
+# there; the CPU path is the same plain version at every k
+@pytest.mark.parametrize("nq,n,d,k", [
+    (2, 1000, 384, 129), (3, 2000, 64, 500), (2, 700, 32, 700),
+    (1, 5000, 32, 4096),
+])
+def test_large_k_matches_repro_ref(nq, n, d, k):
+    q, c = _rand((nq, d), 20), _rand((n, d), 21)
+    mask = np.random.default_rng(22).random(n) > 0.3
+    got = port_topk(q, c, mask, k)
+    assert got[0].shape == (nq, min(k, n))
+    assert_parity(got, repro_topk(q, c, mask, k, mode="ref"))
+    live = int(mask.sum())
+    assert torch.all(got[1][:, live:] == -1)
+    assert torch.all(torch.isfinite(got[0][:, :live]))
