@@ -10,7 +10,8 @@ quarter-million-row history, drives ``LiveVectorLake`` end to end, fp32
 and quantized, then the paper's RAG path: the MiniLM embedder at full
 width embedding the paper's corpus into stores on the card, and a
 Mistral-NeMo-12B generator at full width (seeded random weights)
-answering requests grounded in them.
+answering requests grounded in them; last, the recsys family (DLRM at
+MLPerf widths, FM, Wide&Deep, BERT4Rec) serving on the card.
 
 Phases (any failure stops the script with a non-zero exit):
   1. setup: card name and power limit, kernel build time;
@@ -18,8 +19,11 @@ Phases (any failure stops the script with a non-zero exit):
      the least time the card could take (bound): the four top-k scans
      (k up to 128 on their register lists, k in {129, 500, 4096} on
      their sort path), flash attention (the MiniLM encoder, Mistral-NeMo
-     prefill at 256 and 4096 tokens) and split-K decode (the engine's
-     cache; decode_32k, 16 x 32768, at full and partial length);
+     prefill at 256 and 4096 tokens), split-K decode (the engine's
+     cache; decode_32k, 16 x 32768, at full and partial length) and the
+     embedding bag (DLRM's table 0, 25M x 128 fp32, at B 512 and
+     262,144, L = 1, bit for bit; table 20 at B 4096, L = 100, fp32 and
+     bf16, sum and mean);
   3. TemporalEngine, fp32 and int8, on a >= 250k-row cold tier (5
      commits) vs the CPU; the int8 engine also by recall@10 vs fp32;
   4. LiveVectorLake on the paper's corpus (100 docs x 5 versions) at two
@@ -43,7 +47,17 @@ Phases (any failure stops the script with a non-zero exit):
      5-6 (store and generation) are the attention kernels' main path:
      their "launches" below. Then a decode-vs-prefill cross-check at full
      width, fp32, 4 layers: prefill 256 tokens + decode 128 against one
-     prefill of 384 (logits within 1e-3 of their max abs, same argmax).
+     prefill of 384 (logits within 1e-3 of their max abs, same argmax);
+  7. recsys serving at full width, after phase 6 has freed the generator:
+     DLRM at MLPerf widths over its 26 tables capped at 25M rows (58.3 GB
+     fp32, seeded, made on the card) at serve_p99 (512) and serve_bulk
+     (262,144): logits with the kernel bags equal those with the plain
+     bags bit for bit, and the CPU forward over the batch's rows within
+     1e-4 of their max; FM and Wide&Deep (39M and 40M ids) at both
+     shapes and BERT4Rec at serve_p99 (flash_attention, D = 32), card vs
+     CPU; retrieval_cand (1 x 1,000,448, k = 100) for the four through
+     topk_search, held to the plain masked top-k. Its DLRM forwards are
+     the embedding bag's "launches" below (26 a forward).
 It prints a ``{"kernels": [...]}`` line, then, last, the one-line
 ``{"ok": true, "device": {...}}`` result. Without a CUDA device, or
 without the package beside it, it exits non-zero and prints no result.
@@ -85,6 +99,8 @@ KERNELS = {
         "src/repro/kernels/flash_attention/flash_attention.py:27"),
     "flash_decode": ("src/repro_torch/csrc/flash_decode.cu",
                      "src/repro/kernels/flash_decode/flash_decode.py:25"),
+    "embedding_bag": ("src/repro_torch/csrc/embedding_bag.cu",
+                      "src/repro/kernels/embedding_bag/embedding_bag.py:20"),
 }
 TILE_KERNELS = ("topk_search", "temporal_window_topk", "topk_search_q8",
                 "temporal_window_topk_q8")
@@ -707,10 +723,13 @@ def phase_attention(torch, dev) -> dict:
                 want.float().abs().median()), err_over_limit=ratio))
 
     # (what, (B, H, KV, Sq, Skv, D), dtype, causal): the MiniLM encoder at
-    # the main path's chunk x 8; Mistral-NeMo's RAG prefill; a prefill_32k
-    # layer cut to 4096 tokens
+    # the main path's chunk x 8; BERT4Rec's serve_p99 batch (200 tokens:
+    # both tiles ragged); Mistral-NeMo's RAG prefill; a prefill_32k layer
+    # cut to 4096 tokens
     for what, (b, h, kv, sq, skv, d), dtype, causal, iters in (
             ("minilm encode 256x128", (256, 12, 12, 128, 128, 32),
+             torch.float32, False, 20),
+            ("bert4rec serve_p99 512x200", (512, 2, 2, 200, 200, 32),
              torch.float32, False, 20),
             ("nemo prefill 256", (1, 32, 8, 256, 256, 128), torch.bfloat16,
              True, 50),
@@ -778,6 +797,166 @@ def phase_attention(torch, dev) -> dict:
                 f"{key}={val:.4g}" if isinstance(val, float) else
                 f"{key}={val}" for key, val in row.items()))
         log(f"  {name}: max_abs_err={r['err']:.3g}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 2 (recsys): the embedding bag vs plain
+# ---------------------------------------------------------------------------
+def bag_ids(torch, gen, v: int, b: int, bag: int, dev, pad: float = 0.0):
+    """(B, L) int32 ids over the whole table: V - 1 and ids above 2^24
+    (where V allows) among them, ``pad`` of the slots padding (-1 and
+    -7), bag 0 all padding and bag 1 holding the id V (a NaN row)."""
+    idx = torch.randint(0, v, (b, bag), generator=gen, device=dev,
+                        dtype=torch.int32)
+    if pad:
+        u = torch.rand((b, bag), generator=gen, device=dev)
+        idx = torch.where(u < pad / 2, -1, torch.where(u < pad, -7, idx))
+    idx[-1, -1] = v - 1
+    if v > (1 << 24) + 2:
+        idx[-2, 0] = 1 << 24
+        idx[-3, 0] = (1 << 24) + 1
+    idx[0] = -1
+    idx[1, bag // 2] = v
+    return idx.to(torch.int32)
+
+
+def phase_embedding_bag(torch, dev) -> dict:
+    """The kernel against its plain version at the recsys path's shapes:
+    DLRM's table 0 (25,000,192 x 128 fp32 after the one-card cap) at
+    serve_p99 and serve_bulk (L = 1), and table 20 (11,316,992 x 128) at
+    the widest bag of MLPerf's multi-hot DLRM (L = 100), fp32 and bf16."""
+    import torch.nn.functional as F
+
+    from repro_torch.configs.dlrm_mlperf import ONE_CARD
+    from repro_torch.kernels.embedding_bag import ops as eb
+    from repro_torch.kernels.embedding_bag.plain import embedding_bag_plain
+    from repro_torch.models.recsys import table_init
+    from repro_torch.testing import rounding_agree
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    out = {"embedding_bag": {"err": 0.0, "times": []}}
+    sizes = ONE_CARD.padded_table_sizes
+
+    def hold(what, table, idx, w, combiner):
+        got = eb.embedding_bag(table, idx, w, combiner)
+        want = embedding_bag_plain(table, idx, w, combiner)
+        nan = torch.isnan(want).any(1)
+        check(torch.equal(torch.isnan(got).any(1), nan)
+              and bool(torch.isnan(got[nan]).all())
+              and int(nan.sum()) == 1 and bool(nan[1]),
+              f"embedding_bag {what}: NaN rows differ from the bag with id V")
+        g, t = got[~nan].float(), want[~nan].float()
+        check(bool((g[0] == 0).all()), f"embedding_bag {what}: the "
+                                       f"all-padding bag is not 0")
+        err = float((g - t).abs().max())
+        if idx.shape[1] == 1 and table.dtype == torch.float32:
+            check(torch.equal(g, t), f"embedding_bag {what}: not bit for bit "
+                                     f"(max abs err {err})")
+        elif table.dtype == torch.bfloat16:
+            ok, ratio = rounding_agree(g, t, 2 ** -7)
+            check(ok, f"embedding_bag {what}: an output differs from plain "
+                      f"by {ratio:.3g} x one bf16 rounding step")
+        else:
+            # 1e-5 of sum_j |w_j * row_j| a component (fmaf against a
+            # product then an add: one rounding a term apart)
+            valid = (idx >= 0) & (idx < table.shape[0])
+            rows = table[torch.where(valid, idx, 0).long()].float().abs()
+            scale = (torch.where(valid, w.abs(), 0.0)[..., None]
+                     * rows).sum(1)
+            if combiner == "mean":
+                scale = scale / torch.where(valid, w, 0.0).sum(
+                    1, keepdim=True).clamp_min(1e-9)
+            check(bool(((g - t).abs() <= 1e-5 * scale[~nan]).all()),
+                  f"embedding_bag {what}: max abs err {err} above 1e-5 of "
+                  f"sum |w * row|")
+        out["embedding_bag"]["err"] = max(out["embedding_bag"]["err"], err)
+
+    def timed(what, table, batches, combiner, iters, plain_iters):
+        """Kernel, plain and library time over ``batches`` [(idx, w)],
+        one batch a call in turn (new rows each call: a serving caller
+        finds them cold in L2)."""
+        v, d = table.shape
+        es = table.element_size()
+        turn = {"i": 0}
+
+        def nxt(of=batches):
+            turn["i"] = (turn["i"] + 1) % len(of)
+            return of[turn["i"]]
+
+        # the library call's inputs made once: its time is F.embedding_bag's
+        lib = [(idx.clamp(0, v - 1), torch.where(idx >= 0, w, 0.0).to(
+            table.dtype)) for idx, w in batches]
+
+        def library():
+            idx, w = nxt(lib)
+            return F.embedding_bag(idx, table, per_sample_weights=w,
+                                   mode="sum")
+
+        t = cuda_ms(torch, lambda: eb.embedding_bag(table, *nxt(), combiner),
+                    iters)
+        tp = cuda_ms(torch, lambda: embedding_bag_plain(table, *nxt(),
+                                                        combiner),
+                     plain_iters, 1)
+        tl = cuda_ms(torch, library, iters, 1)
+        del lib
+        idx, _ = batches[0]
+        b, bag = idx.shape
+        n_valid = int(((idx >= 0) & (idx < v)).sum())
+        bnd, by = bound_ms(n_valid * d * es + b * bag * 8, b * d * es,
+                           2 * n_valid * d)
+        out["embedding_bag"]["times"].append(dict(
+            what=what, B=b, L=bag, ms=t, plain_ms=tp, library_ms=tl,
+            bound_ms=bnd, bound_by=by))
+
+    v0 = sizes[0]
+    table = table_init(gen, (v0, 128), v0 ** -0.25, torch.float32, dev)
+    for what, b, n_batches, iters in (("serve_p99", 512, 60, 50),
+                                      ("serve_bulk", 262_144, 3, 10)):
+        batches = []
+        for _ in range(n_batches):
+            idx = torch.randint(0, v0, (b, 1), generator=gen, device=dev,
+                                dtype=torch.int32)
+            batches.append((idx, torch.ones((b, 1), device=dev)))
+        idx = bag_ids(torch, gen, v0, b, 1, dev)
+        ones = torch.ones((b, 1), device=dev)
+        for combiner in ("sum", "mean"):
+            hold(f"{what} (B={b}, L=1) {combiner}", table, idx, ones,
+                 combiner)
+        # as DLRM calls it: one field of a (B, 26, 1) id tensor, read
+        # through its row stride, and no weights (unit weights)
+        fields = torch.randint(0, v0, (b, 26, 1), generator=gen, device=dev,
+                               dtype=torch.int32)
+        fields[:, 3] = idx
+        hold(f"{what} (B={b}, L=1) field 3 of 26, no weights", table,
+             fields[:, 3], None, "sum")
+        del fields
+        batches[0] = (idx, ones)
+        timed(f"{what} table 0 fp32", table, batches, "sum", iters, 3)
+    del table, batches
+    torch.cuda.empty_cache()
+    v20 = sizes[20]
+    table = table_init(gen, (v20, 128), v20 ** -0.25, torch.float32, dev)
+    b, bag = 4096, 100
+    batches = []
+    for _ in range(3):
+        idx = bag_ids(torch, gen, v20, b, bag, dev, pad=0.3)
+        batches.append((idx, torch.rand((b, bag), generator=gen, device=dev)))
+    for dtype in (torch.float32, torch.bfloat16):
+        t = table if dtype == torch.float32 else table.to(dtype)
+        name = str(dtype).removeprefix("torch.")
+        for combiner in ("sum", "mean"):
+            hold(f"multi-hot (B={b}, L={bag}) {name} {combiner}", t,
+                 *batches[0], combiner)
+        timed(f"multi-hot table 20 {name}", t, batches, "sum", 10, 2)
+        del t
+    del table, batches
+    torch.cuda.empty_cache()
+    for row in out["embedding_bag"]["times"]:
+        log("  embedding_bag: " + " ".join(
+            f"{key}={val:.4g}" if isinstance(val, float) else
+            f"{key}={val}" for key, val in row.items()))
+    log(f"  embedding_bag: max_abs_err={out['embedding_bag']['err']:.3g}")
     return out
 
 
@@ -995,11 +1174,12 @@ def phase_rag_generate(torch, root: str, emb) -> None:
     torch.cuda.empty_cache()
 
 
-def profile_request(torch, engine, query: str, new: int) -> None:
-    """One RAG request under torch.profiler: device busy time against
-    the host clock, and the kernels that take the device's time. The
-    request is checked like the others and its failure is fatal; only
-    a profiler that cannot trace the card is logged and passed over."""
+def profiled(torch, fn):
+    """Run ``fn`` once under torch.profiler (CPU and CUDA activities),
+    synchronized. Returns (its result, host seconds, the CUDA kernels'
+    averages, or None where the profiler cannot trace the card). A
+    failure of ``fn`` is fatal; only a profiler that cannot trace is
+    logged and passed over."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1013,7 +1193,7 @@ def profile_request(torch, engine, query: str, new: int) -> None:
         prof = None
     try:
         t = time.perf_counter()
-        res = engine.answer(query, max_new_tokens=new)
+        res = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
     finally:
@@ -1023,31 +1203,48 @@ def profile_request(torch, engine, query: str, new: int) -> None:
             except Exception as exc:               # noqa: BLE001
                 log(f"  profiler: could not stop tracing ({exc!r})")
                 prof = None
+    if prof is None:
+        return res, wall, None
+    try:
+        kern = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA]
+    except Exception as exc:                       # noqa: BLE001
+        log(f"  profiler: could not read the trace ({exc!r})")
+        return res, wall, None
+    return res, wall, kern
+
+
+def log_device_time(what: str, wall: float, kern, top: int = 8) -> None:
+    """Device busy time of a profiled call against its host time, and
+    the kernels that take it."""
+    if kern is None:
+        return
+    if not kern:
+        log(f"  profiler: no device time recorded ({what})")
+        return
+    busy = sum(e.self_device_time_total for e in kern) / 1e6
+    log(f"  profiled {what}: {wall * 1e3:.1f} ms on the host clock, device "
+        f"busy {busy * 1e3:.1f} ms ({busy / wall:.1%}; idle "
+        f"{1 - busy / wall:.1%})")
+    kern.sort(key=lambda e: -e.self_device_time_total)
+    for e in kern[:top]:
+        log(f"    {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d}x  "
+            f"{e.key[:90]}")
+
+
+def profile_request(torch, engine, query: str, new: int) -> None:
+    """One RAG request under torch.profiler: device busy time against
+    the host clock, and the kernels that take the device's time. The
+    request is checked like the others."""
+    res, wall, kern = profiled(
+        torch, lambda: engine.answer(query, max_new_tokens=new))
     want = engine.store.query(query, k=engine.retrieval_k, at=res.at)
     check(res.retrieved == want, f"profiled RAG {query!r}: retrieved != "
                                  f"store.query")
     check(len(res.token_ids) == new
           and all(0 <= x < engine.cfg.vocab for x in res.token_ids),
           f"profiled RAG {query!r}: bad token ids {res.token_ids}")
-    if prof is None:
-        return
-    try:
-        kern = [e for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA]
-    except Exception as exc:                       # noqa: BLE001
-        log(f"  profiler: could not read the trace ({exc!r})")
-        return
-    busy = sum(e.self_device_time_total for e in kern) / 1e6
-    if not kern:
-        log("  profiler: no device time recorded")
-        return
-    log(f"  profiled request: {wall * 1e3:.1f} ms on the host clock, device "
-        f"busy {busy * 1e3:.1f} ms ({busy / wall:.1%}; idle "
-        f"{1 - busy / wall:.1%})")
-    kern.sort(key=lambda e: -e.self_device_time_total)
-    for e in kern[:8]:
-        log(f"    {e.self_device_time_total / 1e3:9.3f} ms  {e.count:6d}x  "
-            f"{e.key[:90]}")
+    log_device_time("request", wall, kern)
 
 
 def phase_decode_vs_prefill(torch) -> None:
@@ -1085,6 +1282,263 @@ def phase_decode_vs_prefill(torch) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the recsys family at full width
+# ---------------------------------------------------------------------------
+def to_cpu(module) -> dict:
+    return {n: p.detach().cpu() for n, p in module.named_parameters()}
+
+
+def compact(torch, ids, *tables):
+    """The ids remapped onto the rows of ``tables`` that they reference,
+    and those rows, on the CPU (a model's CPU forward over a batch
+    without the full tables)."""
+    uniq, inv = torch.unique(ids, return_inverse=True)
+    return (inv.cpu(), *(t[uniq.long()].cpu() for t in tables))
+
+
+def held_to_cpu(what: str, got, want) -> None:
+    """Card logits against the CPU forward's: within 1e-4 of their max
+    |value| (TF32 off; the two sum the fp32 products in other orders)."""
+    got = got.cpu()
+    scale = float(want.abs().max())
+    err = float((got - want).abs().max())
+    check(got.shape == want.shape and bool(got.isfinite().all()),
+          f"{what}: bad shape or not finite")
+    check(err <= 1e-4 * scale, f"{what}: card vs CPU max abs err {err} > "
+                               f"1e-4 x {scale}")
+    log(f"  {what}: card vs CPU max abs err {err:.3g} of max |logit| "
+        f"{scale:.3g}")
+
+
+def serve_times(torch, what: str, fn, batches: list, reps: int) -> int:
+    """Host ms a batch (synchronized, one batch a call in turn), device ms
+    between CUDA events, samples/s and the peak of allocated memory.
+    Returns the number of calls of ``fn``."""
+    b = next(iter(batches[0].values())).shape[0]
+    host = []
+    with torch.no_grad():
+        for i in range(reps):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            fn(batches[i % len(batches)])
+            torch.cuda.synchronize()
+            host.append((time.perf_counter() - t) * 1e3)
+        turn = {"i": 0}
+
+        def nxt():
+            turn["i"] = (turn["i"] + 1) % len(batches)
+            return fn(batches[turn["i"]])
+
+        dev_ms = cuda_ms(torch, nxt, reps, 1)
+    host.sort()
+    log(f"  {what} (B={b}): host median {host[len(host) // 2]:.4f} min "
+        f"{host[0]:.4f} max {host[-1]:.4f} ms a batch over {reps}; "
+        f"device {dev_ms:.4f} ms a batch (CUDA events, {reps} batches); "
+        f"{b / dev_ms * 1e3:.0f} samples/s; peak allocated "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    return 2 * reps + 1
+
+
+def phase_recsys(torch, dev) -> int:
+    """DLRM at MLPerf widths over the one-card tables (58.3 GB fp32),
+    then FM, Wide&Deep and BERT4Rec at full width, then retrieval_cand
+    for the four, all through ``launch/steps.build_cell``'s functions.
+    Returns the embedding bag's launches on the DLRM serving path."""
+    from repro_torch.configs.bert4rec import CONFIG as B4R
+    from repro_torch.configs.dlrm_mlperf import ONE_CARD
+    from repro_torch.configs.fm import CONFIG as FM
+    from repro_torch.configs.wide_deep import CONFIG as WD
+    from repro_torch.kernels.embedding_bag import ops as eb
+    from repro_torch.kernels.embedding_bag.plain import embedding_bag_plain
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.topk_search import ops as kops
+    from repro_torch.kernels.topk_search.plain import topk_search_plain
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.models import recsys
+    from repro_torch.models.bridge import params_from_repro, params_to_repro
+    from repro_torch.models.transformer import init_params
+    from repro_torch.testing import topk_agree
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+
+    def batch_size(bundle):
+        return next(iter(bundle.arg_specs[1].values())).shape[0]
+
+    # -- DLRM: 26 tables capped at 25M rows, seeded, made in place
+    cfg = ONE_CARD
+    t = time.perf_counter()
+    params = recsys.dlrm_init(cfg, seed=SEED, device=dev)
+    torch.cuda.synchronize()
+    gb = sum(p.numel() * p.element_size() for p in params.parameters()) / 1e9
+    log(f"  DLRM (MLPerf widths, tables capped at 25M rows): "
+        f"{sum(cfg.padded_table_sizes)} table rows x {cfg.embed_dim}, "
+        f"{gb:.2f} GB fp32 made on the card in "
+        f"{time.perf_counter() - t:.1f} s")
+
+    def dlrm_batch(b):
+        # each field draws from its own table (repro's smoke batches draw
+        # every field from min(table_sizes) = 3 rows, all in L2)
+        ids = torch.stack([torch.randint(0, v, (b,), generator=gen,
+                                         device=dev, dtype=torch.int32)
+                           for v in cfg.table_sizes], dim=1)[..., None]
+        return {"dense": torch.rand((b, cfg.n_dense), generator=gen,
+                                    device=dev),
+                "sparse_ids": ids}
+
+    eb.launches = 0
+    forwards = 0
+    for shape, n_batches, reps in (("serve_p99", 20, 20),
+                                   ("serve_bulk", 2, 4)):
+        bundle = build_cell("dlrm-mlperf", shape, device=dev)
+        b = batch_size(bundle)
+        batches = [dlrm_batch(b) for _ in range(n_batches)]
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            got = bundle.fn(params, batches[0])
+            plain = recsys.dlrm_forward(params, cfg, **batches[0],
+                                        bag=embedding_bag_plain)
+        forwards += 1
+        check(got.shape == (b,) and bool(got.isfinite().all()),
+              f"DLRM {shape}: bad shape or not finite")
+        check(torch.equal(got, plain), f"DLRM {shape}: kernel bags != plain "
+                                       f"bags (max abs "
+                                       f"{float((got - plain).abs().max())})")
+        log(f"  DLRM {shape}: logits with the kernel equal those with the "
+            f"plain bag, bit for bit")
+        if shape == "serve_p99":
+            ids = batches[0]["sparse_ids"]
+            tables, remap = {}, torch.empty_like(ids, device="cpu")
+            for i in range(cfg.n_sparse):
+                remap[:, i, 0], tables[f"table_{i}"] = compact(
+                    torch, ids[:, i, 0], params["tables"][f"table_{i}"])
+            cpu = recsys.dlrm_module({"tables": tables,
+                                      "bot": to_cpu(params["bot"]),
+                                      "top": to_cpu(params["top"])})
+            held_to_cpu("DLRM serve_p99", got, recsys.dlrm_forward(
+                cpu, cfg, batches[0]["dense"].cpu(), remap))
+        forwards += serve_times(torch, f"DLRM {shape}",
+                                lambda x: bundle.fn(params, x), batches, reps)
+        with torch.no_grad():
+            _, wall, kern = profiled(torch,
+                                     lambda: bundle.fn(params, batches[1]))
+        forwards += 1
+        log_device_time(f"DLRM {shape} batch", wall, kern)
+        if kern:
+            busy = sum(e.self_device_time_total for e in kern) / 1e3
+            bags = sum(e.self_device_time_total for e in kern
+                       if "embedding_bag" in e.key) / 1e3
+            log(f"  DLRM {shape} batch: embedding_bag kernels {bags:.4f} ms "
+                f"of {busy:.4f} ms device busy ({bags / busy:.1%}); the "
+                f"rest (MLPs, interaction) {busy - bags:.4f} ms")
+        del batches
+    launches = eb.launches
+    check(launches == cfg.n_sparse * forwards,
+          f"DLRM: {launches} embedding_bag launches for {forwards} forwards "
+          f"of {cfg.n_sparse} fields")
+    log(f"  launches on the DLRM serving path: embedding_bag {launches} "
+        f"({cfg.n_sparse} a forward, {forwards} forwards)")
+    del params, plain, got
+    torch.cuda.empty_cache()
+
+    # -- FM and Wide&Deep: one table lookup a field (no kernel)
+    for arch, mcfg, init, fwd in (
+            ("fm", FM, recsys.fm_init, recsys.fm_forward),
+            ("wide-deep", WD, recsys.widedeep_init,
+             recsys.widedeep_forward)):
+        t = time.perf_counter()
+        params = init(mcfg, seed=SEED, device=dev)
+        torch.cuda.synchronize()
+        log(f"  {arch}: {mcfg.n_params()} parameters ({mcfg.n_sparse} "
+            f"fields x {mcfg.vocab_per_field} ids, embed {mcfg.embed_dim}) "
+            f"made on the card in {time.perf_counter() - t:.1f} s")
+        vpf = mcfg.vocab_per_field
+        for shape, reps in (("serve_p99", 20), ("serve_bulk", 4)):
+            bundle = build_cell(arch, shape, device=dev)
+            b = batch_size(bundle)
+            batches = [{"ids": torch.randint(
+                0, vpf, (b, mcfg.n_sparse), generator=gen, device=dev,
+                dtype=torch.int32) + torch.arange(
+                    mcfg.n_sparse, device=dev, dtype=torch.int32) * vpf}
+                for _ in range(2)]
+            torch.cuda.reset_peak_memory_stats()
+            with torch.no_grad():
+                got = bundle.fn(params, batches[0])
+            check(got.shape == (b,) and bool(got.isfinite().all()),
+                  f"{arch} {shape}: bad shape or not finite")
+            if shape == "serve_p99":
+                if arch == "fm":
+                    ids, w, v = compact(torch, batches[0]["ids"],
+                                        params["w"], params["v"])
+                    cpu = recsys.fm_module({"w0": params["w0"].cpu(), "w": w,
+                                            "v": v})
+                else:
+                    ids, w, e = compact(torch, batches[0]["ids"],
+                                        params["wide_w"], params["embed"])
+                    cpu = recsys.widedeep_module({
+                        "wide_w": w, "wide_b": params["wide_b"].cpu(),
+                        "embed": e, "deep": to_cpu(params["deep"])})
+                held_to_cpu(f"{arch} serve_p99", got, fwd(cpu, mcfg, ids))
+            serve_times(torch, f"{arch} {shape}",
+                        lambda x: bundle.fn(params, x), batches, reps)
+        del params, batches, got
+        torch.cuda.empty_cache()
+
+    # -- BERT4Rec at serve_p99 on flash_attention (D = 32, non-causal);
+    #    serve_bulk would hold 262,144 x 30,208 fp32 logits (31.7 GB)
+    params = init_params(B4R, seed=SEED, device=dev)
+    bundle = build_cell("bert4rec", "serve_p99", device=dev)
+    b, s = bundle.arg_specs[1]["tokens"].shape
+    batches = [{"tokens": torch.randint(4, B4R.vocab, (b, s), generator=gen,
+                                        device=dev, dtype=torch.int32)}
+               for _ in range(2)]
+    fa_before = fa.launches
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        got = bundle.fn(params, batches[0])
+    check(fa.launches - fa_before == B4R.n_layers,
+          "BERT4Rec: flash_attention not launched once a layer")
+    cpu = params_from_repro(params_to_repro(params), B4R, "cpu")
+    held_to_cpu("bert4rec serve_p99", got, recsys.bert4rec_forward(
+        cpu, B4R, batches[0]["tokens"].cpu()))
+    serve_times(torch, "bert4rec serve_p99", lambda x: bundle.fn(params, x),
+                batches, 10)
+    log(f"  bert4rec: flash_attention launched {fa.launches - fa_before} "
+        f"times ({B4R.n_layers} a forward)")
+    del params, batches, got
+    torch.cuda.empty_cache()
+
+    # -- retrieval_cand: 1 query x 1,000,448 candidates, the padded 1% tail
+    #    masked, k = 100, through the hot tier's topk_search (D = 10: the
+    #    scalar tile path)
+    k_before = kops.launches
+    for arch in ("dlrm-mlperf", "fm", "wide-deep", "bert4rec"):
+        bundle = build_cell(arch, "retrieval_cand", device=dev)
+        specs = bundle.arg_specs[0]
+        n, d = specs["candidates"].shape
+        mask = torch.ones((n,), dtype=torch.bool, device=dev)
+        mask[-max(1, n // 100):] = False
+        batch = {"query": unit_rows(torch, gen, 1, d, dev),
+                 "candidates": unit_rows(torch, gen, n, d, dev),
+                 "candidate_mask": mask}
+        got = bundle.fn(batch)
+        want = topk_search_plain(batch["query"], batch["candidates"], mask,
+                                 101)
+        ok, err, why = topk_agree(got[0], got[1], want[0], want[1],
+                                  score_atol=1e-4, gap=1e-5)
+        check(ok and got[0].shape == (1, 100), f"{arch} retrieval_cand: {why}")
+        check(bool(mask[got[1].long()].all()),
+              f"{arch} retrieval_cand: a masked candidate ranked")
+        ms = cuda_ms(torch, lambda: bundle.fn(batch), 20)
+        log(f"  {arch} retrieval_cand (1 x {n}, D={d}, k=100): {ms:.4f} ms "
+            f"(CUDA events); max abs score err vs plain {err:.3g}")
+        del batch
+    log(f"  retrieval_cand: topk_search launched {kops.launches - k_before} "
+        f"times")
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -1118,6 +1572,7 @@ def main() -> int:
     log("phase 2: kernels against their plain versions")
     kern = phase_kernels(torch, dev)
     kern.update(phase_attention(torch, dev))
+    kern.update(phase_embedding_bag(torch, dev))
     with tempfile.TemporaryDirectory(prefix="chip_smoke-") as work:
         log("phase 3: temporal engine at scale")
         phase_engine(torch, work)
@@ -1142,10 +1597,15 @@ def main() -> int:
             check(launches[name] > 0, f"{name} was never launched on the "
                                       f"RAG path")
         phase_decode_vs_prefill(torch)
+    log("phase 7: the recsys family at full width")
+    launches["embedding_bag"] = phase_recsys(torch, dev)
+    check(launches["embedding_bag"] > 0,
+          "embedding_bag was never launched on the DLRM serving path")
 
     rows = []
     main_shape = {"flash_attention": "nemo prefill 256",
-                  "flash_decode": "engine cache 320"}
+                  "flash_decode": "engine cache 320",
+                  "embedding_bag": "serve_p99 table 0 fp32"}
     for name, (source, tpu) in KERNELS.items():
         if name in main_shape:
             at = next(r for r in kern[name]["times"]

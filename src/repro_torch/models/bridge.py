@@ -81,3 +81,44 @@ def params_to_repro(params) -> dict:
                     for name, _ in layers[0]["mlp"].named_parameters()},
         },
     }
+
+
+# ---------------------------------------------------------------------------
+# recsys: FM, DLRM, Wide&Deep (BERT4Rec is a transformer: params_from_repro)
+# ---------------------------------------------------------------------------
+def recsys_params_from_repro(np_tree: dict, arch: str, cfg, device=None):
+    """repro's recsys param pytree (numpy leaves) of ``arch`` ("fm",
+    "dlrm-mlperf", "wide-deep" or "bert4rec") -> the port's modules, in
+    ``cfg.dtype`` on ``device`` (None = the card)."""
+    from . import recsys
+
+    if arch == "bert4rec":
+        return params_from_repro(np_tree, cfg, device)
+    device = resolve_device(device)
+
+    def conv(tree):
+        if isinstance(tree, dict):
+            return {k: conv(v) for k, v in tree.items()}
+        return _tensor(tree, cfg.dtype, device)
+
+    build = {"fm": recsys.fm_module, "dlrm-mlperf": recsys.dlrm_module,
+             "wide-deep": recsys.widedeep_module}
+    if arch not in build:
+        raise KeyError(f"no recsys bridge for {arch!r}")
+    return build[arch](conv(np_tree))
+
+
+def recsys_params_to_repro(params, arch: str) -> dict:
+    """The port's recsys modules -> repro's param pytree (numpy leaves,
+    fp32 for bf16 parameters)."""
+    if arch == "bert4rec":
+        return params_to_repro(params)
+    out: dict = {}
+    for name, t in params.named_parameters():
+        t = t.detach().cpu()
+        node = out
+        *path, leaf = name.split(".")
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    return out

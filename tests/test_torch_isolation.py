@@ -110,8 +110,9 @@ def test_build_raises_when_nvcc_fails(monkeypatch, tmp_path):
 
 def test_build_names_every_source_and_rebuilds_on_edit(monkeypatch,
                                                        tmp_path):
-    assert build.sources() == ["flash_attention", "flash_decode",
-                               "temporal_mask_score", "topk_search"]
+    assert build.sources() == ["embedding_bag", "flash_attention",
+                               "flash_decode", "temporal_mask_score",
+                               "topk_search"]
     for name in build.sources():
         assert "sm_90a" in " ".join(build.NVCC_FLAGS)
         assert build.lib_path(name).parent == build.BUILD_DIR

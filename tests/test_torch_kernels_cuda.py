@@ -16,12 +16,20 @@ plain versions on the same inputs: max abs error <= 1e-4 in fp32 and
 orders over D and the key columns) or 2**-7 (bf16: one rounding step of
 8 significant bits) of its own value, plus 1e-4 of its row's largest.
 The decode kernel's fp32 split partials are held to the plain partials
-at 1e-4 before their merge."""
+at 1e-4 before their merge. The embedding-bag kernel, against its plain
+version: bit for bit where a bag has one slot (one product, rounded
+once either way), else each component within 1e-5 of the sum of
+|w * row| over the bag (fmaf against a product then an add: at most one
+rounding a term apart); a bf16 table within one rounding step of
+bf16 (2**-7 of the value plus 1e-4 of the row's largest); NaN rows (an
+id >= V) at exactly the same bags."""
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core.types import VALID_TO_OPEN
+from repro_torch.kernels.embedding_bag import ops as eb_ops
+from repro_torch.kernels.embedding_bag.plain import embedding_bag_plain
 from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.plain import flash_attention_plain
 from repro_torch.kernels.flash_decode import ops as fd_ops
@@ -415,6 +423,7 @@ def _attention_agree(got, want, dtype):
     (4, 12, 12, 128, 128, 32, False), (1, 32, 8, 256, 256, 128, True),
     (2, 8, 2, 100, 300, 64, True), (1, 4, 1, 77, 77, 32, False),
     (1, 2, 2, 64, 40, 128, True),          # rows that see no key: 0
+    (16, 2, 2, 200, 200, 32, False),       # BERT4Rec: both tiles ragged
 ])
 def test_flash_attention_kernel_matches_plain(dev, dtype, b, h, kv, sq, skv,
                                               d, causal):
@@ -467,3 +476,135 @@ def test_attention_kernels_reject_bad_input(dev):
         fa_ops.flash_attention(q, q.cpu(), q.cpu())
     with pytest.raises(TypeError):
         fa_ops.flash_attention(q.half(), q.half(), q.half())
+
+
+# ---------------------------------------------------------------------------
+# embedding bag
+# ---------------------------------------------------------------------------
+def _bag_inputs(v, d, b, bag, seed, dev, dtype=torch.float32, pad=0.3):
+    """Ids over the whole table (V - 1 among them), ``pad`` of the slots
+    padding (-1 and -7), bag 0 all padding, bag 1 holding the id V."""
+    rng = np.random.default_rng(seed)
+    table = torch.empty((v, d), dtype=dtype, device=dev).normal_(
+        generator=torch.Generator(device=dev).manual_seed(seed))
+    idx = rng.integers(0, v, (b, bag))
+    idx[-1, -1] = v - 1
+    slots = rng.random((b, bag))
+    idx = np.where(slots < pad / 2, -1, np.where(slots < pad, -7, idx))
+    idx[0] = -1
+    if b > 2:
+        idx[1, bag // 2] = v
+    w = rng.random((b, bag)).astype(np.float32)
+    return (table, torch.tensor(idx, dtype=torch.int32, device=dev),
+            torch.tensor(w, device=dev))
+
+
+def _bag_agree(got, want, table, idx, w, combiner):
+    nan = torch.isnan(want).any(1)
+    assert torch.equal(torch.isnan(got).any(1), nan)
+    assert bool(torch.isnan(got[nan]).all())
+    g, t = got[~nan].float(), want[~nan].float()
+    if idx.shape[1] == 1 and table.dtype == torch.float32:
+        assert torch.equal(g, t)
+    elif table.dtype == torch.bfloat16:
+        ok, ratio = rounding_agree(g, t, 2 ** -7)
+        assert ok, f"an output is {ratio:.3g} x its limit from plain"
+    else:
+        scale = embedding_bag_plain(table.abs(), idx, w.abs(), combiner)
+        lim = 1e-5 * scale[~nan].float()
+        assert bool(((g - t).abs() <= lim).all())
+
+
+@pytest.mark.parametrize("combiner", ["sum", "mean"])
+@pytest.mark.parametrize("v,d,b,bag,dtype", [
+    (100_000, 128, 512, 1, torch.float32),     # DLRM one-hot
+    (50_000, 128, 300, 100, torch.float32),    # multi-hot, 100 slots
+    (1000, 64, 33, 8, torch.float32),          # ragged last block
+    (5000, 10, 64, 4, torch.float32),          # D % 4 != 0: one a lane
+    (2000, 200, 16, 3, torch.float32),         # two column passes
+    (50_000, 128, 300, 100, torch.bfloat16),
+    (3000, 256, 40, 5, torch.bfloat16),
+    (3000, 12, 40, 5, torch.bfloat16),         # D % 8 != 0
+])
+def test_embedding_bag_kernel_matches_plain(dev, combiner, v, d, b, bag,
+                                            dtype):
+    table, idx, w = _bag_inputs(v, d, b, bag, 70, dev, dtype)
+    before = eb_ops.launches
+    got = eb_ops.embedding_bag(table, idx, w, combiner)
+    torch.cuda.synchronize()
+    assert eb_ops.launches == before + 1
+    assert got.dtype == dtype and got.shape == (b, d)
+    want = embedding_bag_plain(table, idx, w, combiner)
+    _bag_agree(got, want, table, idx, w, combiner)
+    assert torch.all(got[0] == 0)                   # all padding
+
+
+def test_embedding_bag_kernel_rows_past_2_pow_24(dev):
+    """idx * D passes 2**31 above 16.8M rows at D = 128: the kernel's row
+    offsets are 64-bit. A bf16 table of 17M rows (4.4 GB)."""
+    v = 17_000_000
+    table = torch.empty((v, 128), dtype=torch.bfloat16, device=dev)
+    table.normal_(generator=torch.Generator(device=dev).manual_seed(71))
+    idx = torch.randint(1 << 24, v, (4096, 1), dtype=torch.int32,
+                        device=dev)
+    idx[:4, 0] = torch.tensor([v - 1, 1 << 24, (1 << 24) + 1, 0])
+    w = torch.ones((4096, 1), device=dev)
+    got = eb_ops.embedding_bag(table, idx, w)
+    torch.cuda.synchronize()
+    assert torch.equal(got, embedding_bag_plain(table, idx, w))
+    assert torch.equal(got[0], table[v - 1])
+
+
+def test_embedding_bag_kernel_unaligned_and_default_weights(dev):
+    flat = torch.randn(1000 * 16 + 1, device=dev)
+    table = flat[1:].view(1000, 16)                 # 4 bytes off 16
+    idx = torch.randint(-2, 1000, (50, 6), dtype=torch.int32, device=dev)
+    got = eb_ops.embedding_bag(table, idx)
+    want = embedding_bag_plain(table, idx)
+    _bag_agree(got, want, table, idx, torch.ones_like(idx, dtype=torch.float),
+               "sum")
+    assert torch.equal(got, eb_ops.embedding_bag(
+        table, idx.long(), torch.ones((50, 6), device=dev)))
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("bag", [1, 4])
+def test_embedding_bag_kernel_reads_fields_in_place(dev, weighted, bag):
+    """DLRM's call: field i of (B, 26, L) ids and weights, read through
+    its row stride (null weights: unit weights), equals the launch on
+    contiguous copies bit for bit."""
+    table, _, _ = _bag_inputs(30_000, 128, 8, 1, 72, dev)
+    rng = np.random.default_rng(72)
+    ids = torch.tensor(rng.integers(-1, 30_000, (300, 26, bag)),
+                       dtype=torch.int32, device=dev)
+    ids[5, 7, 0] = 30_000                           # a NaN bag
+    w = torch.tensor(rng.random((300, 26, bag)), dtype=torch.float32,
+                     device=dev) if weighted else None
+    for i in (0, 7, 25):
+        wi = None if w is None else w[:, i]
+        before = eb_ops.launches
+        got = eb_ops.embedding_bag(table, ids[:, i], wi, "mean")
+        torch.cuda.synchronize()
+        assert eb_ops.launches == before + 1
+        want = eb_ops.embedding_bag(
+            table, ids[:, i].contiguous(),
+            torch.ones((300, bag), device=dev) if wi is None
+            else wi.contiguous(), "mean")
+        assert torch.equal(torch.isnan(got), torch.isnan(want))
+        assert torch.equal(got.nan_to_num(), want.nan_to_num())
+        _bag_agree(got, embedding_bag_plain(table, ids[:, i], wi, "mean"),
+                   table, ids[:, i], torch.ones((300, bag), device=dev)
+                   if wi is None else wi, "mean")
+
+
+def test_embedding_bag_kernel_rejects_bad_input(dev):
+    table = torch.randn((10, 8), device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        eb_ops.embedding_bag(table.t(), torch.zeros((2, 1), dtype=torch.int32,
+                                                    device=dev))
+    with pytest.raises(ValueError, match="indices on cpu"):
+        eb_ops.embedding_bag(table, torch.zeros((2, 1), dtype=torch.int32))
+    before = eb_ops.launches
+    out = eb_ops.embedding_bag(table, torch.zeros((0, 3), dtype=torch.int32,
+                                                  device=dev))
+    assert out.shape == (0, 8) and eb_ops.launches == before

@@ -1,0 +1,216 @@
+"""Port parity for EmbeddingBag: repro_torch's embedding_bag on CPU
+tensors (its plain PyTorch version) against repro's ``embedding_bag_ref``
+and repro's wrapper in "ref" mode and, where this JAX can run it, its
+Pallas kernel in interpret mode, on the same numpy inputs.
+
+Tolerances: rtol = atol = 1e-5 in fp32 (the two packages sum the bag in
+different orders: the port in slot order, XLA as an einsum), 5e-2 for a
+bf16 table (repro's own kernel tests' tolerance: both round once to
+bf16). NaN rows (an id >= V) must sit at the same bags."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.embedding_bag.ops import embedding_bag as repro_bag
+from repro.kernels.embedding_bag.ref import embedding_bag_ref
+from repro_torch.kernels.embedding_bag import ops as eb
+from repro_torch.kernels.embedding_bag.plain import embedding_bag_plain
+
+
+def _setup(v, d, b, bag, seed=0, pad_frac=0.3, dtype=np.float32):
+    """The inputs of tests/test_kernels_embedding_bag.py."""
+    rng = np.random.default_rng(seed)
+    table = rng.standard_normal((v, d)).astype(dtype)
+    idx = rng.integers(0, v, (b, bag)).astype(np.int32)
+    idx = np.where(rng.random((b, bag)) < pad_frac, -1, idx)
+    w = rng.random((b, bag)).astype(np.float32)
+    return table, idx, w
+
+
+def port_bag(table, idx, w, combiner="sum", dtype=torch.float32):
+    return eb.embedding_bag(torch.from_numpy(table).to(dtype),
+                            torch.from_numpy(idx),
+                            None if w is None else torch.from_numpy(w),
+                            combiner)
+
+
+def ref_bag(table, idx, w, combiner="sum", dtype=jnp.float32):
+    return np.asarray(embedding_bag_ref(
+        jnp.asarray(table, dtype), jnp.asarray(idx),
+        None if w is None else jnp.asarray(w), combiner), np.float32)
+
+
+@pytest.fixture
+def interpret():
+    """Skip where repro's Pallas kernels cannot run in interpret mode
+    (the embedding-bag body calls ``pl.load``, which newer JAX releases
+    removed)."""
+    from jax.experimental import pallas as pl
+    if not hasattr(pl, "load"):
+        pytest.skip("this JAX has no pallas.load: repro's embedding_bag "
+                    "kernel cannot run in interpret mode")
+    return "interpret"
+
+
+# repro's four shapes (tests/test_kernels_embedding_bag.py) and L = 1
+SHAPES = [
+    (1000, 64, 8, 16, "sum"),
+    (5000, 128, 4, 8, "mean"),
+    (128, 32, 16, 4, "sum"),
+    (10000, 16, 2, 32, "mean"),
+    (25_000, 128, 512, 1, "sum"),          # DLRM one-hot at D = 128
+    (300, 10, 64, 1, "mean"),
+]
+
+
+@pytest.mark.parametrize("v,d,b,bag,combiner", SHAPES)
+def test_embedding_bag_matches_ref(v, d, b, bag, combiner):
+    table, idx, w = _setup(v, d, b, bag)
+    got = port_bag(table, idx, w, combiner)
+    assert got.dtype == torch.float32 and got.shape == (b, d)
+    np.testing.assert_allclose(got.numpy(), ref_bag(table, idx, w, combiner),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("v,d,b,bag,combiner", SHAPES)
+def test_embedding_bag_matches_repro_ref_mode(v, d, b, bag, combiner):
+    table, idx, w = _setup(v, d, b, bag, seed=1)
+    want = np.asarray(repro_bag(jnp.asarray(table), idx, w, combiner,
+                                mode="ref"))
+    np.testing.assert_allclose(port_bag(table, idx, w, combiner).numpy(),
+                               want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("v,d,b,bag,combiner", SHAPES[:4])
+def test_embedding_bag_matches_interpret(interpret, v, d, b, bag, combiner):
+    table, idx, w = _setup(v, d, b, bag)
+    want = np.asarray(repro_bag(jnp.asarray(table), idx, w, combiner,
+                                mode=interpret))
+    np.testing.assert_allclose(port_bag(table, idx, w, combiner).numpy(),
+                               want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("combiner", ["sum", "mean"])
+def test_all_padding_row(combiner):
+    table, idx, w = _setup(100, 16, 4, 8)
+    idx[2] = -1
+    got = port_bag(table, idx, w, combiner).numpy()
+    assert np.all(got[2] == 0.0)
+    np.testing.assert_allclose(got, ref_bag(table, idx, w, combiner),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_default_weights():
+    table, idx, _ = _setup(100, 16, 4, 8)
+    a = port_bag(table, idx, None).numpy()
+    b = port_bag(table, idx, np.ones(idx.shape, np.float32)).numpy()
+    np.testing.assert_array_equal(a, b)
+    np.testing.assert_allclose(a, ref_bag(table, idx, None), rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("combiner", ["sum", "mean"])
+def test_bf16_table(combiner):
+    table, idx, w = _setup(500, 64, 4, 8)
+    got = port_bag(table, idx, w, combiner, dtype=torch.bfloat16)
+    assert got.dtype == torch.bfloat16
+    want = ref_bag(table, idx, w, combiner, dtype=jnp.bfloat16)
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=5e-2,
+                               atol=5e-2)
+
+
+def test_every_negative_id_is_padding():
+    table, idx, w = _setup(200, 32, 16, 6)
+    idx[idx < 0] = -7
+    idx[0, :3] = np.iinfo(np.int32).min
+    idx[1] = [-2, -1, -100, 5, -3, 7]
+    for combiner in ("sum", "mean"):
+        got = port_bag(table, idx, w, combiner).numpy()
+        np.testing.assert_allclose(got, ref_bag(table, idx, w, combiner),
+                                   rtol=1e-5, atol=1e-5)
+        pads_as_minus_one = np.where(idx < 0, -1, idx).astype(np.int32)
+        np.testing.assert_array_equal(
+            got, port_bag(table, pads_as_minus_one, w, combiner).numpy())
+
+
+@pytest.mark.parametrize("combiner", ["sum", "mean"])
+def test_id_out_of_range_gives_nan_row(combiner):
+    v = 50
+    table, idx, w = _setup(v, 8, 6, 4)
+    idx[1, 2] = v                  # just past the table
+    idx[3, 0] = v + 1000
+    idx[4] = -1
+    idx[4, 1] = v                  # out of range among pads
+    got = port_bag(table, idx, w, combiner).numpy()
+    want = ref_bag(table, idx, w, combiner)
+    nan_rows = np.isnan(want).any(1)
+    assert sorted(np.flatnonzero(nan_rows)) == [1, 3, 4]
+    assert np.isnan(got[nan_rows]).all()
+    assert not np.isnan(got[~nan_rows]).any()
+    np.testing.assert_allclose(got[~nan_rows], want[~nan_rows], rtol=1e-5,
+                               atol=1e-5)
+
+
+def test_indices_cast_to_int32_and_sums_in_slot_order():
+    table, idx, w = _setup(300, 16, 8, 5)
+    a = port_bag(table, idx.astype(np.int64), w).numpy()
+    b = port_bag(table, idx, w).numpy()
+    np.testing.assert_array_equal(a, b)
+    # slot order j = 0..L-1 in fp32, one rounding a term: L = 1 is exact
+    t = torch.from_numpy(table)
+    one = embedding_bag_plain(t, torch.from_numpy(idx[:, :1]),
+                              torch.from_numpy(w[:, :1]))
+    rows = t[torch.from_numpy(idx[:, 0]).clamp_min(0).long()]
+    want = torch.where(torch.from_numpy(idx[:, :1]) >= 0,
+                       torch.from_numpy(w[:, :1]) * rows, 0.0)
+    assert torch.equal(one, want)
+
+
+def test_wrapper_rejects_bad_input():
+    table = torch.zeros((10, 4))
+    with pytest.raises(ValueError, match="combiner"):
+        eb.embedding_bag(table, torch.zeros((2, 3), dtype=torch.int32),
+                         combiner="max")
+    with pytest.raises(ValueError, match=r"\(B, L\)"):
+        eb.embedding_bag(table, torch.zeros((2, 3), dtype=torch.int32),
+                         torch.ones((2, 2)))
+    with pytest.raises(TypeError, match="2-d"):
+        eb.embedding_bag(torch.zeros((10, 4), dtype=torch.float16),
+                         torch.zeros((2, 3), dtype=torch.int32))
+    before = eb.launches
+    eb.embedding_bag(table, np.zeros((2, 3), np.int32))
+    assert eb.launches == before           # the CPU path launches nothing
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+def test_field_of_a_multi_field_id_tensor(weighted):
+    """DLRM's call: field i of (B, F, L) ids (and weights), a strided
+    row view, gives repro's bag of that field."""
+    rng = np.random.default_rng(5)
+    table = rng.standard_normal((400, 32)).astype(np.float32)
+    ids = rng.integers(-1, 400, (12, 5, 3)).astype(np.int32)
+    w = rng.random((12, 5, 3)).astype(np.float32) if weighted else None
+    t, tids = torch.from_numpy(table), torch.from_numpy(ids)
+    tw = None if w is None else torch.from_numpy(w)
+    for i in (0, 2, 4):
+        got = eb.embedding_bag(t, tids[:, i], None if w is None else tw[:, i])
+        want = ref_bag(table, np.ascontiguousarray(ids[:, i]),
+                       None if w is None else np.ascontiguousarray(w[:, i]))
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    with pytest.raises(ValueError, match=r"\(B, L\)"):
+        eb.embedding_bag(t, tids[:, 0, 0])
+
+
+def test_row_stride_passes_row_views_and_copies_the_rest():
+    ids = torch.arange(4 * 26 * 3, dtype=torch.int32).view(4, 26, 3)
+    x, ld = eb._row_stride(ids[:, 7])
+    assert x.data_ptr() == ids[:, 7].data_ptr() and ld == 78
+    one = torch.zeros((4, 26, 1), dtype=torch.int32)
+    x, ld = eb._row_stride(one[:, 3])
+    assert x.data_ptr() == one[:, 3].data_ptr() and ld == 26
+    t = ids[:, :, 0].t()                   # (26, 4), slots 78 apart
+    x, ld = eb._row_stride(t)
+    assert x.is_contiguous() and ld == 4 and torch.equal(x, t)
+    x, ld = eb._row_stride(ids[:1, 2])     # one bag: its own width
+    assert ld == 3
