@@ -14,13 +14,17 @@ answering requests grounded in them; last, the recsys family (DLRM at
 MLPerf widths, FM, Wide&Deep, BERT4Rec) serving on the card.
 
 Phases (any failure stops the script with a non-zero exit):
-  1. setup: card name and power limit, kernel build time;
+  1. setup: card name and power limit, kernel build time, and ptxas's
+     registers, shared memory and spills of the attention kernels'
+     tensor-core and split-decode instances;
   2. kernels vs plain versions, with times (kernel, plain, library) and
      the least time the card could take (bound): the four top-k scans
      (k up to 128 on their register lists, k in {129, 500, 4096} on
      their sort path), flash attention (the MiniLM encoder, Mistral-NeMo
      prefill at 256 and 4096 tokens), split-K decode (the engine's
-     cache; decode_32k, 16 x 32768, at full and partial length) and the
+     cache; decode_32k, 16 x 32768, at full and partial length; its
+     partials at bs 512 against the plain partials, its in-library merge
+     against merge_partials of the partials at the split it chose) and the
      embedding bag (DLRM's table 0, 25M x 128 fp32, at B 512 and
      262,144, L = 1, bit for bit; table 20 at B 4096, L = 100, fp32 and
      bf16, sum and mean);
@@ -45,7 +49,9 @@ Phases (any failure stops the script with a non-zero exit):
      fp32 store answers 8 requests (4 current, 4 as-of), 16 new tokens
      each; retrieved contexts equal ``store.query``, ids in range. Phases
      5-6 (store and generation) are the attention kernels' main path:
-     their "launches" below. Then a decode-vs-prefill cross-check at full
+     their "launches" below. Warm prefill and decode-step times, and one
+     request under the profiler (device busy share, the attention
+     kernels' device time). Then a decode-vs-prefill cross-check at full
      width, fp32, 4 layers: prefill 256 tokens + decode 128 against one
      prefill of 384 (logits within 1e-3 of their max abs, same argmax);
   7. recsys serving at full width, after phase 6 has freed the generator:
@@ -79,6 +85,9 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, data sheet
 FP32_FLOPS = 67e12         # H100 SXM fp32 outside the tensor cores
 BF16_FLOPS = 989e12        # H100 SXM bf16 dense on the tensor cores
 BIG_K = (129, 500, 4096)   # k above the register lists: the sort path
+# a Mistral-NeMo-12B decode step on the CUDA-core attention kernels with
+# the split merge in torch (H100 80GB HBM3, 700 W), for comparison
+DECODE_STEP_BEFORE_MS = "48.7-67.0"
 SEED = 0
 T_COMMIT = [1_700_000_000_000_000 + c * 30 * 24 * 3600 * 1_000_000
             for c in range(5)]
@@ -104,6 +113,31 @@ KERNELS = {
 }
 TILE_KERNELS = ("topk_search", "temporal_window_topk", "topk_search_q8",
                 "temporal_window_topk_q8")
+
+
+# (source, kernel) whose registers, shared memory and spills phase 1 logs
+PTXAS_REPORT = (("flash_attention", "fa_wgmma_kernel"),
+                ("flash_decode", "decode_partials_kernel"),
+                ("flash_decode", "decode_merge_kernel"))
+
+
+def ptxas_lines(log_text: str, kernel: str) -> list[str]:
+    """One line per compiled instance of ``kernel`` in nvcc's ``-Xptxas
+    -v`` output: its template arguments (as mangled), registers, static
+    shared memory, stack and spills."""
+    out, entry, frame = [], None, ""
+    for line in log_text.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1] if "'" in line else line
+            entry = name if kernel in name else None
+        elif entry and "bytes stack frame" in line:
+            frame = line.strip()
+        elif entry and "Used" in line and "registers" in line:
+            args = entry.split(kernel, 1)[1].split("EEv")[0]
+            out.append(f"{kernel}<{args}>: "
+                       f"{line.split('info    :')[-1].strip()}; {frame}")
+            entry = None
+    return out
 
 
 def check(cond: bool, msg: str) -> None:
@@ -681,10 +715,11 @@ def phase_attention(torch, dev) -> dict:
         flash_attention_plain)
     from repro_torch.kernels.flash_decode import ops as fd
     from repro_torch.kernels.flash_decode.plain import (
-        flash_decode_partials_plain, flash_decode_plain)
+        flash_decode_partials_plain, flash_decode_plain, merge_partials)
     from repro_torch.testing import partials_agree, rounding_agree
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     out = {name: {"err": 0.0, "times": []}
            for name in ("flash_attention", "flash_decode")}
     # kernel vs plain: both compute in fp32 from the same inputs and round
@@ -779,6 +814,19 @@ def phase_attention(torch, dev) -> dict:
             f"{ratio:.3g} x their 1e-4 limits")
         got = fd.flash_decode(q, kc, vc, cache_len=cache_len)
         want = flash_decode_plain(q, kc, vc, cache_len, 512)
+        # the in-library merge against merge_partials of the partials at
+        # the split this call chose: fp32 within 1e-5 (other sum orders),
+        # bf16 within one rounding step of the merged fp32
+        split = fd.choose_split(kv, cache_len, sms)
+        merged = merge_partials(*fd.flash_decode_partials(
+            q, kc, vc, cache_len, split))
+        ok, ratio = (rounding_agree(got, merged, 1e-5, 1e-5)
+                     if dtype == torch.float32 else
+                     rounding_agree(got, merged.to(dtype), rel[dtype]))
+        check(ok, f"flash_decode {what}: merge differs from merge_partials "
+                  f"by {ratio:.3g} x its limit")
+        log(f"  flash_decode {what}: split {split} rows, in-library merge "
+            f"within {ratio:.3g} x its limit of merge_partials")
         es = q.element_size()
         record("flash_decode", what, got, want, dtype,
                lambda: fd.flash_decode(q, kc, vc, cache_len=cache_len),
@@ -1159,16 +1207,21 @@ def phase_rag_generate(torch, root: str, emb) -> None:
         torch.cuda.synchronize()
         t_pre = time.perf_counter() - t
         cur = logits.argmax(-1)[:, None]
-        t = time.perf_counter()
-        steps = 15
-        for _ in range(steps):
+        steps = []
+        for _ in range(15):
+            t = time.perf_counter()
             logits, cache, n = decode_step(params, cur, cache, n, CONFIG)
             cur = logits.argmax(-1)[:, None]
-        torch.cuda.synchronize()
-        t_dec = (time.perf_counter() - t) / steps
+            torch.cuda.synchronize()
+            steps.append(time.perf_counter() - t)
+    t_dec = sum(steps) / len(steps)
+    med = sorted(steps)[len(steps) // 2]
     log(f"  RAG warm: prefill of {toks.shape[1]} tokens {t_pre * 1e3:.2f} "
-        f"ms, decode {t_dec * 1e3:.2f} ms a step (weights alone bound a "
-        f"step at {n_params * 2 / HBM_BYTES_PER_S * 1e3:.2f} ms)")
+        f"ms, decode {t_dec * 1e3:.2f} ms a step (median {med * 1e3:.2f}; "
+        f"weights alone bound a step at "
+        f"{n_params * 2 / HBM_BYTES_PER_S * 1e3:.2f} ms; "
+        f"{DECODE_STEP_BEFORE_MS} ms a step before the attention kernels' "
+        f"Hopper redesign)")
     profile_request(torch, engine, current[0], new)
     del engine, store, params
     torch.cuda.empty_cache()
@@ -1245,6 +1298,17 @@ def profile_request(torch, engine, query: str, new: int) -> None:
           and all(0 <= x < engine.cfg.vocab for x in res.token_ids),
           f"profiled RAG {query!r}: bad token ids {res.token_ids}")
     log_device_time("request", wall, kern)
+    if kern:
+        for name, keys in (
+                ("flash_decode", ("decode_partials_kernel",
+                                  "decode_merge_kernel")),
+                ("flash_attention", ("fa_wgmma_kernel",
+                                     "flash_attention_kernel"))):
+            evs = [e for e in kern if any(x in e.key for x in keys)]
+            log(f"  profiled request: {name} "
+                f"{sum(e.self_device_time_total for e in evs) / 1e3:.3f} ms "
+                f"on the device over {sum(e.count for e in evs)} kernel "
+                f"launches")
 
 
 def phase_decode_vs_prefill(torch) -> None:
@@ -1564,10 +1628,13 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False   # plain/library: fp32
     dev = torch.device("cuda", 0)
     t = time.perf_counter()
-    build.build()
+    logs = build.build()
     for name in build.sources():
         build.load(name)
     log(f"  built {build.sources()} in {time.perf_counter() - t:.1f} s")
+    for name, kernel in PTXAS_REPORT:
+        for line in ptxas_lines(logs.get(name, ""), kernel):
+            log(f"  ptxas {line}")
 
     log("phase 2: kernels against their plain versions")
     kern = phase_kernels(torch, dev)

@@ -9,37 +9,64 @@
 //   - causal: column c is visible from row r iff r + (Skv - Sq) >= c (the
 //     queries are the last Sq positions of the key sequence);
 //   - a row with no visible column comes out as 0, not NaN;
-//   - scale = D**-0.5 is folded into q once, in fp32; logits, the running
-//     (m, l, acc) and every product are fp32 whatever the input type; the
-//     output is rounded once to the input type.
+//   - logits, the running (m, l, acc) and every sum are fp32 whatever the
+//     input type; the output is rounded once to the input type.
+// Any Sq and Skv: ragged tiles are masked.
 //
-// Layout of one launch: grid (ceil(Sq / BQ), H, B), THREADS threads. A
-// block owns BQ query rows of one (b, h): their scaled q in shared
-// memory, the running max m and sum l of each row and its D-wide
-// accumulator in registers. It streams the key/value rows in BK-row
-// tiles through shared memory (widened to fp32 as staged) and, per tile,
+// What bounds it on an H100 SXM: the larger of
+//   bytes:      B*H*Sq*D (q) + 2*B*KV*Skv*D (k, v) + B*H*Sq*D (out), in
+//               the input type, over 3.35 TB/s;
+//   operations: 4*B*H*Sq*Skv*D FLOPs (about half of that under the
+//               causal mask), over 67 TFLOP/s in fp32 or 989 TFLOP/s in
+//               bf16 on the tensor cores.
+// Attention at these shapes is operation-bound. Two bodies:
+//
+// bf16, D in {64, 128}: tensor cores (`fa_wgmma_kernel`). A block owns
+// BM = 128 query rows of one (b, h) and has three warpgroups:
+//   - a producer: one thread loads the block's q once and then keeps a
+//     ring of STAGES (K, V) tiles of BN = 128 rows full with TMA copies
+//     (128-byte swizzle, 64 columns a box; rows past Skv or Sq arrive as
+//     zeros), each stage completing on a `full` mbarrier and released by
+//     the consumers on an `empty` one;
+//   - two consumers of 64 query rows each. Per tile: S = q k^T on wgmma
+//     (bf16 in, fp32 accumulate, q and K from shared memory); the scale
+//     times log2(e) applied to the fp32 logits (not folded into a bf16
+//     q, which would round q); the mask where the tile crosses Skv or the
+//     causal diagonal; the online softmax in registers on the accumulator
+//     fragment (exp2f; each thread keeps its part of l, summed over the
+//     row's four threads at the end); then O += P V on wgmma with P from
+//     registers and V read MN-major (the transpose bit: no transposed
+//     copy). P is split as P_hi + P_lo, two bf16 values whose sum is P to
+//     ~2^-17, and both are multiplied into O against the same V tile:
+//     P rounded once to bf16 (2^-9 a term) would move outputs of N(0, 1)
+//     inputs by more than the one output rounding step the port allows.
+//     Cost: 1.5x the tensor FLOPs of a single rounding.
+// Under the causal mask a block stops at the last tile any of its rows
+// sees; blocks are numbered heaviest (last query rows) first, so the
+// longest blocks start first and the short ones fill the tail.
+//
+// fp32 (any D) and bf16 at D = 32 (a 64-byte row is below the 128-byte
+// swizzle the tensor-core path is laid out for): the CUDA-core body
+// (`flash_attention_kernel`). Grid (ceil(Sq / BQ), H, B), THREADS
+// threads. A block owns BQ query rows of one (b, h): their scaled q in
+// shared memory (scale folded into q in fp32, as the Pallas kernel
+// does), the running max m and sum l of each row and its D-wide
+// accumulator in registers. It streams the key/value rows in BK-row tiles
+// through shared memory (widened to fp32 as staged) and, per tile,
 //   1. scores: thread (ty, tx) owns rows ty*RPT.. and columns tx + 16*j,
 //      each score one ascending-d fmaf chain;
 //   2. masks, and updates (m, l, acc) with the tile's row max (a 16-lane
 //      butterfly; every lane of a row gets the same bits);
 //   3. writes p = exp(s - m) to shared memory and adds p . v to its acc
 //      columns tx + 16*dd.
-// Under the causal mask a block stops at the last tile any of its rows
-// can see (a skipped tile would leave (m, l, acc) unchanged).
-//
-// What bounds it on an H100 SXM: the larger of
-//   bytes:      B*H*Sq*D (q) + 2*B*KV*Skv*D (k, v) + B*H*Sq*D (out), in
-//               the input type, over 3.35 TB/s;
-//   operations: 4*B*H*Sq*Skv*D FLOPs (half of that under the causal
-//               mask), over 67 TFLOP/s in fp32 or 989 TFLOP/s in bf16 on
-//               the tensor cores.
-// Attention at these shapes is operation-bound. This kernel runs every
-// product on the CUDA cores in fp32 (for bf16 too: the function of the
-// Pallas kernel, which computes in fp32), so it is far from the bf16
-// bound; wgmma tiles are the later step.
+// Every product there is exact fp32: at MiniLM's and BERT4Rec's shapes it
+// beats the library call, and TF32 would not hold the fp32 checks.
+#include <cuda.h>  // CUtensorMap and its enums; cuTensorMapEncodeTiled is
+                   // looked up at run time, so no -lcuda
 #include <math_constants.h>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -196,9 +223,9 @@ int launch(const void* q, const void* k, const void* v, void* o, long long B,
            long long H, long long KV, long long Sq, long long Skv,
            bool causal, float scale, cudaStream_t st) {
   const int smem = (int)sizeof(Smem<D>);
-  const cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<T, D>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  static bool attr_set[port::kMaxDevices] = {};
+  const cudaError_t err =
+      port::set_smem_once(attr_set, flash_attention_kernel<T, D>, smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((unsigned)((Sq + BQ - 1) / BQ), (unsigned)H, (unsigned)B);
   flash_attention_kernel<T, D><<<grid, THREADS, smem, st>>>(
@@ -208,28 +235,342 @@ int launch(const void* q, const void* k, const void* v, void* o, long long B,
   return (int)cudaGetLastError();
 }
 
-template <class T>
-int launch_d(const void* q, const void* k, const void* v, void* o,
-             long long B, long long H, long long KV, long long Sq,
-             long long Skv, long long D, bool causal, float scale,
-             cudaStream_t st) {
+int launch_fp32(const void* q, const void* k, const void* v, void* o,
+                long long B, long long H, long long KV, long long Sq,
+                long long Skv, long long D, bool causal, float scale,
+                cudaStream_t st) {
   switch (D) {
     case 32:
-      return launch<T, 32>(q, k, v, o, B, H, KV, Sq, Skv, causal, scale, st);
+      return launch<float, 32>(q, k, v, o, B, H, KV, Sq, Skv, causal, scale,
+                               st);
     case 64:
-      return launch<T, 64>(q, k, v, o, B, H, KV, Sq, Skv, causal, scale, st);
+      return launch<float, 64>(q, k, v, o, B, H, KV, Sq, Skv, causal, scale,
+                               st);
     case 128:
-      return launch<T, 128>(q, k, v, o, B, H, KV, Sq, Skv, causal, scale, st);
+      return launch<float, 128>(q, k, v, o, B, H, KV, Sq, Skv, causal,
+                                scale, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
+// ---------------------------------------------------------------------------
+// bf16 on the tensor cores
+// ---------------------------------------------------------------------------
+namespace tc {
+
+constexpr int BM = 128;                 // query rows a block (2 x 64)
+constexpr int BN = 128;                 // key/value rows a tile
+constexpr int STAGES = 2;               // (K, V) tiles in flight
+constexpr int THREADS = 384;            // producer + 2 consumer warpgroups
+constexpr int BOX = 64;                 // bf16 columns of one swizzled box
+
+template <int D>
+struct Layout {
+  static constexpr int Q_BYTES = BM * D * 2;
+  static constexpr int KV_BYTES = BN * D * 2;       // one K or V tile
+  static constexpr int SMEM = Q_BYTES + 2 * STAGES * KV_BYTES + 1024;
+};
+
+using namespace hopper;
+
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+fa_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
+                const __grid_constant__ CUtensorMap tk,
+                const __grid_constant__ CUtensorMap tv,
+                __nv_bfloat16* __restrict__ o, int B, int H, int KV, int Sq,
+                int Skv, int nm, bool causal, float scale_log2) {
+  using L = Layout<D>;
+  constexpr int NB = D / BOX;           // swizzled boxes across D
+  constexpr int NO = D / 2;             // O accumulator registers a thread
+  constexpr int NS = BN / 2;            // S accumulator registers a thread
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t bars[1 + 2 * STAGES];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t s_q = base;
+  const uint32_t s_k = s_q + L::Q_BYTES;
+  const uint32_t s_v = s_k + STAGES * L::KV_BYTES;
+  const uint32_t bar_q = smem_u32(&bars[0]);
+  const uint32_t bar_full = smem_u32(&bars[1]);             // + 8 * stage
+  const uint32_t bar_empty = smem_u32(&bars[1 + STAGES]);   // + 8 * stage
+
+  // heaviest query block first: block index -> (m block, b, h)
+  const int bh = blockIdx.x % (B * H);
+  const int mb = nm - 1 - (int)(blockIdx.x / (B * H));
+  const int h = bh % H;
+  const int b = bh / H;
+  const int kvh = h / (H / KV);
+  const int q0 = mb * BM;
+  const int q_offset = Skv - Sq;
+  int kv_end = Skv;
+  if (causal) kv_end = min(Skv, max(0, q0 + BM + q_offset));
+  const int ntiles = (kv_end + BN - 1) / BN;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, 8);  // one arrival a consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // -- producer: one thread issues every copy ------------------------------
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(bar_q, L::Q_BYTES);
+      for (int x = 0; x < NB; ++x)
+        tma_load_3d(s_q + x * BM * 128, &tq, bar_q, x * BOX, q0, b * H + h);
+      for (int t = 0; t < ntiles; ++t) {
+        const int s = t % STAGES;
+        if (t >= STAGES) mbar_wait(bar_empty + 8 * s, ((t / STAGES) + 1) & 1);
+        mbar_expect_tx(bar_full + 8 * s, 2 * L::KV_BYTES);
+        const uint32_t dk = s_k + s * L::KV_BYTES;
+        const uint32_t dv = s_v + s * L::KV_BYTES;
+        for (int x = 0; x < NB; ++x) {
+          tma_load_3d(dk + x * BN * 128, &tk, bar_full + 8 * s, x * BOX,
+                      t * BN, b * KV + kvh);
+          tma_load_3d(dv + x * BN * 128, &tv, bar_full + 8 * s, x * BOX,
+                      t * BN, b * KV + kvh);
+        }
+      }
+    }
+    return;
+  }
+
+  // -- consumers: 64 query rows each -----------------------------------------
+  setmaxnreg_inc<240>();
+  const int cw = wg - 1;
+  const int t128 = threadIdx.x % 128;
+  const int lane = t128 % 32;
+  const int quad = lane % 4;
+  const int r_lo = q0 + cw * 64 + (t128 / 32) * 16 + lane / 4;  // and + 8
+  const int wg_row0 = q0 + cw * 64;
+
+  float oacc[NO];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) oacc[i] = 0.0f;
+  float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F;  // rows r_lo, r_lo + 8
+  float l0 = 0.0f, l1 = 0.0f;                    // this thread's part
+
+  mbar_wait(bar_q, 0);
+  const uint32_t qa = s_q + cw * 64 * 128;       // this warpgroup's rows
+
+  for (int t = 0; t < ntiles; ++t) {
+    const int s = t % STAGES;
+    mbar_wait(bar_full + 8 * s, (t / STAGES) & 1);
+    const uint32_t kt = s_k + s * L::KV_BYTES;
+    const uint32_t vt = s_v + s * L::KV_BYTES;
+
+    // S = q k^T, 64 x BN fp32
+    float sacc[NS];
+    fence_regs(sacc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk % 4) * 32;   // 16 columns of 64
+      wgmma_ss_n128(sacc,
+                    desc_sw128(qa + (kk / 4) * BM * 128 + off, 16, 1024),
+                    desc_sw128(kt + (kk / 4) * BN * 128 + off, 16, 1024),
+                    kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sacc);
+
+    // scale, mask, online softmax (base 2)
+    const int kv0 = t * BN;
+    const bool mask = kv0 + BN > Skv ||
+                      (causal && kv0 + BN - 1 > wg_row0 + q_offset);
+    float mx0 = -CUDART_INF_F, mx1 = -CUDART_INF_F;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        float x0 = sacc[4 * j + c] * scale_log2;
+        float x1 = sacc[4 * j + 2 + c] * scale_log2;
+        if (mask) {
+          const int col = kv0 + 8 * j + 2 * quad + c;
+          if (col >= Skv || (causal && col > r_lo + q_offset))
+            x0 = -CUDART_INF_F;
+          if (col >= Skv || (causal && col > r_lo + 8 + q_offset))
+            x1 = -CUDART_INF_F;
+        }
+        sacc[4 * j + c] = x0;
+        sacc[4 * j + 2 + c] = x1;
+        mx0 = fmaxf(mx0, x0);
+        mx1 = fmaxf(mx1, x1);
+      }
+    }
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+    }
+    const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+    const float ms0 = mn0 == -CUDART_INF_F ? 0.0f : mn0;
+    const float ms1 = mn1 == -CUDART_INF_F ? 0.0f : mn1;
+    const float alpha0 = exp2f(m0 - ms0), alpha1 = exp2f(m1 - ms1);
+    m0 = mn0;
+    m1 = mn1;
+    uint32_t phi[BN / 16][4], plo[BN / 16][4];
+    float ps0 = 0.0f, ps1 = 0.0f;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const float p00 = exp2f(sacc[4 * j + 0] - ms0);
+      const float p01 = exp2f(sacc[4 * j + 1] - ms0);
+      const float p10 = exp2f(sacc[4 * j + 2] - ms1);
+      const float p11 = exp2f(sacc[4 * j + 3] - ms1);
+      ps0 += p00 + p01;
+      ps1 += p10 + p11;
+      // columns 8j.. of the tile are k rows 8 (j % 2).. of k step j / 2
+      const __nv_bfloat162 h0 = __floats2bfloat162_rn(p00, p01);
+      const __nv_bfloat162 h1 = __floats2bfloat162_rn(p10, p11);
+      const __nv_bfloat162 r0 = __floats2bfloat162_rn(
+          p00 - __low2float(h0), p01 - __high2float(h0));
+      const __nv_bfloat162 r1 = __floats2bfloat162_rn(
+          p10 - __low2float(h1), p11 - __high2float(h1));
+      const int kk = j / 2, hi = (j % 2) * 2;
+      phi[kk][hi + 0] = *reinterpret_cast<const uint32_t*>(&h0);
+      phi[kk][hi + 1] = *reinterpret_cast<const uint32_t*>(&h1);
+      plo[kk][hi + 0] = *reinterpret_cast<const uint32_t*>(&r0);
+      plo[kk][hi + 1] = *reinterpret_cast<const uint32_t*>(&r1);
+    }
+    l0 = alpha0 * l0 + ps0;
+    l1 = alpha1 * l1 + ps1;
+#pragma unroll
+    for (int j = 0; j < NO / 4; ++j) {
+      oacc[4 * j + 0] *= alpha0;
+      oacc[4 * j + 1] *= alpha0;
+      oacc[4 * j + 2] *= alpha1;
+      oacc[4 * j + 3] *= alpha1;
+    }
+
+    // O += (P_hi + P_lo) V
+    fence_regs(oacc);
+    fence_regs(phi);
+    fence_regs(plo);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BN / 16; ++kk) {
+      const uint64_t dv = desc_sw128(vt + kk * 16 * 128, BN * 128, 1024);
+      if constexpr (D == 128) {
+        wgmma_rs_n128(oacc, phi[kk], dv);
+        wgmma_rs_n128(oacc, plo[kk], dv);
+      } else {
+        wgmma_rs_n64(oacc, phi[kk], dv);
+        wgmma_rs_n64(oacc, plo[kk], dv);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(oacc);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar_empty + 8 * s);
+  }
+
+  // the row's four threads hold parts of l
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+  const float inv0 = 1.0f / (l0 == 0.0f ? 1.0f : l0);
+  const float inv1 = 1.0f / (l1 == 0.0f ? 1.0f : l1);
+  __nv_bfloat16* ob = o + (size_t)(b * H + h) * Sq * D;
+#pragma unroll
+  for (int j = 0; j < NO / 4; ++j) {
+    const int col = 8 * j + 2 * quad;
+    if (r_lo < Sq)
+      *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)r_lo * D + col) =
+          __floats2bfloat162_rn(oacc[4 * j + 0] * inv0,
+                                oacc[4 * j + 1] * inv0);
+    if (r_lo + 8 < Sq)
+      *reinterpret_cast<__nv_bfloat162*>(ob + (size_t)(r_lo + 8) * D + col) =
+          __floats2bfloat162_rn(oacc[4 * j + 2] * inv1,
+                                oacc[4 * j + 3] * inv1);
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err != cudaSuccess || found != cudaDriverEntryPointSuccess)
+      return nullptr;
+    fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// (rows, D) bf16 matrices, `mats` of them back to back, read in boxes of
+// (box_rows, 64) with the 128-byte swizzle; rows past `rows` read as 0.
+bool make_map(EncodeTiled enc, CUtensorMap* map, const void* ptr,
+              long long D, long long rows, long long mats, int box_rows) {
+  const cuuint64_t dims[3] = {(cuuint64_t)D, (cuuint64_t)rows,
+                              (cuuint64_t)mats};
+  const cuuint64_t strides[2] = {(cuuint64_t)D * 2,
+                                 (cuuint64_t)(D * 2 * rows)};
+  const cuuint32_t box[3] = {(cuuint32_t)BOX, (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3,
+             const_cast<void*>(ptr), dims, strides, box, elem,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* o, long long B,
+           long long H, long long KV, long long Sq, long long Skv,
+           bool causal, float scale, cudaStream_t st) {
+  const int smem = Layout<D>::SMEM;
+  static bool attr_set[port::kMaxDevices] = {};
+  const cudaError_t err =
+      port::set_smem_once(attr_set, fa_wgmma_kernel<D>, smem);
+  if (err != cudaSuccess) return (int)err;
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return (int)cudaErrorNotSupported;
+  CUtensorMap tq, tk, tv;
+  if (!make_map(enc, &tq, q, D, Sq, B * H, BM) ||
+      !make_map(enc, &tk, k, D, Skv, B * KV, BN) ||
+      !make_map(enc, &tv, v, D, Skv, B * KV, BN))
+    return (int)cudaErrorInvalidValue;
+  const long long nm = (Sq + BM - 1) / BM;
+  const long long blocks = nm * B * H;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  fa_wgmma_kernel<D><<<(unsigned)blocks, THREADS, smem, st>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), (int)B, (int)H, (int)KV,
+      (int)Sq, (int)Skv, (int)nm, causal, scale * 1.4426950408889634f);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tc
 }  // namespace
 
 // q (B, H, Sq, D), k/v (B, KV, Skv, D), o (B, H, Sq, D), all contiguous
-// on one device, of one type: dtype 0 = fp32, 1 = bf16. D in {32, 64,
-// 128}; H % KV == 0. Returns cudaGetLastError().
+// on one device, of one type: dtype 0 = fp32 (the CUDA-core body), 1 =
+// bf16 (the tensor cores at D 64 and 128, the CUDA-core body at D 32).
+// D in {32, 64, 128}; H % KV == 0. Returns cudaGetLastError().
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* o, int dtype,
                                    long long B, long long H, long long KV,
@@ -240,10 +581,16 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0)
-    return launch_d<float>(q, k, v, o, B, H, KV, Sq, Skv, D, causal != 0,
-                           scale, st);
-  if (dtype == 1)
-    return launch_d<__nv_bfloat16>(q, k, v, o, B, H, KV, Sq, Skv, D,
-                                   causal != 0, scale, st);
+    return launch_fp32(q, k, v, o, B, H, KV, Sq, Skv, D, causal != 0, scale,
+                       st);
+  if (dtype == 1 && D == 128)
+    return tc::launch<128>(q, k, v, o, B, H, KV, Sq, Skv, causal != 0, scale,
+                           st);
+  if (dtype == 1 && D == 64)
+    return tc::launch<64>(q, k, v, o, B, H, KV, Sq, Skv, causal != 0, scale,
+                          st);
+  if (dtype == 1 && D == 32)
+    return launch<__nv_bfloat16, 32>(q, k, v, o, B, H, KV, Sq, Skv,
+                                     causal != 0, scale, st);
   return (int)cudaErrorInvalidValue;
 }

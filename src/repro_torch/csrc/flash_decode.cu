@@ -1,198 +1,357 @@
-// Split-K single-token decode attention (FlashDecoding partials), GQA,
-// fp32 or bf16 caches, for sm_90a.
+// Split-K single-token decode attention (FlashDecoding), GQA, fp32 or bf16
+// caches, for sm_90a: the split partials and, in the same call, their merge.
 //
 // Replaces the TPU kernel of src/repro/kernels/flash_decode/flash_decode.py:
 // `_kernel`, launched by `flash_decode_partials`. The same function: the
-// cache's S columns are cut into ns = ceil(S / bs) splits; for each
-// (b, query head h, split) the kernel writes the split's softmax partials
+// cache's columns are cut into splits of bs; for each (b, query head h,
+// split) the partials kernel computes
 //   m   = max of the split's logits (-inf when none is valid),
 //   l   = sum of exp(logit - m),
 //   acc = sum of exp(logit - m) * v (unnormalised), D wide,
 // all fp32, with logit = (scale * q) . k, scale = D**-0.5 folded into q
 // in fp32, and every column at or past cache_len masked (the last split
 // may be ragged: columns past S do not exist). Query head h reads
-// key/value head h / G, G = H / KV. The merge of the partials by
-// log-sum-exp weights runs in torch (kernels/flash_decode/ops.py), as it
-// ran outside the Pallas kernel.
+// key/value head h / G, G = H / KV. The merge kernel then combines a
+// (b, h)'s splits in split order by log-sum-exp weights (repro's
+// `merge_partials`, which ran outside the Pallas kernel) and writes the
+// (B, H, D) output, rounded once to q's type. `flash_decode_fwd` launches
+// both on one stream; with no output pointer it stops at the partials
+// (the wrapper's `flash_decode_partials`, which the checks hold to the
+// plain partials).
 //
-// Layout of one launch: grid (ns, KV, B), THREADS threads. A block owns
-// one split of one key/value head and computes the partials of all G
-// query heads that read it, so each cache row is read from memory once
-// (the TPU grid had one step per query head). Per block:
-//   1. scaled q of the G heads -> shared memory;
-//   2. scores: warp w takes rows w, w + 8, ...; lane t holds the
-//      elements d = t + 32*e of the row and of each head's q, sums its
-//      products in ascending e, and a butterfly gives every lane the row's
-//      G logits; masked rows are not read;
-//   3. per head (one warp each): the split's max, p = exp(s - m) in place,
-//      and l, by strided loops and butterflies;
-//   4. acc: thread (r, d) sums p * v[row][d] over rows r, r + R, ...
-//      (R = THREADS / D), for up to GMAX heads per pass over v, and the R
-//      partial sums are added in order through shared memory.
+// Layout of the partials kernel: grid (ns, KV * G / GC, B), THREADS
+// threads. A block owns one split of one key/value head and GC of the G
+// query heads that read it (GC: the largest of 8, 4, 2, 1 that divides
+// G), so each cache row is read from memory once for GC heads. The split's K and V
+// rows are contiguous in the cache: one thread streams them, TILE rows at
+// a time, through a ring of STAGES shared-memory stages with 1-d bulk
+// copies (cp.async.bulk) completing on an mbarrier each, STAGES - 1 tiles
+// ahead of the compute. Each row is read by LPR lanes, 16 bytes a lane
+// (a row group; a warp holds 32 / LPR of them); a row group keeps an
+// online softmax (m, l, acc) for its GC heads over the rows it takes
+// (rows rg, rg + NRG, ... of each tile): logits by a butterfly over its
+// lanes, one max update and rescale per tile. At the end the row groups
+// merge, within a warp by shuffles and across warps through shared
+// memory, in a fixed order, into the split's partials.
 //
 // What bounds it on an H100 SXM: bytes. Per call B*KV*min(S, cache_len)
 // rows of k and v are read once (2*D elements each) plus q, and the
-// partials are written: 4 FLOPs per (head, column, d) are ~2*G FLOPs a
-// cache byte in bf16, far below the card's ~295 FLOPs a byte.
+// output is written: 4 FLOPs per (head, column, d) are ~2*G FLOPs a cache
+// byte in bf16, far below the card's ~295 FLOPs a byte, so CUDA cores fed
+// with 16-byte vectors suffice. The ring keeps ~STAGES * TILE * 2 rows in
+// flight a block; the wrapper chooses splits that fill the card at B = 1
+// (kernels/flash_decode/ops.py `choose_split`).
 #include <math_constants.h>
 
+#include <cstdint>
+
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;
+constexpr int THREADS = 128;
 constexpr int WARPS = THREADS / 32;
-constexpr int GMAX = 8;                 // heads per pass over v
+constexpr int TILE = 16;                // cache rows a ring stage
+constexpr int STAGES = 4;
 
+using namespace hopper;
+using port::from_f;
 using port::to_f;
 
-template <class T, int D>
-__global__ void __launch_bounds__(THREADS)
-flash_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
-                    const T* __restrict__ vc, float* __restrict__ m_out,
-                    float* __restrict__ l_out, float* __restrict__ acc_out,
-                    int H, int KV, int S, int cache_len, int bs,
-                    float scale) {
-  constexpr int VPL = D / 32;           // row elements per lane
-  constexpr int R = THREADS / D;        // row groups of the acc pass
-  extern __shared__ __align__(16) float smem[];
-  const int G = H / KV;
-  const int ns = gridDim.x;
-  float* qs = smem;                     // [G][D]
-  float* sc = qs + G * D;               // [G][bs]: logits, then p
-  float* red = sc + G * bs;             // [R][GMAX][D]
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int split = blockIdx.x;
-  const int kvh = blockIdx.y;
-  const int b = blockIdx.z;
-  const int c0 = split * bs;
-  const int valid_end = min(S, cache_len);
-  const int nvalid = max(0, min(bs, valid_end - c0));  // rows to read
-  const int ncols = min(bs, S - c0);                   // rows that exist
-  const T* kb = kc + ((size_t)(b * KV + kvh) * S) * D;
-  const T* vb = vc + ((size_t)(b * KV + kvh) * S) * D;
+template <class T, int D, int GC>
+struct Cfg {
+  static constexpr int VEC = 16 / (int)sizeof(T);   // elements a lane reads
+  static constexpr int LPR = D / VEC;               // lanes a row
+  static constexpr int RPW = 32 / LPR;              // row groups a warp
+  static constexpr int NRG = WARPS * RPW;           // row groups a block
+  static constexpr int RPG = (TILE + NRG - 1) / NRG;  // rows a group a tile
+  static constexpr int ROW_BYTES = D * (int)sizeof(T);
+  static constexpr int STAGE_BYTES = 2 * TILE * ROW_BYTES;   // K then V
+  static constexpr int RING = STAGES * STAGE_BYTES;
+  static constexpr int MERGE = WARPS * GC * (D + 2) * 4;
+  static constexpr int SMEM = RING > MERGE ? RING : MERGE;
+};
 
-  for (int e = tid; e < G * D; e += THREADS) {
-    const int g = e / D, d = e % D;
-    qs[e] = to_f(q[((size_t)b * H + kvh * G + g) * D + d]) * scale;
-  }
-  __syncthreads();
-
-  for (int j = warp; j < ncols; j += WARPS) {
-    if (j >= nvalid) {                  // warp-uniform
-      if (lane == 0)
-        for (int g = 0; g < G; ++g) sc[g * bs + j] = -CUDART_INF_F;
-      continue;
-    }
-    float kv[VPL];
+// 16 bytes of shared memory -> VEC floats
+__device__ __forceinline__ void load_vec(const unsigned char* p, float* f,
+                                         float) {
+  const float4 x = *reinterpret_cast<const float4*>(p);
+  f[0] = x.x;
+  f[1] = x.y;
+  f[2] = x.z;
+  f[3] = x.w;
+}
+__device__ __forceinline__ void load_vec(const unsigned char* p, float* f,
+                                         __nv_bfloat16) {
+  const uint4 x = *reinterpret_cast<const uint4*>(p);
+  const uint32_t w[4] = {x.x, x.y, x.z, x.w};
 #pragma unroll
-    for (int e = 0; e < VPL; ++e)
-      kv[e] = to_f(kb[(size_t)(c0 + j) * D + lane + 32 * e]);
-    for (int g = 0; g < G; ++g) {
-      float part = 0.0f;
-#pragma unroll
-      for (int e = 0; e < VPL; ++e)
-        part = fmaf(qs[g * D + lane + 32 * e], kv[e], part);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        part += __shfl_xor_sync(0xffffffffu, part, off);
-      if (lane == 0) sc[g * bs + j] = part;
-    }
-  }
-  __syncthreads();
-
-  for (int g = warp; g < G; g += WARPS) {
-    float* s = sc + g * bs;
-    float mx = -CUDART_INF_F;
-    for (int j = lane; j < ncols; j += 32) mx = fmaxf(mx, s[j]);
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-    const float m_safe = mx == -CUDART_INF_F ? 0.0f : mx;
-    float sum = 0.0f;
-    for (int j = lane; j < ncols; j += 32) {
-      const float p = s[j] == -CUDART_INF_F ? 0.0f : expf(s[j] - m_safe);
-      s[j] = p;
-      sum += p;
-    }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      sum += __shfl_xor_sync(0xffffffffu, sum, off);
-    if (lane == 0) {
-      const size_t o = ((size_t)b * H + kvh * G + g) * ns + split;
-      m_out[o] = mx;
-      l_out[o] = sum;
-    }
-  }
-  __syncthreads();
-
-  const int r = tid / D;
-  const int d = tid % D;
-  for (int g0 = 0; g0 < G; g0 += GMAX) {
-    const int gn = min(GMAX, G - g0);
-    float a[GMAX];
-#pragma unroll
-    for (int g = 0; g < GMAX; ++g) a[g] = 0.0f;
-    for (int j = r; j < nvalid; j += R) {
-      const float vv = to_f(vb[(size_t)(c0 + j) * D + d]);
-#pragma unroll
-      for (int g = 0; g < GMAX; ++g)
-        if (g < gn) a[g] = fmaf(sc[(g0 + g) * bs + j], vv, a[g]);
-    }
-#pragma unroll
-    for (int g = 0; g < GMAX; ++g)
-      if (g < gn) red[(r * GMAX + g) * D + d] = a[g];
-    __syncthreads();
-    if (r == 0) {
-      for (int g = 0; g < gn; ++g) {
-        float t = red[g * D + d];
-        for (int rr = 1; rr < R; ++rr) t += red[(rr * GMAX + g) * D + d];
-        acc_out[(((size_t)b * H + kvh * G + g0 + g) * ns + split) * D + d] =
-            t;
-      }
-    }
-    __syncthreads();
+  for (int i = 0; i < 4; ++i) {
+    __nv_bfloat162 h;
+    *reinterpret_cast<uint32_t*>(&h) = w[i];
+    f[2 * i] = __low2float(h);
+    f[2 * i + 1] = __high2float(h);
   }
 }
 
-template <class T, int D>
-int launch(const void* q, const void* kc, const void* vc, float* m,
-           float* l, float* acc, long long B, long long H, long long KV,
-           long long S, long long cache_len, long long bs, float scale,
-           cudaStream_t st) {
-  const long long G = H / KV;
-  const long long smem =
-      (G * D + G * bs + (long long)(THREADS / D) * GMAX * D) * 4;
-  if (smem > 232448) return (int)cudaErrorInvalidValue;
-  const cudaError_t err = cudaFuncSetAttribute(
-      flash_decode_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+template <class T, int D, int GC>
+__global__ void __launch_bounds__(THREADS)
+decode_partials_kernel(const T* __restrict__ q, const T* __restrict__ kc,
+                       const T* __restrict__ vc, float* __restrict__ m_out,
+                       float* __restrict__ l_out, float* __restrict__ acc_out,
+                       int H, int KV, int S, int cache_len, int bs,
+                       float scale) {
+  using C = Cfg<T, D, GC>;
+  constexpr int VEC = C::VEC, LPR = C::LPR, NRG = C::NRG, RPG = C::RPG;
+  extern __shared__ __align__(128) unsigned char smem[];
+  __shared__ __align__(8) uint64_t full[STAGES];
+  const int tid = threadIdx.x;
+  const int lane = tid % 32;
+  const int warp = tid / 32;
+  const int part = lane % LPR;                  // 16-byte chunk of a row
+  const int rg = warp * C::RPW + lane / LPR;    // row group
+  const int G = H / KV;
+  const int chunks = G / GC;
+  const int split = blockIdx.x;
+  const int ns = gridDim.x;
+  const int kvh = blockIdx.y / chunks;
+  const int h0 = kvh * G + (blockIdx.y % chunks) * GC;   // first head
+  const int b = blockIdx.z;
+  const int c0 = split * bs;
+  const int nvalid = max(0, min(bs, min(S, cache_len) - c0));
+  const int ntiles = (nvalid + TILE - 1) / TILE;
+  const T* kb = kc + ((size_t)(b * KV + kvh) * S + c0) * D;
+  const T* vb = vc + ((size_t)(b * KV + kvh) * S + c0) * D;
+  const uint32_t ring = smem_u32(smem);
+  const uint32_t bar = smem_u32(full);
+
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) mbar_init(bar + 8 * s, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+  auto issue = [&](int t) {
+    const int s = t % STAGES;
+    const uint32_t bytes =
+        (uint32_t)min(TILE, nvalid - t * TILE) * C::ROW_BYTES;
+    const uint32_t dst = ring + s * C::STAGE_BYTES;
+    mbar_expect_tx(bar + 8 * s, 2 * bytes);
+    bulk_load(dst, kb + (size_t)t * TILE * D, bytes, bar + 8 * s);
+    bulk_load(dst + TILE * C::ROW_BYTES, vb + (size_t)t * TILE * D, bytes,
+              bar + 8 * s);
+  };
+  if (tid == 0)
+    for (int t = 0; t < min(STAGES, ntiles); ++t) issue(t);
+
+  float qf[GC][VEC], acc[GC][VEC], m[GC], l[GC];
+#pragma unroll
+  for (int g = 0; g < GC; ++g) {
+    m[g] = -CUDART_INF_F;
+    l[g] = 0.0f;
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) {
+      qf[g][e] = to_f(q[((size_t)b * H + h0 + g) * D + part * VEC + e]) *
+                 scale;
+      acc[g][e] = 0.0f;
+    }
+  }
+
+  for (int t = 0; t < ntiles; ++t) {
+    const int s = t % STAGES;
+    mbar_wait(bar + 8 * s, (t / STAGES) & 1);
+    const int rows = min(TILE, nvalid - t * TILE);
+    const unsigned char* kt = smem + s * C::STAGE_BYTES;
+    const unsigned char* vt = kt + TILE * C::ROW_BYTES;
+    float sc[RPG][GC], vf[RPG][VEC];
+    bool ok[RPG];
+#pragma unroll
+    for (int k = 0; k < RPG; ++k) {
+      const int r = rg + k * NRG;
+      ok[k] = r < rows;
+      float kf[VEC];
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) kf[e] = vf[k][e] = 0.0f;
+      if (ok[k]) {
+        load_vec(kt + r * C::ROW_BYTES + part * 16, kf, T());
+        load_vec(vt + r * C::ROW_BYTES + part * 16, vf[k], T());
+      }
+#pragma unroll
+      for (int g = 0; g < GC; ++g) {
+        float x = 0.0f;
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) x = fmaf(qf[g][e], kf[e], x);
+#pragma unroll
+        for (int off = LPR / 2; off > 0; off >>= 1)
+          x += __shfl_xor_sync(0xffffffffu, x, off);
+        sc[k][g] = ok[k] ? x : -CUDART_INF_F;
+      }
+    }
+#pragma unroll
+    for (int g = 0; g < GC; ++g) {
+      float mt = -CUDART_INF_F;
+#pragma unroll
+      for (int k = 0; k < RPG; ++k) mt = fmaxf(mt, sc[k][g]);
+      if (mt == -CUDART_INF_F) continue;        // no row of this group
+      const float mn = fmaxf(m[g], mt);
+      const float alpha = expf(m[g] - mn);      // 0 while m = -inf
+      float ps = 0.0f, a[VEC];
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) a[e] = acc[g][e] * alpha;
+#pragma unroll
+      for (int k = 0; k < RPG; ++k) {
+        const float p = ok[k] ? expf(sc[k][g] - mn) : 0.0f;
+        ps += p;
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) a[e] = fmaf(p, vf[k][e], a[e]);
+      }
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) acc[g][e] = a[e];
+      l[g] = l[g] * alpha + ps;
+      m[g] = mn;
+    }
+    __syncthreads();                            // stage s consumed
+    if (tid == 0 && t + STAGES < ntiles) issue(t + STAGES);
+  }
+
+  // merge the row groups of a warp (lanes LPR apart hold the same d)
+#pragma unroll
+  for (int off = LPR; off < 32; off <<= 1) {
+#pragma unroll
+    for (int g = 0; g < GC; ++g) {
+      const float mo = __shfl_xor_sync(0xffffffffu, m[g], off);
+      const float lo = __shfl_xor_sync(0xffffffffu, l[g], off);
+      const float mn = fmaxf(m[g], mo);
+      const float wa = m[g] == -CUDART_INF_F ? 0.0f : expf(m[g] - mn);
+      const float wb = mo == -CUDART_INF_F ? 0.0f : expf(mo - mn);
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        const float ao = __shfl_xor_sync(0xffffffffu, acc[g][e], off);
+        acc[g][e] = wa * acc[g][e] + wb * ao;
+      }
+      l[g] = wa * l[g] + wb * lo;
+      m[g] = mn;
+    }
+  }
+  // then the warps, in warp order, through shared memory
+  float* mm = reinterpret_cast<float*>(smem);   // [WARPS][GC]
+  float* ll = mm + WARPS * GC;                  // [WARPS][GC]
+  float* aa = ll + WARPS * GC;                  // [WARPS][GC][D]
+  __syncthreads();                              // the ring is idle
+  if (lane < LPR) {
+#pragma unroll
+    for (int g = 0; g < GC; ++g) {
+      if (part == 0) {
+        mm[warp * GC + g] = m[g];
+        ll[warp * GC + g] = l[g];
+      }
+#pragma unroll
+      for (int e = 0; e < VEC; ++e)
+        aa[(warp * GC + g) * D + part * VEC + e] = acc[g][e];
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < GC * D; i += THREADS) {
+    const int g = i / D, d = i % D;
+    float mx = -CUDART_INF_F;
+    for (int w = 0; w < WARPS; ++w) mx = fmaxf(mx, mm[w * GC + g]);
+    float sl = 0.0f, sa = 0.0f;
+    for (int w = 0; w < WARPS; ++w) {
+      const float mw = mm[w * GC + g];
+      const float wt = mw == -CUDART_INF_F ? 0.0f : expf(mw - mx);
+      sl += wt * ll[w * GC + g];
+      sa += wt * aa[(w * GC + g) * D + d];
+    }
+    const size_t o = ((size_t)b * H + h0 + g) * ns + split;
+    if (d == 0) {
+      m_out[o] = mx;
+      l_out[o] = sl;
+    }
+    acc_out[o * D + d] = sa;
+  }
+}
+
+// out (B, H, D) from the partials of ns splits, merged in split order:
+// w_s = exp(m_s - max m), out = sum w_s acc_s / sum w_s l_s (0 where no
+// split holds a valid column).
+template <class T>
+__global__ void __launch_bounds__(128)
+decode_merge_kernel(const float* __restrict__ m, const float* __restrict__ l,
+                    const float* __restrict__ acc, T* __restrict__ out,
+                    int ns, int D) {
+  const int bh = blockIdx.x;
+  const float* mb = m + (size_t)bh * ns;
+  const float* lb = l + (size_t)bh * ns;
+  float mx = -CUDART_INF_F;
+  for (int s = 0; s < ns; ++s) mx = fmaxf(mx, mb[s]);
+  const float ms = mx == -CUDART_INF_F ? 0.0f : mx;
+  for (int d = threadIdx.x; d < D; d += blockDim.x) {
+    float num = 0.0f, den = 0.0f;
+    for (int s = 0; s < ns; ++s) {
+      const float w = mb[s] == -CUDART_INF_F ? 0.0f : expf(mb[s] - ms);
+      den += w * lb[s];
+      num += w * acc[((size_t)bh * ns + s) * D + d];
+    }
+    out[(size_t)bh * D + d] = from_f<T>(num / (den == 0.0f ? 1.0f : den));
+  }
+}
+
+template <class T, int D, int GC>
+int launch(const void* q, const void* kc, const void* vc, void* out,
+           float* m, float* l, float* acc, long long B, long long H,
+           long long KV, long long S, long long cache_len, long long bs,
+           long long ns, float scale, cudaStream_t st) {
+  using C = Cfg<T, D, GC>;
+  static bool attr_set[port::kMaxDevices] = {};
+  const cudaError_t err = port::set_smem_once(
+      attr_set, decode_partials_kernel<T, D, GC>, C::SMEM);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned)((S + bs - 1) / bs), (unsigned)KV, (unsigned)B);
-  flash_decode_kernel<T, D><<<grid, THREADS, (size_t)smem, st>>>(
+  const dim3 grid((unsigned)ns, (unsigned)(KV * (H / KV) / GC),
+                  (unsigned)B);
+  decode_partials_kernel<T, D, GC><<<grid, THREADS, C::SMEM, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(kc),
       static_cast<const T*>(vc), m, l, acc, (int)H, (int)KV, (int)S,
       (int)cache_len, (int)bs, scale);
+  if (out != nullptr) {
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    decode_merge_kernel<T><<<(unsigned)(B * H), 128, 0, st>>>(
+        m, l, acc, static_cast<T*>(out), (int)ns, D);
+  }
   return (int)cudaGetLastError();
 }
 
+template <class T, int D>
+int launch_g(const void* q, const void* kc, const void* vc, void* out,
+             float* m, float* l, float* acc, long long B, long long H,
+             long long KV, long long S, long long cache_len, long long bs,
+             long long ns, float scale, cudaStream_t st) {
+  const long long G = H / KV;
+#define FD_LAUNCH(GC)                                                    \
+  launch<T, D, GC>(q, kc, vc, out, m, l, acc, B, H, KV, S, cache_len, bs, \
+                   ns, scale, st)
+  if (G % 8 == 0) return FD_LAUNCH(8);
+  if (G % 4 == 0) return FD_LAUNCH(4);
+  if (G % 2 == 0) return FD_LAUNCH(2);
+  return FD_LAUNCH(1);
+#undef FD_LAUNCH
+}
+
 template <class T>
-int launch_d(const void* q, const void* kc, const void* vc, float* m,
-             float* l, float* acc, long long B, long long H, long long KV,
-             long long S, long long D, long long cache_len, long long bs,
-             float scale, cudaStream_t st) {
+int launch_d(const void* q, const void* kc, const void* vc, void* out,
+             float* m, float* l, float* acc, long long B, long long H,
+             long long KV, long long S, long long D, long long cache_len,
+             long long bs, long long ns, float scale, cudaStream_t st) {
   switch (D) {
     case 32:
-      return launch<T, 32>(q, kc, vc, m, l, acc, B, H, KV, S, cache_len, bs,
-                           scale, st);
+      return launch_g<T, 32>(q, kc, vc, out, m, l, acc, B, H, KV, S,
+                             cache_len, bs, ns, scale, st);
     case 64:
-      return launch<T, 64>(q, kc, vc, m, l, acc, B, H, KV, S, cache_len, bs,
-                           scale, st);
+      return launch_g<T, 64>(q, kc, vc, out, m, l, acc, B, H, KV, S,
+                             cache_len, bs, ns, scale, st);
     case 128:
-      return launch<T, 128>(q, kc, vc, m, l, acc, B, H, KV, S, cache_len,
-                            bs, scale, st);
+      return launch_g<T, 128>(q, kc, vc, out, m, l, acc, B, H, KV, S,
+                              cache_len, bs, ns, scale, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -200,26 +359,35 @@ int launch_d(const void* q, const void* kc, const void* vc, float* m,
 
 }  // namespace
 
-// q (B, H, D), k_cache/v_cache (B, KV, S, D), contiguous, of one type:
-// dtype 0 = fp32, 1 = bf16. m/l (B, H, ns) and acc (B, H, ns, D) fp32,
-// ns = ceil(S / bs). D in {32, 64, 128}; H % KV == 0; columns at or past
-// cache_len are masked. Returns cudaGetLastError().
-extern "C" int flash_decode_partials(const void* q, const void* kc,
-                                     const void* vc, float* m, float* l,
-                                     float* acc, int dtype, long long B,
-                                     long long H, long long KV, long long S,
-                                     long long D, long long cache_len,
-                                     long long bs, float scale,
-                                     void* stream) {
+// q (B, H, D), k_cache/v_cache (B, KV, S, D), contiguous, the caches
+// 16-byte aligned, of one type: dtype 0 = fp32, 1 = bf16. part: fp32 m
+// (B, H, ns), then l (B, H, ns), then acc (B, H, ns, D): the partials of
+// splits [s * bs, (s + 1) * bs), s < ns (ns * bs may stop short of S
+// where the splits past cache_len are not wanted). out (B, H, D) in q's
+// type, or NULL for the partials alone. D in {32, 64, 128}; H % KV == 0;
+// columns at or past cache_len are masked. Returns cudaGetLastError().
+extern "C" int flash_decode_fwd(const void* q, const void* kc, const void* vc,
+                                void* out, float* part, int dtype,
+                                long long B, long long H, long long KV,
+                                long long S, long long D, long long cache_len,
+                                long long bs, long long ns, float scale,
+                                void* stream) {
   if (B < 1 || H < 1 || KV < 1 || H % KV != 0 || S < 1 || bs < 1 ||
-      cache_len < 0 || KV > 65535 || B > 65535)
+      ns < 1 || ns > 0x7fffffffLL || (ns - 1) * bs >= S || cache_len < 0 ||
+      H > 65535 || B > 65535)
     return (int)cudaErrorInvalidValue;
+  if ((reinterpret_cast<uintptr_t>(kc) | reinterpret_cast<uintptr_t>(vc)) %
+      16)
+    return (int)cudaErrorMisalignedAddress;
   cudaStream_t st = (cudaStream_t)stream;
+  float* m = part;
+  float* l = m + B * H * ns;
+  float* acc = l + B * H * ns;
   if (dtype == 0)
-    return launch_d<float>(q, kc, vc, m, l, acc, B, H, KV, S, D, cache_len,
-                           bs, scale, st);
+    return launch_d<float>(q, kc, vc, out, m, l, acc, B, H, KV, S, D,
+                           cache_len, bs, ns, scale, st);
   if (dtype == 1)
-    return launch_d<__nv_bfloat16>(q, kc, vc, m, l, acc, B, H, KV, S, D,
-                                   cache_len, bs, scale, st);
+    return launch_d<__nv_bfloat16>(q, kc, vc, out, m, l, acc, B, H, KV, S,
+                                   D, cache_len, bs, ns, scale, st);
   return (int)cudaErrorInvalidValue;
 }

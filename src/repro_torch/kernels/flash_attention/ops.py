@@ -15,16 +15,22 @@ launches = 0          # CUDA kernel launches of ``flash_attention``
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128)
+_fwd = None
 
 
-def _lib():
-    lib = build.load("flash_attention")
-    if lib.flash_attention_fwd.argtypes is None:
-        lib.flash_attention_fwd.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_longlong] * 6
-            + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
-        lib.flash_attention_fwd.restype = ctypes.c_int
-    return lib
+def _entry():
+    """(library, its ``flash_attention_fwd``), built, loaded and declared
+    once."""
+    global _fwd
+    if _fwd is None:
+        lib = build.load("flash_attention")
+        fn = lib.flash_attention_fwd
+        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int]
+                       + [ctypes.c_longlong] * 6
+                       + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _fwd = (lib, fn)
+    return _fwd
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -34,7 +40,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     D) in q's dtype: softmax(q k^T / sqrt(D)) v in fp32, causal aligned
     to the last Sq key positions, 0 at a row with no visible key. A CPU
     tensor runs the plain PyTorch version; a CUDA tensor launches the
-    kernel (D in 32, 64, 128)."""
+    kernel (D in 32, 64, 128): bf16 at D 64 and 128 on the tensor cores
+    (wgmma), fp32 and bf16 at D 32 on the CUDA cores."""
     global launches
     with obs.span("kernel:flash_attention") as sp:
         if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
@@ -66,12 +73,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              f"{HEAD_DIMS}")
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
         o = torch.empty_like(q)
-        lib = _lib()
-        with torch.cuda.device(dev):
-            err = lib.flash_attention_fwd(
-                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                DTYPES[q.dtype], b, h, kv, sq, skv, d, int(causal),
-                d ** -0.5, torch.cuda.current_stream(dev).cuda_stream)
+        lib, fn = _entry()
+        idx = q.get_device()
+        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                DTYPES[q.dtype], b, h, kv, sq, skv, d, int(causal), d ** -0.5,
+                torch._C._cuda_getCurrentRawStream(idx))
+        if idx == torch.cuda.current_device():
+            err = fn(*args)
+        else:
+            with torch.cuda.device(idx):
+                err = fn(*args)
         check(lib, err, "flash_attention_fwd")
         launches += 1
         if sp is not obs.NOOP_SPAN:            # traced: span = device time

@@ -1,7 +1,7 @@
 """Wrapper of the split-K decode attention kernel (csrc/flash_decode.cu):
-the generator's attention over its KV cache, one new token a step. The
-partials' merge (``merge_partials``) is torch ops on every device, as
-repro computes it outside its Pallas kernel."""
+the generator's attention over its KV cache, one new token a step. On the
+card one library call computes the split partials and merges them; on
+the CPU the plain partials merge with ``merge_partials``."""
 from __future__ import annotations
 
 import ctypes
@@ -11,95 +11,186 @@ import torch
 from ... import obs
 from .. import build
 from ..build import check
-from .plain import flash_decode_partials_plain, merge_partials
+from .plain import flash_decode_partials_plain, flash_decode_plain
 
-launches = 0          # CUDA kernel launches of ``flash_decode``
+launches = 0          # library calls of ``flash_decode`` / its partials
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128)
+CPU_SPLIT = 512       # repro's bs, the CPU path's split when none is given
+SPLIT_TILE = 16       # cache rows of one ring stage (csrc TILE)
+BLOCKS_PER_SM = 2
+
+_sms: dict[int, int] = {}
+_fwd = None
 
 
-def _lib():
-    lib = build.load("flash_decode")
-    if lib.flash_decode_partials.argtypes is None:
-        lib.flash_decode_partials.argtypes = (
-            [ctypes.c_void_p] * 6 + [ctypes.c_int] + [ctypes.c_longlong] * 7
-            + [ctypes.c_float, ctypes.c_void_p])
-        lib.flash_decode_partials.restype = ctypes.c_int
-    return lib
+def _entry():
+    """(library, its ``flash_decode_fwd``), built, loaded and declared
+    once."""
+    global _fwd
+    if _fwd is None:
+        lib = build.load("flash_decode")
+        fn = lib.flash_decode_fwd
+        fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int]
+                       + [ctypes.c_longlong] * 8
+                       + [ctypes.c_float, ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _fwd = (lib, fn)
+    return _fwd
+
+
+def choose_split(kv: int, cache_len: int, sms: int) -> int:
+    """Rows a split when the caller gives none: whole ``SPLIT_TILE``-row
+    tiles, as few a split as keep ``BLOCKS_PER_SM`` blocks on each of
+    ``sms`` SMs for one sequence (KV blocks a split), and as many as
+    ``cache_len`` allows below that. The batch does not enter, so a
+    request's splits, and its output bits, do not change with its batch."""
+    target = max(1, -(-BLOCKS_PER_SM * sms // kv))   # splits a kv head
+    tiles = max(1, -(-int(cache_len) // SPLIT_TILE))
+    return max(1, tiles // target) * SPLIT_TILE
+
+
+def _checked(q, k_cache, v_cache, cache_len):
+    """Validate the inputs; returns (B, H, KV, S, D, cache_len)."""
+    if q.dim() != 3 or k_cache.dim() != 4 or v_cache.dim() != 4:
+        raise ValueError("flash_decode: q must be 3-d, the caches 4-d")
+    b, h, d = q.shape
+    kv, s = k_cache.shape[1], k_cache.shape[2]
+    if (k_cache.shape != v_cache.shape or k_cache.shape[0] != b
+            or k_cache.shape[3] != d or kv < 1 or h % kv != 0):
+        raise ValueError(f"flash_decode: shapes q {tuple(q.shape)}, "
+                         f"caches {tuple(k_cache.shape)}, "
+                         f"{tuple(v_cache.shape)} do not match")
+    if (not (q.dtype == k_cache.dtype == v_cache.dtype)
+            or q.dtype not in DTYPES):
+        raise TypeError(f"flash_decode: q and the caches must share one "
+                        f"of {list(DTYPES)}")
+    dev = q.device
+    if k_cache.device != dev or v_cache.device != dev:
+        raise ValueError("flash_decode: q and the caches on different "
+                         "devices")
+    cache_len = s if cache_len is None else int(cache_len)
+    if not 0 <= cache_len <= s:
+        raise ValueError(f"flash_decode: cache_len {cache_len} outside "
+                         f"[0, {s}]")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"flash_decode runs on cpu or cuda, not {dev}")
+    if dev.type == "cuda" and d not in HEAD_DIMS:
+        raise ValueError(f"flash_decode: head dim {d} not in {HEAD_DIMS}")
+    return b, h, kv, s, d, cache_len
+
+
+def _launch(q, k_cache, v_cache, out, part, dims, bs, ns):
+    """One library call on the current stream of q's device: the
+    partials into ``part`` (m, l, then acc, fp32), merged into ``out``
+    unless it is None."""
+    b, h, kv, s, d, cache_len = dims
+    lib, fn = _entry()
+    idx = q.get_device()
+    args = (q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+            None if out is None else out.data_ptr(), part.data_ptr(),
+            DTYPES[q.dtype], b, h, kv, s, d, cache_len, bs, ns, d ** -0.5,
+            torch._C._cuda_getCurrentRawStream(idx))
+    if idx == torch.cuda.current_device():
+        err = fn(*args)
+    else:
+        with torch.cuda.device(idx):
+            err = fn(*args)
+    check(lib, err, "flash_decode_fwd")
+
+
+def _sm_count(q) -> int:
+    idx = q.get_device()
+    sms = _sms.get(idx)
+    if sms is None:
+        sms = _sms[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return sms
+
+
+def _span(sp, dims, es):
+    b, h, kv, s, d, cache_len = dims
+    sp.add("flops", 4 * b * h * cache_len * d)
+    sp.add("bytes", (2 * b * kv * cache_len + 2 * b * h) * d * es)
+
+
+def _cuda_inputs(q, k_cache, v_cache):
+    q = q.contiguous()
+    k_cache, v_cache = k_cache.contiguous(), v_cache.contiguous()
+    if (k_cache.data_ptr() | v_cache.data_ptr()) % 16:
+        raise ValueError("flash_decode: the caches must start on a 16-byte "
+                         "boundary")
+    return q, k_cache, v_cache
 
 
 def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
                  v_cache: torch.Tensor, cache_len: int | None = None,
-                 bs: int = 512) -> torch.Tensor:
+                 bs: int | None = None) -> torch.Tensor:
     """Single-token decode attention. q: (B, H, D); caches: (B, KV, S,
     D), one dtype (fp32 or bf16) on one device; ``cache_len``: the valid
-    cache prefix (an int; None = S). The cache is cut into splits of
-    ``bs`` columns (the last may be ragged); each split's partials come
-    from ``flash_decode_partials`` and merge here. Returns (B, H, D) in
-    q's dtype."""
-    m, l, acc = flash_decode_partials(q, k_cache, v_cache, cache_len, bs)
-    return merge_partials(m, l, acc).to(q.dtype)
+    cache prefix (an int; None = S). The valid prefix is cut into splits
+    of ``bs`` columns (the last may be ragged), whose partials merge by
+    log-sum-exp weights. Returns (B, H, D) in q's dtype.
+
+    ``bs=None`` chooses the splits: on the card ``choose_split`` (from
+    KV, ``cache_len`` and the SM count, never from B), on the CPU repro's
+    512. A CPU tensor runs the plain PyTorch version; a CUDA tensor makes
+    one library call that launches the partials kernel and the merge
+    kernel (D in 32, 64, 128)."""
+    global launches
+    with obs.span("kernel:flash_decode") as sp:
+        dims = _checked(q, k_cache, v_cache, cache_len)
+        b, h, kv, s, d, cache_len = dims
+        _span(sp, dims, q.element_size())
+        if bs is not None:
+            bs = max(1, min(int(bs), s))
+        if q.device.type == "cpu":
+            return flash_decode_plain(q, k_cache, v_cache, cache_len,
+                                      min(CPU_SPLIT, s) if bs is None
+                                      else bs)
+        if bs is None:
+            bs = choose_split(kv, cache_len, _sm_count(q))
+            ns = max(1, -(-cache_len // bs))     # splits with a valid row
+        else:
+            ns = -(-s // bs)
+        q, k_cache, v_cache = _cuda_inputs(q, k_cache, v_cache)
+        out = torch.empty_like(q)
+        part = q.new_empty(b * h * ns * (d + 2), dtype=torch.float32)
+        _launch(q, k_cache, v_cache, out, part, dims, bs, ns)
+        launches += 1
+        if sp is not obs.NOOP_SPAN:            # traced: span = device time
+            torch.cuda.current_stream(q.device).synchronize()
+        return out
 
 
 def flash_decode_partials(q: torch.Tensor, k_cache: torch.Tensor,
                           v_cache: torch.Tensor, cache_len: int | None = None,
-                          bs: int = 512
+                          bs: int = CPU_SPLIT
                           ) -> tuple[torch.Tensor, torch.Tensor,
                                      torch.Tensor]:
-    """The split partials of ``flash_decode``: fp32 m, l (B, H, ns) and
-    acc (B, H, ns, D), ns = ceil(S / bs). A CPU tensor runs the plain
-    PyTorch version; a CUDA tensor launches the kernel (D in 32, 64,
-    128)."""
+    """The split partials of ``flash_decode`` at an explicit ``bs``:
+    fp32 m, l (B, H, ns) and acc (B, H, ns, D), ns = ceil(S / bs), the
+    splits past ``cache_len`` empty (m = -inf, l = 0, acc = 0). A CPU
+    tensor runs the plain PyTorch version; a CUDA tensor launches the
+    same partials kernel as ``flash_decode``, without the merge."""
     global launches
     with obs.span("kernel:flash_decode") as sp:
-        if q.dim() != 3 or k_cache.dim() != 4 or v_cache.dim() != 4:
-            raise ValueError("flash_decode: q must be 3-d, the caches 4-d")
-        b, h, d = q.shape
-        kv, s = k_cache.shape[1], k_cache.shape[2]
-        if (k_cache.shape != v_cache.shape or k_cache.shape[0] != b
-                or k_cache.shape[3] != d or kv < 1 or h % kv != 0):
-            raise ValueError(f"flash_decode: shapes q {tuple(q.shape)}, "
-                             f"caches {tuple(k_cache.shape)}, "
-                             f"{tuple(v_cache.shape)} do not match")
-        if (not (q.dtype == k_cache.dtype == v_cache.dtype)
-                or q.dtype not in DTYPES):
-            raise TypeError(f"flash_decode: q and the caches must share one "
-                            f"of {list(DTYPES)}")
-        dev = q.device
-        if k_cache.device != dev or v_cache.device != dev:
-            raise ValueError("flash_decode: q and the caches on different "
-                             "devices")
-        cache_len = s if cache_len is None else int(cache_len)
-        if not 0 <= cache_len <= s:
-            raise ValueError(f"flash_decode: cache_len {cache_len} outside "
-                             f"[0, {s}]")
+        dims = _checked(q, k_cache, v_cache, cache_len)
+        b, h, kv, s, d, cache_len = dims
+        _span(sp, dims, q.element_size())
         bs = max(1, min(int(bs), s))
         ns = -(-s // bs)
-        sp.add("flops", 4 * b * h * cache_len * d)
-        sp.add("bytes", (2 * b * kv * cache_len + 2 * b * h) * d
-               * q.element_size())
-        if dev.type == "cpu":
+        if q.device.type == "cpu":
             return flash_decode_partials_plain(q, k_cache, v_cache,
                                                cache_len, bs)
-        if dev.type != "cuda":
-            raise ValueError(f"flash_decode runs on cpu or cuda, not {dev}")
-        if d not in HEAD_DIMS:
-            raise ValueError(f"flash_decode: head dim {d} not in {HEAD_DIMS}")
-        q = q.contiguous()
-        k_cache, v_cache = k_cache.contiguous(), v_cache.contiguous()
-        m = torch.empty((b, h, ns), dtype=torch.float32, device=dev)
-        l = torch.empty_like(m)
-        acc = torch.empty((b, h, ns, d), dtype=torch.float32, device=dev)
-        lib = _lib()
-        with torch.cuda.device(dev):
-            err = lib.flash_decode_partials(
-                q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-                m.data_ptr(), l.data_ptr(), acc.data_ptr(), DTYPES[q.dtype],
-                b, h, kv, s, d, cache_len, bs, d ** -0.5,
-                torch.cuda.current_stream(dev).cuda_stream)
-        check(lib, err, "flash_decode_partials")
+        q, k_cache, v_cache = _cuda_inputs(q, k_cache, v_cache)
+        n = b * h * ns
+        part = q.new_empty(n * (d + 2), dtype=torch.float32)
+        _launch(q, k_cache, v_cache, None, part, dims, bs, ns)
+        m, l = part[:n].view(b, h, ns), part[n:2 * n].view(b, h, ns)
+        acc = part[2 * n:].view(b, h, ns, d)
         launches += 1
         if sp is not obs.NOOP_SPAN:            # traced: span = device time
-            torch.cuda.current_stream(dev).synchronize()
+            torch.cuda.current_stream(q.device).synchronize()
         return m, l, acc

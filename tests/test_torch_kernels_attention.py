@@ -3,7 +3,8 @@ flash_decode on CPU tensors (their plain PyTorch versions) against
 repro's Pallas kernels in interpret mode and its jnp oracles, on the same
 numpy inputs: the shapes of tests/test_kernels_attention.py, plus head
 dim 32 without the causal mask (the embedder's encoder), a fully masked
-row, ragged decode caches and split invariance.
+row, ragged decode caches, split invariance, and the split that
+flash_decode chooses for the card when given no bs.
 
 Tolerances: rtol = atol = 2e-5 in fp32 (the packages sum in different
 orders); 5e-2 in bf16, as repro's own bf16 test (bf16 keeps ~3 decimal
@@ -216,6 +217,45 @@ def test_flash_decode_partials_cpu_path_is_plain():
         assert torch.equal(a, b)
     assert torch.equal(merge_partials(*got).to(q.dtype),
                        fd_ops.flash_decode(q, kc, vc, 600, 256))
+
+
+@pytest.mark.parametrize("kv", [1, 2, 8, 32])
+@pytest.mark.parametrize("cache_len", [0, 1, 15, 16, 17, 271, 4096, 32768])
+@pytest.mark.parametrize("sms", [1, 132])
+def test_choose_split_fills_the_card(kv, cache_len, sms):
+    """The card's default split (``bs=None``): whole ring tiles, no split
+    wholly past cache_len, >= 2 blocks an SM for one sequence wherever
+    the valid prefix has that many tiles, and no dependence on B (the
+    function is not given it)."""
+    tile = fd_ops.SPLIT_TILE
+    bs = fd_ops.choose_split(kv, cache_len, sms)
+    assert bs >= tile and bs % tile == 0
+    ns = max(1, -(-cache_len // bs))
+    assert cache_len == 0 or (ns - 1) * bs < cache_len   # each split valid
+    tiles = -(-cache_len // tile)
+    assert kv * ns >= min(2 * sms, kv * tiles)
+    if cache_len >= tile * -(-2 * sms // kv):
+        assert kv * ns >= 2 * sms
+
+
+@pytest.mark.parametrize("b,h,kv,s,d,cache_len", [
+    (2, 32, 8, 320, 128, 271), (3, 8, 2, 1088, 64, 1000),
+    (1, 4, 4, 700, 32, 1), (2, 4, 1, 2048, 64, 2048),
+])
+def test_flash_decode_default_split_matches_repro(b, h, kv, s, d,
+                                                  cache_len):
+    """``bs=None`` on the CPU takes repro's 512 and matches repro's
+    oracle."""
+    q, kc, vc = (_rand((b, h, d), 25), _rand((b, kv, s, d), 26),
+                 _rand((b, kv, s, d), 27))
+    got = fd_ops.flash_decode(*_t(q, kc, vc), cache_len=cache_len)
+    assert torch.equal(got, flash_decode_plain(*_t(q, kc, vc), cache_len,
+                                               min(512, s)))
+    want = np.asarray(repro_dref(jnp.asarray(q), jnp.asarray(kc),
+                                 jnp.asarray(vc),
+                                 cache_len=jnp.full((b,), cache_len,
+                                                    jnp.int32)))
+    np.testing.assert_allclose(got.numpy(), want, **F32)
 
 
 def _decode_bf16(cache_len, s=16384):

@@ -16,7 +16,10 @@ plain versions on the same inputs: max abs error <= 1e-4 in fp32 and
 orders over D and the key columns) or 2**-7 (bf16: one rounding step of
 8 significant bits) of its own value, plus 1e-4 of its row's largest.
 The decode kernel's fp32 split partials are held to the plain partials
-at 1e-4 before their merge. The embedding-bag kernel, against its plain
+at 1e-4 before their merge, and its in-library merge to repro's merge of
+the same partials (fp32: 1e-5 of each value plus 1e-5 of its row's
+largest, the two sum the splits in other orders; bf16: one rounding
+step). The embedding-bag kernel, against its plain
 version: bit for bit where a bag has one slot (one product, rounded
 once either way), else each component within 1e-5 of the sum of
 |w * row| over the bag (fmaf against a product then an add: at most one
@@ -34,7 +37,7 @@ from repro_torch.kernels.flash_attention import ops as fa_ops
 from repro_torch.kernels.flash_attention.plain import flash_attention_plain
 from repro_torch.kernels.flash_decode import ops as fd_ops
 from repro_torch.kernels.flash_decode.plain import (
-    flash_decode_partials_plain, flash_decode_plain)
+    flash_decode_partials_plain, flash_decode_plain, merge_partials)
 from repro_torch.index.quant import fixed_scale, quantize_rows
 from repro_torch.kernels.temporal_mask_score import ops as tops
 from repro_torch.kernels.temporal_mask_score.plain import (
@@ -424,6 +427,11 @@ def _attention_agree(got, want, dtype):
     (2, 8, 2, 100, 300, 64, True), (1, 4, 1, 77, 77, 32, False),
     (1, 2, 2, 64, 40, 128, True),          # rows that see no key: 0
     (16, 2, 2, 200, 200, 32, False),       # BERT4Rec: both tiles ragged
+    # bf16 runs these on the tensor cores: ragged Sq / Skv (not multiples
+    # of 64), Sq > Skv, D 64 and 128, GQA groups 1 and 4
+    (2, 8, 2, 200, 333, 128, True), (1, 4, 4, 200, 333, 64, True),
+    (1, 8, 2, 333, 200, 128, True), (2, 4, 4, 300, 100, 64, True),
+    (1, 8, 2, 130, 390, 128, False), (3, 4, 4, 65, 129, 64, False),
 ])
 def test_flash_attention_kernel_matches_plain(dev, dtype, b, h, kv, sq, skv,
                                               d, causal):
@@ -440,11 +448,19 @@ def test_flash_attention_kernel_matches_plain(dev, dtype, b, h, kv, sq, skv,
         assert torch.all(got[:, :, :sq - skv] == 0)
 
 
+def _sms(dev):
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,h,kv,s,d,cache_len,bs", [
     (1, 32, 8, 320, 128, 257, 512), (2, 8, 2, 1088, 64, 1000, 512),
     (3, 4, 4, 700, 32, 1, 256), (1, 32, 8, 4096, 128, 4096, 512),
     (2, 16, 2, 300, 128, 0, 128),          # empty prefix: 0
+    # bs=None: the splits chosen for the card, B > 1
+    (3, 32, 8, 320, 128, 0, None), (3, 32, 8, 320, 128, 1, None),
+    (2, 8, 2, 300, 64, 17, None), (2, 32, 8, 4096, 128, 4096, None),
+    (4, 4, 4, 700, 32, 271, None), (2, 16, 2, 1000, 128, 999, None),
 ])
 def test_flash_decode_kernel_matches_plain(dev, dtype, b, h, kv, s, d,
                                            cache_len, bs):
@@ -455,14 +471,51 @@ def test_flash_decode_kernel_matches_plain(dev, dtype, b, h, kv, s, d,
     got = fd_ops.flash_decode(q, kc, vc, cache_len=cache_len, bs=bs)
     torch.cuda.synchronize()
     assert fd_ops.launches == before + 1 and got.dtype == dtype
-    want = flash_decode_plain(q, kc, vc, cache_len, bs)
+    want = flash_decode_plain(q, kc, vc, cache_len, bs or 512)
     _attention_agree(got, want, dtype)
+    # the partials kernel at the split the call used
+    split = bs or fd_ops.choose_split(kv, cache_len, _sms(dev))
+    got_p = fd_ops.flash_decode_partials(q, kc, vc, cache_len, split)
     ok, _, why = partials_agree(
-        fd_ops.flash_decode_partials(q, kc, vc, cache_len, bs),
-        flash_decode_partials_plain(q, kc, vc, cache_len, bs))
+        got_p, flash_decode_partials_plain(q, kc, vc, cache_len, split))
     assert ok, why
+    # the in-library merge against repro's merge of those partials
+    merged = merge_partials(*got_p)
+    if dtype == torch.float32:
+        ok, ratio = rounding_agree(got, merged, 1e-5, 1e-5)
+    else:
+        ok, ratio = rounding_agree(got, merged.to(dtype), 2 ** -7)
+    assert ok, f"merge: {ratio:.3g} x its limit"
     if cache_len == 0:
         assert torch.all(got == 0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cache_len", [1, 271, 4000])
+def test_flash_decode_batch_invariant_bitwise(dev, monkeypatch, dtype,
+                                              cache_len):
+    """A request's output is the same bits alone and inside a batch of 4
+    (the chosen splits do not depend on B), and each ``flash_decode``
+    call is one library call (partials and merge kernels inside it)."""
+    q = _randn((4, 32, 128), 70, dev, dtype)
+    kc = _randn((4, 8, 4096, 128), 71, dev, dtype)
+    vc = _randn((4, 8, 4096, 128), 72, dev, dtype)
+    lib, fn = fd_ops._entry()
+    calls = []
+
+    def counted(*args):
+        calls.append(args)
+        return fn(*args)
+
+    monkeypatch.setattr(fd_ops, "_fwd", (lib, counted))
+    before = fd_ops.launches
+    batch = fd_ops.flash_decode(q, kc, vc, cache_len=cache_len)
+    alone = [fd_ops.flash_decode(q[i:i + 1], kc[i:i + 1], vc[i:i + 1],
+                                 cache_len=cache_len) for i in range(4)]
+    torch.cuda.synchronize()
+    assert len(calls) == 5 and fd_ops.launches == before + 5
+    for i in range(4):
+        assert torch.equal(alone[i][0], batch[i])
 
 
 def test_attention_kernels_reject_bad_input(dev):
