@@ -2,6 +2,8 @@
 """Chip smoke test of the PyTorch/H100 port (``src/repro_torch``).
 
     python3 chip_smoke.py          # from the root of a checkout, one GPU
+    python3 chip_smoke.py --parent DIR   # also hold the top-k scans
+                                         # against DIR's kernels
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` with nvcc,
 holds each kernel against its plain PyTorch version on the card at the
@@ -16,12 +18,17 @@ MLPerf widths, FM, Wide&Deep, BERT4Rec) serving on the card.
 Phases (any failure stops the script with a non-zero exit):
   1. setup: card name and power limit, kernel build time, and ptxas's
      registers, shared memory and spills of the attention kernels'
-     tensor-core and split-decode instances;
+     tensor-core and split-decode instances and of the top-k scans'
+     list, key and select kernels;
   2. kernels vs plain versions, with times (kernel, plain, library) and
      the least time the card could take (bound): the four top-k scans
      (k up to 128 on their register lists, k in {129, 500, 4096} on
-     their sort path), flash attention (the MiniLM encoder, Mistral-NeMo
-     prefill at 256 and 4096 tokens), split-K decode (the engine's
+     their radix-select path, whose k = 500 rows also split the device
+     time into score, select, gather and order by CUDA events; with
+     ``--parent``, every scan call is also held bit for bit against an
+     earlier checkout's kernels, which are timed beside), flash
+     attention (the MiniLM encoder, Mistral-NeMo prefill at 256 and
+     4096 tokens), split-K decode (the engine's
      cache; decode_32k, 16 x 32768, at full and partial length; its
      partials at bs 512 against the plain partials, its in-library merge
      against merge_partials of the partials at the split it chose) and the
@@ -41,7 +48,7 @@ Phases (any failure stops the script with a non-zero exit):
      vs CPU on 64 texts with the same weights; then the paper's corpus
      ingested into an fp32 and a quantized store that embed with it:
      CURRENT / HISTORICAL / COMPARATIVE ``query_batch`` at batch 1, 8,
-     32 and k 10, 50 (a quantized pool of 200: the sort path), batch ==
+     32 and k 10, 50 (a quantized pool of 200: the select path), batch ==
      sequential bit for bit, no out-of-window id, CPU reopen (CPU
      embedder, same weights) equivalent;
   6. RAG generation: Mistral-NeMo-12B at full width (40L, d 5120, bf16,
@@ -71,6 +78,7 @@ Imports no JAX.
 """
 from __future__ import annotations
 
+import ctypes
 import json
 import math
 import subprocess
@@ -84,7 +92,7 @@ D = 384                    # all-MiniLM-L6-v2 width, the paper's embedder
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, data sheet
 FP32_FLOPS = 67e12         # H100 SXM fp32 outside the tensor cores
 BF16_FLOPS = 989e12        # H100 SXM bf16 dense on the tensor cores
-BIG_K = (129, 500, 4096)   # k above the register lists: the sort path
+BIG_K = (129, 500, 4096)   # k above the register lists: the select path
 # a Mistral-NeMo-12B decode step on the CUDA-core attention kernels with
 # the split merge in torch (H100 80GB HBM3, 700 W), for comparison
 DECODE_STEP_BEFORE_MS = "48.7-67.0"
@@ -118,7 +126,16 @@ TILE_KERNELS = ("topk_search", "temporal_window_topk", "topk_search_q8",
 # (source, kernel) whose registers, shared memory and spills phase 1 logs
 PTXAS_REPORT = (("flash_attention", "fa_wgmma_kernel"),
                 ("flash_decode", "decode_partials_kernel"),
-                ("flash_decode", "decode_merge_kernel"))
+                ("flash_decode", "decode_merge_kernel"),
+                ("topk_search", "topk_list_kernel"),
+                ("topk_search", "topk_key_kernel"),
+                ("temporal_mask_score", "topk_list_kernel"),
+                ("temporal_mask_score", "topk_key_kernel"),
+                ("topk_search", "select_hist_kernel"),
+                ("topk_search", "select_digit_kernel"),
+                ("topk_search", "select_above_kernel"),
+                ("topk_search", "select_ties_kernel"),
+                ("topk_search", "select_order_kernel"))
 
 
 def ptxas_lines(log_text: str, kernel: str) -> list[str]:
@@ -173,6 +190,95 @@ def bound_ms(in_bytes: int, out_bytes: int, flops: int,
             "bytes" if t_bytes >= t_ops else "operations")
 
 
+class ParentScans:
+    """The four top-k scans of another checkout (``--parent``), whose
+    csrc/topk_tile.cuh has the candidate-list interface: entries taking
+    (inputs, out_s, out_i, Q, N, D, k, grid_x, q_begin, q_count, stream),
+    ``topk_tile_grid_x(N, Q, sms, k)`` and ``topk_tile_list_len(k)``.
+    Built with this checkout's nvcc flags into build/repro_torch/parent,
+    launched in chunks of 2^25 candidates and merged with one stable sort
+    as that checkout's kernels/common.py does. Called like the wrappers:
+    ``parent(name, *args)``."""
+
+    ENTRIES = {"topk_search": ("topk_search", "topk_search_f32"),
+               "topk_search_q8": ("topk_search", "topk_search_q8"),
+               "temporal_window_topk": ("temporal_mask_score",
+                                        "temporal_window_topk_f32"),
+               "temporal_window_topk_q8": ("temporal_mask_score",
+                                           "temporal_window_topk_q8")}
+    BUDGET = 1 << 25
+
+    def __init__(self, torch, root: str):
+        from repro_torch.kernels import build
+
+        self.torch = torch
+        out = build.BUILD_DIR / "parent"
+        out.mkdir(parents=True, exist_ok=True)
+        procs = []
+        for name in ("topk_search", "temporal_mask_score"):
+            so = out / f"lib{name}.so"
+            src = Path(root) / "src" / "repro_torch" / "csrc" / f"{name}.cu"
+            procs.append((name, so, subprocess.Popen(
+                [build.nvcc_path(), *build.NVCC_FLAGS, "-o", str(so),
+                 str(src)], stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True)))
+        self.libs = {}
+        for name, so, proc in procs:
+            text = proc.communicate()[0]
+            check(proc.returncode == 0, f"parent {name}.cu: nvcc failed\n"
+                                        f"{text}")
+            lib = ctypes.CDLL(str(so))
+            lib.topk_tile_grid_x.argtypes = [ctypes.c_longlong] * 4
+            lib.topk_tile_grid_x.restype = ctypes.c_longlong
+            lib.topk_tile_list_len.argtypes = [ctypes.c_longlong]
+            lib.topk_tile_list_len.restype = ctypes.c_longlong
+            self.libs[name] = lib
+        for src, entry in self.ENTRIES.values():
+            n_in = 3 if src == "topk_search" else 6
+            fn = getattr(self.libs[src], entry)
+            fn.argtypes = ([ctypes.c_void_p] * (n_in + 2)
+                           + [ctypes.c_longlong] * 7 + [ctypes.c_void_p])
+            fn.restype = ctypes.c_int
+
+    def __call__(self, name: str, *args):
+        from repro_torch.kernels.common import merge_candidates
+
+        torch = self.torch
+        q = torch.atleast_2d(args[0])
+        corpus, k = args[1], args[-1]
+        if name.endswith("_q8"):
+            q = q * args[2]
+            args = args[:2] + args[3:]
+        nq, (n, d) = q.shape[0], corpus.shape
+        inputs = [q, corpus] + [
+            torch.broadcast_to(t, (nq,)).contiguous() if i >= 2 else t
+            for i, t in enumerate(args[2:-1])]
+        k = min(k, n)
+        src, entry = self.ENTRIES[name]
+        lib = self.libs[src]
+        sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+        gx = int(lib.topk_tile_grid_x(n, nq, sms, k))
+        kk = int(lib.topk_tile_list_len(k))
+        step = max(1, self.BUDGET // (gx * kk))
+        if step < nq and step >= 32:
+            step = step // 32 * 32
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        outs = []
+        for q_begin in range(0, nq, step):
+            qc = min(step, nq - q_begin)
+            cs = torch.empty((gx, qc, kk), dtype=torch.float32,
+                             device=q.device)
+            ci = torch.empty((gx, qc, kk), dtype=torch.int32,
+                             device=q.device)
+            err = getattr(lib, entry)(*[t.data_ptr() for t in inputs],
+                                      cs.data_ptr(), ci.data_ptr(), nq, n,
+                                      d, k, gx, q_begin, qc, stream)
+            check(err == 0, f"parent {entry}: CUDA error {err}")
+            outs.append(merge_candidates(cs, ci, k))
+        return (torch.cat([o[0] for o in outs]),
+                torch.cat([o[1] for o in outs]))
+
+
 def unit_rows(torch, gen, n: int, d: int, dev):
     x = torch.randn((n, d), generator=gen, device=dev, dtype=torch.float32)
     return x / x.norm(dim=1, keepdim=True).clamp_min(1e-9)
@@ -208,7 +314,7 @@ def history(torch, gen, dev, n0: int, churn: int):
     return torch.where(invisible, VALID_TO_OPEN, vf), vt, vf
 
 
-def phase_kernels(torch, dev) -> dict:
+def phase_kernels(torch, dev, parent=None) -> dict:
     from repro_torch.core.types import VALID_TO_OPEN
     from repro_torch.index.quant import Q8_MAX, fixed_scale
     from repro_torch.kernels.temporal_mask_score import ops as tops
@@ -237,15 +343,58 @@ def phase_kernels(torch, dev) -> dict:
         check(ok, f"{name} {what}: {why}")
         out[name]["err"] = max(out[name]["err"], err)
 
-    def timed(name, n, nq, k, fn, plain, library, in_bytes, flops,
+    ops = {"topk_search": kops.topk_search,
+           "topk_search_q8": kops.topk_search_q8,
+           "temporal_window_topk": tops.temporal_window_topk,
+           "temporal_window_topk_q8": tops.temporal_window_topk_q8}
+    libs = {"topk_search": kops._lib, "topk_search_q8": kops._lib,
+            "temporal_window_topk": tops._lib,
+            "temporal_window_topk_q8": tops._lib}
+    held = {"parent": 0}
+
+    def run(name, *args):
+        """The kernel's answer; with ``parent``, also held bit for bit
+        against the parent checkout's kernels on the same inputs."""
+        got = ops[name](*args)
+        if parent is not None:
+            want = parent(name, *args)
+            check(torch.equal(got[0].view(torch.int32),
+                              want[0].view(torch.int32))
+                  and torch.equal(got[1], want[1]),
+                  f"{name} Q={got[0].shape[0]} k={got[0].shape[1]}: "
+                  f"differs from the parent's kernels")
+            held["parent"] += 1
+        return got
+
+    def split(name, args, reps=5):
+        """Device ms of the select path's score, select, gather and order
+        steps (CUDA events in the library), mean of ``reps`` calls."""
+        lib = libs[name]()
+        lib.topk_tile_split_on.argtypes = [ctypes.c_int]
+        ms, acc = (ctypes.c_float * 4)(), [0.0] * 4
+        check(lib.topk_tile_split_on(1) == 0, "topk_tile_split_on")
+        for _ in range(reps):
+            ops[name](*args)
+            check(lib.topk_tile_split_ms(ms) == 0, "topk_tile_split_ms")
+            acc = [x + y / reps for x, y in zip(acc, ms)]
+        lib.topk_tile_split_on(0)
+        return dict(zip(("score_ms", "select_ms", "gather_ms", "order_ms"),
+                        acc))
+
+    def timed(name, n, nq, k, args, plain, library, in_bytes, flops,
               iters=50, plain_iters=5):
-        t = cuda_ms(torch, fn, iters)
+        row = dict(Q=nq, N=n, k=k,
+                   ms=cuda_ms(torch, lambda: ops[name](*args), iters))
+        if parent is not None:
+            row["parent_ms"] = cuda_ms(torch, lambda: parent(name, *args),
+                                       iters)
         tp = cuda_ms(torch, plain, plain_iters, 1)
         tl = cuda_ms(torch, library, iters, 1)
         b, by = bound_ms(in_bytes, nq * k * 8, flops)
-        out[name]["times"].append(dict(
-            Q=nq, N=n, k=k, ms=t, plain_ms=tp, library_ms=tl, bound_ms=b,
-            bound_by=by))
+        row.update(plain_ms=tp, library_ms=tl, bound_ms=b, bound_by=by)
+        if k > 128:
+            row.update(split(name, args))
+        out[name]["times"].append(row)
 
     # -- topk_search and topk_search_q8: the hot tier's fused block
     #    (memtable 4096 + small segments), and a ragged N; 70% of rows
@@ -259,35 +408,35 @@ def phase_kernels(torch, dev) -> dict:
         for nq in (2, 32, 256):
             q = unit_rows(torch, gen, nq, D, dev)
             for k in (5, 10, 64, 128):
-                hold("topk_search", kops.topk_search(q, corpus, alive, k),
+                hold("topk_search", run("topk_search", q, corpus, alive, k),
                      topk_search_plain(q, corpus, alive, k + 1),
                      f"N={n} Q={nq} k={k}")
             for k in (40, 128):
                 hold("topk_search_q8",
-                     kops.topk_search_q8(q, c8, scale, alive, k),
+                     run("topk_search_q8", q, c8, scale, alive, k),
                      topk_search_q8_plain(q, c8, scale, alive, k + 1),
                      f"N={n} Q={nq} k={k}")
             if n != 8192:
                 continue
             for k in (BIG_K if nq != 32 else ()):
-                hold("topk_search", kops.topk_search(q, corpus, alive, k),
+                hold("topk_search", run("topk_search", q, corpus, alive, k),
                      topk_search_plain(q, corpus, alive, k + 1),
                      f"N={n} Q={nq} k={k}")
                 hold("topk_search_q8",
-                     kops.topk_search_q8(q, c8, scale, alive, k),
+                     run("topk_search_q8", q, c8, scale, alive, k),
                      topk_search_q8_plain(q, c8, scale, alive, k + 1),
                      f"N={n} Q={nq} k={k}")
             # the work this data needs: alive rows only
             k = 10
             timed("topk_search", n, nq, k,
-                  lambda: kops.topk_search(q, corpus, alive, k),
+                  (q, corpus, alive, k),
                   lambda: topk_search_plain(q, corpus, alive, k),
                   lambda: torch.topk(torch.matmul(q, corpus.T).masked_fill(
                       ~alive, -math.inf), k, dim=1),
                   live * D * 4 + n + nq * D * 4, 2 * nq * live * D)
             kp = 40
             timed("topk_search_q8", n, nq, kp,
-                  lambda: kops.topk_search_q8(q, c8, scale, alive, kp),
+                  (q, c8, scale, alive, kp),
                   lambda: topk_search_q8_plain(q, c8, scale, alive, kp),
                   lambda: torch.topk(torch.matmul(
                       q * scale, c8.float().T).masked_fill(
@@ -295,16 +444,16 @@ def phase_kernels(torch, dev) -> dict:
                   live * D + n + nq * D * 4 + D * 4, 2 * nq * live * D)
             if nq == 32:
                 continue
-            k = 500                                    # the sort path
+            k = 500                                  # the select path
             timed("topk_search", n, nq, k,
-                  lambda: kops.topk_search(q, corpus, alive, k),
+                  (q, corpus, alive, k),
                   lambda: topk_search_plain(q, corpus, alive, k),
                   lambda: torch.topk(torch.matmul(q, corpus.T).masked_fill(
                       ~alive, -math.inf), k, dim=1),
                   live * D * 4 + n + nq * D * 4, 2 * nq * live * D,
                   iters=20, plain_iters=3)
             timed("topk_search_q8", n, nq, k,
-                  lambda: kops.topk_search_q8(q, c8, scale, alive, k),
+                  (q, c8, scale, alive, k),
                   lambda: topk_search_q8_plain(q, c8, scale, alive, k),
                   lambda: torch.topk(torch.matmul(
                       q * scale, c8.float().T).masked_fill(
@@ -313,16 +462,16 @@ def phase_kernels(torch, dev) -> dict:
                   iters=20, plain_iters=3)
     q = unit_rows(torch, gen, 4, D, dev)
     dead = torch.zeros(corpus.shape[0], dtype=torch.bool, device=dev)
-    for s, i in (kops.topk_search(q, corpus, dead, 10),
-                 kops.topk_search_q8(q, c8, scale, dead, 40)):
+    for s, i in (run("topk_search", q, corpus, dead, 10),
+                 run("topk_search_q8", q, c8, scale, dead, 40)):
         check(bool(torch.isneginf(s).all() and (i == -1).all()),
               "top-k all-masked: not all (-inf, -1)")
     tiny = corpus[:7].contiguous()
     m = torch.tensor([1, 0, 1, 1, 1, 0, 1], dtype=torch.bool, device=dev)
-    hold("topk_search", kops.topk_search(q, tiny, m, 7),
+    hold("topk_search", run("topk_search", q, tiny, m, 7),
          topk_search_plain(q, tiny, m, 8), "k=N=7")
     tiny8 = c8[:7].contiguous()
-    hold("topk_search_q8", kops.topk_search_q8(q, tiny8, scale, m, 7),
+    hold("topk_search_q8", run("topk_search_q8", q, tiny8, scale, m, 7),
          topk_search_q8_plain(q, tiny8, scale, m, 8), "k=N=7")
     del corpus, c8
 
@@ -381,15 +530,15 @@ def phase_kernels(torch, dev) -> dict:
             ks = (5, 10, 64, 128) if nq == 32 else (10,)
             for k in ks if fp32 else ():
                 what = f"N={n} Q={nq} k={k}"
-                got = tops.temporal_window_topk(q, hist, vf, vt, t0, t1, k)
+                got = run("temporal_window_topk", q, hist, vf, vt, t0, t1, k)
                 hold("temporal_window_topk", got, temporal_window_topk_plain(
                     q, hist, vf, vt, t0, t1, k + 1), what)
                 in_window("temporal_window_topk", got, vf_h, vt_h, t0, t1,
                           what)
             for k in (40, 128):
                 what = f"N={n} Q={nq} k={k}"
-                got = tops.temporal_window_topk_q8(q, c8, scale, vf, vt, t0,
-                                                   t1, k)
+                got = run("temporal_window_topk_q8", q, c8, scale, vf, vt,
+                          t0, t1, k)
                 hold("temporal_window_topk_q8", got,
                      temporal_window_topk_q8_plain(q, c8, scale, vf, vt, t0,
                                                    t1, k + 1), what)
@@ -397,13 +546,13 @@ def phase_kernels(torch, dev) -> dict:
                           what)
             for k in (BIG_K if fp32 and nq != 32 else ()):
                 what = f"N={n} Q={nq} k={k}"
-                got = tops.temporal_window_topk(q, hist, vf, vt, t0, t1, k)
+                got = run("temporal_window_topk", q, hist, vf, vt, t0, t1, k)
                 hold("temporal_window_topk", got, temporal_window_topk_plain(
                     q, hist, vf, vt, t0, t1, k + 1), what)
                 in_window("temporal_window_topk", got, vf_h, vt_h, t0, t1,
                           what)
-                got = tops.temporal_window_topk_q8(q, c8, scale, vf, vt, t0,
-                                                   t1, k)
+                got = run("temporal_window_topk_q8", q, c8, scale, vf, vt,
+                          t0, t1, k)
                 hold("temporal_window_topk_q8", got,
                      temporal_window_topk_q8_plain(q, c8, scale, vf, vt, t0,
                                                    t1, k + 1), what)
@@ -424,8 +573,7 @@ def phase_kernels(torch, dev) -> dict:
             if fp32:
                 k = 10
                 timed("temporal_window_topk", n, nq, k,
-                      lambda: tops.temporal_window_topk(q, hist, vf, vt, t0,
-                                                        t1, k),
+                      (q, hist, vf, vt, t0, t1, k),
                       lambda: temporal_window_topk_plain(q, hist, vf, vt, t0,
                                                          t1, k),
                       lambda: library(hist, q, k),
@@ -433,8 +581,7 @@ def phase_kernels(torch, dev) -> dict:
                       2 * pairs * D, iters=10, plain_iters=2)
             kp = 40
             timed("temporal_window_topk_q8", n, nq, kp,
-                  lambda: tops.temporal_window_topk_q8(q, c8, scale, vf, vt,
-                                                       t0, t1, kp),
+                  (q, c8, scale, vf, vt, t0, t1, kp),
                   lambda: temporal_window_topk_q8_plain(q, c8, scale, vf, vt,
                                                         t0, t1, kp),
                   lambda: library(c8.float(), q * scale, kp),
@@ -442,18 +589,16 @@ def phase_kernels(torch, dev) -> dict:
                   2 * pairs * D, iters=10, plain_iters=2)
             if not fp32 or nq == 32:
                 continue
-            k = 500                                    # the sort path
+            k = 500                                  # the select path
             timed("temporal_window_topk", n, nq, k,
-                  lambda: tops.temporal_window_topk(q, hist, vf, vt, t0,
-                                                    t1, k),
+                  (q, hist, vf, vt, t0, t1, k),
                   lambda: temporal_window_topk_plain(q, hist, vf, vt, t0,
                                                      t1, k),
                   lambda: library(hist, q, k),
                   rows_any * D * 4 + 16 * n + nq * D * 4 + 16 * nq,
                   2 * pairs * D, iters=5, plain_iters=2)
             timed("temporal_window_topk_q8", n, nq, k,
-                  lambda: tops.temporal_window_topk_q8(q, c8, scale, vf, vt,
-                                                       t0, t1, k),
+                  (q, c8, scale, vf, vt, t0, t1, k),
                   lambda: temporal_window_topk_q8_plain(q, c8, scale, vf, vt,
                                                         t0, t1, k),
                   lambda: library(c8.float(), q * scale, k),
@@ -467,6 +612,9 @@ def phase_kernels(torch, dev) -> dict:
                 f"{key}={val:.4f}" if isinstance(val, float) else
                 f"{key}={val}" for key, val in row.items()))
         log(f"  {name}: max_abs_err={r['err']:.3g}")
+    if parent is not None:
+        log(f"  {held['parent']} top-k calls equal the parent's kernels bit "
+            f"for bit (scores and ids)")
     return out
 
 
@@ -1124,7 +1272,7 @@ def phase_rag_store(torch, workdir: str, emb, cpu_emb) -> dict:
                         lake.temporal.assert_no_window_leakage(
                             r, *kw["window"])
                 got[name, k] = res
-        if quantized:           # k = 50: pools of 200, the sort path
+        if quantized:           # k = 50: pools of 200, the select path
             check(kops.launches_q8 > q8_before[0]
                   and tops.launches_q8 > q8_before[1],
                   "quantized MiniLM store: the q8 scans were not launched")
@@ -1604,6 +1752,14 @@ def phase_recsys(torch, dev) -> int:
 
 
 def main() -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", default=None,
+                    help="a checkout of an earlier commit: phase 2 also "
+                         "holds each top-k call against its kernels, bit "
+                         "for bit, and times them")
+    args = ap.parse_args()
     try:
         import torch
     except ImportError:
@@ -1636,8 +1792,10 @@ def main() -> int:
         for line in ptxas_lines(logs.get(name, ""), kernel):
             log(f"  ptxas {line}")
 
+    parent = ParentScans(torch, args.parent) if args.parent else None
+
     log("phase 2: kernels against their plain versions")
-    kern = phase_kernels(torch, dev)
+    kern = phase_kernels(torch, dev, parent)
     kern.update(phase_attention(torch, dev))
     kern.update(phase_embedding_bag(torch, dev))
     with tempfile.TemporaryDirectory(prefix="chip_smoke-") as work:

@@ -19,8 +19,9 @@
 //               CUDA cores (no tensor cores: TF32 keeps ~3 decimal digits
 //               and would break id parity with the JAX package).
 // At the hot tier's fused block (N ~ 8k, D = 384) the scan is small and
-// launch-bound at every batch size; the design keeps it to one launch
-// plus one stable sort. The int8 entry cuts the corpus bytes by 4 but
+// launch-bound at every batch size; the design keeps it to one library
+// call: one kernel plus one stable sort for k <= 128, the select path's
+// nine kernels above it. The int8 entry cuts the corpus bytes by 4 but
 // not the FMAs, so it gains only where bytes bound. The shared body and
 // its batch-invariance argument are in topk_tile.cuh.
 #include "topk_tile.cuh"
@@ -41,27 +42,30 @@ struct BoolMask {
 }  // namespace
 
 // q (Q, D) f32, corpus (N, D) f32, mask (N,) bool, all contiguous on one
-// device; out_s/out_i (grid_x, q_count, topk_tile_list_len(k)) for the
-// queries [q_begin, q_begin + q_count), grid_x from topk_tile_grid_x.
+// device; outputs and `work` for the queries [q_begin, q_begin + q_count)
+// as topk_tile::launch says (k <= 128: candidates (grid_x, q_count, k);
+// k > 128: the answers (q_count, k)), grid_x from topk_tile_grid_x.
 // Returns cudaGetLastError().
 extern "C" int topk_search_f32(const float* q, const float* corpus,
                                const uint8_t* mask, float* out_s, int* out_i,
+                               void* work,
                                long long Q, long long N, long long D,
                                long long k, long long grid_x,
                                long long q_begin, long long q_count,
                                void* stream) {
-  return topk_tile::launch(q, corpus, BoolMask{mask}, out_s, out_i, Q, N, D,
-                           k, grid_x, q_begin, q_count, stream);
+  return topk_tile::launch(q, corpus, BoolMask{mask}, out_s, out_i, work, Q,
+                           N, D, k, grid_x, q_begin, q_count, stream);
 }
 
 // qs (Q, D) f32 scale-folded queries, c8 (N, D) int8, mask (N,) bool,
 // all contiguous on one device; outputs as topk_search_f32.
 extern "C" int topk_search_q8(const float* qs, const int8_t* c8,
                               const uint8_t* mask, float* out_s, int* out_i,
+                              void* work,
                               long long Q, long long N, long long D,
                               long long k, long long grid_x,
                               long long q_begin, long long q_count,
                               void* stream) {
-  return topk_tile::launch(qs, c8, BoolMask{mask}, out_s, out_i, Q, N, D, k,
-                           grid_x, q_begin, q_count, stream);
+  return topk_tile::launch(qs, c8, BoolMask{mask}, out_s, out_i, work, Q, N,
+                           D, k, grid_x, q_begin, q_count, stream);
 }

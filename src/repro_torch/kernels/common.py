@@ -15,11 +15,21 @@ import torch
 
 from .build import check
 
-# candidate entries (scores and row ids) one tile-scan launch may write;
-# a scan whose (row blocks x queries x list length) exceeds it launches
-# over chunks of the queries, down to one query a launch (whose own row
-# blocks x list length is the floor)
+# the tile scans' two selection paths (csrc/topk_tile.cuh): a register
+# list per query for k <= KMAX, the radix select above it; the select
+# orders its k answers in the kernel up to ORDER_MAX, the caller above it
+KMAX = 128
+ORDER_MAX = 8192
+# candidate entries (scores and row ids) one list-path launch may write;
+# a scan whose (row blocks x queries x k) exceeds it launches over chunks
+# of the queries
 CAND_BUDGET = 1 << 25
+# bytes of the (queries x N) 32-bit key buffer of one select-path launch;
+# one query (N x 4 bytes) is the floor
+KEY_BUDGET = 1 << 30
+# queries of one select-path launch, at most (a grid dimension), in whole
+# 32-query tiles
+SELECT_MAX_QUERIES = 65504
 
 
 def resolve_device(device=None) -> torch.device:
@@ -60,52 +70,92 @@ def batch_invariant_scores(q: torch.Tensor,
     return torch.stack([torch.mv(corpus, qi) for qi in q])
 
 
+def query_chunks(nq: int, per_query: int, budget: int,
+                 max_queries: int | None = None) -> list[tuple[int, int]]:
+    """Split ``nq`` queries into launches of (q_begin, q_count) whose
+    ``per_query`` cost each stays within ``budget``: one query a launch
+    at the least (whatever its own cost), whole 32-query tiles where
+    more than one fits, and no more than ``max_queries``."""
+    step = max(1, budget // max(1, per_query))
+    if max_queries is not None:
+        step = min(step, max_queries)
+    if step < nq and step >= 32:
+        step = step // 32 * 32
+    return [(b, min(step, nq - b)) for b in range(0, nq, step)]
+
+
+def scan_chunks(nq: int, n: int, k: int, grid_x: int
+                ) -> list[tuple[int, int]]:
+    """The launches of one tile scan: the list path's chunks keep their
+    candidates (grid_x x queries x k) within ``CAND_BUDGET``, the select
+    path's keep their (queries x N) key buffer within ``KEY_BUDGET``."""
+    if k > KMAX:
+        return query_chunks(nq, 4 * n, KEY_BUDGET, SELECT_MAX_QUERIES)
+    return query_chunks(nq, grid_x * k, CAND_BUDGET)
+
+
 def bind(lib: ctypes.CDLL, entry: str, n_tensors: int) -> None:
     """Declare the C signatures of a tile-scan library: ``entry`` takes
-    ``n_tensors`` input pointers, the two candidate outputs, (Q, N, D, k,
-    grid_x, q_begin, q_count) and the stream; ``topk_tile_grid_x`` sizes
-    the grid and ``topk_tile_list_len`` the candidate lists."""
+    ``n_tensors`` input pointers, the two outputs, the workspace, (Q, N,
+    D, k, grid_x, q_begin, q_count) and the stream; ``topk_tile_grid_x``
+    sizes the grid, ``topk_tile_work_bytes`` the select path's workspace
+    and ``topk_tile_decode`` writes out the answers the caller sorted."""
     fn = getattr(lib, entry)
-    fn.argtypes = ([ctypes.c_void_p] * (n_tensors + 2)
+    fn.argtypes = ([ctypes.c_void_p] * (n_tensors + 3)
                    + [ctypes.c_longlong] * 7 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    lib.topk_tile_grid_x.argtypes = [ctypes.c_longlong] * 4
+    lib.topk_tile_grid_x.argtypes = [ctypes.c_longlong] * 3
     lib.topk_tile_grid_x.restype = ctypes.c_longlong
-    lib.topk_tile_list_len.argtypes = [ctypes.c_longlong]
-    lib.topk_tile_list_len.restype = ctypes.c_longlong
+    lib.topk_tile_work_bytes.argtypes = [ctypes.c_longlong] * 3
+    lib.topk_tile_work_bytes.restype = ctypes.c_longlong
+    lib.topk_tile_decode.argtypes = ([ctypes.c_void_p] * 3
+                                     + [ctypes.c_longlong] * 2
+                                     + [ctypes.c_void_p])
+    lib.topk_tile_decode.restype = ctypes.c_int
 
 
 def launch_tile_scan(lib: ctypes.CDLL, entry: str, inputs: list,
                      nq: int, n: int, d: int, k: int
                      ) -> tuple[torch.Tensor, torch.Tensor, int]:
-    """Launch a tile-scan kernel (csrc/topk_tile.cuh) on the current
-    stream of the inputs' device and merge its per-block candidates.
-    ``inputs`` are the kernel's input tensors in argument order. Any
-    1 <= k <= N: k <= 128 keeps a register list per query, a larger k
-    sorts blocks of rows in shared memory. The queries go in chunks
-    that keep each launch's candidates within ``CAND_BUDGET``. Returns
-    (scores (Q, k), ids (Q, k), number of kernel launches)."""
+    """Launch a tile-scan library call (csrc/topk_tile.cuh) on the current
+    stream of the inputs' device, once a chunk of the queries
+    (``scan_chunks``). ``inputs`` are the kernel's input tensors in
+    argument order. Any 1 <= k <= N: k <= 128 keeps a register list per
+    query and merges the per-block candidates here; a larger k runs the
+    radix select, which returns each query's k answers (ordered here with
+    one sort of k entries a query only for k > 8192). Returns (scores
+    (Q, k), ids (Q, k), number of library calls)."""
     dev = inputs[0].device
     with torch.cuda.device(dev):
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
-        gx = int(lib.topk_tile_grid_x(n, nq, sms, k))
-        kk = int(lib.topk_tile_list_len(k))
-        # queries a launch, within the budget (one query at the least);
-        # whole 32-query tiles where more than one fits
-        step = max(1, CAND_BUDGET // (gx * kk))
-        if step < nq and step >= 32:
-            step = step // 32 * 32
+        gx = int(lib.topk_tile_grid_x(n, nq, sms))
         stream = torch.cuda.current_stream(dev).cuda_stream
         ptrs = [t.data_ptr() for t in inputs]
         outs = []
-        for q_begin in range(0, nq, step):
-            qc = min(step, nq - q_begin)
-            cand_s = torch.empty((gx, qc, kk), dtype=torch.float32,
+        for q_begin, qc in scan_chunks(nq, n, k, gx):
+            if k > KMAX:
+                out_s = torch.empty((qc, k), dtype=torch.float32, device=dev)
+                out_i = torch.empty((qc, k), dtype=torch.int32, device=dev)
+                work = torch.empty(int(lib.topk_tile_work_bytes(qc, n, k)),
+                                   dtype=torch.uint8, device=dev)
+                err = getattr(lib, entry)(
+                    *ptrs, out_s.data_ptr(), out_i.data_ptr(),
+                    work.data_ptr(), nq, n, d, k, gx, q_begin, qc, stream)
+                check(lib, err, entry)
+                if k > ORDER_MAX:        # the k packed slots lead `work`
+                    packed = work[:qc * k * 8].view(torch.int64).view(qc, k)
+                    packed = torch.sort(packed, dim=1).values
+                    check(lib, lib.topk_tile_decode(
+                        packed.data_ptr(), out_s.data_ptr(),
+                        out_i.data_ptr(), qc, k, stream), "topk_tile_decode")
+                outs.append((out_s, out_i))
+                continue
+            cand_s = torch.empty((gx, qc, k), dtype=torch.float32,
                                  device=dev)
-            cand_i = torch.empty((gx, qc, kk), dtype=torch.int32, device=dev)
+            cand_i = torch.empty((gx, qc, k), dtype=torch.int32, device=dev)
             err = getattr(lib, entry)(
-                *ptrs, cand_s.data_ptr(), cand_i.data_ptr(), nq, n, d, k,
-                gx, q_begin, qc, stream)
+                *ptrs, cand_s.data_ptr(), cand_i.data_ptr(), None, nq, n, d,
+                k, gx, q_begin, qc, stream)
             check(lib, err, entry)
             outs.append(merge_candidates(cand_s, cand_i, k))
         if len(outs) == 1:

@@ -15,10 +15,10 @@ in-place scale, so a 12.8 GB table needs no scaled temporary. JAX's PRNG
 cannot be reproduced: to compute repro's function, carry its params
 across with ``models/bridge.recsys_params_from_repro``.
 
-``lookup`` (FM, Wide&Deep) is ``index_select``, which raises on the CPU
-and faults on the card for an id >= V, where repro's ``jnp.take`` fills
-the row with NaN; in-range ids give identical rows. DLRM's bags follow
-repro exactly (kernels/embedding_bag: NaN for an id >= V).
+``lookup`` (FM, Wide&Deep) matches repro's ``jnp.take``: an id in
+[-V, -1] wraps to id + V, and any id still outside [0, V) gives a NaN
+row, on the CPU and on the card alike, with no host sync. DLRM's bags
+follow repro exactly (kernels/embedding_bag: NaN for an id >= V).
 
 Not ported yet (ROADMAP Queue 1 item 12): the losses (``bce_loss``,
 ``*_loss``) and training.
@@ -79,9 +79,19 @@ def table_init(gen: torch.Generator, shape: tuple, scale: float, dtype,
 
 
 def lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """Single-id-per-field lookup (multi-hot goes via kernels/embedding_bag)."""
-    return torch.index_select(table, 0, ids.reshape(-1).long()).reshape(
-        *ids.shape, *table.shape[1:])
+    """Single-id-per-field lookup (multi-hot goes via kernels/embedding_bag).
+
+    As ``jnp.take``: an id in [-V, -1] reads row id + V, and any other id
+    outside [0, V) gives a row of NaN. The gather reads clamped ids and
+    the NaN rows are written after it, so no id is checked on the host."""
+    v = table.shape[0]
+    flat = ids.reshape(-1).long()
+    flat = torch.where(flat < 0, flat + v, flat)
+    bad = (flat < 0) | (flat >= v)
+    rows = torch.index_select(table, 0, flat.clamp(0, v - 1))
+    rows = rows.masked_fill(bad.reshape(-1, *[1] * (table.dim() - 1)),
+                            float("nan"))
+    return rows.reshape(*ids.shape, *table.shape[1:])
 
 
 def _unit(x: torch.Tensor) -> torch.Tensor:

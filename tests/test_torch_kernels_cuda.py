@@ -10,7 +10,7 @@ product in one fixed fmaf order, the plain version through cuBLAS), ids
 equal wherever the reference scores are more than 1e-5 apart, the empty
 (-inf, -1) slots identical. The int8 kernels are held to their plain
 versions the same way, at both list depths (k <= 64 and 64 < k <= 128)
-and on the sort path (k > 128). The attention kernels, against their
+and on the radix-select path (k > 128). The attention kernels, against their
 plain versions on the same inputs: max abs error <= 1e-4 in fp32 and
 <= 2e-2 in bf16, and each output within 1e-4 (fp32: different sum
 orders over D and the key columns) or 2**-7 (bf16: one rounding step of
@@ -323,11 +323,12 @@ def test_q8_kernels_reject_bad_input(dev):
 
 
 # ---------------------------------------------------------------------------
-# k above the register list: the sort path
+# k above the register list: the radix-select path
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("nq,n,k", [
     (2, 8192, 129), (33, 3000, 500), (3, 1000, 1000), (1, 20000, 4096),
     (256, 5000, 200), (5, 700, 513),
+    (2, 12000, 9000),        # k > 8192: ordered by torch.sort of k slots
 ])
 def test_large_k_kernels_match_plain(dev, nq, n, k):
     d = 384
@@ -387,23 +388,203 @@ def test_large_k_ties_and_batch_invariance(dev):
 @pytest.mark.parametrize("budget_queries", [1, 5, 31])
 def test_large_k_query_chunks_within_budget(dev, monkeypatch,
                                             budget_queries):
-    """Where fewer than 32 queries' candidates fit the budget, each
-    launch takes no more queries than fit, and the answers are those of
-    one launch."""
+    """Where fewer than 32 queries' key buffers (N x 4 bytes each) fit
+    the budget, each launch takes no more queries than fit, and the
+    answers are those of one launch."""
     nq, n, d, k = 40, 3000, 64, 300
     q = torch.tensor(_rand((nq, d), 56), device=dev)
     c = torch.tensor(_rand((n, d), 57), device=dev)
     mask = torch.ones(n, dtype=torch.bool, device=dev)
     whole = kops.topk_search(q, c, mask, k)
-    lib = kops._lib()
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    per_query = (int(lib.topk_tile_grid_x(n, nq, sms, k))
-                 * int(lib.topk_tile_list_len(k)))
-    monkeypatch.setattr(common, "CAND_BUDGET", budget_queries * per_query)
+    monkeypatch.setattr(common, "KEY_BUDGET", budget_queries * n * 4)
     before = kops.launches
     s, i = kops.topk_search(q, c, mask, k)
     assert kops.launches - before == -(-nq // budget_queries)
     assert torch.equal(s, whole[0]) and torch.equal(i, whole[1])
+
+
+def _four_scans(dev, nq, n, d, seed, mask_p=0.3):
+    """The four scans on the same seeded inputs: name -> call(k)."""
+    rng = np.random.default_rng(seed)
+    q = torch.tensor(_rand((nq, d), seed + 1), device=dev)
+    c = torch.tensor(_rand((n, d), seed + 2), device=dev)
+    c8, scale = _q8(n, d, seed + 2)
+    c8 = torch.tensor(c8, device=dev)
+    mask = torch.tensor(rng.random(n) > mask_p, device=dev)
+    vf = torch.tensor(T0 + rng.integers(0, 1000, n), device=dev)
+    vt = vf + torch.tensor(rng.integers(1, 800, n), device=dev)
+    t0 = torch.tensor(T0 + rng.integers(0, 1000, nq), device=dev)
+    t1 = t0 + 400
+    return {
+        "topk_search": lambda qq, k: kops.topk_search(qq, c, mask, k),
+        "topk_search_q8": lambda qq, k: kops.topk_search_q8(qq, c8, scale,
+                                                            mask, k),
+        "temporal_window_topk": lambda qq, k, a=None: tops.
+        temporal_window_topk(qq, c, vf, vt, t0 if a is None else t0[a],
+                             t1 if a is None else t1[a], k),
+        "temporal_window_topk_q8": lambda qq, k, a=None: tops.
+        temporal_window_topk_q8(qq, c8, scale, vf, vt,
+                                t0 if a is None else t0[a],
+                                t1 if a is None else t1[a], k),
+    }, q
+
+
+def _bits(x):
+    return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+
+@pytest.mark.parametrize("name", ["topk_search", "topk_search_q8",
+                                  "temporal_window_topk",
+                                  "temporal_window_topk_q8"])
+def test_select_path_head_is_the_list_path_bitwise(dev, name):
+    """The select path's first 128 entries at k = 500 are the list path's
+    answer at k = 128, scores and ids bit for bit."""
+    scans, q = _four_scans(dev, 40, 9000, 384, 60)
+    s5, i5 = scans[name](q, 500)
+    s1, i1 = scans[name](q, 128)
+    assert torch.equal(_bits(s5[:, :128]), _bits(s1))
+    assert torch.equal(i5[:, :128], i1)
+
+
+@pytest.mark.parametrize("name", ["topk_search", "topk_search_q8",
+                                  "temporal_window_topk",
+                                  "temporal_window_topk_q8"])
+def test_select_path_alone_equals_batch_across_chunks(dev, monkeypatch,
+                                                      name):
+    """k = 500: each query alone, and the batch split into chunks of 3
+    queries, equal the batch in one launch, bit for bit."""
+    nq, n = 40, 6000
+    scans, q = _four_scans(dev, nq, n, 384, 61)
+    whole = scans[name](q, 500)
+    temporal = name.startswith("temporal")
+    for a in (0, 17, 39):
+        one = (scans[name](q[a:a + 1], 500, slice(a, a + 1)) if temporal
+               else scans[name](q[a:a + 1], 500))
+        assert torch.equal(_bits(one[0][0]), _bits(whole[0][a]))
+        assert torch.equal(one[1][0], whole[1][a])
+    monkeypatch.setattr(common, "KEY_BUDGET", 3 * n * 4)
+    mod = tops if temporal else kops
+    attr = "launches_q8" if name.endswith("_q8") else "launches"
+    before = getattr(mod, attr)
+    s, i = scans[name](q, 500)
+    assert getattr(mod, attr) - before == -(-nq // 3)
+    assert torch.equal(_bits(s), _bits(whole[0])) and torch.equal(i,
+                                                                  whole[1])
+
+
+@pytest.mark.parametrize("k", [100, 131, 500, 1003, 4500])
+def test_ties_straddling_row_blocks_go_to_the_lower_row(dev, k):
+    """Nine copies of each of 1000 rows, 1000 rows apart, so that every
+    group of equal scores spans several 4096-row blocks of the select
+    path; where the k-th slot splits a group, the lower rows win."""
+    base = _rand((1000, 64), 62)
+    c = torch.tensor(np.tile(base, (9, 1)), device=dev)
+    q = torch.tensor(_rand((5, 64), 63), device=dev)
+    mask = torch.ones(9000, dtype=torch.bool, device=dev)
+    mask[4000:4003] = False
+    s, i = kops.topk_search(q, c, mask, k)
+    ps, pi = topk_search_plain(q, c, mask, k)
+    assert torch.equal(i, pi)
+    assert torch.allclose(s, ps, atol=1e-4, rtol=0)
+    c8, scale = _q8(1000, 64, 62)
+    c8 = torch.tensor(np.tile(c8, (9, 1)), device=dev)
+    s, i = kops.topk_search_q8(q, c8, scale, mask, k)
+    ps, pi = topk_search_q8_plain(q, c8, torch.tensor(scale, device=dev),
+                                  mask, k)
+    assert torch.equal(i, pi)
+
+
+def test_select_path_k_equals_n_and_fewer_valid_rows(dev):
+    """k = N, k = valid rows + 1 and every row masked: the valid rows in
+    order, then (-inf, -1)."""
+    n, d = 700, 384
+    q = torch.tensor(_rand((3, d), 64), device=dev)
+    c = torch.tensor(_rand((n, d), 65), device=dev)
+    mask = torch.tensor(np.random.default_rng(66).random(n) > 0.5,
+                        device=dev)
+    live = int(mask.sum())
+    for k in (n, live + 1, 129):
+        s, i = kops.topk_search(q, c, mask, k)
+        _agree((s, i), topk_search_plain(q, c, mask, min(k + 1, n)))
+        assert torch.all(i[:, live:] == -1)
+        assert torch.all(torch.isneginf(s[:, live:]))
+        assert torch.all(i[:, :min(k, live)] >= 0)
+    for k in (129, n):
+        s, i = kops.topk_search(q, c, torch.zeros_like(mask), k)
+        assert torch.all(torch.isneginf(s)) and torch.all(i == -1)
+        c8, scale = _q8(n, d, 65)
+        s, i = tops.temporal_window_topk_q8(
+            q, torch.tensor(c8, device=dev), scale,
+            torch.full((n,), T0, device=dev),
+            torch.full((n,), T0 + 5, device=dev), T0 + 5, T0 + 9, k)
+        assert torch.all(torch.isneginf(s)) and torch.all(i == -1)
+
+
+@pytest.mark.parametrize("k", [10, 300])
+def test_zero_scores_of_either_sign_tie_by_row(dev, k):
+    """Rows orthogonal to the query score exactly 0 (the kernels sum from
+    +0, so never -0), queries holding -0.0 score as those holding +0.0,
+    and the zeros tie by row id on both paths."""
+    d, n = 64, 1000
+    rng = np.random.default_rng(67)
+    c = rng.standard_normal((n, d)).astype(np.float32)
+    c[::2, :32] = 0.0                     # even rows: 0 against the query
+    c[::4, 32:] = -c[::4, 32:]
+    q = np.zeros((2, d), np.float32)
+    q[:, 32:] = 0.0
+    q[1, 32:] = -0.0
+    q[:, :32] = -np.abs(rng.standard_normal(32)).astype(np.float32)
+    c[1::2, :32] = np.abs(c[1::2, :32])   # odd rows: negative scores
+    ct = torch.tensor(c, device=dev)
+    qt = torch.tensor(q, device=dev)
+    mask = torch.ones(n, dtype=torch.bool, device=dev)
+    s, i = kops.topk_search(qt, ct, mask, k)
+    ps, pi = topk_search_plain(qt, ct, mask, k)
+    assert torch.equal(i, pi)
+    assert torch.equal(i[0], i[1]) and torch.equal(s[0], s[1])
+    zeros = min(k, n // 2)
+    assert torch.all(s[:, :zeros] == 0)
+    assert torch.equal(i[0, :zeros].cpu(), torch.arange(0, 2 * zeros, 2,
+                                                        dtype=torch.int32))
+
+
+@pytest.mark.parametrize("n,d", [(5001, 37), (5001, 100), (4099, 3)])
+@pytest.mark.parametrize("k", [40, 500])
+def test_q8_ragged_n_and_unaligned_d(dev, n, d, k):
+    """int8 rows whose D is not a multiple of 16 (no 16-byte copies)
+    or of 4, with N past a whole tile, on both paths."""
+    rng = np.random.default_rng(68)
+    q = torch.tensor(_rand((7, d), 69), device=dev)
+    c8, scale = _q8(n, d, 70)
+    c8 = torch.tensor(c8, device=dev)
+    sc = torch.tensor(scale, device=dev)
+    mask = torch.tensor(rng.random(n) > 0.2, device=dev)
+    _agree(kops.topk_search_q8(q, c8, scale, mask, k),
+           topk_search_q8_plain(q, c8, sc, mask, k + 1))
+    vf = torch.tensor(T0 + rng.integers(0, 100, n), device=dev)
+    vt = vf + torch.tensor(rng.integers(1, 100, n), device=dev)
+    t0 = torch.tensor(T0 + rng.integers(0, 100, 7), device=dev)
+    _agree(tops.temporal_window_topk_q8(q, c8, scale, vf, vt, t0, t0 + 50,
+                                        k),
+           temporal_window_topk_q8_plain(q, c8, sc, vf, vt, t0, t0 + 50,
+                                         k + 1))
+
+
+def test_lookup_out_of_range_ids_give_nan_rows_on_the_card(dev):
+    """FM's and Wide&Deep's ``lookup`` on the card: wrapped negatives,
+    NaN rows for ids outside [-V, V), no device assert, and the CPU's
+    answer."""
+    from repro_torch.models.recsys import lookup
+
+    table = torch.arange(12, dtype=torch.float32).reshape(4, 3)
+    ids = torch.tensor([[0, 3, 4, -1], [-5, -4, 9, 2]], dtype=torch.int32)
+    for t in (table, table.to(torch.bfloat16)):
+        got = lookup(t.to(dev), ids.to(dev))
+        torch.cuda.synchronize()
+        want = lookup(t, ids)
+        assert torch.equal(torch.isnan(got.cpu()), torch.isnan(want))
+        assert torch.equal(got.cpu().nan_to_num(), want.nan_to_num())
+        assert int(torch.isnan(got).any(-1).sum()) == 3
 
 
 # ---------------------------------------------------------------------------

@@ -13,6 +13,7 @@ import torch
 
 from repro.kernels.topk_search.ops import topk_search as repro_topk
 from repro.kernels.topk_search.ref import topk_search_ref
+from repro_torch.kernels import common
 from repro_torch.kernels.topk_search import ops as kops
 from repro_torch.kernels.topk_search.plain import topk_search_plain
 from repro_torch.testing import topk_agree
@@ -182,7 +183,7 @@ def test_topk_agree_reads_the_next_reference_entry(ref_cols, agree):
     assert not ok and "slot 0" in why
 
 
-# k above the card's register list (128): the card takes its sort path
+# k above the card's register list (128): the card takes its radix-select path
 # there; the CPU path is the same plain version at every k
 @pytest.mark.parametrize("nq,n,d,k", [
     (2, 1000, 384, 129), (3, 2000, 64, 500), (2, 700, 32, 700),
@@ -197,3 +198,55 @@ def test_large_k_matches_repro_ref(nq, n, d, k):
     live = int(mask.sum())
     assert torch.all(got[1][:, live:] == -1)
     assert torch.all(torch.isfinite(got[0][:, :live]))
+
+
+# ---------------------------------------------------------------------------
+# the launch plan of the CUDA tile scans (pure Python, no card needed)
+# ---------------------------------------------------------------------------
+def _covers(plan, nq):
+    assert [b for b, _ in plan] == list(np.cumsum([0] + [c for _, c in plan])
+                                        [:-1])
+    assert sum(c for _, c in plan) == nq and all(c >= 1 for _, c in plan)
+
+
+@pytest.mark.parametrize("nq,per_query,budget,want", [
+    (40, 10, 1000, [(0, 40)]),                   # all fit: one launch
+    (100, 10, 35, [(b, min(3, 100 - b)) for b in range(0, 100, 3)]),
+    (100, 1, 70, [(0, 64), (64, 36)]),           # whole 32-query tiles
+    (5, 10 ** 9, 1 << 30, [(b, 1) for b in range(5)]),  # over budget: 1
+    (0, 4, 8, []),
+])
+def test_query_chunks(nq, per_query, budget, want):
+    plan = common.query_chunks(nq, per_query, budget)
+    assert plan == want
+    _covers(plan, nq)
+
+
+def test_select_chunks_keep_the_key_buffer_within_budget():
+    # k > 128: N x 4 bytes of keys a query; 1 GiB holds 256 queries of
+    # 2^20 rows, in whole 32-query tiles
+    n = 1 << 20
+    assert common.scan_chunks(256, n, 500, 1) == [(0, 256)]
+    plan = common.scan_chunks(1000, n, 500, 1)
+    assert [c for _, c in plan] == [256, 256, 256, 232]
+    _covers(plan, 1000)
+    plan = common.scan_chunks(300, 3 << 20, 129, 1)     # 85 a launch -> 64
+    assert all(c == 64 for _, c in plan[:-1]) and plan[-1][1] == 300 - 256
+    # above 2^28 rows one query's keys alone exceed 1 GiB: one a launch
+    plan = common.scan_chunks(3, (1 << 28) + 1, 200, 1)
+    assert plan == [(0, 1), (1, 1), (2, 1)]
+    # many short rows: the grid's limit, in whole tiles
+    plan = common.scan_chunks(200_000, 64, 129, 1)
+    assert max(c for _, c in plan) == common.SELECT_MAX_QUERIES
+    assert common.SELECT_MAX_QUERIES % 32 == 0
+    _covers(plan, 200_000)
+
+
+def test_list_chunks_keep_the_candidates_within_budget():
+    gx, k = 528, 128
+    per = gx * k
+    plan = common.scan_chunks(2000, 1 << 20, k, gx)
+    assert all(c * per <= common.CAND_BUDGET for _, c in plan)
+    assert all(c % 32 == 0 for _, c in plan[:-1])
+    _covers(plan, 2000)
+    assert common.scan_chunks(32, 8192, 10, 64) == [(0, 32)]

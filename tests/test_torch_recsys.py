@@ -150,17 +150,57 @@ def test_dlrm_configs_match_repro():
         (full.embed_dim, full.bot_mlp, full.top_mlp, full.multi_hot)
 
 
-def test_lookup_out_of_range_raises_where_repro_fills_nan():
-    """repro's jnp.take fills a row past V with NaN; index_select refuses
-    it (documented in models/recsys.py), and in-range rows are equal."""
-    table = np.arange(12, dtype=np.float32).reshape(4, 3)
-    ids = np.array([[0, 3], [1, 4]], np.int32)
-    want = np.asarray(rr.lookup(jnp.asarray(table), jnp.asarray(ids)))
-    assert np.isnan(want[1, 1]).all()
-    with pytest.raises(IndexError):
-        pr.lookup(_t(table), _t(ids))
-    np.testing.assert_array_equal(pr.lookup(_t(table), _t(ids[:1])).numpy(),
-                                  want[:1])
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+@pytest.mark.parametrize("ids", [
+    [[0, 3], [1, 2]],                    # in range
+    [[-1, -4], [-2, 0]],                 # wrapped negatives
+    [[4, 0], [7, 3]],                    # >= V
+    [[-5, 1], [-9, -4]],                 # < -V
+    [[0, 3, 4, -1, -5, -4]],
+])
+def test_lookup_out_of_range_raises_where_repro_fills_nan(dtype, ids):
+    """``lookup`` equals repro's ``jnp.take``, NaN rows included: an id in
+    [-V, -1] wraps, any other id outside [0, V) gives a NaN row."""
+    table = jnp.asarray(np.arange(12, dtype=np.float32).reshape(4, 3),
+                        dtype=dtype)
+    ids = np.array(ids, np.int32)
+    want = np.asarray(rr.lookup(table, jnp.asarray(ids)).astype(jnp.float32))
+    tt = torch.from_numpy(np.array(table.astype(jnp.float32))).to(
+        torch.float32 if dtype == jnp.float32 else torch.bfloat16)
+    got = pr.lookup(tt, _t(ids))
+    assert got.dtype == tt.dtype and got.shape == want.shape
+    np.testing.assert_array_equal(got.float().numpy(), want)
+    # the 1-d tables of FM's linear term and Wide&Deep's wide part
+    want1 = np.asarray(rr.lookup(table[:, 0], jnp.asarray(ids)).astype(
+        jnp.float32))
+    np.testing.assert_array_equal(
+        pr.lookup(tt[:, 0].contiguous(), _t(ids)).float().numpy(), want1)
+
+
+OUT_OF_RANGE = np.array([[0, 1, 2, 3, 4], [-1, 7, 300, -300, 5]], np.int32)
+
+
+def test_fm_forward_out_of_range_ids_match_repro():
+    kw = dict(n_sparse=5, embed_dim=4, vocab_per_field=50)
+    rcfg, pcfg = rr.FMConfig(**kw), pr.FMConfig(**kw)
+    tree = _np_tree(rr.fm_init(jax.random.PRNGKey(1), rcfg))
+    params = recsys_params_from_repro(tree, "fm", pcfg, "cpu")
+    got = pr.fm_forward(params, pcfg, _t(OUT_OF_RANGE)).numpy()
+    want = np.asarray(rr.fm_forward(tree, rcfg, jnp.asarray(OUT_OF_RANGE)))
+    assert np.isfinite(want[0]) and np.isnan(want[1])
+    np.testing.assert_allclose(got, want, equal_nan=True, **TOL)
+
+
+def test_widedeep_forward_out_of_range_ids_match_repro():
+    kw = dict(n_sparse=5, embed_dim=8, mlp=(32, 16), vocab_per_field=60)
+    rcfg, pcfg = rr.WideDeepConfig(**kw), pr.WideDeepConfig(**kw)
+    tree = _np_tree(rr.widedeep_init(jax.random.PRNGKey(2), rcfg))
+    params = recsys_params_from_repro(tree, "wide-deep", pcfg, "cpu")
+    got = pr.widedeep_forward(params, pcfg, _t(OUT_OF_RANGE)).numpy()
+    want = np.asarray(rr.widedeep_forward(tree, rcfg,
+                                          jnp.asarray(OUT_OF_RANGE)))
+    assert np.isfinite(want[0]) and np.isnan(want[1])
+    np.testing.assert_allclose(got, want, equal_nan=True, **TOL)
 
 
 # ---------------------------------------------------------------------------
