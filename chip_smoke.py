@@ -2,8 +2,8 @@
 """Chip smoke test of the PyTorch/H100 port (``src/repro_torch``).
 
     python3 chip_smoke.py          # from the root of a checkout, one GPU
-    python3 chip_smoke.py --parent DIR   # also hold the top-k scans
-                                         # against DIR's kernels
+    python3 chip_smoke.py --parent DIR   # also hold the top-k scans and
+                                         # the bags against DIR's kernels
 
 Builds the port's CUDA kernels from ``src/repro_torch/csrc`` with nvcc,
 holds each kernel against its plain PyTorch version on the card at the
@@ -18,8 +18,8 @@ MLPerf widths, FM, Wide&Deep, BERT4Rec) serving on the card.
 Phases (any failure stops the script with a non-zero exit):
   1. setup: card name and power limit, kernel build time, and ptxas's
      registers, shared memory and spills of the attention kernels'
-     tensor-core and split-decode instances and of the top-k scans'
-     list, key and select kernels;
+     tensor-core and split-decode instances, of the top-k scans' list,
+     key and select kernels and of the embedding bag's instances;
   2. kernels vs plain versions, with times (kernel, plain, library) and
      the least time the card could take (bound): the four top-k scans
      (k up to 128 on their register lists, k in {129, 500, 4096} on
@@ -32,9 +32,11 @@ Phases (any failure stops the script with a non-zero exit):
      cache; decode_32k, 16 x 32768, at full and partial length; its
      partials at bs 512 against the plain partials, its in-library merge
      against merge_partials of the partials at the split it chose) and the
-     embedding bag (DLRM's table 0, 25M x 128 fp32, at B 512 and
-     262,144, L = 1, bit for bit; table 20 at B 4096, L = 100, fp32 and
-     bf16, sum and mean);
+     embedding bag's one-table call (DLRM's table 0, 25M x 128 fp32, at
+     B 512 and 262,144, L = 1, bit for bit; table 20 at B 4096, L = 100,
+     fp32 and bf16, sum and mean; with ``--parent``, every bag call also
+     held bit for bit against the earlier checkout's kernel, timed
+     beside);
   3. TemporalEngine, fp32 and int8, on a >= 250k-row cold tier (5
      commits) vs the CPU; the int8 engine also by recall@10 vs fp32;
   4. LiveVectorLake on the paper's corpus (100 docs x 5 versions) at two
@@ -63,14 +65,19 @@ Phases (any failure stops the script with a non-zero exit):
      prefill of 384 (logits within 1e-3 of their max abs, same argmax);
   7. recsys serving at full width, after phase 6 has freed the generator:
      DLRM at MLPerf widths over its 26 tables capped at 25M rows (58.3 GB
-     fp32, seeded, made on the card) at serve_p99 (512) and serve_bulk
-     (262,144): logits with the kernel bags equal those with the plain
+     fp32, seeded, made on the card); first its grouped bag (one launch
+     over the 26 tables) at serve_p99 (512) and serve_bulk (262,144)
+     against its plain version (bit for bit, NaN at the bag with id V),
+     with ``--parent`` field by field against the earlier checkout's
+     kernel, timed against the plain version, 26 ``F.embedding_bag``
+     calls and the parent's 26 launches; then the forward at both
+     shapes: logits with the kernel bags equal those with the plain
      bags bit for bit, and the CPU forward over the batch's rows within
      1e-4 of their max; FM and Wide&Deep (39M and 40M ids) at both
      shapes and BERT4Rec at serve_p99 (flash_attention, D = 32), card vs
      CPU; retrieval_cand (1 x 1,000,448, k = 100) for the four through
      topk_search, held to the plain masked top-k. Its DLRM forwards are
-     the embedding bag's "launches" below (26 a forward).
+     the embedding bag's "launches" below (one a forward).
 It prints a ``{"kernels": [...]}`` line, then, last, the one-line
 ``{"ok": true, "device": {...}}`` result. Without a CUDA device, or
 without the package beside it, it exits non-zero and prints no result.
@@ -135,7 +142,8 @@ PTXAS_REPORT = (("flash_attention", "fa_wgmma_kernel"),
                 ("topk_search", "select_digit_kernel"),
                 ("topk_search", "select_above_kernel"),
                 ("topk_search", "select_ties_kernel"),
-                ("topk_search", "select_order_kernel"))
+                ("topk_search", "select_order_kernel"),
+                ("embedding_bag", "embedding_bag_kernel"))
 
 
 def ptxas_lines(log_text: str, kernel: str) -> list[str]:
@@ -182,6 +190,26 @@ def cuda_ms(torch, fn, iters: int, warmup: int = 2) -> float:
     return a.elapsed_time(b) / iters
 
 
+def queued_ms(torch, fn, n: int):
+    """Device ms a call of ``fn`` (one kernel launch) over ``n`` calls
+    queued behind a sleep kernel: the events then time the card's work
+    back to back, not the host's enqueueing (the gaps between launches
+    included). None if the host had not queued them all before the sleep
+    ended."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)                 # ~50 ms at 2 GHz
+    start.record()
+    for _ in range(n):
+        fn()
+    late = start.query()                           # the sleep ended early
+    end.record()
+    end.synchronize()
+    return None if late else start.elapsed_time(end) / n
+
+
 def bound_ms(in_bytes: int, out_bytes: int, flops: int,
              peak: float = FP32_FLOPS) -> tuple[float, str]:
     t_bytes = (in_bytes + out_bytes) / HBM_BYTES_PER_S
@@ -190,23 +218,15 @@ def bound_ms(in_bytes: int, out_bytes: int, flops: int,
             "bytes" if t_bytes >= t_ops else "operations")
 
 
-class ParentScans:
-    """The four top-k scans of another checkout (``--parent``), whose
-    csrc/topk_tile.cuh has the candidate-list interface: entries taking
-    (inputs, out_s, out_i, Q, N, D, k, grid_x, q_begin, q_count, stream),
-    ``topk_tile_grid_x(N, Q, sms, k)`` and ``topk_tile_list_len(k)``.
-    Built with this checkout's nvcc flags into build/repro_torch/parent,
-    launched in chunks of 2^25 candidates and merged with one stable sort
-    as that checkout's kernels/common.py does. Called like the wrappers:
-    ``parent(name, *args)``."""
-
-    ENTRIES = {"topk_search": ("topk_search", "topk_search_f32"),
-               "topk_search_q8": ("topk_search", "topk_search_q8"),
-               "temporal_window_topk": ("temporal_mask_score",
-                                        "temporal_window_topk_f32"),
-               "temporal_window_topk_q8": ("temporal_mask_score",
-                                           "temporal_window_topk_q8")}
-    BUDGET = 1 << 25
+class ParentKernels:
+    """The four top-k scans and the embedding bag of another checkout
+    (``--parent``), built with this checkout's nvcc flags into
+    build/repro_torch/parent. Its scans must have this checkout's C
+    interface: they run through this checkout's wrappers over the
+    parent's libraries. Its csrc/embedding_bag.cu has the one-table entry
+    ``embedding_bag_fwd`` (one launch a table). Called like the wrappers:
+    ``parent(name, *args)`` for a scan, ``parent.bag(table, idx, w,
+    combiner)`` for a bag."""
 
     def __init__(self, torch, root: str):
         from repro_torch.kernels import build
@@ -215,7 +235,7 @@ class ParentScans:
         out = build.BUILD_DIR / "parent"
         out.mkdir(parents=True, exist_ok=True)
         procs = []
-        for name in ("topk_search", "temporal_mask_score"):
+        for name in ("topk_search", "temporal_mask_score", "embedding_bag"):
             so = out / f"lib{name}.so"
             src = Path(root) / "src" / "repro_torch" / "csrc" / f"{name}.cu"
             procs.append((name, so, subprocess.Popen(
@@ -227,56 +247,48 @@ class ParentScans:
             text = proc.communicate()[0]
             check(proc.returncode == 0, f"parent {name}.cu: nvcc failed\n"
                                         f"{text}")
-            lib = ctypes.CDLL(str(so))
-            lib.topk_tile_grid_x.argtypes = [ctypes.c_longlong] * 4
-            lib.topk_tile_grid_x.restype = ctypes.c_longlong
-            lib.topk_tile_list_len.argtypes = [ctypes.c_longlong]
-            lib.topk_tile_list_len.restype = ctypes.c_longlong
-            self.libs[name] = lib
-        for src, entry in self.ENTRIES.values():
-            n_in = 3 if src == "topk_search" else 6
-            fn = getattr(self.libs[src], entry)
-            fn.argtypes = ([ctypes.c_void_p] * (n_in + 2)
-                           + [ctypes.c_longlong] * 7 + [ctypes.c_void_p])
-            fn.restype = ctypes.c_int
+            self.libs[name] = ctypes.CDLL(str(so))
+        self.libs["embedding_bag"].embedding_bag_fwd.argtypes = (
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_longlong] * 6
+            + [ctypes.c_int, ctypes.c_void_p])
 
     def __call__(self, name: str, *args):
-        from repro_torch.kernels.common import merge_candidates
+        """A scan of the parent's library through this checkout's wrapper
+        (its launch counts untouched)."""
+        from repro_torch.kernels import build
+        from repro_torch.kernels.temporal_mask_score import ops as tops
+        from repro_torch.kernels.topk_search import ops as kops
 
+        src = "topk_search" if name.startswith("topk") else \
+            "temporal_mask_score"
+        mod = kops if src == "topk_search" else tops
+        mine, counts = build._loaded[src], (mod.launches, mod.launches_q8)
+        build._loaded[src] = self.libs[src]
+        try:
+            return getattr(mod, name)(*args)
+        finally:
+            build._loaded[src] = mine
+            mod.launches, mod.launches_q8 = counts
+
+    def bag(self, table, idx, w, combiner):
+        """The parent's one-table bag: (B, D) in the table's dtype; idx
+        (B, L) int32 and w (B, L) fp32 or None, rows strided as they lie
+        (slots contiguous), as that checkout's wrapper passes them."""
         torch = self.torch
-        q = torch.atleast_2d(args[0])
-        corpus, k = args[1], args[-1]
-        if name.endswith("_q8"):
-            q = q * args[2]
-            args = args[:2] + args[3:]
-        nq, (n, d) = q.shape[0], corpus.shape
-        inputs = [q, corpus] + [
-            torch.broadcast_to(t, (nq,)).contiguous() if i >= 2 else t
-            for i, t in enumerate(args[2:-1])]
-        k = min(k, n)
-        src, entry = self.ENTRIES[name]
-        lib = self.libs[src]
-        sms = torch.cuda.get_device_properties(q.device).multi_processor_count
-        gx = int(lib.topk_tile_grid_x(n, nq, sms, k))
-        kk = int(lib.topk_tile_list_len(k))
-        step = max(1, self.BUDGET // (gx * kk))
-        if step < nq and step >= 32:
-            step = step // 32 * 32
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        outs = []
-        for q_begin in range(0, nq, step):
-            qc = min(step, nq - q_begin)
-            cs = torch.empty((gx, qc, kk), dtype=torch.float32,
-                             device=q.device)
-            ci = torch.empty((gx, qc, kk), dtype=torch.int32,
-                             device=q.device)
-            err = getattr(lib, entry)(*[t.data_ptr() for t in inputs],
-                                      cs.data_ptr(), ci.data_ptr(), nq, n,
-                                      d, k, gx, q_begin, qc, stream)
-            check(err == 0, f"parent {entry}: CUDA error {err}")
-            outs.append(merge_candidates(cs, ci, k))
-        return (torch.cat([o[0] for o in outs]),
-                torch.cat([o[1] for o in outs]))
+        (b, bag), (v, d) = idx.shape, table.shape
+        out = torch.empty((b, d), dtype=table.dtype, device=table.device)
+
+        def ld(x):
+            return x.stride(0) if b > 1 else bag
+
+        err = self.libs["embedding_bag"].embedding_bag_fwd(
+            table.data_ptr(), idx.data_ptr(),
+            None if w is None else w.data_ptr(), out.data_ptr(),
+            0 if table.dtype == torch.float32 else 1, v, d, b, bag, ld(idx),
+            0 if w is None else ld(w), 1 if combiner == "mean" else 0,
+            torch.cuda.current_stream(table.device).cuda_stream)
+        check(err == 0, f"parent embedding_bag_fwd: CUDA error {err}")
+        return out
 
 
 def unit_rows(torch, gen, n: int, d: int, dev):
@@ -1017,11 +1029,21 @@ def bag_ids(torch, gen, v: int, b: int, bag: int, dev, pad: float = 0.0):
     return idx.to(torch.int32)
 
 
-def phase_embedding_bag(torch, dev) -> dict:
-    """The kernel against its plain version at the recsys path's shapes:
-    DLRM's table 0 (25,000,192 x 128 fp32 after the one-card cap) at
-    serve_p99 and serve_bulk (L = 1), and table 20 (11,316,992 x 128) at
-    the widest bag of MLPerf's multi-hot DLRM (L = 100), fp32 and bf16."""
+def same_bits(torch, a, b) -> bool:
+    """``a`` and ``b`` equal bit for bit, NaNs included."""
+    ints = {torch.float32: torch.int32, torch.bfloat16: torch.int16}
+    return (a.shape == b.shape and a.dtype == b.dtype
+            and torch.equal(a.contiguous().view(ints[a.dtype]),
+                            b.contiguous().view(ints[b.dtype])))
+
+
+def phase_embedding_bag(torch, dev, parent=None) -> dict:
+    """The kernel's one-table call against its plain version at the
+    recsys path's shapes: DLRM's table 0 (25,000,192 x 128 fp32 after the
+    one-card cap) at serve_p99 and serve_bulk (L = 1), and table 20
+    (11,316,992 x 128) at the widest bag of MLPerf's multi-hot DLRM (L =
+    100), fp32 and bf16; with ``parent``, every call also against the
+    parent checkout's kernel, bit for bit, and timed beside."""
     import torch.nn.functional as F
 
     from repro_torch.configs.dlrm_mlperf import ONE_CARD
@@ -1033,10 +1055,15 @@ def phase_embedding_bag(torch, dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(SEED + 5)
     out = {"embedding_bag": {"err": 0.0, "times": []}}
     sizes = ONE_CARD.padded_table_sizes
+    held = {"parent": 0}
 
     def hold(what, table, idx, w, combiner):
         got = eb.embedding_bag(table, idx, w, combiner)
         want = embedding_bag_plain(table, idx, w, combiner)
+        if parent is not None:
+            check(same_bits(torch, got, parent.bag(table, idx, w, combiner)),
+                  f"embedding_bag {what}: differs from the parent's kernel")
+            held["parent"] += 1
         nan = torch.isnan(want).any(1)
         check(torch.equal(torch.isnan(got).any(1), nan)
               and bool(torch.isnan(got[nan]).all())
@@ -1101,9 +1128,14 @@ def phase_embedding_bag(torch, dev) -> dict:
         n_valid = int(((idx >= 0) & (idx < v)).sum())
         bnd, by = bound_ms(n_valid * d * es + b * bag * 8, b * d * es,
                            2 * n_valid * d)
-        out["embedding_bag"]["times"].append(dict(
-            what=what, B=b, L=bag, ms=t, plain_ms=tp, library_ms=tl,
-            bound_ms=bnd, bound_by=by))
+        row = dict(what=what, B=b, L=bag, ms=t, plain_ms=tp, library_ms=tl,
+                   bound_ms=bnd, bound_by=by, device_ms=queued_ms(
+                       torch, lambda: eb.embedding_bag(table, *nxt(),
+                                                       combiner), iters))
+        if parent is not None:
+            row["parent_ms"] = cuda_ms(
+                torch, lambda: parent.bag(table, *nxt(), combiner), iters)
+        out["embedding_bag"]["times"].append(row)
 
     v0 = sizes[0]
     table = table_init(gen, (v0, 128), v0 ** -0.25, torch.float32, dev)
@@ -1153,6 +1185,9 @@ def phase_embedding_bag(torch, dev) -> dict:
             f"{key}={val:.4g}" if isinstance(val, float) else
             f"{key}={val}" for key, val in row.items()))
     log(f"  embedding_bag: max_abs_err={out['embedding_bag']['err']:.3g}")
+    if parent is not None:
+        log(f"  {held['parent']} embedding_bag calls equal the parent's "
+            f"kernel bit for bit")
     return out
 
 
@@ -1552,17 +1587,116 @@ def serve_times(torch, what: str, fn, batches: list, reps: int) -> int:
     return 2 * reps + 1
 
 
-def phase_recsys(torch, dev) -> int:
+L2_BYTES = 50e6        # H100 SXM L2
+
+
+def dlrm_bags(torch, params, cfg, shape: str, ids: list, iters: int,
+              plain_iters: int, parent=None) -> dict:
+    """The grouped bag over DLRM's 26 tables at a serving shape (``ids``:
+    batches of (B, 26, L) ids), as the forward calls it: held against its
+    plain version on the first batch with bag 0 all padding and the id V
+    in bag 1 of field 5 (bit for bit at L = 1, NaN at exactly that bag);
+    with ``parent``, the 26 fields of that batch and of the batch as
+    drawn against the parent's kernel bit for bit. Timed between CUDA
+    events (a batch a call in turn): the kernel into the feature stack,
+    its plain version, the library (26 ``F.embedding_bag`` calls in one
+    timed region) and the parent's 26 launches. The bound counts a table
+    of at most 50 MB (it stays in L2) at most its size once, and a larger
+    one every valid row it reads, plus the ids read and the bags
+    written. Returns the timing row."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.embedding_bag import ops as eb
+    from repro_torch.kernels.embedding_bag.plain import (
+        embedding_bag_grouped_plain)
+
+    tables = [params["tables"][f"table_{i}"] for i in range(cfg.n_sparse)]
+    b, f, bag = ids[0].shape
+    d, es = cfg.embed_dim, tables[0].element_size()
+    probe = ids[0].clone()
+    probe[0] = -1
+    probe[1, 5, 0] = tables[5].shape[0]
+    got = eb.embedding_bag_grouped(tables, probe)
+    want = embedding_bag_grouped_plain(tables, probe)
+    nan = torch.isnan(want).any(2)
+    check(torch.equal(torch.isnan(got).any(2), nan)
+          and bool(torch.isnan(got[nan]).all()) and int(nan.sum()) == 1
+          and bool(nan[1, 5]), f"grouped embedding_bag {shape}: NaN bags "
+                               f"differ from the bag with id V")
+    check(bool((got[0] == 0).all()), f"grouped embedding_bag {shape}: the "
+                                     f"all-padding bags are not 0")
+    # one-hot (L = 1): one product rounded once either way
+    check(bag == 1 and torch.equal(got[~nan], want[~nan]),
+          f"grouped embedding_bag {shape}: not bit for bit with plain")
+    del want
+    if parent is not None:
+        for x in (probe, ids[0]):
+            got = eb.embedding_bag_grouped(tables, x)
+            for i, t in enumerate(tables):
+                check(same_bits(torch, got[:, i], parent.bag(
+                    t, x[:, i], None, "sum")), f"grouped embedding_bag "
+                                               f"{shape}: field {i} differs "
+                                               f"from the parent's kernel")
+        log(f"  grouped embedding_bag {shape}: the 26 fields equal the "
+            f"parent's kernel bit for bit")
+    del got, probe
+    turn = {"i": 0}
+
+    def nxt(of=ids):
+        turn["i"] = (turn["i"] + 1) % len(of)
+        return of[turn["i"]]
+
+    feats = torch.empty((b, f + 1, d), dtype=tables[0].dtype,
+                        device=tables[0].device)
+    t = cuda_ms(torch, lambda: eb.embedding_bag_grouped(
+        tables, nxt(), None, "sum", out=feats[:, 1:]), iters)
+    tp = cuda_ms(torch, lambda: embedding_bag_grouped_plain(
+        tables, nxt(), None, "sum", feats[:, 1:]), plain_iters, 1)
+    del feats
+    # the library call's inputs made once (every id of a batch is valid)
+    lib = [[x[:, i].contiguous() for i in range(f)] for x in ids]
+
+    def library():
+        return [F.embedding_bag(x, tb, mode="sum")
+                for x, tb in zip(nxt(lib), tables)]
+
+    tl = cuda_ms(torch, library, iters, 1)
+    del lib
+    row = {"what": f"grouped {shape}", "B": b, "L": bag, "F": f, "ms": t,
+           "plain_ms": tp, "library_ms": tl}
+    if parent is not None:
+        row["parent_ms"] = cuda_ms(torch, lambda: [
+            parent.bag(tb, x, None, "sum")
+            for tb, x in zip(tables, nxt().unbind(1))], iters)
+    in_bytes, n_valid = b * f * bag * 4, 0
+    for i, tb in enumerate(tables):
+        x = ids[0][:, i]
+        rows = int(((x >= 0) & (x < tb.shape[0])).sum())
+        n_valid += rows
+        size = tb.numel() * es
+        in_bytes += min(size, rows * d * es) if size <= L2_BYTES else (
+            rows * d * es)
+    row["bound_ms"], row["bound_by"] = bound_ms(in_bytes, b * f * d * es,
+                                                2 * n_valid * d)
+    log("  embedding_bag: " + " ".join(
+        f"{key}={val:.4g}" if isinstance(val, float) else f"{key}={val}"
+        for key, val in row.items()))
+    return row
+
+
+def phase_recsys(torch, dev, parent=None) -> tuple[int, list]:
     """DLRM at MLPerf widths over the one-card tables (58.3 GB fp32),
     then FM, Wide&Deep and BERT4Rec at full width, then retrieval_cand
     for the four, all through ``launch/steps.build_cell``'s functions.
-    Returns the embedding bag's launches on the DLRM serving path."""
+    Returns the embedding bag's launches on the DLRM serving path and
+    the grouped bag's timing rows (``dlrm_bags``)."""
     from repro_torch.configs.bert4rec import CONFIG as B4R
     from repro_torch.configs.dlrm_mlperf import ONE_CARD
     from repro_torch.configs.fm import CONFIG as FM
     from repro_torch.configs.wide_deep import CONFIG as WD
     from repro_torch.kernels.embedding_bag import ops as eb
-    from repro_torch.kernels.embedding_bag.plain import embedding_bag_plain
+    from repro_torch.kernels.embedding_bag.plain import (
+        embedding_bag_grouped_plain)
     from repro_torch.kernels.flash_attention import ops as fa
     from repro_torch.kernels.topk_search import ops as kops
     from repro_torch.kernels.topk_search.plain import topk_search_plain
@@ -1588,15 +1722,26 @@ def phase_recsys(torch, dev) -> int:
         f"{gb:.2f} GB fp32 made on the card in "
         f"{time.perf_counter() - t:.1f} s")
 
-    def dlrm_batch(b):
+    def dlrm_ids(b):
         # each field draws from its own table (repro's smoke batches draw
         # every field from min(table_sizes) = 3 rows, all in L2)
-        ids = torch.stack([torch.randint(0, v, (b,), generator=gen,
-                                         device=dev, dtype=torch.int32)
-                           for v in cfg.table_sizes], dim=1)[..., None]
+        return torch.stack([torch.randint(0, v, (b,), generator=gen,
+                                          device=dev, dtype=torch.int32)
+                            for v in cfg.table_sizes], dim=1)[..., None]
+
+    def dlrm_batch(b):
         return {"dense": torch.rand((b, cfg.n_dense), generator=gen,
                                     device=dev),
-                "sparse_ids": ids}
+                "sparse_ids": dlrm_ids(b)}
+
+    bag_rows = []
+    for shape, n_batches, iters, plain_iters in (
+            ("serve_p99", 20, 50, 3), ("serve_bulk", 2, 5, 2)):
+        b = batch_size(build_cell("dlrm-mlperf", shape, device=dev))
+        bag_rows.append(dlrm_bags(torch, params, cfg, shape,
+                                  [dlrm_ids(b) for _ in range(n_batches)],
+                                  iters, plain_iters, parent))
+        torch.cuda.empty_cache()
 
     eb.launches = 0
     forwards = 0
@@ -1609,7 +1754,7 @@ def phase_recsys(torch, dev) -> int:
         with torch.no_grad():
             got = bundle.fn(params, batches[0])
             plain = recsys.dlrm_forward(params, cfg, **batches[0],
-                                        bag=embedding_bag_plain)
+                                        bag=embedding_bag_grouped_plain)
         forwards += 1
         check(got.shape == (b,) and bool(got.isfinite().all()),
               f"DLRM {shape}: bad shape or not finite")
@@ -1640,16 +1785,17 @@ def phase_recsys(torch, dev) -> int:
             busy = sum(e.self_device_time_total for e in kern) / 1e3
             bags = sum(e.self_device_time_total for e in kern
                        if "embedding_bag" in e.key) / 1e3
-            log(f"  DLRM {shape} batch: embedding_bag kernels {bags:.4f} ms "
-                f"of {busy:.4f} ms device busy ({bags / busy:.1%}); the "
-                f"rest (MLPs, interaction) {busy - bags:.4f} ms")
+            log(f"  DLRM {shape} batch: the grouped embedding_bag kernel "
+                f"{bags:.4f} ms of {busy:.4f} ms device busy "
+                f"({bags / busy:.1%}); the rest (MLPs, interaction) "
+                f"{busy - bags:.4f} ms")
         del batches
     launches = eb.launches
-    check(launches == cfg.n_sparse * forwards,
+    check(launches == forwards,
           f"DLRM: {launches} embedding_bag launches for {forwards} forwards "
-          f"of {cfg.n_sparse} fields")
+          f"(one a forward, over its {cfg.n_sparse} tables)")
     log(f"  launches on the DLRM serving path: embedding_bag {launches} "
-        f"({cfg.n_sparse} a forward, {forwards} forwards)")
+        f"(one a forward over {cfg.n_sparse} tables, {forwards} forwards)")
     del params, plain, got
     torch.cuda.empty_cache()
 
@@ -1748,7 +1894,7 @@ def phase_recsys(torch, dev) -> int:
     log(f"  retrieval_cand: topk_search launched {kops.launches - k_before} "
         f"times")
     torch.cuda.empty_cache()
-    return launches
+    return launches, bag_rows
 
 
 def main() -> int:
@@ -1756,9 +1902,9 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", default=None,
-                    help="a checkout of an earlier commit: phase 2 also "
-                         "holds each top-k call against its kernels, bit "
-                         "for bit, and times them")
+                    help="a checkout of an earlier commit: phases 2 and "
+                         "7 also hold each top-k and bag call against its "
+                         "kernels, bit for bit, and time them")
     args = ap.parse_args()
     try:
         import torch
@@ -1792,12 +1938,12 @@ def main() -> int:
         for line in ptxas_lines(logs.get(name, ""), kernel):
             log(f"  ptxas {line}")
 
-    parent = ParentScans(torch, args.parent) if args.parent else None
+    parent = ParentKernels(torch, args.parent) if args.parent else None
 
     log("phase 2: kernels against their plain versions")
     kern = phase_kernels(torch, dev, parent)
     kern.update(phase_attention(torch, dev))
-    kern.update(phase_embedding_bag(torch, dev))
+    kern.update(phase_embedding_bag(torch, dev, parent))
     with tempfile.TemporaryDirectory(prefix="chip_smoke-") as work:
         log("phase 3: temporal engine at scale")
         phase_engine(torch, work)
@@ -1823,14 +1969,15 @@ def main() -> int:
                                       f"RAG path")
         phase_decode_vs_prefill(torch)
     log("phase 7: the recsys family at full width")
-    launches["embedding_bag"] = phase_recsys(torch, dev)
+    launches["embedding_bag"], bag_rows = phase_recsys(torch, dev, parent)
+    kern["embedding_bag"]["times"].extend(bag_rows)
     check(launches["embedding_bag"] > 0,
           "embedding_bag was never launched on the DLRM serving path")
 
     rows = []
     main_shape = {"flash_attention": "nemo prefill 256",
                   "flash_decode": "engine cache 320",
-                  "embedding_bag": "serve_p99 table 0 fp32"}
+                  "embedding_bag": "grouped serve_p99"}
     for name, (source, tpu) in KERNELS.items():
         if name in main_shape:
             at = next(r for r in kern[name]["times"]

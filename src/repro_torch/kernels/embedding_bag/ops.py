@@ -1,5 +1,7 @@
-"""Wrapper of the embedding-bag kernel (csrc/embedding_bag.cu): the
-sparse-feature lookup of DLRM, one launch a table."""
+"""Wrappers of the embedding-bag kernel (csrc/embedding_bag.cu): the
+sparse-feature lookup of DLRM. ``embedding_bag_grouped`` covers a group
+of tables (DLRM's 26 fields) in one launch; ``embedding_bag`` is the
+one-table call behind repro's API, the same kernel body with F = 1."""
 from __future__ import annotations
 
 import ctypes
@@ -9,22 +11,54 @@ import torch
 from ... import obs
 from .. import build
 from ..build import check
-from .plain import embedding_bag_plain
+from .plain import embedding_bag_grouped_plain, embedding_bag_plain
 
-launches = 0          # CUDA kernel launches of ``embedding_bag``
+launches = 0          # CUDA kernel launches of either wrapper
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 COMBINERS = {"sum": 0, "mean": 1}
+MAX_TABLES = 64       # csrc BAG_MAX_TABLES: the group rides in the params
+
+
+class _Table(ctypes.Structure):
+    """csrc ``BagTable``: one table of a group."""
+    _fields_ = [("data", ctypes.c_void_p), ("rows", ctypes.c_longlong)]
+
+
+_entries = None
+_groups: dict = {}    # (data_ptr, shape, stride, dtype) a table -> group
 
 
 def _lib():
-    lib = build.load("embedding_bag")
-    if lib.embedding_bag_fwd.argtypes is None:
-        lib.embedding_bag_fwd.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_longlong] * 6
-            + [ctypes.c_int, ctypes.c_void_p])
-        lib.embedding_bag_fwd.restype = ctypes.c_int
-    return lib
+    """(library, ``embedding_bag_fwd``, ``embedding_bag_grouped_fwd``),
+    built, loaded and declared once."""
+    global _entries
+    if _entries is None:
+        lib = build.load("embedding_bag")
+        one = lib.embedding_bag_fwd
+        one.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int]
+                        + [ctypes.c_longlong] * 6
+                        + [ctypes.c_int, ctypes.c_void_p])
+        one.restype = ctypes.c_int
+        grp = lib.embedding_bag_grouped_fwd
+        grp.argtypes = ([ctypes.c_void_p, ctypes.c_int]
+                        + [ctypes.c_void_p] * 3 + [ctypes.c_int]
+                        + [ctypes.c_longlong] * 9
+                        + [ctypes.c_int, ctypes.c_void_p])
+        grp.restype = ctypes.c_int
+        _entries = (lib, one, grp)
+    return _entries
+
+
+def _call(dev: torch.device, fn, *args) -> int:
+    """``fn(*args, stream)`` on the current stream of ``dev``, made the
+    current device only where it is not already."""
+    idx = dev.index
+    stream = torch._C._cuda_getCurrentRawStream(idx)
+    if idx == torch.cuda.current_device():
+        return fn(*args, stream)
+    with torch.cuda.device(idx):
+        return fn(*args, stream)
 
 
 def _on(name: str, x, dtype: torch.dtype, dev: torch.device) -> torch.Tensor:
@@ -47,6 +81,65 @@ def _row_stride(x: torch.Tensor) -> tuple[torch.Tensor, int]:
     return x, (x.stride(0) if x.shape[0] > 1 else x.shape[1])
 
 
+def _slots(x: torch.Tensor) -> tuple[torch.Tensor, int, int]:
+    """``x`` (B, F, L) with its slots contiguous, and its (b, f) strides:
+    a strided view goes as it lies, anything else is copied."""
+    if x.shape[2] > 1 and x.stride(2) != 1:
+        x = x.contiguous()
+    return x, x.stride(0), x.stride(1)
+
+
+def _check_table(table) -> None:
+    if not isinstance(table, torch.Tensor):
+        raise TypeError(f"table: expected a torch.Tensor, got "
+                        f"{type(table)}")
+    if table.dim() != 2 or table.dtype not in DTYPES:
+        raise TypeError(f"embedding_bag: table must be 2-d in "
+                        f"{list(DTYPES)}, got {tuple(table.shape)} "
+                        f"{table.dtype}")
+
+
+def _check_group(tables) -> None:
+    """Raise unless ``tables`` are 1 to MAX_TABLES 2-d tables of one
+    dtype, one width and one device."""
+    if not 1 <= len(tables) <= MAX_TABLES:
+        raise ValueError(f"embedding_bag_grouped: {len(tables)} tables, "
+                         f"not 1 to {MAX_TABLES}")
+    for t in tables:
+        _check_table(t)
+    t0 = tables[0]
+    for i, t in enumerate(tables):
+        if t.dtype != t0.dtype or t.shape[1] != t0.shape[1]:
+            raise TypeError(f"embedding_bag_grouped: table {i} is "
+                            f"{tuple(t.shape)} {t.dtype}, table 0 "
+                            f"{tuple(t0.shape)} {t0.dtype}: a group shares "
+                            f"one dtype and one width")
+        if t.device != t0.device:
+            raise ValueError(f"embedding_bag_grouped: table {i} on "
+                             f"{t.device}, table 0 on {t0.device}")
+
+
+def _group(tables) -> ctypes.Array:
+    """The group's (pointer, V) descriptors for the C entry, made once a
+    group: cached per tuple of (data_ptr, shape, stride, dtype) of its
+    tables (stride: a transposed square table has the same pointer and
+    shape), so a repeated call does no per-table checks."""
+    key = tuple([(t.data_ptr(), t.shape, t.stride(), t.dtype)
+                 for t in tables])
+    desc = _groups.get(key)
+    if desc is None:
+        _check_group(tables)
+        for i, t in enumerate(tables):
+            if not t.is_contiguous():
+                raise ValueError(f"embedding_bag_grouped: table {i} must "
+                                 f"be contiguous")
+        if len(_groups) >= 64:
+            _groups.clear()
+        desc = _groups[key] = (_Table * len(tables))(
+            *[(t.data_ptr(), t.shape[0]) for t in tables])
+    return desc
+
+
 def embedding_bag(table: torch.Tensor, indices, weights=None,
                   combiner: str = "sum") -> torch.Tensor:
     """Multi-hot embedding lookup-reduce. table: (V, D) f32 or bf16;
@@ -64,13 +157,7 @@ def embedding_bag(table: torch.Tensor, indices, weights=None,
         raise ValueError(f"combiner must be 'sum' or 'mean', not "
                          f"{combiner!r}")
     with obs.span("kernel:embedding_bag") as sp:
-        if not isinstance(table, torch.Tensor):
-            raise TypeError(f"table: expected a torch.Tensor, got "
-                            f"{type(table)}")
-        if table.dim() != 2 or table.dtype not in DTYPES:
-            raise TypeError(f"embedding_bag: table must be 2-d in "
-                            f"{list(DTYPES)}, got {tuple(table.shape)} "
-                            f"{table.dtype}")
+        _check_table(table)
         dev = table.device
         indices = _on("indices", indices, torch.int32, dev)
         if weights is not None:
@@ -99,14 +186,84 @@ def embedding_bag(table: torch.Tensor, indices, weights=None,
         if weights is not None:
             weights, ldw = _row_stride(weights)
             w_ptr = weights.data_ptr()
-        lib = _lib()
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        with torch.cuda.device(dev):
-            err = lib.embedding_bag_fwd(
-                table.data_ptr(), indices.data_ptr(), w_ptr, out.data_ptr(),
-                DTYPES[table.dtype], v, d, b, bag, ldi, ldw,
-                COMBINERS[combiner], stream)
+        lib, one, _ = _lib()
+        err = _call(dev, one, table.data_ptr(), indices.data_ptr(), w_ptr,
+                    out.data_ptr(), DTYPES[table.dtype], v, d, b, bag, ldi,
+                    ldw, COMBINERS[combiner])
         check(lib, err, "embedding_bag_fwd")
+        launches += 1
+        if sp is not obs.NOOP_SPAN:            # traced: span = device time
+            torch.cuda.current_stream(dev).synchronize()
+        return out
+
+
+def embedding_bag_grouped(tables, indices, weights=None,
+                          combiner: str = "sum",
+                          out: torch.Tensor | None = None) -> torch.Tensor:
+    """``embedding_bag`` over F tables in one launch. tables: a sequence
+    of F <= 64 (V_f, D) tables of one dtype (f32 or bf16), one D, one
+    device; indices: (B, F, L), cast to int32, field f's ids index table
+    f; weights: (B, F, L) f32, or None for unit weights; ids and weights
+    are read through their (b, f) strides as they lie. out: (B, F, D) in
+    the tables' dtype with its last dimension contiguous, written in
+    place (DLRM passes ``feats[:, 1:]`` of its (B, F + 1, D) stack), or
+    None to allocate one. Returns ``out``: out[:, f] is
+    ``embedding_bag(tables[f], indices[:, f], weights[:, f], combiner)``
+    bit for bit. CPU tables run the plain version; CUDA tables launch the
+    kernel once."""
+    global launches
+    if combiner not in COMBINERS:
+        raise ValueError(f"combiner must be 'sum' or 'mean', not "
+                         f"{combiner!r}")
+    with obs.span("kernel:embedding_bag") as sp:
+        if not tables:
+            raise ValueError("embedding_bag_grouped: no tables")
+        t0 = tables[0]
+        _check_table(t0)
+        dev, dtype, f, d = t0.device, t0.dtype, len(tables), t0.shape[1]
+        indices = _on("indices", indices, torch.int32, dev)
+        if weights is not None:
+            weights = _on("weights", weights, torch.float32, dev)
+        wshape = None if weights is None else tuple(weights.shape)
+        if (indices.dim() != 3 or indices.shape[1] != f
+                or wshape not in (None, indices.shape)):
+            raise ValueError(f"embedding_bag_grouped: indices "
+                             f"{tuple(indices.shape)} must be (B, {f}, L) "
+                             f"and weights {wshape} the same")
+        b, _, bag = indices.shape
+        if out is None:
+            out = torch.empty((b, f, d), dtype=dtype, device=dev)
+        elif (out.shape != (b, f, d) or out.dtype != dtype
+              or out.device != dev or (d > 1 and out.stride(2) != 1)):
+            raise ValueError(f"embedding_bag_grouped: out "
+                             f"{tuple(out.shape)} {out.dtype} on "
+                             f"{out.device} must be ({b}, {f}, {d}) "
+                             f"{dtype} on {dev}, last dimension "
+                             f"contiguous")
+        es = t0.element_size()
+        sp.add("rows", b * f * bag)
+        sp.add("bytes", b * f * bag * (d * es + (4 if weights is None
+                                                 else 8)) + b * f * d * es)
+        if dev.type == "cpu":
+            _check_group(tables)
+            return embedding_bag_grouped_plain(tables, indices, weights,
+                                               combiner, out)
+        if dev.type != "cuda":
+            raise ValueError(f"embedding_bag runs on cpu or cuda, not {dev}")
+        desc = _group(tables)
+        if b == 0 or d == 0:
+            return out
+        indices, ids_b, ids_f = _slots(indices)
+        w_ptr, w_b, w_f = None, 0, 0          # null weights: unit weights
+        if weights is not None:
+            weights, w_b, w_f = _slots(weights)
+            w_ptr = weights.data_ptr()
+        lib, _, grp = _lib()
+        err = _call(dev, grp, desc, f, indices.data_ptr(), w_ptr,
+                    out.data_ptr(), DTYPES[dtype], d, b, bag, ids_b, ids_f,
+                    w_b, w_f, out.stride(0), out.stride(1),
+                    COMBINERS[combiner])
+        check(lib, err, "embedding_bag_grouped_fwd")
         launches += 1
         if sp is not obs.NOOP_SPAN:            # traced: span = device time
             torch.cuda.current_stream(dev).synchronize()

@@ -1,5 +1,6 @@
-"""Plain PyTorch version of the embedding-bag kernel: the CPU path of
-``ops.embedding_bag`` and the yardstick the CUDA kernel is held to."""
+"""Plain PyTorch versions of the embedding-bag kernel: the CPU paths of
+``ops.embedding_bag`` and ``ops.embedding_bag_grouped`` and the
+yardsticks the CUDA kernel is held to."""
 from __future__ import annotations
 
 import torch
@@ -42,3 +43,23 @@ def embedding_bag_plain(table: torch.Tensor, indices: torch.Tensor,
         acc = acc / torch.clamp(wsum, min=1e-9)
     acc = torch.where(oob.any(1, keepdim=True), float("nan"), acc)
     return acc.to(table.dtype)
+
+
+def embedding_bag_grouped_plain(tables, indices: torch.Tensor,
+                                weights: torch.Tensor | None = None,
+                                combiner: str = "sum",
+                                out: torch.Tensor | None = None
+                                ) -> torch.Tensor:
+    """``embedding_bag_plain`` of each field: tables a sequence of F
+    (V_f, D) tables of one dtype; indices and weights (B, F, L). Writes
+    field f's bags into out[:, f] ((B, F, D), allocated when None) and
+    returns ``out``."""
+    b, f, _ = indices.shape
+    if out is None:
+        out = torch.empty((b, f, tables[0].shape[1]),
+                          dtype=tables[0].dtype, device=indices.device)
+    for i, table in enumerate(tables):
+        out[:, i] = embedding_bag_plain(
+            table, indices[:, i], None if weights is None else weights[:, i],
+            combiner)
+    return out

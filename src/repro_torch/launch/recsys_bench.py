@@ -8,13 +8,14 @@
 
 Prints one JSON object: the card's name and power limit, host ms a
 batch (synchronized, median and quartiles), device ms a batch between
-CUDA events over back-to-back batches, samples/s, and the embedding
-bag alone as DLRM calls it (one field of the (B, 26, 1) ids, no
-weights) and with contiguous ids and explicit unit weights, each in ms
-a call between CUDA events. Ids are drawn over each table, as a
-serving caller's are. To compare two checkouts in one run, copy this
-file into the other's ``src/repro_torch/launch/`` and run it there too,
-alternating the two."""
+CUDA events over back-to-back batches, samples/s, the bags of a
+forward as DLRM calls them (one grouped call over the 26 tables into
+the feature stack) with their launches, and the one-table bag alone
+(one field of the (B, 26, 1) ids, no weights; and contiguous ids with
+explicit unit weights), each in ms a call between CUDA events. Ids are
+drawn over each table, as a serving caller's are. To compare two
+checkouts in one run, run each checkout's own ``recsys_bench``,
+alternating the two: the host and device keys are common to both."""
 from __future__ import annotations
 
 import argparse
@@ -25,6 +26,7 @@ import time
 import torch
 
 from ..configs.dlrm_mlperf import ONE_CARD
+from ..kernels.embedding_bag import ops as eb
 from ..kernels.embedding_bag.ops import embedding_bag
 from ..models.recsys import dlrm_init
 from .steps import build_cell
@@ -78,7 +80,18 @@ def main(argv=None) -> dict:
             host.append((time.perf_counter() - t) * 1e3)
         dev_ms = cuda_ms(lambda: bundle.fn(params, nxt()), args.reps)
     host.sort()
-    table = params["tables"]["table_0"]
+    tables = [params["tables"][f"table_{i}"] for i in range(cfg.n_sparse)]
+    feats = torch.empty((b, cfg.n_sparse + 1, cfg.embed_dim), device=dev)
+
+    def bags():
+        eb.embedding_bag_grouped(tables, nxt()["sparse_ids"], None, "sum",
+                                 out=feats[:, 1:])
+
+    before = eb.launches
+    bags()
+    launches = eb.launches - before
+    bags_ms = cuda_ms(bags, args.reps)
+    table = tables[0]
     ones = torch.ones((b, 1), device=dev)
     for x in batches:
         x["flat"] = x["sparse_ids"][:, 0].contiguous()
@@ -95,6 +108,7 @@ def main(argv=None) -> dict:
            "reps": args.reps, "host_ms_median": host[len(host) // 2],
            "host_ms_q1": host[q], "host_ms_q3": host[3 * q],
            "device_ms": dev_ms, "samples_per_s": b / dev_ms * 1e3,
+           "bags_ms": bags_ms, "bag_launches_per_forward": launches,
            "bag_field_no_weights_ms": field,
            "bag_contiguous_unit_weights_ms": explicit}
     print(json.dumps(out))

@@ -2,9 +2,10 @@
 
 All four share the sparse substrate: huge embedding tables plus
 kernels/embedding_bag (gather + weighted segment reduce), which DLRM
-calls once a sparse field. The ``retrieval_cand`` serving shape (1 query
-x 1e6 candidates) is scored by the same fused top-k kernel as the
-LiveVectorLake hot tier (``score_candidates`` -> kernels/topk_search).
+calls once a forward over its 26 tables. The ``retrieval_cand`` serving
+shape (1 query x 1e6 candidates) is scored by the same fused top-k
+kernel as the LiveVectorLake hot tier (``score_candidates`` ->
+kernels/topk_search).
 
 Parameters are the ``ParamModule``s of models/transformer.py (frozen,
 indexed by name like repro's dict pytrees); an MLP is an ``MLP`` module
@@ -31,7 +32,7 @@ from typing import Callable, Optional, Sequence
 import torch
 
 from ..kernels.common import resolve_device
-from ..kernels.embedding_bag.ops import embedding_bag
+from ..kernels.embedding_bag.ops import embedding_bag_grouped
 from ..kernels.topk_search.ops import topk_search
 from .layers import dense_init
 from .transformer import (ParamModule, TransformerConfig, forward,
@@ -225,15 +226,19 @@ def dlrm_init(cfg: DLRMConfig, seed: int = 0, device=None) -> ParamModule:
 def dlrm_forward(params, cfg: DLRMConfig, dense: torch.Tensor,
                  sparse_ids: torch.Tensor,
                  weights: Optional[torch.Tensor] = None,
-                 bag: Callable = embedding_bag) -> torch.Tensor:
+                 bag: Callable = embedding_bag_grouped) -> torch.Tensor:
     """dense: (B, 13); sparse_ids: (B, 26, L) multi-hot (L = 1 one-hot);
-    weights: (B, 26, L) or None. One ``bag`` call a field (the kernel's
-    wrapper; a check may pass its plain version). Returns (B,) logits."""
+    weights: (B, 26, L) or None. One ``bag`` call over the 26 tables
+    (the kernel's grouped wrapper; a check may pass its plain version)
+    writes the bags into the feature stack after x_bot, with no copy of
+    the ids or the features. Returns (B,) logits."""
     x_bot = params["bot"](dense.to(cfg.dtype), final_act=True)  # (B, 128)
-    embs = [bag(params["tables"][f"table_{i}"], sparse_ids[:, i],
-                None if weights is None else weights[:, i], "sum")
-            for i in range(cfg.n_sparse)]
-    feats = torch.stack([x_bot] + embs, dim=1)                   # (B, 27, k)
+    feats = x_bot.new_empty((x_bot.shape[0], cfg.n_sparse + 1,
+                             cfg.embed_dim))                     # (B, 27, k)
+    feats[:, 0] = x_bot
+    tables = params["tables"]
+    bag([tables[f"table_{i}"] for i in range(cfg.n_sparse)], sparse_ids,
+        weights, "sum", out=feats[:, 1:])
     # dot interaction: upper triangle of pairwise dots, row-major (the
     # order of jnp.triu_indices)
     inter = torch.bmm(feats, feats.transpose(1, 2))

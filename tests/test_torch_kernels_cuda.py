@@ -842,3 +842,101 @@ def test_embedding_bag_kernel_rejects_bad_input(dev):
     out = eb_ops.embedding_bag(table, torch.zeros((0, 3), dtype=torch.int32,
                                                   device=dev))
     assert out.shape == (0, 8) and eb_ops.launches == before
+
+
+def _group_inputs(vs, d, b, bag, seed, dev, dtype=torch.float32):
+    """Tables of the V in ``vs``; ids (B, F, L) as a strided view of a
+    (B, F + 2, L) tensor, each field over its own table with 30% padding
+    (-1 and -7), bag 0 of every field all padding, bag 1 of field 0
+    holding the id V (a NaN row); weights as a strided view too."""
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    tables = [torch.empty((v, d), dtype=dtype, device=dev).normal_(
+        generator=gen) for v in vs]
+    f = len(vs)
+    ids = np.stack([rng.integers(0, v, (b, bag)) for v in vs], 1)
+    u = rng.random((b, f, bag))
+    ids = np.where(u < 0.15, -1, np.where(u < 0.3, -7, ids))
+    ids[0] = -1
+    ids[1, 0, bag // 2] = vs[0]
+    big = torch.zeros((b, f + 2, bag), dtype=torch.int32, device=dev)
+    big[:, 1:f + 1] = torch.tensor(ids, dtype=torch.int32, device=dev)
+    w = torch.rand((b, f + 1, bag), generator=gen, device=dev)[:, 1:]
+    return tables, big[:, 1:f + 1], w
+
+
+DLRM_LIKE = (30_000, 3, 1441, 200_000, 62, 17_245)
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("combiner", ["sum", "mean"])
+@pytest.mark.parametrize("bag,d,dtype", [
+    (1, 128, torch.float32),        # DLRM one-hot
+    (4, 128, torch.float32),
+    (100, 128, torch.float32),      # multi-hot: depth 8
+    (100, 128, torch.bfloat16),     # 8-byte chunks, 32 lanes
+    (5, 256, torch.bfloat16),       # 16-byte chunks
+    (3, 10, torch.float32),         # 8-byte chunks, 5 lanes
+    (3, 12, torch.bfloat16),
+    (2, 200, torch.float32),        # two column passes
+])
+def test_embedding_bag_grouped_matches_plain(dev, weighted, combiner, bag,
+                                             d, dtype):
+    tables, ids, w = _group_inputs(DLRM_LIKE, d, 300, bag, 80, dev, dtype)
+    w = w if weighted else None
+    f = len(tables)
+    feats = torch.full((300, f + 1, d), 3.0, dtype=dtype, device=dev)
+    before = eb_ops.launches
+    got = eb_ops.embedding_bag_grouped(tables, ids, w, combiner,
+                                       out=feats[:, 1:])
+    torch.cuda.synchronize()
+    assert eb_ops.launches == before + 1
+    assert bool((feats[:, 0] == 3.0).all())         # field 0 untouched
+    ones = torch.ones(ids.shape, device=dev)
+    for i, t in enumerate(tables):
+        wi = None if w is None else w[:, i]
+        _bag_agree(got[:, i], embedding_bag_plain(t, ids[:, i], wi, combiner),
+                   t, ids[:, i], ones[:, i] if wi is None else wi, combiner)
+        assert torch.all(got[0, i] == 0)            # all padding
+    assert bool(torch.isnan(got[1, 0]).all())
+
+
+@pytest.mark.parametrize("bag,dtype", [(1, torch.float32),
+                                       (7, torch.float32),
+                                       (100, torch.bfloat16)])
+def test_embedding_bag_grouped_equals_single_calls_bitwise(dev, bag, dtype):
+    """The F = 1 entry (one launch a table) equals the grouped call field
+    by field, and a bag alone (a group of one bag) equals the same bag
+    inside the group, bit for bit."""
+    tables, ids, w = _group_inputs(DLRM_LIKE, 128, 200, bag, 81, dev, dtype)
+    got = eb_ops.embedding_bag_grouped(tables, ids, w, "mean")
+    for i, t in enumerate(tables):
+        one = eb_ops.embedding_bag(t, ids[:, i], w[:, i], "mean")
+        assert torch.equal(got[:, i].nan_to_num(), one.nan_to_num())
+        assert torch.equal(got[:, i].isnan(), one.isnan())
+    for b_, f_ in ((2, 0), (57, 3), (199, 5)):
+        alone = eb_ops.embedding_bag_grouped(
+            [tables[f_]], ids[b_:b_ + 1, f_:f_ + 1], w[b_:b_ + 1, f_:f_ + 1],
+            "mean")
+        assert torch.equal(alone[0, 0], got[b_, f_])
+
+
+def test_embedding_bag_grouped_rejects_bad_input(dev):
+    t = torch.randn((10, 8), device=dev)
+    ids = torch.zeros((2, 2, 1), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        eb_ops.embedding_bag_grouped([t, torch.randn((8, 8), device=dev).t()],
+                                     ids)
+    with pytest.raises(ValueError, match="on cpu"):
+        eb_ops.embedding_bag_grouped([t, torch.randn((8, 8))], ids)
+    with pytest.raises(TypeError, match="one dtype"):
+        eb_ops.embedding_bag_grouped([t, t.to(torch.bfloat16)], ids)
+    with pytest.raises(ValueError, match="65 tables"):
+        eb_ops.embedding_bag_grouped([t] * 65, torch.zeros(
+            (2, 65, 1), dtype=torch.int32, device=dev))
+    with pytest.raises(ValueError, match="out"):
+        eb_ops.embedding_bag_grouped([t, t], ids, out=torch.empty(
+            (2, 8, 2), device=dev).transpose(1, 2))
+    before = eb_ops.launches
+    out = eb_ops.embedding_bag_grouped([t, t], ids[:0])
+    assert out.shape == (0, 2, 8) and eb_ops.launches == before

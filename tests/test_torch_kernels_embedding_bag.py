@@ -214,3 +214,122 @@ def test_row_stride_passes_row_views_and_copies_the_rest():
     assert x.is_contiguous() and ld == 4 and torch.equal(x, t)
     x, ld = eb._row_stride(ids[:1, 2])     # one bag: its own width
     assert ld == 3
+
+
+# ---------------------------------------------------------------------------
+# the grouped call: F tables in one call (DLRM's 26 fields)
+# ---------------------------------------------------------------------------
+GROUP_V = (400, 3, 57, 1000)            # one table of 3 rows
+
+
+def _group_setup(bag, weighted, seed, d=16, dtype=np.float32):
+    """F tables of different V, ids (B, F, L) over each field's own table
+    with 30% padding (-1 and -7), bag 0 of field 0 all padding, one bag
+    holding the id V of its table (a NaN row); ids and weights as strided
+    views of larger arrays (as they lie in a batch)."""
+    rng = np.random.default_rng(seed)
+    b, f = 9, len(GROUP_V)
+    tables = [rng.standard_normal((v, d)).astype(dtype) for v in GROUP_V]
+    ids = np.stack([rng.integers(0, v, (b, bag)) for v in GROUP_V], 1)
+    u = rng.random((b, f, bag))
+    ids = np.where(u < 0.15, -1, np.where(u < 0.3, -7, ids)).astype(np.int32)
+    ids[0, 0] = -1
+    ids[3, 1, bag // 2] = GROUP_V[1]
+    big = np.zeros((b, f + 2, bag), np.int32)
+    big[:, 1:f + 1] = ids
+    w = rng.random((b, f, bag)).astype(np.float32) if weighted else None
+    big_w = None
+    if weighted:
+        big_w = np.zeros((b, f + 1, bag), np.float32)
+        big_w[:, 1:] = w
+    return tables, ids, w, big, big_w
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("combiner", ["sum", "mean"])
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("bag", [1, 3, 100])
+def test_grouped_matches_repro_per_field(bag, weighted, combiner, dtype):
+    tables, ids, w, big, big_w = _group_setup(bag, weighted, seed=bag)
+    tdt = getattr(torch, dtype)
+    tt = [torch.from_numpy(t).to(tdt) for t in tables]
+    f, d = len(tables), tables[0].shape[1]
+    tids = torch.from_numpy(big)[:, 1:f + 1]              # strided view
+    assert not tids.is_contiguous()
+    tw = None if big_w is None else torch.from_numpy(big_w)[:, 1:]
+    feats = torch.full((ids.shape[0], f + 1, d), 5.0, dtype=tdt)
+    before = eb.launches
+    got = eb.embedding_bag_grouped(tt, tids, tw, combiner,
+                                   out=feats[:, 1:])
+    assert eb.launches == before                    # the CPU path
+    assert got.data_ptr() == feats[:, 1:].data_ptr()
+    assert bool((feats[:, 0] == 5.0).all())         # field 0 untouched
+    tol = 1e-5 if dtype == "float32" else 5e-2
+    for i, table in enumerate(tables):
+        want = np.asarray(repro_bag(
+            jnp.asarray(table, getattr(jnp, dtype)), ids[:, i],
+            None if w is None else w[:, i], combiner, mode="ref"),
+            np.float32)
+        g = got[:, i].float().numpy()
+        nan = np.isnan(want).any(1)
+        np.testing.assert_array_equal(np.isnan(g).any(1), nan)
+        assert np.isnan(g[nan]).all()
+        np.testing.assert_allclose(g[~nan], want[~nan], rtol=tol, atol=tol)
+    assert np.isnan(got[3, 1].float().numpy()).all()
+    assert bool((got[0, 0] == 0).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("bag", [1, 5])
+def test_grouped_cpu_equals_single_calls_bitwise(bag, dtype):
+    tables, ids, w, big, big_w = _group_setup(bag, True, seed=11)
+    tt = [torch.from_numpy(t).to(dtype) for t in tables]
+    tids, tw = torch.from_numpy(ids), torch.from_numpy(w)
+    for combiner in ("sum", "mean"):
+        got = eb.embedding_bag_grouped(tt, tids, tw, combiner)
+        assert got.shape == (ids.shape[0], len(tables), 16)
+        assert got.dtype == dtype
+        for i, t in enumerate(tt):
+            one = eb.embedding_bag(t, tids[:, i], tw[:, i], combiner)
+            assert torch.equal(got[:, i].nan_to_num(), one.nan_to_num())
+            assert torch.equal(got[:, i].isnan(), one.isnan())
+    plain = eb.embedding_bag_grouped_plain(tt, tids, None)
+    assert torch.equal(plain.nan_to_num(), eb.embedding_bag_grouped(
+        tt, tids).nan_to_num())
+
+
+@pytest.mark.parametrize("what", ["dtype", "width", "device", "too_many",
+                                  "none", "indices", "out", "combiner"])
+def test_grouped_wrapper_rejects_bad_input(what):
+    tables = [torch.zeros((10, 4)), torch.zeros((7, 4))]
+    ids = torch.zeros((2, 2, 3), dtype=torch.int32)
+    kw = {}
+    err = ValueError
+    if what == "dtype":
+        tables[1] = tables[1].to(torch.bfloat16)
+        err = TypeError
+    elif what == "width":
+        tables[1] = torch.zeros((7, 5))
+        err = TypeError
+    elif what == "device":
+        tables[1] = torch.zeros((7, 4), device="meta")
+    elif what == "too_many":
+        tables = [torch.zeros((10, 4))] * (eb.MAX_TABLES + 1)
+        ids = torch.zeros((2, eb.MAX_TABLES + 1, 3), dtype=torch.int32)
+    elif what == "none":
+        tables = []
+    elif what == "indices":
+        ids = torch.zeros((2, 3, 3), dtype=torch.int32)    # F != 2
+    elif what == "out":
+        kw["out"] = torch.zeros((2, 2, 5))
+    else:
+        kw["combiner"] = "max"
+    match = {"device": "meta", "too_many": "65 tables", "none": "no tables",
+             "indices": r"\(B, 2, L\)", "out": "out", "combiner": "combiner",
+             "dtype": "one dtype", "width": "one width"}[what]
+    with pytest.raises(err, match=match):
+        eb.embedding_bag_grouped(tables, ids, **kw)
+    # the most a group may hold is accepted
+    eb.embedding_bag_grouped([torch.zeros((10, 4))] * eb.MAX_TABLES,
+                             torch.zeros((2, eb.MAX_TABLES, 1),
+                                         dtype=torch.int32))

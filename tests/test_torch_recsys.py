@@ -125,12 +125,12 @@ def test_dlrm_user_embedding_and_bag_injection():
                                   jnp.asarray(sparse)))
     calls = []
 
-    def bag(table, ids, w, combiner):
-        calls.append(ids.shape)
-        return pr.embedding_bag(table, ids, w, combiner)
+    def bag(tables, ids, w, combiner, out=None):
+        calls.append((len(tables), tuple(ids.shape)))
+        return pr.embedding_bag_grouped(tables, ids, w, combiner, out=out)
 
     a = pr.dlrm_forward(params, pcfg, _t(dense), _t(sparse), bag=bag)
-    assert calls == [(4, 1)] * 26
+    assert calls == [(26, (4, 26, 1))]                # one grouped call
     assert torch.equal(a, pr.dlrm_forward(params, pcfg, _t(dense),
                                           _t(sparse)))
 
