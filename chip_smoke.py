@@ -13,7 +13,9 @@ and quantized, then the paper's RAG path: the MiniLM embedder at full
 width embedding the paper's corpus into stores on the card, and a
 Mistral-NeMo-12B generator at full width (seeded random weights)
 answering requests grounded in them; last, the recsys family (DLRM at
-MLPerf widths, FM, Wide&Deep, BERT4Rec) serving on the card.
+MLPerf widths, FM, Wide&Deep, BERT4Rec) serving on the card, and the
+shard fabric: sharded lakes on the card against one lake, through
+background maintenance, a shard down, an online split and a repair.
 
 Phases (any failure stops the script with a non-zero exit):
   1. setup: card name and power limit, kernel build time, and ptxas's
@@ -77,7 +79,24 @@ Phases (any failure stops the script with a non-zero exit):
      shapes and BERT4Rec at serve_p99 (flash_attention, D = 32), card vs
      CPU; retrieval_cand (1 x 1,000,448, k = 100) for the four through
      topk_search, held to the plain masked top-k. Its DLRM forwards are
-     the embedding bag's "launches" below (one a forward).
+     the embedding bag's "launches" below (one a forward);
+  8. the shard fabric on the card, against phase 4's fp32 store (the
+     oracle, fed the same stream): fabric A (fp32, 8 shards, 2 replicas,
+     hot_capacity 256, seals and compactions on a FabricMaintenance
+     worker, the scatter on pool threads) answers phase 4's nine mixes
+     at batch 1, 8, 32 (k 10) and batch 8 (k 500) equivalently, batch ==
+     sequential bit for bit, no out-of-window id; again with one shard
+     down (degraded, complete), during and after an online split under a
+     querying thread, and after a hot segment is corrupted and
+     ``repair()`` rebuilds it; one CURRENT and one HISTORICAL batch of 32
+     traced (plan, shard:<id>, merge); a CPU reopen equivalent, lake by
+     lake and merged; fabric B (quantized, 4 shards) at recall@10 >=
+     0.99 against fabric A. Then
+     ``device_fanout_topk`` over 8 shards x 2^20 rows x 384 fp32 (12.9
+     GB on the card), Q 1 / 32 / 256, k 10 / 100 / 500: every shard's
+     block equal to ``topk_search`` alone bit for bit, the plain version's
+     rule at Q = 32, ms a call, the library's and the bound. The four
+     scans' "launches" below add phase 8's to phase 4's.
 It prints a ``{"kernels": [...]}`` line, then, last, the one-line
 ``{"ok": true, "device": {...}}`` result. Without a CUDA device, or
 without the package beside it, it exits non-zero and prints no result.
@@ -732,17 +751,11 @@ def phase_engine(torch, workdir: str) -> None:
 # ---------------------------------------------------------------------------
 # phase 4: LiveVectorLake end to end
 # ---------------------------------------------------------------------------
-def phase_store(torch, workdir: str, quantized: bool,
-                fp32_answers: dict | None = None) -> tuple[dict, dict]:
-    """Drive fp32 or quantized stores at two hot-tier capacities, with the
-    launch counts of that path's kernels set to 0 before and read after.
-    A quantized run is also held to ``fp32_answers`` (the fp32 run's) by
-    recall@10. Returns (launches, answers)."""
-    from repro_torch.core.store import LiveVectorLake
+def store_workload():
+    """The paper's corpus (100 docs x 5 versions, explicit timestamps), 50
+    query texts and nine mixes: current, as of each version, two
+    windows."""
     from repro_torch.data.corpus import generate_corpus
-    from repro_torch.kernels.temporal_mask_score import ops as tops
-    from repro_torch.kernels.topk_search import ops as kops
-    from repro_torch.testing import results_equivalent
 
     corpus = generate_corpus(n_docs=100, n_versions=5)
     ts = corpus.timestamps
@@ -756,6 +769,36 @@ def phase_store(torch, workdir: str, quantized: bool,
              + [(f"at v{v}", {"at": t + 1}) for v, t in enumerate(ts)]
              + [("window v1-v3", {"window": (ts[1], ts[3])}),
                 ("window v0-v4", {"window": (ts[0], ts[4] + 1)})])
+    return corpus, texts, mixes
+
+
+def ingest_stream(target, corpus, texts, k: int) -> float:
+    """Feed ``target`` (a store or a fabric) every version of the corpus
+    at its timestamp, querying between versions so the later ingests land
+    in a resident fused block and a resident history (device mirrors of
+    memtable writes and of valid_to closures). Returns the seconds."""
+    t = time.perf_counter()
+    for v, t_v in enumerate(corpus.timestamps):
+        for doc in corpus.doc_ids():
+            target.ingest(doc, corpus.versions[v][doc], ts=t_v)
+        target.query_batch(texts[:8], k=k)
+        target.query_batch(texts[:8], k=k, at=t_v)
+    return time.perf_counter() - t
+
+
+def phase_store(torch, workdir: str, quantized: bool,
+                fp32_answers: dict | None = None) -> tuple[dict, dict]:
+    """Drive fp32 or quantized stores at two hot-tier capacities, with the
+    launch counts of that path's kernels set to 0 before and read after.
+    A quantized run is also held to ``fp32_answers`` (the fp32 run's) by
+    recall@10. Returns (launches, answers)."""
+    from repro_torch.core.store import LiveVectorLake
+    from repro_torch.kernels.temporal_mask_score import ops as tops
+    from repro_torch.kernels.topk_search import ops as kops
+    from repro_torch.testing import results_equivalent
+
+    corpus, texts, mixes = store_workload()
+    ts = corpus.timestamps
     k = 10
     mode = "quantized" if quantized else "fp32"
     latency = {}
@@ -775,16 +818,7 @@ def phase_store(torch, workdir: str, quantized: bool,
         root = f"{workdir}/lake-{mode}-{cap}"
         lake = LiveVectorLake(root, hot_capacity=cap, quantized=quantized,
                               device="cuda")
-        t = time.perf_counter()
-        for v, t_v in enumerate(ts):
-            for doc in corpus.doc_ids():
-                lake.ingest(doc, corpus.versions[v][doc], ts=t_v)
-            # query between versions, so the later ingests land in a
-            # resident fused block and a resident history (device
-            # mirrors of memtable writes and of valid_to closures)
-            lake.query_batch(texts[:8], k=k)
-            lake.query_batch(texts[:8], k=k, at=t_v)
-        t = time.perf_counter() - t
+        t = ingest_stream(lake, corpus, texts, k)
         st = lake.hot.index.stats()
         log(f"  {mode} hot_capacity={cap}: ingested {corpus.n_docs} docs x "
             f"{len(ts)} versions in {t:.1f} s; "
@@ -1897,6 +1931,339 @@ def phase_recsys(torch, dev, parent=None) -> tuple[int, list]:
     return launches, bag_rows
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the shard fabric on the card
+# ---------------------------------------------------------------------------
+FANOUT_SHAPE = (8, 1 << 20)    # device_fanout_topk: shards x rows a shard
+FANOUT_DEAD = 0.125            # share of each shard's rows masked dead
+
+
+def hot_segment_files(store) -> list[str]:
+    import glob
+    import os
+    return sorted(glob.glob(os.path.join(store.root, "hot_index",
+                                         "seg-*.npz")))
+
+
+def phase_fabric(torch, work: str, dev) -> dict:
+    """Phase 8, first part: ``ShardFabric``s of card-resident shard lakes
+    against one ``LiveVectorLake`` fed the same stream (phase 4's fp32
+    store at hot_capacity 4096, reopened when this run made it). The four
+    scans' launch counts are set to 0 once the oracle's answers are taken
+    and read at the end. Returns those launches."""
+    import threading
+
+    from repro_torch.core.store import LiveVectorLake
+    from repro_torch.kernels.temporal_mask_score import ops as tops
+    from repro_torch.kernels.topk_search import ops as kops
+    from repro_torch.obs import REGISTRY, trace
+    from repro_torch.serve.maintenance import FabricMaintenance
+    from repro_torch.shard import Rebalancer, ShardFabric
+    from repro_torch.testing import FAULTS, results_equivalent
+    from repro_torch.testing.faults import corrupt_file
+
+    corpus, texts, mixes = store_workload()
+    ts = corpus.timestamps
+    k, big = 10, 500
+    oracle = LiveVectorLake(f"{work}/lake-fp32-4096", hot_capacity=4096,
+                            device=dev)
+    if len(oracle.hot) == 0:                 # phase 4 did not run here
+        t = ingest_stream(oracle, corpus, texts, k)
+        log(f"  oracle: ingested in {t:.1f} s")
+    want = {name: {kk: oracle.query_batch(texts, k=kk, **kw)
+                   for kk in (k, 4 * k)} for name, kw in mixes}
+    want_big = {name: {kk: oracle.query_batch(texts[:8], k=kk, **kw)
+                       for kk in (big, 4 * big)} for name, kw in mixes}
+
+    def equivalent(name, kw, res, kk, what):
+        ref = want[name] if kk == k else want_big[name]
+        for qi, r in enumerate(res):
+            check(results_equivalent(ref[kk][qi], r, ref[4 * kk][qi],
+                                     rtol=1e-5, atol=1e-5),
+                  f"{what} {name} k={kk} query {qi}: not equivalent to "
+                  f"the oracle")
+            if "at" in kw:                   # no out-of-window id
+                oracle.temporal.assert_no_leakage(r, kw["at"])
+            elif "window" in kw:
+                oracle.temporal.assert_no_window_leakage(r, *kw["window"])
+
+    def hold(fab, what, seq=False):
+        """Every mix at batch 1, 8 and 32 (k 10) and at batch 8 with k 500
+        (the radix select) against the oracle; with ``seq`` also
+        query_batch == [query] bit for bit."""
+        for name, kw in mixes:
+            for bs in (1, 8, 32):
+                res = fab.query_batch(texts[:bs], k=k, **kw)
+                equivalent(name, kw, res, k, f"{what} batch={bs}")
+            if seq:
+                check(res == [fab.query(x, k=k, **kw) for x in texts[:32]],
+                      f"{what} {name}: query_batch != [query]")
+            equivalent(name, kw, fab.query_batch(texts[:8], k=big, **kw),
+                       big, f"{what} batch=8")
+
+    def counts() -> dict:
+        return {"topk_search": kops.launches,
+                "temporal_window_topk": tops.launches,
+                "topk_search_q8": kops.launches_q8,
+                "temporal_window_topk_q8": tops.launches_q8}
+
+    kops.launches = kops.launches_q8 = 0
+    tops.launches = tops.launches_q8 = 0
+
+    # -- fabric A: fp32, 8 shards, 2 replicas, small hot tiers sealed and
+    #    compacted by the maintenance worker, the scatter on pool threads
+    root_a = f"{work}/fabric-a"
+    fab = ShardFabric(root_a, n_shards=8, replicas=2, hot_capacity=256,
+                      shard_timeout_s=120.0, device=dev)
+    maint = FabricMaintenance(fab).start()
+    t = ingest_stream(fab, corpus, texts, k)
+    check(maint.drain(timeout=300.0), "fabric A: maintenance did not drain")
+    jobs = REGISTRY.counter("maintenance_jobs", worker=maint.worker.name)
+    log(f"  fabric A (fp32, S=8, R=2, hot_capacity=256): ingested "
+        f"{corpus.n_docs} docs x {len(ts)} versions in {t:.1f} s; "
+        f"{int(jobs.value)} maintenance jobs on the worker thread")
+    check(jobs.value > 0 and maint.worker.last_error is None,
+          f"fabric A: maintenance jobs {jobs.value}, last error "
+          f"{maint.worker.last_error}")
+    seals = 0
+    for sid in fab.ring.shards:
+        st = fab.lake(sid).store
+        check(st.device.type == dev.type, f"{sid} is not on {dev}")
+        hs = st.hot.index.stats()
+        seals += hs["seals"]
+        log(f"    {sid}: {len(st.hot)} live chunks, {hs['seals']} seals, "
+            f"{hs['segments']} segments ({hs['partitioned_segments']} "
+            f"IVF), {hs['tombstones']} tombstones, {hs['merges']} merges")
+    check(seals > 0, "fabric A: no lake sealed")
+    before = counts()
+    hold(fab, "fabric A", seq=True)
+    for name in ("topk_search", "temporal_window_topk"):
+        check(counts()[name] > before[name],
+              f"fabric A: {name} was never launched")
+    fp32 = {name: fab.query_batch(texts, k=k, **kw) for name, kw in mixes}
+
+    # drill 1: one shard down; R = 2 still covers every record
+    dead = fab.ring.shards[1]
+    FAULTS.arm(f"shard:{dead}:query", times=10**9)
+    try:
+        hold(fab, f"fabric A with {dead} down")
+        lg = fab.planner.last_gather
+        check(lg["degraded"] and lg["complete"]
+              and lg["shards_missing"] == [dead],
+              f"fabric A with {dead} down: gather {lg}")
+    finally:
+        FAULTS.reset()
+    log(f"  drill: {dead} down: degraded and complete, equivalent")
+
+    # drill 2: an online split while a thread keeps querying
+    epoch = fab.manifest.load()["epoch"]
+    stop, bad, served = threading.Event(), [], [0]
+
+    def reader():
+        i = 0
+        try:
+            while not stop.is_set():
+                name, kw = mixes[i % len(mixes)]
+                i += 1
+                res = fab.query_batch(texts[:8], k=k, **kw)
+                for qi, r in enumerate(res):
+                    if not results_equivalent(
+                            want[name][k][qi], r, want[name][4 * k][qi],
+                            rtol=1e-5, atol=1e-5):
+                        bad.append(f"{name} query {qi}")
+                served[0] += 1
+        except Exception as e:  # noqa: BLE001 — reported below
+            bad.append(f"{type(e).__name__}: {e}")
+
+    th = threading.Thread(target=reader)
+    th.start()
+    t = time.perf_counter()
+    try:
+        rep = Rebalancer(fab).split("s08")
+    finally:
+        t = time.perf_counter() - t
+        stop.set()
+        th.join(300.0)
+    check(not th.is_alive(), "split drill: the query thread hung")
+    check(not bad, f"split drill: answers during the split: {bad[:5]}")
+    maint.attach("s08")
+    state = fab.manifest.load()
+    check(state["transition"] is None and state["epoch"] > epoch,
+          f"split drill: transition {state['transition']}, epoch "
+          f"{epoch} -> {state['epoch']}")
+    hold(fab, "fabric A after the split")
+    log(f"  drill: split s08 in {t:.1f} s ({rep['docs_copied']} docs "
+        f"copied, epoch {epoch} -> {state['epoch']}), {served[0]} "
+        f"batches answered during it, all equivalent")
+
+    # drill 3: a hot segment corrupted on disk, found by the scrubber,
+    # rebuilt from cold authority by repair()
+    check(maint.drain(timeout=300.0), "fabric A: maintenance did not drain")
+    victim = next(sid for sid in fab.ring.shards
+                  if hot_segment_files(fab.lake(sid).store))
+    st = fab.lake(victim).store
+    check(corrupt_file(hot_segment_files(st)[0], "bitflip"),
+          "drill: corrupt_file failed")
+    st.scrubber.repair_hot = False           # leave the rebuild to repair
+    check(st.scrubber.scrub_full()["corrupt"] >= 1,
+          "drill: the scrubber missed the corrupted hot segment")
+    rep = fab.repair()
+    check(rep["shards"][victim]["hot_rebuilt"] and not rep["unrepairable"]
+          and not st.integrity.degraded(), f"drill: repair {rep}")
+    hold(fab, f"fabric A after repairing {victim}")
+    log(f"  drill: {victim}'s hot segment corrupted, quarantined, rebuilt "
+        f"by repair(): equivalent")
+
+    # the first traced fabric batches: host ms of plan, shard:<id>, merge
+    for intent, kw in (("current", {}), ("historical", {"at": ts[2] + 1})):
+        with trace(f"fabric:{intent}") as root:
+            fab.query_batch(texts[:32], k=k, **kw)
+        plan, merge = root.find("plan")[0], root.find("merge")[0]
+        sh = sorted((sp.wall_ms, sp.name) for sp in root.find_prefix("shard:"))
+        kern = sum(sp.wall_ms for sp in root.find_prefix("kernel:"))
+        log(f"  traced {intent} batch of 32: {root.wall_ms:.3f} ms; plan "
+            f"{plan.wall_ms:.3f}, merge {merge.wall_ms:.3f}; "
+            f"{len(sh)} shard spans {sh[0][0]:.3f}-{sh[-1][0]:.3f} ms "
+            f"(sum {sum(x for x, _ in sh):.3f}); kernel spans (synchronized) "
+            f"sum {kern:.3f} ms")
+        log("    " + ", ".join(f"{n} {x:.3f}" for x, n in sorted(
+            sh, key=lambda p: p[1])))
+
+    # the CPU reopen: every lake (the split's sources purged docs, its
+    # destination imported them, repair() rebuilt a hot tier: the device
+    # mirrors must have followed) and the fabric answer as on the card.
+    # A lake's current rows may hold docs it no longer owns: a purged
+    # doc comes back when a hot tier is re-derived from the cold history
+    # the lake keeps (on reopen, or by rebuild_hot), in repro too, and
+    # the planner's ownership filter drops it. So a lake's current
+    # answers are compared over the docs it owns, both sides taken at a
+    # depth of `deep` and filtered by the ring; temporal answers include
+    # the purged docs' history on both sides and are compared whole.
+    deep = 200
+
+    def lake_answers(fabric, sid, kw):
+        if sid is None:
+            return fabric.query_batch(texts, k=4 * k, **kw), 0
+        got = fabric.lake(sid).query_batch(texts, k=4 * k if kw else deep,
+                                           **kw)
+        if kw:
+            return got, 0
+        own = [[r for r in res if sid in fabric.ring.owners(r.doc_id)]
+               for res in got]
+        return own, sum(len(a) - len(b) for a, b in zip(got, own))
+
+    sids = [*fab.ring.shards, None]
+    card = {(sid, name): lake_answers(fab, sid, kw)[0]
+            for sid in sids for name, kw in mixes}
+    maint.stop()
+    del fab, maint, st
+    cpu = ShardFabric(root_a, device="cpu")
+    foreign = 0
+    for sid in sids:
+        for name, kw in mixes:
+            got, n = lake_answers(cpu, sid, kw)
+            foreign += n
+            for qi, ext in enumerate(got):
+                check(results_equivalent(ext[:k], card[sid, name][qi][:k],
+                                         ext[:4 * k], rtol=1e-5, atol=1e-5),
+                      f"fabric A {sid or 'merged'} {name} query {qi}: "
+                      f"card != cpu reopen")
+    del cpu
+    log(f"  fabric A reopened on the CPU: each of its {len(sids) - 1} "
+        f"lakes (current answers over the docs it owns; {foreign} rows "
+        f"of docs it does not own in the reopened lakes' answers at "
+        f"depth {deep}) and the fabric equivalent")
+
+    # -- fabric B: quantized, 4 shards, 1 replica, exact-size hot tiers
+    before = counts()
+    fab_b = ShardFabric(f"{work}/fabric-b", n_shards=4, hot_capacity=4096,
+                        quantized=True, device=dev)
+    t = ingest_stream(fab_b, corpus, texts, k)
+    hits = total = 0
+    for name, kw in mixes:
+        for a, b in zip(fp32[name], fab_b.query_batch(texts, k=k, **kw)):
+            ids = {r.chunk_id for r in a}
+            hits += len(ids & {r.chunk_id for r in b})
+            total += len(ids)
+    log(f"  fabric B (quantized, S=4, R=1, hot_capacity=4096): ingested in "
+        f"{t:.1f} s; recall@10 against fabric A {hits / total:.4f}")
+    check(hits / total >= 0.99, f"fabric B: recall@10 {hits / total} < 0.99")
+    for name in ("topk_search_q8", "temporal_window_topk_q8"):
+        check(counts()[name] > before[name],
+              f"fabric B: {name} was never launched")
+    del fab_b, oracle
+    launches = counts()
+    log(f"  launches on the fabric path: {launches}")
+    return launches
+
+
+def phase_fanout(torch, dev, launches: dict) -> None:
+    """Phase 8, second part: ``device_fanout_topk`` over S shards of N rows
+    x D fp32 made on the card, FANOUT_DEAD of each shard's rows masked
+    dead: each shard's block equals a lone ``topk_search`` on it bit for
+    bit, and at Q = 32 the plain version by phase 2's rule. Its launches
+    (not those of the comparisons or the timing) are added to
+    ``launches``; logs ms a call, the library's and the bound."""
+    import numpy as np
+
+    from repro_torch.kernels.topk_search import ops as kops
+    from repro_torch.kernels.topk_search.plain import topk_search_plain
+    from repro_torch.shard import device_fanout_topk as fanout
+    from repro_torch.testing import topk_agree
+
+    n_shards, n = FANOUT_SHAPE
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    emb = torch.empty((n_shards, n, D), dtype=torch.float32, device=dev)
+    for si in range(n_shards):
+        emb[si] = unit_rows(torch, gen, n, D, dev)
+    mask = torch.rand((n_shards, n), generator=gen, device=dev) >= FANOUT_DEAD
+    live = int(mask.sum())
+    log(f"  device_fanout_topk: {n_shards} x {n} x {D} fp32 "
+        f"({emb.numel() * 4 / 1e9:.2f} GB on the card), {live} rows alive")
+    for nq in (1, 32, 256):
+        q = unit_rows(torch, gen, nq, D, dev)
+        q_np = q.cpu().numpy()
+        for k in (10, 100, 500):
+            before = kops.launches
+            s, i = fanout(q_np, emb, mask, k)
+            nl = kops.launches - before
+            launches["topk_search"] += nl
+            check(s.shape == (n_shards, nq, k) and s.dtype == np.float32
+                  and i.dtype == np.int32, f"fanout Q={nq} k={k}: "
+                                           f"{s.shape} {s.dtype} {i.dtype}")
+            saved = kops.launches, kops.launches_q8
+            for si in range(n_shards):           # the same kernel, alone
+                ls, li = kops.topk_search(q, emb[si], mask[si], k)
+                check(np.array_equal(ls.cpu().numpy().view(np.int32),
+                                     s[si].view(np.int32))
+                      and np.array_equal(li.cpu().numpy(), i[si]),
+                      f"fanout Q={nq} k={k} shard {si}: differs from "
+                      f"topk_search alone")
+                if nq == 32:
+                    ws, wi = topk_search_plain(q, emb[si], mask[si], k + 1)
+                    ok, err, why = topk_agree(s[si], i[si], ws, wi,
+                                              score_atol=1e-4, gap=1e-5)
+                    check(ok, f"fanout Q={nq} k={k} shard {si}: {why}")
+            kops.launches, kops.launches_q8 = saved
+
+            def library():
+                for si in range(n_shards):
+                    torch.topk(torch.matmul(q, emb[si].T).masked_fill(
+                        ~mask[si], -math.inf), k, dim=1)
+
+            ms = cuda_ms(torch, lambda: fanout(q_np, emb, mask, k), 5, 1)
+            kops.launches, kops.launches_q8 = saved
+            lib_ms = cuda_ms(torch, library, 5, 1)
+            b, by = bound_ms(live * D * 4 + n_shards * n + nq * D * 4,
+                             n_shards * nq * k * 8, 2 * nq * live * D)
+            log(f"  fanout Q={nq} k={k}: {nl} launches a call, "
+                f"{ms:.4f} ms a call (events), library {lib_ms:.4f}, "
+                f"bound {b:.4f} ({by}); every shard bit for bit with "
+                f"topk_search alone" + ("; plain rule held" if nq == 32
+                                        else ""))
+    del emb, mask
+
+
 def main() -> int:
     import argparse
 
@@ -1968,11 +2335,22 @@ def main() -> int:
             check(launches[name] > 0, f"{name} was never launched on the "
                                       f"RAG path")
         phase_decode_vs_prefill(torch)
-    log("phase 7: the recsys family at full width")
-    launches["embedding_bag"], bag_rows = phase_recsys(torch, dev, parent)
-    kern["embedding_bag"]["times"].extend(bag_rows)
-    check(launches["embedding_bag"] > 0,
-          "embedding_bag was never launched on the DLRM serving path")
+        log("phase 7: the recsys family at full width")
+        launches["embedding_bag"], bag_rows = phase_recsys(torch, dev,
+                                                           parent)
+        kern["embedding_bag"]["times"].extend(bag_rows)
+        check(launches["embedding_bag"] > 0,
+              "embedding_bag was never launched on the DLRM serving path")
+        log("phase 8: the shard fabric on the card")
+        torch.cuda.empty_cache()
+        fabric_launches = phase_fabric(torch, work, dev)
+        phase_fanout(torch, dev, fabric_launches)
+    for name in TILE_KERNELS:             # the store path: phases 4 and 8
+        launches[name] += fabric_launches[name]
+        check(fabric_launches[name] > 0,
+              f"{name} was never launched on the fabric path")
+    log(f"  launches of the four scans over phases 4 and 8: "
+        f"{ {n: launches[n] for n in TILE_KERNELS} }")
 
     rows = []
     main_shape = {"flash_attention": "nemo prefill 256",

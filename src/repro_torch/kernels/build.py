@@ -27,6 +27,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _loaded: dict[str, ctypes.CDLL] = {}
+_bound: dict[str, ctypes.CDLL] = {}     # name -> the library ``load`` bound
 _lock = threading.Lock()
 
 
@@ -90,14 +91,21 @@ def build(names=None) -> dict[str, str]:
     return logs
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built first if needed."""
+def load(name: str, bind=None) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built first if needed.
+    ``bind(lib)`` declares its C signatures, once a library and under the
+    lock, before this call returns it: a thread that asks with ``bind``
+    never gets a library whose entries are half declared (ctypes would
+    pass 64-bit pointers as ``int``), whoever loaded it first."""
     with _lock:
         lib = _loaded.get(name)
         if lib is None:
             build([name])
             lib = ctypes.CDLL(str(lib_path(name)))
             _loaded[name] = lib
+        if bind is not None and _bound.get(name) is not lib:
+            bind(lib)
+            _bound[name] = lib
         return lib
 
 

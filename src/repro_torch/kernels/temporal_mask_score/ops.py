@@ -11,6 +11,8 @@ temporal tier.
 """
 from __future__ import annotations
 
+import threading
+
 import torch
 
 from ... import obs
@@ -21,14 +23,28 @@ from .plain import (temporal_window_topk_plain,
 
 launches = 0          # CUDA kernel launches of ``temporal_window_topk``
 launches_q8 = 0       # CUDA kernel launches of ``temporal_window_topk_q8``
+_count_lock = threading.Lock()
+
+
+def _bind(lib) -> None:
+    """Declare the C signatures of both scans of ``lib``."""
+    bind(lib, "temporal_window_topk_f32", 6)
+    bind(lib, "temporal_window_topk_q8", 6)
 
 
 def _lib():
-    lib = build.load("temporal_mask_score")
-    if lib.temporal_window_topk_f32.argtypes is None:
-        bind(lib, "temporal_window_topk_f32", 6)
-        bind(lib, "temporal_window_topk_q8", 6)
-    return lib
+    return build.load("temporal_mask_score", _bind)
+
+
+def _count(nl: int, q8: bool) -> None:
+    """Add ``nl`` launches under a lock: the planner's scatter pool and
+    the maintenance worker launch from several threads."""
+    global launches, launches_q8
+    with _count_lock:
+        if q8:
+            launches_q8 += nl
+        else:
+            launches += nl
 
 
 def temporal_window_topk(q, corpus, valid_from, valid_to, t0s, t1s, k: int):
@@ -60,7 +76,6 @@ def temporal_window_topk_q8(q, c8, scale, valid_from, valid_to, t0s, t1s,
 
 
 def _window(q, corpus, scale, valid_from, valid_to, t0s, t1s, k: int):
-    global launches, launches_q8
     q8 = scale is not None
     name = "temporal_window_topk_q8" if q8 else "temporal_window_topk"
     with obs.span(f"kernel:{name}") as sp:
@@ -108,12 +123,12 @@ def _window(q, corpus, scale, valid_from, valid_to, t0s, t1s, k: int):
             *out, nl = launch_tile_scan(_lib(), "temporal_window_topk_q8",
                                         [q * scale, corpus, vf, vt, t0, t1],
                                         nq, n, d, k)
-            launches_q8 += nl
+            _count(nl, True)
         else:
             *out, nl = launch_tile_scan(_lib(), "temporal_window_topk_f32",
                                         [q, corpus, vf, vt, t0, t1], nq, n,
                                         d, k)
-            launches += nl
+            _count(nl, False)
         if sp is not obs.NOOP_SPAN:            # traced: span = device time
             torch.cuda.current_stream(dev).synchronize()
         return tuple(out)

@@ -3,6 +3,8 @@
 ``topk_search_q8``, the candidate scan of the quantized (int8) fabric."""
 from __future__ import annotations
 
+import threading
+
 import torch
 
 from ... import obs
@@ -12,14 +14,28 @@ from .plain import topk_search_plain, topk_search_q8_plain
 
 launches = 0          # CUDA kernel launches of ``topk_search``
 launches_q8 = 0       # CUDA kernel launches of ``topk_search_q8``
+_count_lock = threading.Lock()
+
+
+def _bind(lib) -> None:
+    """Declare the C signatures of both scans of ``lib``."""
+    bind(lib, "topk_search_f32", 3)
+    bind(lib, "topk_search_q8", 3)
 
 
 def _lib():
-    lib = build.load("topk_search")
-    if lib.topk_search_f32.argtypes is None:
-        bind(lib, "topk_search_f32", 3)
-        bind(lib, "topk_search_q8", 3)
-    return lib
+    return build.load("topk_search", _bind)
+
+
+def _count(nl: int, q8: bool) -> None:
+    """Add ``nl`` launches under a lock: the planner's scatter pool and
+    the maintenance worker launch from several threads."""
+    global launches, launches_q8
+    with _count_lock:
+        if q8:
+            launches_q8 += nl
+        else:
+            launches += nl
 
 
 def topk_search(q, corpus, mask, k: int):
@@ -50,7 +66,6 @@ def topk_search_q8(q, c8, scale, mask, k: int):
 
 
 def _search(q, corpus, scale, mask, k: int):
-    global launches, launches_q8
     q8 = scale is not None
     name = "topk_search_q8" if q8 else "topk_search"
     with obs.span(f"kernel:{name}") as sp:
@@ -88,11 +103,11 @@ def _search(q, corpus, scale, mask, k: int):
             *out, nl = launch_tile_scan(_lib(), "topk_search_q8",
                                         [q * scale, corpus, mask], nq, n, d,
                                         k)
-            launches_q8 += nl
+            _count(nl, True)
         else:
             *out, nl = launch_tile_scan(_lib(), "topk_search_f32",
                                         [q, corpus, mask], nq, n, d, k)
-            launches += nl
+            _count(nl, False)
         if sp is not obs.NOOP_SPAN:            # traced: span = device time
             torch.cuda.current_stream(dev).synchronize()
         return tuple(out)

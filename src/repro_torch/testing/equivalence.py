@@ -1,7 +1,7 @@
 """Oracle-equivalence of two result lists: the port's own copy of the
-shard planner's ``results_equivalent`` (the shard fabric itself is not
-ported yet). Ids and order must match wherever scores are separated by
-more than float noise; score bits may differ between builds."""
+shard planner's ``results_equivalent`` (``repro_torch.shard`` re-exports
+it). Ids and order must match wherever scores are separated by more than
+float noise; score bits may differ between builds."""
 from __future__ import annotations
 
 

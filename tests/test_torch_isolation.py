@@ -17,6 +17,10 @@ from repro_torch.core.cold_tier import ColdTier
 from repro_torch.core.store import LiveVectorLake
 from repro_torch.core.temporal import TemporalEngine
 from repro_torch.kernels.common import resolve_device
+from repro_torch.kernels.temporal_mask_score import ops as tops
+from repro_torch.kernels.topk_search import ops as kops
+from repro_torch.launch.ingest import main as ingest_cli
+from repro_torch.shard import ShardFabric
 
 PKG = Path(__file__).resolve().parents[1] / "src" / "repro_torch"
 
@@ -34,6 +38,10 @@ def _modules():
 def test_every_module_imports_with_jax_blocked():
     mods = _modules()
     assert "repro_torch.core.store" in mods and len(mods) > 40
+    assert {"repro_torch.shard", "repro_torch.shard.planner",
+            "repro_torch.shard.shard", "repro_torch.shard.rebalance",
+            "repro_torch.serve.maintenance",
+            "repro_torch.launch.ingest"} <= set(mods)
     code = f"""
 import sys
 sys.modules["jax"] = None            # any "import jax" now raises
@@ -81,6 +89,14 @@ def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
         TemporalEngine(ColdTier(str(tmp_path / "cold"), 16))
     lake = LiveVectorLake(str(tmp_path / "cpu"), dim=16, device="cpu")
     assert lake.hot.device.type == lake.temporal.device.type == "cpu"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ShardFabric(str(tmp_path / "fab"))
+    assert not (tmp_path / "fab").exists()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ingest_cli(["--root", str(tmp_path / "cli"), "stats"])
+    fab = ShardFabric(str(tmp_path / "fab-cpu"), dim=16, device="cpu")
+    assert {fab.lake(s).store.device.type for s in fab.ring.shards} \
+        == {"cpu"}
 
 
 def test_build_raises_without_nvcc(monkeypatch, tmp_path):
@@ -125,3 +141,120 @@ def test_build_names_every_source_and_rebuilds_on_edit(monkeypatch,
     (csrc / "topk_tile.cuh").write_text(
         (csrc / "topk_tile.cuh").read_text() + "\n")
     assert build.lib_path("topk_search") != before
+
+
+class _StubEntry:
+    """A ctypes function whose first signature declaration pauses (the
+    binding thread is preempted between two entries)."""
+
+    def __init__(self, pause=None):
+        self._argtypes, self.restype, self._pause = None, None, pause
+
+    @property
+    def argtypes(self):
+        return self._argtypes
+
+    @argtypes.setter
+    def argtypes(self, value):
+        self._argtypes = value
+        if self._pause is not None:
+            pause, self._pause = self._pause, None
+            pause()
+
+
+class _StubLib:
+    def __init__(self, first, pause):
+        self._entries = {first: _StubEntry(pause)}
+
+    def __getattr__(self, name):
+        return self._entries.setdefault(name, _StubEntry())
+
+
+@pytest.mark.parametrize("ops,first,second", [
+    (kops, "topk_search_f32", "topk_search_q8"),
+    (tops, "temporal_window_topk_f32", "temporal_window_topk_q8")])
+def test_no_thread_sees_a_half_bound_library(monkeypatch, ops, first,
+                                             second):
+    """A thread that asks for a scan library while another is binding it
+    waits for every entry to be declared: it never gets the library with
+    its f32 entry bound and its q8 entry not (ctypes would then pass the
+    q8 call's 64-bit pointers as int)."""
+    import threading
+
+    paused, release = threading.Event(), threading.Event()
+
+    def pause():
+        paused.set()
+        release.wait(5.0)
+
+    monkeypatch.setattr(build, "_loaded", {})
+    monkeypatch.setattr(build, "build", lambda names=None: {})
+    monkeypatch.setattr(build.ctypes, "CDLL",
+                        lambda path: _StubLib(first, pause))
+    seen = {}
+
+    def first_user():
+        ops._lib()
+
+    def second_user():
+        lib = ops._lib()
+        seen["q8"] = getattr(lib, second).argtypes
+
+    a = threading.Thread(target=first_user)
+    a.start()
+    assert paused.wait(5.0)          # a is between the two entries
+    b = threading.Thread(target=second_user)
+    b.start()
+    b.join(0.3)
+    waited = b.is_alive()            # b must wait for a's binding
+    release.set()
+    a.join(5.0)
+    b.join(5.0)
+    assert not a.is_alive() and not b.is_alive()
+    assert seen["q8"] is not None, "second thread got a half-bound library"
+    assert waited
+
+
+@pytest.mark.parametrize("ops,entry", [(kops, "topk_search_q8"),
+                                       (tops, "temporal_window_topk_q8")])
+def test_a_library_loaded_unbound_is_bound_before_use(monkeypatch, ops,
+                                                      entry):
+    """A library someone loaded without its binder (a preload of every
+    source) is bound when a wrapper first asks for it, and a library
+    swapped in under the same name is bound again."""
+    monkeypatch.setattr(build, "_loaded", {})
+    monkeypatch.setattr(build, "_bound", {}, raising=False)
+    monkeypatch.setattr(build, "build", lambda names=None: {})
+    monkeypatch.setattr(build.ctypes, "CDLL",
+                        lambda path: _StubLib(entry, None))
+    name = ops.__name__.split(".")[-2]
+    first = build.load(name)
+    assert getattr(first, entry).argtypes is None
+    assert ops._lib() is first and getattr(first, entry).argtypes
+    other = _StubLib(entry, None)
+    build._loaded[name] = other
+    assert ops._lib() is other and getattr(other, entry).argtypes
+
+
+def test_launch_counts_lose_no_update_across_threads():
+    import sys
+    import threading
+
+    before = kops.launches, kops.launches_q8
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        ts = [threading.Thread(target=lambda: [kops._count(1, q8)
+                                               for _ in range(2000)
+                                               for q8 in (False, True)])
+              for _ in range(16)]
+        for t in ts:
+            t.start()
+        for t in ts:
+            t.join(30.0)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in ts)
+    assert (kops.launches - before[0], kops.launches_q8 - before[1]) \
+        == (32000, 32000)
+    kops.launches, kops.launches_q8 = before

@@ -940,3 +940,80 @@ def test_embedding_bag_grouped_rejects_bad_input(dev):
     before = eb_ops.launches
     out = eb_ops.embedding_bag_grouped([t, t], ids[:0])
     assert out.shape == (0, 2, 8) and eb_ops.launches == before
+
+
+FIRST_CALLS_FROM_THREADS = r"""
+import threading
+import numpy as np
+import torch
+from repro_torch.index.quant import fixed_scale, quantize_rows
+from repro_torch.kernels.temporal_mask_score import ops as tops
+from repro_torch.kernels.temporal_mask_score.plain import (
+    temporal_window_topk_q8_plain)
+from repro_torch.kernels.topk_search import ops as kops
+from repro_torch.kernels.topk_search.plain import topk_search_q8_plain
+from repro_torch.testing import topk_agree
+
+rng = np.random.default_rng(7)
+x = rng.standard_normal((5000, 384)).astype(np.float32)
+x /= np.linalg.norm(x, axis=1, keepdims=True)
+q = x[:8] + 0.05 * rng.standard_normal((8, 384)).astype(np.float32)
+c8 = torch.from_numpy(quantize_rows(x, fixed_scale(384)))
+sc = torch.from_numpy(fixed_scale(384))
+mask = torch.from_numpy(rng.random(5000) > 0.2)
+vf = torch.from_numpy(rng.integers(0, 50, 5000))
+vt = vf + torch.from_numpy(rng.integers(1, 50, 5000))
+t0 = torch.from_numpy(rng.integers(0, 60, 8))
+t1 = t0 + 10
+qt = torch.from_numpy(q)
+want = {"topk": topk_search_q8_plain(qt, c8, sc, mask, 11),
+        "window": temporal_window_topk_q8_plain(qt, c8, sc, vf, vt, t0, t1,
+                                                11)}
+dev = torch.device("cuda", 0)
+args = {"topk": (qt.to(dev), c8.to(dev), sc, mask.to(dev), 10),
+        "window": (qt.to(dev), c8.to(dev), sc, vf.to(dev), vt.to(dev),
+                   t0.to(dev), t1.to(dev), 10)}
+fns = {"topk": kops.topk_search_q8, "window": tops.temporal_window_topk_q8}
+gate = threading.Barrier(8)
+got, errors = {}, []
+
+def user(i):
+    name = ("topk", "window")[i % 2]
+    try:
+        gate.wait(60)
+        got[i] = (name, [t.cpu() for t in fns[name](*args[name])])
+    except Exception as e:
+        errors.append(repr(e))
+
+threads = [threading.Thread(target=user, args=(i,)) for i in range(8)]
+for t in threads:
+    t.start()
+for t in threads:
+    t.join(120)
+assert not errors, errors
+assert len(got) == 8
+for i, (name, (s, ids)) in sorted(got.items()):
+    ok, err, why = topk_agree(s, ids, *want[name])
+    assert ok, (i, name, err, why)
+assert kops.launches_q8 == 4 and tops.launches_q8 == 4
+print("ok")
+"""
+
+
+def test_first_q8_calls_from_eight_threads(dev):
+    """Eight threads make a fresh process's first ``topk_search_q8`` and
+    ``temporal_window_topk_q8`` calls at once (as the planner's scatter
+    pool or the maintenance worker can): every answer equals the plain
+    version's, and every launch is counted."""
+    import os
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    src = str(Path(__file__).resolve().parents[1] / "src")
+    env = dict(os.environ, PYTHONPATH=src + os.pathsep
+               + os.environ.get("PYTHONPATH", ""))
+    r = subprocess.run([sys.executable, "-c", FIRST_CALLS_FROM_THREADS],
+                       env=env, capture_output=True, text=True, timeout=600)
+    assert r.returncode == 0, r.stderr[-4000:]
+    assert r.stdout.strip().endswith("ok")
