@@ -15,7 +15,9 @@ Mistral-NeMo-12B generator at full width (seeded random weights)
 answering requests grounded in them; last, the recsys family (DLRM at
 MLPerf widths, FM, Wide&Deep, BERT4Rec) serving on the card, and the
 shard fabric: sharded lakes on the card against one lake, through
-background maintenance, a shard down, an online split and a repair.
+background maintenance, a shard down, an online split and a repair; and
+the LM family's serving cells, Qwen2-MoE-A2.7B at full width and depth
+through ``build_cell``, with the MoE layer's capacity dispatch.
 
 Phases (any failure stops the script with a non-zero exit):
   1. setup: card name and power limit, kernel build time, and ptxas's
@@ -96,7 +98,27 @@ Phases (any failure stops the script with a non-zero exit):
      GB on the card), Q 1 / 32 / 256, k 10 / 100 / 500: every shard's
      block equal to ``topk_search`` alone bit for bit, the plain version's
      rule at Q = 32, ms a call, the library's and the bound. The four
-     scans' "launches" below add phase 8's to phase 4's.
+     scans' "launches" below add phase 8's to phase 4's;
+  9. the LM family at full width (seeded bf16 weights made on the card):
+     Qwen2-MoE-A2.7B (24 layers, 60 experts padded to 64, top 4, 4
+     shared; 30.3 GB) through ``build_cell``: prefill_32k at batch 1 and
+     decode_32k at batch 4 (16 steps from cache_len 32,752 over a cache
+     of seeded noise, then the same 16 again with the router logged, bit
+     for bit), host and event ms, tokens/s and each step's bound (the
+     experts the dispatch reads, and those its tokens need); the
+     prefill's cache in an int8 ``KVCacheArena`` (bytes against bf16, the
+     half-step bound); one layer's MoE block: dropless against the dense
+     oracle on 512 tokens (bf16 and fp32), the capacity path at 2048
+     tokens against the CPU (the same dropped pairs), two runs and a
+     token alone against its batch bit for bit; decode against prefill
+     (fp32, 4 layers, no drops: 1024 + 8 tokens against 1032, logits
+     within 1e-3 of their max abs, argmax equal, top-4 near-ties
+     reported); flash_attention at (1, 16, 32768, 128) bf16 against its
+     plain version on the last 256 query rows; Nemotron-4-15B (all 32
+     layers), Qwen1.5-32B (16 of 64) and Kimi-K2 (1 of 61) prefill and
+     decode with finite logits. Its serving runs' launches are added to
+     the two attention kernels' "launches" below; a ``{"phase9": ...}``
+     line gives the weight and cache bytes and every cut (``reduced``).
 It prints a ``{"kernels": [...]}`` line, then, last, the one-line
 ``{"ok": true, "device": {...}}`` result. Without a CUDA device, or
 without the package beside it, it exits non-zero and prints no result.
@@ -105,6 +127,7 @@ Imports no JAX.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import json
 import math
 import subprocess
@@ -191,6 +214,25 @@ def check(cond: bool, msg: str) -> None:
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def start_phase(torch, title: str, t0: float) -> None:
+    """Logs a phase's title, the seconds since ``t0`` and the host's time
+    to issue one small kernel (an add on 1024 floats; the median of 5
+    rounds of 200, each far below the launch queue's depth): a host
+    that paces the card slows every host-bound number after it."""
+    x = torch.zeros(1024, device="cuda")
+    rounds = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(200):
+            x.add_(1.0)
+        rounds.append((time.perf_counter() - t) / 200 * 1e6)
+    torch.cuda.synchronize()
+    log(title)
+    log(f"  at {time.perf_counter() - t0:.1f} s; the host issues a small "
+        f"kernel in {sorted(rounds)[2]:.2f} us")
 
 
 def cuda_ms(torch, fn, iters: int, warmup: int = 2) -> float:
@@ -901,61 +943,151 @@ def visible_pairs(sq: int, skv: int, causal: bool) -> int:
     return sum(min(skv, max(0, r + off + 1)) for r in range(sq))
 
 
-def phase_attention(torch, dev) -> dict:
-    import torch.nn.functional as F
+class AttentionCheck:
+    """Holds ``flash_attention`` and ``flash_decode`` against their plain
+    versions on the card and times them, the plain versions and the
+    library's SDPA on the same inputs. Kernel vs plain: both compute in
+    fp32 from the same inputs and round to the output's dtype. Each
+    output is held within rel of its own value plus 1e-4 of its row's
+    largest: fp32 outputs differ by the sum order (~1e-6 relative), bf16
+    outputs by at most one rounding step (2^-7 of the value). The outputs
+    here are small (0.01 to 0.1 on N(0, 1) inputs), so an absolute limit
+    alone would pass wrong kernels; the absolute limits stay as an outer
+    bound. ``out`` maps each kernel to its largest error and its rows of
+    times."""
 
-    from repro_torch.kernels.flash_attention import ops as fa
-    from repro_torch.kernels.flash_attention.plain import (
-        flash_attention_plain)
-    from repro_torch.kernels.flash_decode import ops as fd
-    from repro_torch.kernels.flash_decode.plain import (
-        flash_decode_partials_plain, flash_decode_plain, merge_partials)
-    from repro_torch.testing import partials_agree, rounding_agree
+    def __init__(self, torch, dev, seed: int):
+        self.torch, self.dev = torch, dev
+        self.gen = torch.Generator(device=dev).manual_seed(seed)
+        self.sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        self.out = {name: {"err": 0.0, "times": []}
+                    for name in ("flash_attention", "flash_decode")}
+        self.tol = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+        self.rel = {torch.float32: 1e-4, torch.bfloat16: 2 ** -7}
+        self.peak = {torch.float32: FP32_FLOPS, torch.bfloat16: BF16_FLOPS}
 
-    gen = torch.Generator(device=dev).manual_seed(SEED + 2)
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    out = {name: {"err": 0.0, "times": []}
-           for name in ("flash_attention", "flash_decode")}
-    # kernel vs plain: both compute in fp32 from the same inputs and round
-    # to the output's dtype. Each output is held within rel of its own
-    # value plus 1e-4 of its row's largest: fp32 outputs differ by the sum
-    # order (~1e-6 relative), bf16 outputs by at most one rounding step
-    # (2^-7 of the value). The outputs here are small (0.01 to 0.1 on
-    # N(0, 1) inputs), so an absolute limit alone would pass wrong
-    # kernels; the absolute limits stay as an outer bound.
-    tol = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
-    rel = {torch.float32: 1e-4, torch.bfloat16: 2 ** -7}
-    peak = {torch.float32: FP32_FLOPS, torch.bfloat16: BF16_FLOPS}
+    def randn(self, shape, dtype):
+        return self.torch.randn(shape, generator=self.gen,
+                                device=self.dev).to(dtype)
 
-    def randn(shape, dtype):
-        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+    def record(self, name, what, got, want, dtype, fn, plain, library,
+               in_bytes, out_bytes, flops, iters, plain_iters):
+        from repro_torch.testing import rounding_agree
 
-    def record(name, what, got, want, dtype, fn, plain, library, in_bytes,
-               out_bytes, flops, iters, plain_iters):
+        torch = self.torch
         check(bool(torch.isfinite(got).all()), f"{name} {what}: not finite")
         err = float((got.float() - want.float()).abs().max())
-        check(err <= tol[dtype], f"{name} {what}: max abs err {err} > "
-                                 f"{tol[dtype]}")
-        ok, ratio = rounding_agree(got, want, rel[dtype])
-        check(ok, f"{name} {what}: an output differs from plain by {ratio:.3g}"
-                  f" x its limit ({rel[dtype]:.3g} of its value + 1e-4 of "
-                  f"its row's largest)")
-        out[name]["err"] = max(out[name]["err"], err)
+        check(err <= self.tol[dtype], f"{name} {what}: max abs err {err} > "
+                                      f"{self.tol[dtype]}")
+        ok, ratio = rounding_agree(got, want, self.rel[dtype])
+        check(ok, f"{name} {what}: an output differs from plain by "
+                  f"{ratio:.3g} x its limit ({self.rel[dtype]:.3g} of its "
+                  f"value + 1e-4 of its row's largest)")
+        self.out[name]["err"] = max(self.out[name]["err"], err)
         t = cuda_ms(torch, fn, iters)
         tp = cuda_ms(torch, plain, plain_iters, 1)
         tl = cuda_ms(torch, library, iters, 1)
-        b, by = bound_ms(in_bytes, out_bytes, flops, peak[dtype])
-        out[name]["times"].append(dict(
+        b, by = bound_ms(in_bytes, out_bytes, flops, self.peak[dtype])
+        self.out[name]["times"].append(dict(
             what=what, dtype=str(dtype).removeprefix("torch."), ms=t,
             plain_ms=tp, library_ms=tl, bound_ms=b, bound_by=by,
             max_abs_err=err, median_abs_value=float(
                 want.float().abs().median()), err_over_limit=ratio))
 
+    def attention(self, what, shape, dtype, causal, iters, rows=None):
+        """Shape (B, H, KV, Sq, Skv, D). With ``rows``, the plain version
+        computes the last ``rows`` query rows only (its scores at full
+        length would not fit): causal attention aligns by Skv - Sq, so
+        those rows are the same with q cut to them."""
+        import torch.nn.functional as F
+
+        from repro_torch.kernels.flash_attention import ops as fa
+        from repro_torch.kernels.flash_attention.plain import (
+            flash_attention_plain)
+
+        b, h, kv, sq, skv, d = shape
+        q = self.randn((b, h, sq, d), dtype)
+        k = self.randn((b, kv, skv, d), dtype)
+        v = self.randn((b, kv, skv, d), dtype)
+        qp = q if rows is None else q[:, :, -rows:]
+        got = fa.flash_attention(q, k, v, causal=causal)
+        want = flash_attention_plain(qp, k, v, causal)
+        es = q.element_size()
+        self.record("flash_attention", what, got[:, :, -qp.shape[2]:], want,
+                    dtype, lambda: fa.flash_attention(q, k, v, causal=causal),
+                    lambda: flash_attention_plain(qp, k, v, causal),
+                    lambda: F.scaled_dot_product_attention(
+                        q, k, v, is_causal=causal, enable_gqa=True),
+                    (b * h * sq + 2 * b * kv * skv) * d * es,
+                    b * h * sq * d * es,
+                    4 * b * h * visible_pairs(sq, skv, causal) * d, iters, 2)
+
+    def decode(self, what, shape, cache_lens, dtype, iters):
+        """Shape (B, H, KV, S, D), one cache of S entries, at each of
+        ``cache_lens``. The kernel's fp32 split partials are held to the
+        plain partials before the shared merge (the merge would blur a
+        split's error into the others); the in-library merge to
+        merge_partials of the partials at the split the call chose: fp32
+        within 1e-5 (other sum orders), bf16 within one rounding step of
+        the merged fp32."""
+        import torch.nn.functional as F
+
+        from repro_torch.kernels.flash_decode import ops as fd
+        from repro_torch.kernels.flash_decode.plain import (
+            flash_decode_partials_plain, flash_decode_plain, merge_partials)
+        from repro_torch.testing import partials_agree, rounding_agree
+
+        b, h, kv, s, d = shape
+        kc, vc = (self.randn((b, kv, s, d), dtype) for _ in range(2))
+        for cache_len in cache_lens:
+            at = f"{what} at {cache_len}" if len(cache_lens) > 1 else what
+            q = self.randn((b, h, d), dtype)
+            ok, ratio, why = partials_agree(
+                fd.flash_decode_partials(q, kc, vc, cache_len, 512),
+                flash_decode_partials_plain(q, kc, vc, cache_len, 512), 1e-4)
+            check(ok, f"flash_decode {at}: split partials vs plain: {why}")
+            log(f"  flash_decode {at}: partials (m, l, acc) within "
+                f"{ratio:.3g} x their 1e-4 limits")
+            got = fd.flash_decode(q, kc, vc, cache_len=cache_len)
+            want = flash_decode_plain(q, kc, vc, cache_len, 512)
+            split = fd.choose_split(kv, cache_len, self.sms)
+            merged = merge_partials(*fd.flash_decode_partials(
+                q, kc, vc, cache_len, split))
+            ok, ratio = (rounding_agree(got, merged, 1e-5, 1e-5)
+                         if dtype == self.torch.float32 else
+                         rounding_agree(got, merged.to(dtype),
+                                        self.rel[dtype]))
+            check(ok, f"flash_decode {at}: merge differs from "
+                      f"merge_partials by {ratio:.3g} x its limit")
+            log(f"  flash_decode {at}: split {split} rows, in-library merge "
+                f"within {ratio:.3g} x its limit of merge_partials")
+            es = q.element_size()
+            self.record(
+                "flash_decode", at, got, want, dtype,
+                lambda: fd.flash_decode(q, kc, vc, cache_len=cache_len),
+                lambda: flash_decode_plain(q, kc, vc, cache_len, 512),
+                lambda: F.scaled_dot_product_attention(
+                    q[:, :, None], kc[:, :, :cache_len],
+                    vc[:, :, :cache_len], enable_gqa=True),
+                (b * h * d + 2 * b * kv * cache_len * d) * es,
+                b * h * d * es, 4 * b * h * cache_len * d, iters, 3)
+
+    def log_rows(self) -> None:
+        for name, r in self.out.items():
+            for row in r["times"]:
+                log(f"  {name}: " + " ".join(
+                    f"{key}={val:.4g}" if isinstance(val, float) else
+                    f"{key}={val}" for key, val in row.items()))
+            log(f"  {name}: max_abs_err={r['err']:.3g}")
+
+
+def phase_attention(torch, dev) -> dict:
     # (what, (B, H, KV, Sq, Skv, D), dtype, causal): the MiniLM encoder at
     # the main path's chunk x 8; BERT4Rec's serve_p99 batch (200 tokens:
     # both tiles ragged); Mistral-NeMo's RAG prefill; a prefill_32k layer
     # cut to 4096 tokens
-    for what, (b, h, kv, sq, skv, d), dtype, causal, iters in (
+    att = AttentionCheck(torch, dev, SEED + 2)
+    for what, shape, dtype, causal, iters in (
             ("minilm encode 256x128", (256, 12, 12, 128, 128, 32),
              torch.float32, False, 20),
             ("bert4rec serve_p99 512x200", (512, 2, 2, 200, 200, 32),
@@ -964,82 +1096,21 @@ def phase_attention(torch, dev) -> dict:
              True, 50),
             ("nemo prefill 4096", (1, 32, 8, 4096, 4096, 128),
              torch.bfloat16, True, 5)):
-        q = randn((b, h, sq, d), dtype)
-        k = randn((b, kv, skv, d), dtype)
-        v = randn((b, kv, skv, d), dtype)
-        got = fa.flash_attention(q, k, v, causal=causal)
-        want = flash_attention_plain(q, k, v, causal)
-        es = q.element_size()
-        record("flash_attention", what, got, want, dtype,
-               lambda: fa.flash_attention(q, k, v, causal=causal),
-               lambda: flash_attention_plain(q, k, v, causal),
-               lambda: F.scaled_dot_product_attention(
-                   q, k, v, is_causal=causal, enable_gqa=True),
-               (b * h * sq + 2 * b * kv * skv) * d * es, b * h * sq * d * es,
-               4 * b * h * visible_pairs(sq, skv, causal) * d, iters, 2)
-        del q, k, v, got, want
-    # (what, (B, H, KV, S, D), cache_len, dtype): the engine's cache
+        att.attention(what, shape, dtype, causal, iters)
+    # (what, (B, H, KV, S, D), cache_lens, dtype): the engine's cache
     # (max_prompt 256 + 64) after 15 decode steps; decode_32k at full and
-    # partial length, in bf16 and (partial) in fp32. The kernel's fp32
-    # split partials are held to the plain partials before the shared
-    # merge: the merge would blur a split's error into 64 others.
-    caches = {}
-    for what, (b, h, kv, s, d), cache_len, dtype, iters in (
-            ("engine cache 320", (1, 32, 8, 320, 128), 271, torch.bfloat16,
-             50),
-            ("decode_32k full", (16, 32, 8, 32768, 128), 32768,
+    # partial length, in bf16, and in fp32
+    for what, shape, cache_lens, dtype, iters in (
+            ("engine cache 320", (1, 32, 8, 320, 128), (271,),
+             torch.bfloat16, 50),
+            ("decode_32k", (16, 32, 8, 32768, 128), (32768, 30000),
              torch.bfloat16, 20),
-            ("decode_32k partial", (16, 32, 8, 32768, 128), 30000,
-             torch.bfloat16, 20),
-            ("decode_32k partial fp32", (16, 32, 8, 32768, 128), 30000,
+            ("decode_32k partial fp32", (16, 32, 8, 32768, 128), (30000,),
              torch.float32, 10)):
-        if (b, kv, s, d, dtype) not in caches:
-            caches.clear()
-            torch.cuda.empty_cache()
-            caches[b, kv, s, d, dtype] = (randn((b, kv, s, d), dtype),
-                                          randn((b, kv, s, d), dtype))
-        kc, vc = caches[b, kv, s, d, dtype]
-        q = randn((b, h, d), dtype)
-        ok, ratio, why = partials_agree(
-            fd.flash_decode_partials(q, kc, vc, cache_len, 512),
-            flash_decode_partials_plain(q, kc, vc, cache_len, 512), 1e-4)
-        check(ok, f"flash_decode {what}: split partials vs plain: {why}")
-        log(f"  flash_decode {what}: partials (m, l, acc) within "
-            f"{ratio:.3g} x their 1e-4 limits")
-        got = fd.flash_decode(q, kc, vc, cache_len=cache_len)
-        want = flash_decode_plain(q, kc, vc, cache_len, 512)
-        # the in-library merge against merge_partials of the partials at
-        # the split this call chose: fp32 within 1e-5 (other sum orders),
-        # bf16 within one rounding step of the merged fp32
-        split = fd.choose_split(kv, cache_len, sms)
-        merged = merge_partials(*fd.flash_decode_partials(
-            q, kc, vc, cache_len, split))
-        ok, ratio = (rounding_agree(got, merged, 1e-5, 1e-5)
-                     if dtype == torch.float32 else
-                     rounding_agree(got, merged.to(dtype), rel[dtype]))
-        check(ok, f"flash_decode {what}: merge differs from merge_partials "
-                  f"by {ratio:.3g} x its limit")
-        log(f"  flash_decode {what}: split {split} rows, in-library merge "
-            f"within {ratio:.3g} x its limit of merge_partials")
-        es = q.element_size()
-        record("flash_decode", what, got, want, dtype,
-               lambda: fd.flash_decode(q, kc, vc, cache_len=cache_len),
-               lambda: flash_decode_plain(q, kc, vc, cache_len, 512),
-               lambda: F.scaled_dot_product_attention(
-                   q[:, :, None], kc[:, :, :cache_len], vc[:, :, :cache_len],
-                   enable_gqa=True),
-               (b * h * d + 2 * b * kv * cache_len * d) * es, b * h * d * es,
-               4 * b * h * cache_len * d, iters, 3)
-        del q, got, want
-    del caches
-    torch.cuda.empty_cache()
-    for name, r in out.items():
-        for row in r["times"]:
-            log(f"  {name}: " + " ".join(
-                f"{key}={val:.4g}" if isinstance(val, float) else
-                f"{key}={val}" for key, val in row.items()))
-        log(f"  {name}: max_abs_err={r['err']:.3g}")
-    return out
+        att.decode(what, shape, cache_lens, dtype, iters)
+        torch.cuda.empty_cache()
+    att.log_rows()
+    return att.out
 
 
 # ---------------------------------------------------------------------------
@@ -1528,27 +1599,31 @@ def profile_request(torch, engine, query: str, new: int) -> None:
                 f"launches")
 
 
-def phase_decode_vs_prefill(torch) -> None:
-    """Prefill 256 tokens, decode 128 given tokens, against one prefill
-    of all 384: the two attention kernels held against each other at
-    Mistral-NeMo's full width (fp32, 4 layers)."""
-    import dataclasses
+def phase_decode_vs_prefill(torch, cfg, prompt: int, steps: int,
+                            seeds: tuple, router: bool = False) -> None:
+    """Prefill ``prompt`` tokens and decode ``steps`` given tokens, against
+    one prefill of all of them, at a full-width config cut in depth and
+    widened to fp32: the two attention kernels (and a MoE config's
+    capacity and dropless dispatches) held against each other. With
+    ``router``, every top-k boundary within 1e-5 in router probability
+    is logged: a near-tie that flips would break the rule."""
+    import contextlib
 
-    from repro_torch.configs.mistral_nemo_12b import CONFIG
     from repro_torch.models.transformer import (decode_step, init_params,
                                                 prefill)
 
-    cfg = dataclasses.replace(CONFIG, n_layers=4, dtype=torch.float32)
-    params = init_params(cfg, seed=SEED + 1, device="cuda")
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
-    toks = torch.randint(4, cfg.vocab, (1, 384), generator=gen,
+    n_all = prompt + steps
+    params = init_params(cfg, seed=seeds[0], device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(seeds[1])
+    toks = torch.randint(4, cfg.vocab, (1, n_all), generator=gen,
                          device="cuda")
-    with torch.no_grad():
-        _, cache, n = prefill(params, toks[:, :256], cfg, 384)
-        for i in range(256, 384):
+    with torch.no_grad(), (RouterLog() if router
+                           else contextlib.nullcontext()) as log_r:
+        _, cache, n = prefill(params, toks[:, :prompt], cfg, n_all)
+        for i in range(prompt, n_all):
             logits, cache, n = decode_step(params, toks[:, i:i + 1], cache,
                                            n, cfg)
-        want, _, _ = prefill(params, toks, cfg, 384)
+        want, _, _ = prefill(params, toks, cfg, n_all)
     scale = float(want.abs().max())
     err = float((logits - want).abs().max())
     check(bool(torch.isfinite(logits).all()), "decode logits not finite")
@@ -1556,9 +1631,14 @@ def phase_decode_vs_prefill(torch) -> None:
                                f"1e-3 x {scale}")
     check(bool((logits.argmax(-1) == want.argmax(-1)).all()),
           "decode vs prefill: argmax differs")
-    log(f"  decode vs prefill (full width, fp32, 4 layers, 256 + 128 "
-        f"tokens): max abs logit err {err:.3g} of max |logit| {scale:.3g}; "
-        f"argmax equal")
+    ties = ""
+    if router:
+        near = log_r.near_ties()
+        ties = (f"; top-{cfg.moe.top_k} boundaries within 1e-5 in router "
+                f"probability: {len(near)} {near[:8]}")
+    log(f"  decode vs prefill (full width, fp32, {cfg.n_layers} layers, "
+        f"{prompt} + {steps} tokens): max abs logit err {err:.3g} of max "
+        f"|logit| {scale:.3g}; argmax equal{ties}")
     del params, cache
     torch.cuda.empty_cache()
 
@@ -2264,6 +2344,545 @@ def phase_fanout(torch, dev, launches: dict) -> None:
     del emb, mask
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the LM family's serving cells at full width
+# ---------------------------------------------------------------------------
+# bf16 rule for outputs rounded at many points (the expert GEMMs, the
+# activation, each partial sum of the MoE combine): one rounding step of
+# each value plus 2**-5 of its row's largest
+BF16_MOE = dict(rel=2 ** -7, slack=2 ** -5)
+# the capacity path, card against CPU (the same code; cuBLAS and the CPU's
+# BLAS sum in other orders, and bf16 rounds each partial result): fp32
+# (weights widened) at 1e-4; bf16 at one rounding step of each value plus
+# one of its row's largest, the tightest power-of-two slack with room
+# (PERF.md section 2). Each is also read at every slack of SLACK_LADDER,
+# the first being the one-rounding rule's
+CAPACITY_RULES = {"bfloat16": dict(rel=2 ** -7, slack=2 ** -7),
+                  "float32": dict(rel=1e-4, slack=1e-4)}
+SLACK_LADDER = (1e-4, 2 ** -10, 2 ** -8, 2 ** -7, 2 ** -6, 2 ** -5)
+QWEN_MOE = "qwen2-moe-a2.7b"
+MOE_TOKENS = (512, 2048)        # phase 9's MoE block: dropless, capacity
+# (arch, layers kept or None for all, prefill tokens, decode steps)
+OTHER_LMS = (("nemotron-4-15b", None, 4096, 8), ("qwen1.5-32b", 16, 1024, 1),
+             ("kimi-k2-1t-a32b", 1, 1024, 1))
+
+
+def timed(torch, fn):
+    """(fn(), host ms, CUDA-event ms, issue ms): the host clock around the
+    call and a synchronize, the events around the call on the current
+    stream, the host clock until the call returned (the time the host
+    spends issuing its work; equal to the host ms when the host paces
+    the card)."""
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    a.record()
+    res = fn()
+    issue = time.perf_counter() - t
+    b.record()
+    torch.cuda.synchronize()
+    return (res, (time.perf_counter() - t) * 1e3, a.elapsed_time(b),
+            issue * 1e3)
+
+
+def dense_macs(cfg) -> int:
+    """Multiply-adds a token spends in the layers outside the routed
+    experts: attention projections, router and shared experts (or the
+    MLP)."""
+    d, dh = cfg.d_model, cfg.d_head
+    gated = 2 if cfg.act in ("swiglu", "geglu") else 1
+    per_layer = d * dh * (cfg.n_heads + 2 * cfg.n_kv) + cfg.n_heads * dh * d
+    if cfg.moe:
+        fs = cfg.moe.n_shared * cfg.moe.d_ff
+        per_layer += d * cfg.moe.n_experts + d * fs * gated + fs * d
+    else:
+        per_layer += d * cfg.d_ff * gated + cfg.d_ff * d
+    return cfg.n_layers * per_layer
+
+
+def expert_macs(cfg) -> int:
+    """Multiply-adds of one routed expert for one token (its weights)."""
+    d, f = cfg.d_model, cfg.moe.d_ff
+    return d * f * (2 if cfg.act in ("swiglu", "geglu") else 1) + f * d
+
+
+def weight_bytes(cfg, experts: int) -> int:
+    """bf16 weights a step reads once: the layers' dense part (the
+    router in fp32), ``experts`` routed experts summed over the layers,
+    the head (and the embedding rows, left out)."""
+    return 2 * (dense_macs(cfg) + experts * expert_macs(cfg)
+                + cfg.d_model * cfg.vocab) \
+        + 2 * cfg.n_layers * cfg.d_model * cfg.moe.n_experts
+
+
+def decode_bound(cfg, b: int, cache_len: int, experts_read: int
+                 ) -> tuple[float, str]:
+    """Least time of one bf16 decode step of ``b`` tokens at
+    ``cache_len``: the weights once (``experts_read`` routed experts over
+    all layers), the cache's K and V once, the new entries and the fp32
+    logits written; against the step's products (each token's top-k
+    experts, its attention over cache_len + 1 entries, the head)."""
+    kv = cfg.n_layers * b * cfg.n_kv * cfg.d_head * 2 * 2   # K + V
+    flops = 2 * b * (dense_macs(cfg) + cfg.n_layers * cfg.moe.top_k
+                     * expert_macs(cfg) + cfg.d_model * cfg.vocab) \
+        + 4 * b * cfg.n_heads * (cache_len + 1) * cfg.d_head * cfg.n_layers
+    return bound_ms(weight_bytes(cfg, experts_read) + kv * cache_len,
+                    kv + b * cfg.vocab * 4, flops, BF16_FLOPS)
+
+
+def prefill_bound(cfg, s: int, expert_rows: int) -> tuple[float, str]:
+    """Least time of a bf16 prefill of one sequence of ``s`` tokens: every
+    weight once, the cache and the last position's logits written;
+    against its products, the routed experts counted over
+    ``expert_rows`` rows a layer (the tokens' s * k assignments, or the
+    capacity buffer's padded rows), causal attention's s(s+1)/2 pairs a
+    head, the head for the last position."""
+    cache = cfg.n_layers * cfg.n_kv * s * cfg.d_head * 2 * 2
+    flops = 2 * s * dense_macs(cfg) + 2 * cfg.d_model * cfg.vocab \
+        + cfg.n_layers * (4 * cfg.n_heads * s * (s + 1) // 2 * cfg.d_head
+                          + 2 * expert_rows * expert_macs(cfg))
+    return bound_ms(weight_bytes(cfg, cfg.n_layers * cfg.moe.n_experts)
+                    + s * 4, cache + cfg.vocab * 4, flops, BF16_FLOPS)
+
+
+class RouterLog:
+    """Wraps the transformer's ``moe_block`` while it is entered: logs
+    each layer's top-k expert ids and the smallest gap in router
+    probability between a token's k-th and (k+1)-th expert."""
+
+    def __init__(self):
+        from repro_torch.models import moe as pm
+        from repro_torch.models import transformer as tfm
+        self.pm, self.tfm, self.calls = pm, tfm, []
+
+    def __enter__(self):
+        pm, orig = self.pm, self.tfm.moe_block
+        self.orig = orig
+
+        def logged(p, x, cfg, dropless=False):
+            probs, _, ids = pm._route(p, x.reshape(-1, x.shape[-1]), cfg)
+            top, _ = pm._top_k(probs, cfg.top_k + 1)
+            self.calls.append((ids, top[:, -2] - top[:, -1]))
+            return orig(p, x, cfg, dropless)
+
+        self.tfm.moe_block = logged
+        return self
+
+    def __exit__(self, *exc):
+        self.tfm.moe_block = self.orig
+
+    def distinct_experts(self) -> int:
+        """Experts the logged calls' tokens need, summed over calls."""
+        return sum(int(ids.unique().numel()) for ids, _ in self.calls)
+
+    def near_ties(self, eps: float = 1e-5) -> list:
+        """(call, token, gap) of every top-k boundary within ``eps``."""
+        out = []
+        for i, (_, gap) in enumerate(self.calls):
+            for tok in (gap < eps).nonzero()[:, 0].tolist():
+                out.append((i, tok, float(gap[tok])))
+        return out
+
+
+def phase_lm_serving(torch, dev, reduced: list) -> tuple:
+    """Qwen2-MoE-A2.7B at full width and depth (24 layers, bf16) through
+    ``build_cell``: prefill_32k at batch 1, its cache into an int8
+    ``KVCacheArena``, then decode_32k at batch 4: 16 steps from cache_len
+    32,752 over a cache of seeded bf16 noise, then the same 16 steps again
+    with the router logged, bit for bit. Returns the model's params, the
+    main path's launches of the two attention kernels, and the bytes of
+    the weights and caches."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_decode import ops as fd
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.models.moe import ROWS, capacity, padded_experts
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve.kv_cache import (CacheConfig, KVCacheArena,
+                                            dequantize_kv)
+
+    pre = build_cell(QWEN_MOE, "prefill_32k", device=dev)
+    dec = build_cell(QWEN_MOE, "decode_32k", device=dev)
+    cfg = pre.model_cfg
+    s = pre.arg_specs[1]["tokens"].shape[1]
+    t = time.perf_counter()
+    params = init_params(cfg, seed=SEED + 9, device=dev)
+    torch.cuda.synchronize()
+    n_alloc = sum(p.numel() for p in params.parameters())
+    w_bytes = sum(p.numel() * p.element_size() for p in params.parameters())
+    log(f"  {QWEN_MOE}: {cfg.n_params()} parameters ({n_alloc} allocated "
+        f"with the experts padded to {padded_experts(cfg.moe.n_experts)}), "
+        f"{w_bytes} bytes made on the card in "
+        f"{time.perf_counter() - t:.1f} s; {cfg.n_active_params()} active "
+        f"a token")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+    toks = torch.randint(4, cfg.vocab, (1, s), generator=gen, device=dev,
+                         dtype=torch.int32)
+    fa.launches = fd.launches = 0                   # the main path
+    times = []
+    with torch.no_grad():
+        for _ in range(2):
+            out = None                  # the earlier run's cache goes first
+            out, host, ev, _ = timed(torch, lambda: pre.fn(
+                params, {"tokens": toks}))
+            times.append((host, ev))
+        logits, cache, n = out
+    check(n == s and tuple(logits.shape) == (1, cfg.vocab)
+          and bool(torch.isfinite(logits).all()), "prefill_32k: logits")
+    shape = (cfg.n_layers, 1, cfg.n_kv, s, cfg.d_head)
+    check(tuple(cache["k"].shape) == shape == tuple(cache["v"].shape)
+          and bool(cache["k"][:, :, :, -1].abs().sum() > 0),
+          "prefill_32k: cache")
+    cap = capacity(s, cfg.moe)
+    rows_pad = padded_experts(cfg.moe.n_experts) * -(-cap // ROWS) * ROWS
+    b_need = prefill_bound(cfg, s, s * cfg.moe.top_k)
+    b_disp = prefill_bound(cfg, s, rows_pad)
+    for i, (host, ev) in enumerate(times):
+        log(f"  prefill_32k (1 x {s}) run {i + 1}: host {host:.2f} ms, "
+            f"events {ev:.2f} ms, {s / host * 1e3:.0f} tokens/s")
+    log(f"  prefill_32k bound: {b_need[0]:.3f} ms ({b_need[1]}; the "
+        f"tokens' {s * cfg.moe.top_k} expert rows a layer), "
+        f"{b_disp[0]:.3f} ms ({b_disp[1]}; the capacity buffer's "
+        f"{rows_pad} rows: cap {cap})")
+    cache_bytes = 2 * cache["k"].numel() * cache["k"].element_size()
+
+    # the prefill's cache in one int8 slot of a KVCacheArena
+    arena = KVCacheArena(CacheConfig(cfg.n_layers, cfg.n_kv, cfg.d_head,
+                                     s, 1, quantize_int8=True), device=dev)
+    slot = arena.claim()
+    arena.write_prefill(slot, cache["k"][:, 0], cache["v"][:, 0])
+    worst = 0.0
+    for name in ("k", "v"):
+        q, sc = getattr(arena, name), getattr(arena, f"{name}_scale")
+        for layer in range(cfg.n_layers):
+            x = cache[name][layer, 0].float()
+            deq = dequantize_kv(q[layer, slot], sc[layer, slot],
+                                torch.float32)
+            worst = max(worst, float(((deq - x).abs()
+                                      / (sc[layer, slot] / 2)).max()))
+    dk, dv = arena.dequantized([slot])
+    deq_err = max(float((dk[:, 0] - cache["k"][:, 0]).float().abs().max()),
+                  float((dv[:, 0] - cache["v"][:, 0]).float().abs().max()))
+    # half a step, plus the fp32 roundings of x / scale and q * scale
+    # (each at most 127 * 2**-24 of a step)
+    check(worst <= 1 + 2 ** -13, f"KVCacheArena: a dequantized entry is "
+                                 f"{worst} half-steps from its value")
+    log(f"  KVCacheArena int8, one slot of {s}: {arena.memory_bytes()} "
+        f"bytes against {cache_bytes} in bf16 "
+        f"({arena.memory_bytes() / cache_bytes:.4f}); dequantized within "
+        f"{worst:.6f} of quantize_kv's half step (fp32); bf16 "
+        f"dequantized() max abs err {deq_err:.4g}")
+    del arena, dk, dv, cache, logits, out
+    torch.cuda.empty_cache()
+
+    # decode_32k at batch 4 over a cache of seeded noise
+    b, steps, start = 4, 16, s - 16
+    cshape = (cfg.n_layers, b, cfg.n_kv, s, cfg.d_head)
+    ck = torch.randn(cshape, generator=gen, device=dev, dtype=cfg.dtype)
+    cv = torch.randn(cshape, generator=gen, device=dev, dtype=cfg.dtype)
+    first = torch.randint(4, cfg.vocab, (b, 1), generator=gen, device=dev,
+                          dtype=torch.int32)
+
+    def run():
+        cur, n, rows, outs = first, torch.tensor(start, dtype=torch.int32), \
+            [], []
+        for _ in range(steps):
+            batch = {"tokens": cur, "cache_k": ck, "cache_v": cv,
+                     "cache_len": n}
+            (lg, _, _, n), host, ev, issue = timed(
+                torch, lambda: dec.fn(params, batch))
+            rows.append((host, ev, issue))
+            outs.append(lg)
+            cur = lg.argmax(-1)[:, None].to(torch.int32)
+        return rows, outs, n
+
+    with torch.no_grad():
+        rows, outs, n = run()
+        launches = {"flash_attention": fa.launches,
+                    "flash_decode": fd.launches}
+        with RouterLog() as router:
+            _, again, _ = run()
+    check(n == s and all(tuple(x.shape) == (b, cfg.vocab) for x in outs)
+          and all(bool(torch.isfinite(x).all()) for x in outs),
+          "decode_32k: logits")
+    check(all(torch.equal(x, y) for x, y in zip(outs, again)),
+          "decode_32k: a rerun of the 16 steps differs")
+    e_pad = padded_experts(cfg.moe.n_experts)
+    need = router.distinct_experts() / steps
+    d_read = decode_bound(cfg, b, s - 1, cfg.n_layers * e_pad)
+    d_need = decode_bound(cfg, b, s - 1, int(round(need)))
+    for i, (host, ev, issue) in enumerate(rows):
+        log(f"  decode_32k (4 x 1, cache_len {start + i}) step {i + 1}: "
+            f"host {host:.2f} ms, events {ev:.2f} ms, issued in "
+            f"{issue:.2f} ms, {b / host * 1e3:.1f} tokens/s")
+    host, ev, issue = (sorted(col) for col in zip(*rows))
+    log(f"  decode_32k median: host {host[steps // 2]:.2f} ms "
+        f"({b / host[steps // 2] * 1e3:.1f} tokens/s), events "
+        f"{ev[steps // 2]:.2f} ms, issued in {issue[steps // 2]:.2f} ms; "
+        f"bound {d_read[0]:.3f} ms ({d_read[1]}; "
+        f"the dispatch reads all {e_pad} experts of the {cfg.n_layers} "
+        f"layers), {d_need[0]:.3f} ms ({d_need[1]}; the {need:.1f} experts "
+        f"a step its tokens need, at most {min(e_pad, b * cfg.moe.top_k)} "
+        f"a layer)")
+    del ck, cv, outs, again, router
+    torch.cuda.empty_cache()
+    reduced.append(f"{QWEN_MOE}: prefill_32k batch 32 -> 1 (32 sequences' "
+                   f"cache: 206 GB); decode_32k batch 128 -> 4 (824 GB)")
+    return params, launches, dict(
+        weights_bytes=w_bytes, prefill_cache_bytes=cache_bytes,
+        decode_cache_bytes=b * cache_bytes)
+
+
+def phase_moe_block(torch, dev, p, cfg) -> None:
+    """One Qwen2-MoE layer's MoE block at full width on the card: dropless
+    against the dense oracle on 512 tokens (bf16, and fp32 on the same
+    weights widened); the capacity path at 2048 tokens against the same
+    function on the CPU, in bf16 and in fp32 (weights widened), the
+    dropped pairs equal (one router column overloaded so that some drop);
+    two runs and a token alone against its batch, bit for bit."""
+    from repro_torch.models import moe as pm
+    from repro_torch.testing import rounding_agree
+
+    m = cfg.moe
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    n_drop, n_cap = MOE_TOKENS
+    x = torch.randn((1, n_drop, cfg.d_model), generator=gen, device=dev,
+                    dtype=cfg.dtype)
+    with torch.no_grad():
+        for dtype, rule in ((torch.bfloat16, BF16_MOE),
+                            (torch.float32, dict(rel=1e-4, slack=1e-4))):
+            pw = {k: (v if k == "router" else v.to(dtype))
+                  for k, v in p.items()}
+            xw = x.to(dtype)
+            got, _ = pm.moe_block(pw, xw, m, dropless=True)
+            want = pm.moe_block_dense_ref(pw, xw, m)
+            ok, ratio = rounding_agree(got, want, **rule)
+            check(ok, f"moe dropless vs dense ref ({dtype}): {ratio:.3g} x "
+                      f"its limit")
+            log(f"  moe_block dropless vs moe_block_dense_ref, {n_drop} "
+                f"tokens, "
+                f"{str(dtype).removeprefix('torch.')}: max abs err "
+                f"{float((got.float() - want.float()).abs().max()):.4g}, "
+                f"{ratio:.3g} x the limit")
+            del pw
+        out, _ = pm.moe_block(p, x, m, dropless=True)
+        again, _ = pm.moe_block(p, x, m, dropless=True)
+        check(torch.equal(out, again), "moe dropless: two runs differ")
+        for i in (0, n_drop // 2, n_drop - 1):
+            alone, _ = pm.moe_block(p, x[:, i:i + 1], m, dropless=True)
+            check(torch.equal(alone[0, 0], out[0, i]),
+                  f"moe dropless: token {i} alone differs from its batch")
+        log(f"  moe_block dropless: two runs bit for bit; tokens 0, "
+            f"{n_drop // 2}, {n_drop - 1} alone bit for bit with their batch "
+            f"of {n_drop}")
+
+        x = torch.randn((1, n_cap, cfg.d_model), generator=gen, device=dev,
+                        dtype=cfg.dtype)
+        natural = pm.dropped_pairs(p, x, m)
+        check(torch.equal(natural.cpu(), pm.dropped_pairs(
+            {k: v.cpu() for k, v in p.items()}, x.cpu(), m)),
+              "moe capacity: the dropped pairs differ card vs CPU")
+        over = dict(p, router=p["router"].clone())
+        over["router"][:, 0] *= 3.0
+        for name, rule in CAPACITY_RULES.items():
+            dtype = getattr(torch, name)
+            pw = {k: (v if k == "router" else v.to(dtype))
+                  for k, v in over.items()}
+            pc = {k: v.cpu() for k, v in pw.items()}
+            xw = x.to(dtype)
+            drops = pm.dropped_pairs(pw, xw, m)
+            check(len(drops) > 0 and torch.equal(
+                drops.cpu(), pm.dropped_pairs(pc, xw.cpu(), m)),
+                f"moe capacity (expert 0 overloaded, {dtype}): dropped "
+                f"pairs")
+            got, _ = pm.moe_block(pw, xw, m)
+            again, _ = pm.moe_block(pw, xw, m)
+            check(torch.equal(got, again), "moe capacity: two runs differ")
+            t = time.perf_counter()
+            want, _ = pm.moe_block(pc, xw.cpu(), m)
+            t = time.perf_counter() - t
+            ok, ratio = rounding_agree(got.cpu(), want, **rule)
+            check(ok, f"moe capacity card vs CPU ({dtype}): {ratio:.3g} x "
+                      f"its limit")
+            ladder = ", ".join(
+                f"{slack:.3g}: "
+                f"{rounding_agree(got.cpu(), want, rule['rel'], slack)[1]:.3g}"
+                for slack in SLACK_LADDER)
+            log(f"  moe_block capacity, {n_cap} tokens (cap "
+                f"{pm.capacity(n_cap, m)}), {name}: {len(natural)} pairs "
+                f"dropped by the seeded router, {len(drops)} with expert "
+                f"0's column x 3, the same sets card and CPU; outputs card "
+                f"vs CPU {ratio:.3g} x the limit (rel {rule['rel']:.3g}, "
+                f"slack {rule['slack']:.3g}; CPU {t:.1f} s); x the limit "
+                f"at rel {rule['rel']:.3g} by slack: {ladder}; two runs bit "
+                f"for bit")
+            del pw, pc
+
+
+def phase_moe_rows(torch, dev, p) -> None:
+    """The MoE block's blocked GEMMs at Qwen2-MoE's widths (the router in
+    fp32, the shared experts in bf16): every count of 128-row blocks from
+    1 to 256 (prefill_32k's 32,768 tokens) gives each block the bits that
+    it has among 256, and so do ragged counts; then their times at 32,768
+    tokens against one unblocked GEMM and against a loop of 128-row
+    GEMMs, one launch a block."""
+    from repro_torch.models.moe import ROWS, _by_rows
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+    n = 256 * ROWS
+    total = dict(blocked=0.0, unblocked=0.0, loop=0.0)
+    for name in ("router", "shared_w_in", "shared_w_out"):
+        w = p[name]
+        x = torch.randn((n, w.shape[0]), generator=gen, device=dev,
+                        dtype=w.dtype)
+        full = _by_rows(x, w)
+        counts = [j * ROWS for j in range(1, 257)] + [1, 5, 200, 1000]
+        bad = [c for c in counts if not torch.equal(_by_rows(x[:c], w),
+                                                    full[:c])]
+        check(not bad, f"_by_rows {name}: rows differ from their bits among "
+                       f"{n} at counts {bad[:8]}")
+        times = dict(
+            blocked=cuda_ms(torch, lambda: _by_rows(x, w), 5),
+            unblocked=cuda_ms(torch, lambda: x @ w, 5),
+            loop=cuda_ms(torch, lambda: torch.cat(
+                [x[i:i + ROWS] @ w for i in range(0, n, ROWS)]), 3))
+        for key, ms in times.items():
+            total[key] += ms
+        log(f"  _by_rows {name} ({n} x {w.shape[0]} @ {tuple(w.shape)}, "
+            f"{str(w.dtype).removeprefix('torch.')}): {len(counts)} row "
+            f"counts bit for bit with {n}; blocked {times['blocked']:.4f} "
+            f"ms, unblocked {times['unblocked']:.4f}, a loop of 128-row "
+            f"GEMMs {times['loop']:.4f}")
+    log(f"  _by_rows at prefill_32k, a layer: blocked {total['blocked']:.4f} "
+        f"ms, unblocked {total['unblocked']:.4f}, loop {total['loop']:.4f}")
+
+
+def phase_lm_attention(torch, dev) -> dict:
+    """The two attention kernels at the shapes phase 9's serving runs give
+    them, against their plain versions with phase 2's rules: Qwen2-MoE's
+    prefill_32k (1, 16, 32768, 128; the plain version on the last 256
+    query rows) and decode_32k (4 x 16 heads over 32,768 entries, before
+    and at the first and the last step), and each other config's prefill
+    and last decode step."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.lm_family import LM_SHAPES
+
+    att = AttentionCheck(torch, dev, SEED + 14)
+    bf16 = torch.bfloat16
+    cfg = get_arch(QWEN_MOE).model_config(False)
+    h, kv, d = cfg.n_heads, cfg.n_kv, cfg.d_head
+    s = LM_SHAPES["prefill_32k"]["seq"]
+    att.attention("qwen2-moe prefill_32k", (1, h, kv, s, s, d), bf16, True,
+                  5, rows=256)
+    s = LM_SHAPES["decode_32k"]["seq"]
+    att.decode("qwen2-moe decode_32k", (4, h, kv, s, d),
+               (s - 16, s - 15, s), bf16, 20)
+    for arch, _, s, steps in OTHER_LMS:
+        cfg = get_arch(arch).model_config(False)
+        h, kv, d = cfg.n_heads, cfg.n_kv, cfg.d_head
+        att.attention(f"{arch} prefill {s}", (1, h, kv, s, s, d), bf16,
+                      True, 5)
+        att.decode(f"{arch} decode", (1, h, kv, s + steps, d),
+                   (s + steps,), bf16, 20)
+        torch.cuda.empty_cache()
+    att.log_rows()
+    return att.out
+
+
+def phase_lm_others(torch, dev, reduced: list) -> dict:
+    """The other LM configs at full width, seeded, on the card: prefill
+    and decode steps with every logit finite and every shape right.
+    Returns the attention kernels' launches here."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_decode import ops as fd
+    from repro_torch.models.transformer import (decode_step, init_params,
+                                                prefill)
+
+    launches = {"flash_attention": 0, "flash_decode": 0}
+    for arch, layers, s, steps in OTHER_LMS:
+        full = get_arch(arch).model_config(False)
+        cfg = full if layers is None else dataclasses.replace(
+            full, n_layers=layers)
+        if layers is not None:
+            reduced.append(f"{arch}: {full.n_layers} -> {layers} layers")
+        t = time.perf_counter()
+        params = init_params(cfg, seed=SEED + 15, device=dev)
+        torch.cuda.synchronize()
+        t_init = time.perf_counter() - t
+        w_bytes = sum(p.numel() * p.element_size()
+                      for p in params.parameters())
+        gen = torch.Generator(device=dev).manual_seed(SEED + 16)
+        toks = torch.randint(4, cfg.vocab, (1, s + steps), generator=gen,
+                             device=dev)
+        fa.launches = fd.launches = 0
+        with torch.no_grad():
+            (logits, cache, n), pre_host, pre_ev, _ = timed(
+                torch, lambda: prefill(params, toks[:, :s], cfg, s + steps))
+            ok = bool(torch.isfinite(logits).all())
+            dec = []
+            for i in range(s, s + steps):
+                (logits, cache, n), host, ev, _ = timed(
+                    torch, lambda: decode_step(params, toks[:, i:i + 1],
+                                               cache, n, cfg))
+                ok = ok and bool(torch.isfinite(logits).all())
+                dec.append((host, ev))
+        launches["flash_attention"] += fa.launches
+        launches["flash_decode"] += fd.launches
+        check(ok and tuple(logits.shape) == (1, cfg.vocab) and n == s + steps
+              and tuple(cache["k"].shape) == (cfg.n_layers, 1, cfg.n_kv,
+                                              s + steps, cfg.d_head),
+              f"{arch}: logits or shapes")
+        log(f"  {arch} ({cfg.n_layers} of {full.n_layers} layers, "
+            f"{w_bytes} bytes of weights made in {t_init:.1f} s): prefill "
+            f"1 x {s} host {pre_host:.2f} ms, events {pre_ev:.2f} ms; "
+            f"{steps} decode steps host "
+            f"{' '.join(f'{h:.2f}' for h, _ in dec)} ms, events "
+            f"{' '.join(f'{e:.2f}' for _, e in dec)} ms; logits finite")
+        del params, cache, logits
+        torch.cuda.empty_cache()
+    return launches
+
+
+def phase_lm(torch, dev, kern: dict) -> dict:
+    """Phase 9. Returns its launches of the two attention kernels: the
+    serving runs' (Qwen2-MoE's cells, the other configs), not the checks
+    against plain versions and oracles."""
+    import gc
+    import threading
+
+    from repro_torch.configs.qwen2_moe_a2_7b import CONFIG
+
+    reduced: list = []
+    t0 = time.perf_counter()
+    log(f"  host at phase 9: {threading.active_count()} threads "
+        f"{sorted(t.name for t in threading.enumerate())}, "
+        f"{len(gc.get_objects())} objects tracked by the collector")
+    params, launches, sizes = phase_lm_serving(torch, dev, reduced)
+    layer = dict(params["layers"][0]["moe"].named_parameters())
+    phase_moe_block(torch, dev, layer, CONFIG)
+    phase_moe_rows(torch, dev, layer)
+    del params, layer
+    torch.cuda.empty_cache()
+    phase_decode_vs_prefill(torch, dataclasses.replace(
+        CONFIG, n_layers=4, dtype=torch.float32, moe=dataclasses.replace(
+            CONFIG.moe, capacity_factor=CONFIG.moe.n_experts)), 1024, 8,
+        (SEED + 12, SEED + 13), router=True)
+    reduced.append(f"{QWEN_MOE} decode vs prefill: 24 -> 4 layers, fp32, "
+                   f"capacity_factor 60")
+    for name, r in phase_lm_attention(torch, dev).items():
+        kern[name]["times"].extend(r["times"])
+        kern[name]["err"] = max(kern[name]["err"], r["err"])
+    for name, n in phase_lm_others(torch, dev, reduced).items():
+        launches[name] += n
+    log(json.dumps({"phase9": dict(sizes, reduced=reduced)}))
+    log(f"  launches on the LM serving path (phase 9): {launches}; phase 9 "
+        f"took {time.perf_counter() - t0:.1f} s")
+    for name, n in launches.items():
+        check(n > 0, f"{name} was never launched on the LM serving path")
+    return launches
+
+
 def main() -> int:
     import argparse
 
@@ -2288,6 +2907,7 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     from repro_torch.kernels import build
 
+    t0 = time.perf_counter()
     log("phase 1: setup")
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2307,25 +2927,27 @@ def main() -> int:
 
     parent = ParentKernels(torch, args.parent) if args.parent else None
 
-    log("phase 2: kernels against their plain versions")
+    start_phase(torch, "phase 2: kernels against their plain versions", t0)
     kern = phase_kernels(torch, dev, parent)
     kern.update(phase_attention(torch, dev))
     kern.update(phase_embedding_bag(torch, dev, parent))
     with tempfile.TemporaryDirectory(prefix="chip_smoke-") as work:
-        log("phase 3: temporal engine at scale")
+        start_phase(torch, "phase 3: temporal engine at scale", t0)
         phase_engine(torch, work)
-        log("phase 4: LiveVectorLake end to end")
+        start_phase(torch, "phase 4: LiveVectorLake end to end", t0)
         launches, fp32_answers = phase_store(torch, work, quantized=False)
         launches_q8, _ = phase_store(torch, work, quantized=True,
                                      fp32_answers=fp32_answers)
         launches.update(launches_q8)
-        log("phase 5: the MiniLM embedder and stores that embed with it")
+        start_phase(torch, "phase 5: the MiniLM embedder and stores that "
+                           "embed with it", t0)
         emb, cpu_emb = phase_embedder(torch, dev)
         from repro_torch.kernels.flash_attention import ops as fa
         from repro_torch.kernels.flash_decode import ops as fd
         fa.launches = fd.launches = 0
         roots = phase_rag_store(torch, work, emb, cpu_emb)
-        log("phase 6: RAG generation, Mistral-NeMo-12B at full width")
+        start_phase(torch, "phase 6: RAG generation, Mistral-NeMo-12B at "
+                           "full width", t0)
         phase_rag_generate(torch, roots[False], emb)
         launches["flash_attention"] = fa.launches
         launches["flash_decode"] = fd.launches
@@ -2334,17 +2956,25 @@ def main() -> int:
         for name in ("flash_attention", "flash_decode"):
             check(launches[name] > 0, f"{name} was never launched on the "
                                       f"RAG path")
-        phase_decode_vs_prefill(torch)
-        log("phase 7: the recsys family at full width")
+        from repro_torch.configs.mistral_nemo_12b import CONFIG as NEMO
+        phase_decode_vs_prefill(torch, dataclasses.replace(
+            NEMO, n_layers=4, dtype=torch.float32), 256, 128,
+            (SEED + 1, SEED + 4))
+        start_phase(torch, "phase 7: the recsys family at full width", t0)
         launches["embedding_bag"], bag_rows = phase_recsys(torch, dev,
                                                            parent)
         kern["embedding_bag"]["times"].extend(bag_rows)
         check(launches["embedding_bag"] > 0,
               "embedding_bag was never launched on the DLRM serving path")
-        log("phase 8: the shard fabric on the card")
+        start_phase(torch, "phase 8: the shard fabric on the card", t0)
         torch.cuda.empty_cache()
         fabric_launches = phase_fabric(torch, work, dev)
         phase_fanout(torch, dev, fabric_launches)
+    start_phase(torch, "phase 9: the LM family's serving cells at full width",
+                t0)
+    torch.cuda.empty_cache()
+    for name, n in phase_lm(torch, dev, kern).items():
+        launches[name] += n
     for name in TILE_KERNELS:             # the store path: phases 4 and 8
         launches[name] += fabric_launches[name]
         check(fabric_launches[name] > 0,

@@ -1,8 +1,7 @@
 """Model configurations of the port: repro's ``configs/`` without JAX.
-``base`` holds the ``ArchSpec`` registry, which registers the recsys
-family (FM, DLRM, Wide&Deep, BERT4Rec); the MiniLM embedder and
-Mistral-NeMo-12B are ``CONFIG`` constants of the RAG path, each with
-its ``SOURCE``. The other families wait for their port (ROADMAP Queue 1
-item 11)."""
+``base`` holds the ``ArchSpec`` registry, which registers the LM family
+(Mistral-NeMo-12B, Nemotron-4-15B, Qwen1.5-32B, Kimi-K2, Qwen2-MoE), the
+recsys family (FM, DLRM, Wide&Deep, BERT4Rec) and the MiniLM embedder.
+SchNet waits for the training slice (ROADMAP Queue 1 item 12)."""
 from .base import (ArchSpec, Cell, all_cells, get_arch,  # noqa: F401
                    list_archs, register)

@@ -6,8 +6,9 @@ Every ported architecture ships as one ``configs/<id>.py`` exposing
 shapes. An (arch x shape) cell determines the step function
 (``launch/steps.build_cell``), the exact input specs (``Spec``: shape
 and torch dtype, no allocation) and a REDUCED variant of the same family
-for the CPU tests. ``ARCH_MODULES`` lists only the families the port
-registers: the recsys family (ROADMAP Queue 1 item 11 holds the rest).
+for the CPU tests. ``ARCH_MODULES`` is repro's list without SchNet,
+whose only cell is ``train``: it waits for the training slice (ROADMAP
+Queue 1 item 12).
 """
 from __future__ import annotations
 
@@ -18,6 +19,7 @@ from typing import Any, Callable
 import torch
 
 f32 = torch.float32
+bf16 = torch.bfloat16
 i32 = torch.int32
 bool_ = torch.bool
 
@@ -63,7 +65,11 @@ class ArchSpec:
 
 _REGISTRY: dict[str, ArchSpec] = {}
 
-ARCH_MODULES = ("fm", "bert4rec", "dlrm_mlperf", "wide_deep")
+ARCH_MODULES = (
+    "mistral_nemo_12b", "nemotron_4_15b", "qwen1_5_32b", "kimi_k2_1t_a32b",
+    "qwen2_moe_a2_7b", "fm", "bert4rec", "dlrm_mlperf", "wide_deep",
+    "minilm_embedder",
+)
 
 
 def register(spec: ArchSpec) -> ArchSpec:

@@ -9,6 +9,11 @@ layer's params stacked on a leading (L, ...) axis:
                 "attn": {"wq": (L, D, H*Dh), "wk", "wv", "wo", ["bq", ...]},
                 "mlp": {"win": (L, D, F'), "wout": (L, F, D)}}}
 
+An MoE layer holds "moe" in place of "mlp": {"router": (L, D, E) fp32,
+"w_in": (L, E_pad, D, F'), "w_out": (L, E_pad, F, D), ["shared_w_in",
+"shared_w_out"]}. The router stays fp32 in a bf16 model, as repro keeps
+it, and the experts keep their padded E_pad axis.
+
 Pass it as numpy arrays (``jax.tree.map(np.asarray, params)``): this
 module imports no JAX. bf16 arrays (numpy's ``ml_dtypes`` bfloat16) are
 widened to fp32 on the way, which is exact.
@@ -19,8 +24,7 @@ import numpy as np
 import torch
 
 from ..kernels.common import resolve_device
-from .transformer import (TransformerConfig, _check, layer_module,
-                          model_module)
+from .transformer import TransformerConfig, layer_module, model_module
 
 
 def _tensor(a, dtype: torch.dtype, device) -> torch.Tensor:
@@ -32,8 +36,8 @@ def _tensor(a, dtype: torch.dtype, device) -> torch.Tensor:
 
 def params_from_repro(np_tree: dict, cfg: TransformerConfig, device=None):
     """repro's param pytree (numpy leaves) -> the port's modules, in
-    ``cfg.dtype`` on ``device`` (None = the card)."""
-    _check(cfg)
+    ``cfg.dtype`` on ``device`` (None = the card); an MoE router in
+    fp32."""
     device = resolve_device(device)
     lay = np_tree["layers"]
     n = np.asarray(lay["ln1"]).shape[0]
@@ -43,12 +47,19 @@ def params_from_repro(np_tree: dict, cfg: TransformerConfig, device=None):
     def conv(a):
         return _tensor(a, cfg.dtype, device)
 
+    ffn = "moe" if "moe" in lay else "mlp"
+
+    def conv_ffn(name, a):
+        if name == "router":
+            return _tensor(a, torch.float32, device)
+        return conv(a)
+
     layers = []
     for i in range(n):
         layers.append(layer_module({
             "ln1": conv(lay["ln1"][i]), "ln2": conv(lay["ln2"][i]),
             "attn": {k: conv(v[i]) for k, v in lay["attn"].items()},
-            "mlp": {k: conv(v[i]) for k, v in lay["mlp"].items()},
+            ffn: {k: conv_ffn(k, v[i]) for k, v in lay[ffn].items()},
         }))
     return model_module(conv(np_tree["embed"]), layers,
                         conv(np_tree["final_ln"]), conv(np_tree["lm_head"]))
@@ -68,6 +79,11 @@ def params_to_repro(params) -> dict:
     def stack(get):
         return np.stack([host(get(lp)) for lp in layers])
 
+    def group(sub):
+        return {name: stack(lambda lp, n=name: lp[sub][n])
+                for name, _ in layers[0][sub].named_parameters()}
+
+    ffn = "moe" if hasattr(layers[0], "moe") else "mlp"
     return {
         "embed": host(params["embed"]),
         "final_ln": host(params["final_ln"]),
@@ -75,10 +91,8 @@ def params_to_repro(params) -> dict:
         "layers": {
             "ln1": stack(lambda lp: lp["ln1"]),
             "ln2": stack(lambda lp: lp["ln2"]),
-            "attn": {name: stack(lambda lp, n=name: lp["attn"][n])
-                     for name, _ in layers[0]["attn"].named_parameters()},
-            "mlp": {name: stack(lambda lp, n=name: lp["mlp"][n])
-                    for name, _ in layers[0]["mlp"].named_parameters()},
+            "attn": group("attn"),
+            ffn: group(ffn),
         },
     }
 

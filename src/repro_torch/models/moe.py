@@ -1,0 +1,274 @@
+"""Mixture-of-Experts layer: sort-based capacity dispatch + grouped GEMM
+(PyTorch), repro's ``models/moe.py``.
+
+Tokens are routed top-k, then DISPATCHED by sorting token-expert
+assignments — every shape follows from the input's, so nothing reads a
+value back to the host:
+
+  1. router softmax -> top-k (weights, expert ids) per token
+  2. flatten (T*k) assignments, argsort by expert id
+  3. position-in-expert from the sorted ids; assignments beyond the
+     per-expert capacity C are DROPPED (GShard-style, capacity_factor
+     bounds the buffer)
+  4. scatter into an (E, C, D) buffer -> batched expert GEMM
+  5. gather back, weight by router prob, sum over k; plus optional
+     always-on shared experts (DeepSeek/Qwen-MoE style)
+
+Load-balance auxiliary loss (Switch): E * sum_e f_e * P_e.
+
+Where the port must choose what repro leaves to XLA, it chooses repro's
+CPU answer:
+  - top-k is a stable descending sort of the probabilities: equal
+    probabilities rank the lower expert id first, as ``lax.top_k`` does
+    (``torch.topk`` promises no order for ties on CUDA);
+  - the dispatch argsort is stable, as ``jnp.argsort`` is, so the same
+    assignments drop;
+  - the combine gathers each token's k weighted outputs back to (T, k,
+    D) and sums them in ascending expert id, in x's dtype, from zero:
+    the order of repro's scatter-add, without atomics (``index_add_`` on
+    CUDA would make a token's bf16 output depend on the run).
+Every product over the token axis (router, experts, shared experts) runs
+in blocks of ``ROWS`` rows, the last one zero padded, so that each block
+is a product of one shape whatever the batch: a token's row comes out
+with the same bits alone or inside any batch, and in any run (DESIGN.md
+§8.3). The router and the shared experts are one batched GEMM over the
+blocks (the weight broadcast, not copied); the expert buffer is laid out
+block-major, (C / ROWS, E, ROWS, D), so each block is one contiguous
+batched GEMM over the experts.
+
+Not ported yet: ``moe_block_sharded`` and ``sharded_moe_applicable``
+(expert parallelism over a device mesh) wait for the mesh and sharding
+(ROADMAP Queue 1 item 13).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+import torch.nn.functional as F
+
+from .layers import activation, dense_init
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    d_ff: int                      # per-expert hidden width
+    n_shared: int = 0              # always-on shared experts
+    capacity_factor: float = 1.25
+    act: str = "swiglu"
+    router_aux_weight: float = 0.01
+
+
+EXPERT_PAD = 16      # pad expert count to the model-axis extent so the
+#                      expert dim always shards (qwen2-moe: 60 -> 64;
+#                      dead experts are never routed — the router only
+#                      emits logits for the REAL experts)
+
+ROWS = 128           # rows of one GEMM block over the token axis
+
+
+def padded_experts(e: int) -> int:
+    return -(-e // EXPERT_PAD) * EXPERT_PAD
+
+
+def moe_params(gen: torch.Generator, d_model: int, cfg: MoEConfig,
+               dtype=torch.float32, device=None) -> dict:
+    """Seeded weights: the router in fp32, the experts stacked on a
+    padded (E_pad, ...) axis in ``dtype``, made expert by expert with no
+    fp32 temporary of the stack (Kimi-K2's layer is 33.8 GB in bf16)."""
+    e, f = cfg.n_experts, cfg.d_ff
+    e_pad = padded_experts(e)
+    gated = cfg.act in ("swiglu", "geglu")
+    mult = 2 if gated else 1
+    p = {"router": dense_init(gen, d_model, e, torch.float32,
+                              device=device)}
+    for name, shape, std in (("w_in", (d_model, f * mult), d_model ** -0.5),
+                             ("w_out", (f, d_model), f ** -0.5)):
+        w = torch.empty((e_pad,) + shape, dtype=dtype, device=device)
+        for i in range(e_pad):
+            w[i].normal_(0.0, std, generator=gen)
+        p[name] = w
+    if cfg.n_shared:
+        fs = cfg.n_shared * f
+        p["shared_w_in"] = dense_init(gen, d_model, fs * mult, dtype,
+                                      device=device)
+        p["shared_w_out"] = dense_init(gen, fs, d_model, dtype,
+                                       scale=fs ** -0.5, device=device)
+    return p
+
+
+def _by_rows(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x (N, D) @ w (D, F) as one batched GEMM over blocks of ``ROWS``
+    rows, zero padded to at least two blocks: every block is the same
+    product whatever N. At least two, because cuBLAS on the H100 takes a
+    split-K kernel for one lone fp32 block and another kernel for any
+    count from 2 to 256 (measured; ``chip_smoke.py`` phase 9 checks every
+    count)."""
+    n, d = x.shape
+    nb = max(2, -(-n // ROWS))
+    x = F.pad(x, (0, 0, 0, nb * ROWS - n))
+    out = torch.bmm(x.reshape(nb, ROWS, d), w.expand(nb, *w.shape))
+    return out.view(nb * ROWS, -1)[:n]
+
+
+def _gated(z: torch.Tensor, act: str) -> torch.Tensor:
+    gate, up = torch.chunk(z, 2, dim=-1)
+    inner = F.silu(gate) if act == "swiglu" else activation("gelu")(gate)
+    return inner * up
+
+
+def _expert_ffn(h, w_in, w_out, act: str):
+    """h: (E, C, D); returns (E, C, D)."""
+    z = torch.bmm(h, w_in)
+    if act in ("swiglu", "geglu"):
+        z = _gated(z, act)
+    elif act == "sq_relu":
+        z = activation("sq_relu")(z)
+    else:
+        z = activation("gelu")(z)
+    return torch.bmm(z, w_out)
+
+
+def _shared_ffn(p, xf: torch.Tensor, act: str):
+    """The always-on shared experts over xf (T, D), in row blocks. A
+    non-gated ``act`` runs gelu here, sq_relu included, as repro does."""
+    z = _by_rows(xf, p["shared_w_in"])
+    z = _gated(z, act) if act in ("swiglu", "geglu") \
+        else activation("gelu")(z)
+    return _by_rows(z, p["shared_w_out"])
+
+
+def _top_k(probs: torch.Tensor, k: int):
+    """(weights, ids) of each row's k largest, descending, the lower id
+    first among equals (``lax.top_k``'s order)."""
+    vals, ids = torch.sort(probs, dim=-1, descending=True, stable=True)
+    return vals[:, :k], ids[:, :k]
+
+
+def _route(p, xf: torch.Tensor, cfg: MoEConfig):
+    """Router of xf (T, D): (probs (T, E), normalized top-k weights (T,
+    k), expert ids (T, k)). The k weights are summed left to right, one
+    add at a time, so a row's sum does not depend on the batch."""
+    logits = _by_rows(xf.float(), p["router"])
+    probs = torch.softmax(logits, dim=-1)
+    top_w, top_e = _top_k(probs, cfg.top_k)
+    total = top_w[:, 0]
+    for j in range(1, cfg.top_k):
+        total = total + top_w[:, j]
+    return probs, top_w / torch.clamp(total, min=1e-9)[:, None], top_e
+
+
+def capacity(t: int, cfg: MoEConfig, dropless: bool = False) -> int:
+    """Rows an expert takes: t*k when dropless (the worst case), else
+    ceil(t*k/E) * capacity_factor, then rounded up to a multiple of 8."""
+    k, e = cfg.top_k, cfg.n_experts
+    if dropless:
+        return t * k
+    cap = int(max(1, -(-t * k // e) * cfg.capacity_factor))
+    return int(-(-cap // 8) * 8)
+
+
+def _plan(top_e: torch.Tensor, e_pad: int, cap: int):
+    """The dispatch of the (T*k) assignments in token-major order: (their
+    source tokens in expert order ``tok``, ``order``, each sorted
+    assignment's ``keep`` and buffer row ``slot``; dropped ones point at
+    the trash row after the last block)."""
+    t, k = top_e.shape
+    dev = top_e.device
+    flat_e = top_e.reshape(-1)
+    order = torch.argsort(flat_e, stable=True)
+    sorted_e = flat_e[order]
+    starts = torch.searchsorted(sorted_e, torch.arange(e_pad, device=dev))
+    pos = torch.arange(t * k, device=dev) - starts[sorted_e]
+    keep = pos < cap
+    nb = -(-cap // ROWS)
+    slot = torch.where(keep, (pos // ROWS) * (e_pad * ROWS)
+                       + sorted_e * ROWS + pos % ROWS, nb * e_pad * ROWS)
+    return order // k, order, keep, slot
+
+
+def moe_block(p, x: torch.Tensor, cfg: MoEConfig,
+              dropless: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, D) -> (out (B, S, D), aux_loss scalar).
+
+    dropless=True sizes capacity at the worst case (t*k): exact routing
+    with zero drops — the decode/serving path, where t is tiny and exact
+    teacher-forcing consistency matters. Prefill uses the bounded
+    capacity_factor buffer (GShard drops)."""
+    b, s, d = x.shape
+    t = b * s
+    e, k = cfg.n_experts, cfg.top_k
+    xf = x.reshape(t, d)
+    probs, top_w, top_e = _route(p, xf, cfg)
+
+    # Switch aux loss: fraction routed vs mean prob, per expert (a count
+    # of ones in fp32 is exact, whatever order the adds run in)
+    frac = torch.zeros(e, dtype=torch.float32, device=x.device).scatter_add_(
+        0, top_e[:, 0], torch.ones(t, dtype=torch.float32, device=x.device))
+    aux = e * torch.mean(frac / t * probs.mean(0)) * cfg.router_aux_weight
+
+    # ---- sort-based dispatch (static shapes) -------------------------
+    e_pad = p["w_in"].shape[0]        # experts padded to EXPERT_PAD
+    cap = capacity(t, cfg, dropless)
+    nb = -(-cap // ROWS)
+    tok, order, keep, slot = _plan(top_e, e_pad, cap)
+    dtype = x.dtype
+    buf = torch.zeros((nb * e_pad * ROWS + 1, d), dtype=dtype,
+                      device=x.device)
+    buf[slot] = xf[tok]               # dropped rows land on the trash row
+    ebuf = buf[:-1].view(nb, e_pad, ROWS, d)
+    y = torch.cat([_expert_ffn(ebuf[j], p["w_in"], p["w_out"], cfg.act)
+                   for j in range(nb)]).view(-1, d)
+
+    # ---- combine: each token's k outputs, in ascending expert id -----
+    by_id = torch.argsort(top_e, dim=-1)               # distinct ids
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(t * k, device=x.device)
+    at = inv.view(t, k).gather(1, by_id).reshape(-1)   # sorted positions
+    kept = keep[at]
+    gathered = y[torch.where(kept, slot[at], 0)] * kept[:, None]
+    w = top_w.gather(1, by_id).reshape(-1, 1)
+    contrib = (gathered.float() * w).to(dtype).view(t, k, d)
+    out = torch.zeros((t, d), dtype=dtype, device=x.device)
+    for j in range(k):
+        out = out + contrib[:, j]
+
+    if cfg.n_shared:
+        out = out + _shared_ffn(p, xf, cfg.act)
+    return out.reshape(b, s, d), aux
+
+
+def dropped_pairs(p, x: torch.Tensor, cfg: MoEConfig,
+                  dropless: bool = False) -> torch.Tensor:
+    """The (token, expert) assignments ``moe_block`` drops for x (B, S,
+    D), as an (n, 2) int64 tensor sorted by token, then expert. Reads
+    back to the host: a test and report helper, not on the path."""
+    t = x.shape[0] * x.shape[1]
+    _, _, top_e = _route(p, x.reshape(t, -1), cfg)
+    e_pad = p["w_in"].shape[0]
+    tok, order, keep, _ = _plan(top_e, e_pad, capacity(t, cfg, dropless))
+    pairs = torch.stack([tok, top_e.reshape(-1)[order]], 1)[~keep]
+    return pairs[torch.argsort(pairs[:, 0] * e_pad + pairs[:, 1])]
+
+
+def moe_block_dense_ref(p, x: torch.Tensor, cfg: MoEConfig) -> torch.Tensor:
+    """O(E) dense oracle (every expert computes every token) — test-only
+    reference for the dispatch path, no capacity drops."""
+    b, s, d = x.shape
+    xf = x.reshape(-1, d)
+    logits = xf.float() @ p["router"]
+    probs = torch.softmax(logits, dim=-1)
+    top_w, top_e = _top_k(probs, cfg.top_k)
+    top_w = top_w / torch.clamp(top_w.sum(-1, keepdim=True), min=1e-9)
+    e_pad = p["w_in"].shape[0]
+    all_out = _expert_ffn(xf.expand(e_pad, *xf.shape), p["w_in"],
+                          p["w_out"], cfg.act)                 # (E, T, D)
+    gate = torch.zeros((xf.shape[0], e_pad), dtype=torch.float32,
+                       device=x.device).scatter_add_(1, top_e, top_w)
+    out = torch.einsum("te,etd->td", gate, all_out.float())
+    if cfg.n_shared:
+        out = out + _shared_ffn(p, xf, cfg.act)
+    return out.reshape(b, s, d).to(x.dtype)
+

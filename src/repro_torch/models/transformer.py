@@ -1,8 +1,9 @@
 """Decoder/encoder transformer family, inference (PyTorch).
 
-One parametric implementation covers the MiniLM-class embedder
-(``causal=False``, mean-pooled) and the dense GQA generators of RAG
-serving (Mistral-NeMo-12B). Layers are ``nn.Module``s holding frozen
+One parametric implementation covers the five LM architectures (dense
+GQA: Mistral-NeMo, Nemotron-4, Qwen1.5; MoE: Kimi-K2, Qwen2-MoE), the
+MiniLM-class embedder (``causal=False``, mean-pooled) and BERT4Rec's
+bidirectional backbone. Layers are ``nn.Module``s holding frozen
 parameters in a ``ModuleList``; the functions below take them with the
 config, as repro's take its param pytree. repro stacks layer params on a
 leading (L, ...) axis for ``lax.scan``; here each layer is its own
@@ -13,16 +14,18 @@ Attention goes through kernels/flash_attention (encoder, prefill) and
 kernels/flash_decode (decode): the hand-written kernels for CUDA tensors,
 their plain versions for CPU tensors. The KV cache is allocated once at
 ``cache_size`` by ``prefill`` and written in place by ``decode_step``
-(repro's functions return a new cache each step).
+(repro's functions return a new cache each step). MoE layers run
+models/moe.py's ``moe_block``: the capacity path in ``forward`` and
+``prefill``, the dropless path in ``decode_step``, as in repro.
 
-Not ported yet (ROADMAP Queue 1): MoE layers (``moe`` must be None),
-``loss_fn`` (training), and repro's ``remat``, ``unroll_layers``,
-``moe_mesh`` and ``attn_impl`` options, which have no counterpart here.
+Not ported yet (ROADMAP Queue 1): ``loss_fn`` (training), the sharded
+MoE path, and repro's ``remat``, ``unroll_layers``, ``moe_mesh`` and
+``attn_impl`` options, which have no counterpart here.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Optional
+from typing import Optional
 
 import torch
 from torch import nn
@@ -32,6 +35,7 @@ from ..kernels.flash_decode.ops import flash_decode
 from .layers import (AttentionConfig, attention_block, attention_impl,
                      attention_params, attention_qkv, dense_init,
                      embed_init, mlp_block, mlp_params, rmsnorm)
+from .moe import MoEConfig, moe_block, moe_params
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,7 +52,7 @@ class TransformerConfig:
     qkv_bias: bool = False
     rope_theta: float = 10_000.0
     causal: bool = True
-    moe: Optional[Any] = None          # not ported: must stay None
+    moe: Optional[MoEConfig] = None
     dtype: torch.dtype = torch.float32  # parameter / activation dtype
 
     @property
@@ -58,20 +62,38 @@ class TransformerConfig:
                                self.causal)
 
     def n_params(self) -> int:
-        """Total parameter count."""
-        _check(self)
+        """Total parameter count (for roofline MODEL_FLOPS)."""
         d, dh = self.d_model, self.d_head
         attn = d * dh * (self.n_heads + 2 * self.n_kv) + self.n_heads * dh * d
         gated = self.act in ("swiglu", "geglu")
-        ffn = d * self.d_ff * (2 if gated else 1) + self.d_ff * d
-        return self.n_layers * (attn + ffn + 2 * d) + 2 * self.vocab * d + d
+        if self.moe:
+            f = self.moe.d_ff
+            ffn = self.moe.n_experts * (d * f * (2 if gated else 1) + f * d)
+            ffn += d * self.moe.n_experts          # router
+            if self.moe.n_shared:
+                fs = self.moe.n_shared * f
+                ffn += d * fs * (2 if gated else 1) + fs * d
+        else:
+            ffn = d * self.d_ff * (2 if gated else 1) + self.d_ff * d
+        per_layer = attn + ffn + 2 * d
+        return (self.n_layers * per_layer + 2 * self.vocab * d + d)
 
-
-def _check(cfg: TransformerConfig) -> None:
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE layers are not ported yet (ROADMAP Queue 1 "
-            f"item 11, models/moe.py)")
+    def n_active_params(self) -> int:
+        """Active params per token (MoE: top_k + shared experts only)."""
+        if not self.moe:
+            return self.n_params()
+        d = self.d_model
+        gated = 2 if self.act in ("swiglu", "geglu") else 1
+        f = self.moe.d_ff
+        per_tok_ffn = self.moe.top_k * (d * f * gated + f * d) \
+            + d * self.moe.n_experts
+        if self.moe.n_shared:
+            fs = self.moe.n_shared * f
+            per_tok_ffn += d * fs * gated + fs * d
+        dh = self.d_head
+        attn = d * dh * (self.n_heads + 2 * self.n_kv) + self.n_heads * dh * d
+        return self.n_layers * (attn + per_tok_ffn + 2 * d) \
+            + 2 * self.vocab * d + d
 
 
 class ParamModule(nn.Module):
@@ -91,10 +113,12 @@ class ParamModule(nn.Module):
 
 
 def layer_module(tensors: dict) -> ParamModule:
-    """One layer from {"ln1", "ln2", "attn": {...}, "mlp": {...}}."""
+    """One layer from {"ln1", "ln2", "attn": {...}, and "mlp": {...} or
+    "moe": {...}}."""
+    ffn = "moe" if "moe" in tensors else "mlp"
     return ParamModule({"ln1": tensors["ln1"], "ln2": tensors["ln2"]},
                        attn=ParamModule(tensors["attn"]),
-                       mlp=ParamModule(tensors["mlp"]))
+                       **{ffn: ParamModule(tensors[ffn])})
 
 
 def model_module(embed: torch.Tensor, layers: list, final_ln: torch.Tensor,
@@ -109,13 +133,17 @@ def model_module(embed: torch.Tensor, layers: list, final_ln: torch.Tensor,
 # ---------------------------------------------------------------------------
 def _layer_params(gen: torch.Generator, cfg: TransformerConfig,
                   device) -> dict:
-    return {
+    p = {
         "ln1": torch.ones((cfg.d_model,), dtype=cfg.dtype, device=device),
         "ln2": torch.ones((cfg.d_model,), dtype=cfg.dtype, device=device),
         "attn": attention_params(gen, cfg.attn, cfg.dtype, device),
-        "mlp": mlp_params(gen, cfg.d_model, cfg.d_ff, cfg.act, cfg.dtype,
-                          device),
     }
+    if cfg.moe:
+        p["moe"] = moe_params(gen, cfg.d_model, cfg.moe, cfg.dtype, device)
+    else:
+        p["mlp"] = mlp_params(gen, cfg.d_model, cfg.d_ff, cfg.act,
+                              cfg.dtype, device)
+    return p
 
 
 @torch.no_grad()
@@ -125,7 +153,6 @@ def init_params(cfg: TransformerConfig, seed: int = 0,
     = the card) from one ``torch.Generator`` there. JAX's PRNG cannot be
     reproduced: to compute repro's function, carry its params across with
     models/bridge.py."""
-    _check(cfg)
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     embed = embed_init(gen, cfg.vocab, cfg.d_model, cfg.dtype, device)
@@ -141,26 +168,37 @@ def init_params(cfg: TransformerConfig, seed: int = 0,
 # ---------------------------------------------------------------------------
 # forward
 # ---------------------------------------------------------------------------
+def _ffn(lp, h, cfg: TransformerConfig, dropless: bool = False):
+    """The layer's feed-forward block of h: (out, aux_loss). repro's
+    ``_moe_dispatch`` picks its sharded MoE path where a mesh allows; the
+    port has only ``moe_block``."""
+    if cfg.moe:
+        return moe_block(lp["moe"], h, cfg.moe, dropless=dropless)
+    return (mlp_block(lp["mlp"], h, cfg.act),
+            torch.zeros((), dtype=torch.float32, device=h.device))
+
+
 def _layer_fn(lp, x, cfg: TransformerConfig, positions):
     x = x + attention_block(lp["attn"], rmsnorm(x, lp["ln1"]), cfg.attn,
                             positions=positions)
-    return x + mlp_block(lp["mlp"], rmsnorm(x, lp["ln2"]), cfg.act)
+    f, aux = _ffn(lp, rmsnorm(x, lp["ln2"]), cfg)
+    return x + f, aux
 
 
 def forward(params, tokens: torch.Tensor, cfg: TransformerConfig,
             positions: Optional[torch.Tensor] = None
             ) -> tuple[torch.Tensor, torch.Tensor]:
-    """tokens (B, S) int -> (hidden (B, S, D), aux_loss). aux_loss is 0:
-    only MoE layers have one."""
-    _check(cfg)
+    """tokens (B, S) int -> (hidden (B, S, D), aux_loss). aux_loss sums
+    the MoE layers' load-balance losses (0 for a dense model)."""
     x = params["embed"][tokens]
     if positions is None:
         positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                                  device=x.device)[None, :]
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp in params["layers"]:
-        x = _layer_fn(lp, x, cfg, positions)
-    return (rmsnorm(x, params["final_ln"]),
-            torch.zeros((), dtype=torch.float32, device=x.device))
+        x, aux = _layer_fn(lp, x, cfg, positions)
+        aux_total = aux_total + aux
+    return rmsnorm(x, params["final_ln"]), aux_total
 
 
 def logits_fn(params, hidden: torch.Tensor) -> torch.Tensor:
@@ -189,7 +227,6 @@ def prefill(params, tokens: torch.Tensor, cfg: TransformerConfig,
     """Process the full prompt; return (last-position logits (B, V),
     cache {k, v: (L, B, KV, cache_size, Dh)}, cache_len). The cache holds
     the prompt's keys and values in [0, S) and zeros after."""
-    _check(cfg)
     b, s = tokens.shape
     if s > cache_size:
         raise ValueError(f"prefill: {s} tokens exceed cache_size "
@@ -207,7 +244,7 @@ def prefill(params, tokens: torch.Tensor, cfg: TransformerConfig,
         o = attention_impl(q, k, v, cfg.causal)
         o = o.transpose(1, 2).reshape(b, s, cfg.n_heads * cfg.d_head)
         x = x + torch.matmul(o, lp["attn"]["wo"])
-        x = x + mlp_block(lp["mlp"], rmsnorm(x, lp["ln2"]), cfg.act)
+        x = x + _ffn(lp, rmsnorm(x, lp["ln2"]), cfg)[0]
     hidden = rmsnorm(x[:, -1:], params["final_ln"])
     return logits_fn(params, hidden)[:, 0], {"k": ck, "v": cv}, s
 
@@ -217,8 +254,8 @@ def decode_step(params, tokens: torch.Tensor, cache: dict, cache_len: int,
     """One-token decode. tokens (B, 1); cache k/v (L, B, KV, S, Dh);
     cache_len = number of valid entries. Writes the new token's keys and
     values at ``cache_len`` IN PLACE and returns (logits (B, V), the same
-    cache, cache_len + 1)."""
-    _check(cfg)
+    cache, cache_len + 1). MoE layers route dropless: exact routing for
+    serving (t is tiny at decode)."""
     cache_len = int(cache_len)
     size = cache["k"].shape[3]
     if not 0 <= cache_len < size:
@@ -237,6 +274,6 @@ def decode_step(params, tokens: torch.Tensor, cache: dict, cache_len: int,
         o = flash_decode(q[:, :, 0], ck, cv, cache_len=cache_len + 1)
         o = o.reshape(b, 1, cfg.n_heads * cfg.d_head).to(x.dtype)
         x = x + torch.matmul(o, lp["attn"]["wo"])
-        x = x + mlp_block(lp["mlp"], rmsnorm(x, lp["ln2"]), cfg.act)
+        x = x + _ffn(lp, rmsnorm(x, lp["ln2"]), cfg, dropless=True)[0]
     hidden = rmsnorm(x, params["final_ln"])
     return logits_fn(params, hidden)[:, 0], cache, cache_len + 1

@@ -207,15 +207,42 @@ def test_decode_continues_prefill():
                                atol=1e-4)
 
 
-def test_moe_raises():
-    _, pcfg = configs()
-    moe = dataclasses.replace(pcfg, moe=MoEConfig(n_experts=4, top_k=2,
-                                                  d_ff=32))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-        pt.init_params(moe, device="cpu")
-    params = pt.init_params(pcfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="moe"):
-        pt.forward(params, torch.zeros((1, 4), dtype=torch.int64), moe)
+@pytest.mark.parametrize("dropless_prefill", [False, True],
+                         ids=["capacity", "no-drops"])
+def test_moe_model_matches_repro(dropless_prefill):
+    """A MoE TransformerConfig runs forward, prefill and decode_step and
+    matches repro: the capacity path in forward and prefill (drops
+    included at capacity_factor 1.0), the dropless path in decode."""
+    cf = 8.0 if dropless_prefill else 1.0
+    moe = MoEConfig(n_experts=6, top_k=2, d_ff=32, n_shared=1,
+                    capacity_factor=cf)
+    rcfg, pcfg = configs(moe=moe)
+    pcfg = dataclasses.replace(pcfg, moe=pt.MoEConfig(
+        **dataclasses.asdict(moe)))
+    rp, npp = repro_params(rcfg, 12)
+    params = params_from_repro(npp, pcfg, "cpu")
+    assert params["layers"][0]["moe"]["w_in"].shape[0] == 16
+    t = tokens(2, 24, 512, 13)
+    h, aux = pt.forward(params, torch.from_numpy(t), pcfg)
+    rh, raux = rt.forward(rp, jnp.asarray(t), rcfg)
+    np.testing.assert_allclose(h.numpy(), np.asarray(rh), **TOL)
+    np.testing.assert_allclose(float(aux), float(raux), rtol=1e-5,
+                               atol=1e-7)
+    assert float(aux) > 0
+    logits, cache, n = pt.prefill(params, torch.from_numpy(t[:, :20]), pcfg,
+                                  24)
+    rl_, rc, rn = rt.prefill(rp, jnp.asarray(t[:, :20]), rcfg, 24)
+    np.testing.assert_allclose(logits.numpy(), np.asarray(rl_), **TOL)
+    for i in range(20, 24):
+        logits, cache, n = pt.decode_step(
+            params, torch.from_numpy(t[:, i:i + 1]), cache, n, pcfg)
+        rl_, rc, rn = rt.decode_step(rp, jnp.asarray(t[:, i:i + 1]), rc, rn,
+                                     rcfg)
+        np.testing.assert_allclose(logits.numpy(), np.asarray(rl_), **TOL)
+    assert n == int(rn) == 24
+    for key in ("k", "v"):
+        np.testing.assert_allclose(cache[key].numpy(), np.asarray(rc[key]),
+                                   **TOL)
 
 
 def test_bridge_round_trips():

@@ -266,7 +266,8 @@ def test_score_candidates_matches_both_branches(n, k, n_blocks):
 # registry and cell bundles
 # ---------------------------------------------------------------------------
 def test_registry_matches_repro_recsys_cells():
-    assert list_archs() == ARCHS
+    assert [a for a in list_archs() if get_arch(a).family == "recsys"] == \
+        ARCHS
     for arch in ARCHS:
         ours, theirs = get_arch(arch), repro_get_arch(arch)
         assert ours.source == theirs.source
@@ -281,10 +282,11 @@ def test_registry_matches_repro_recsys_cells():
                     assert a[name].shape == tuple(b[name].shape)
                     assert str(a[name].dtype).removeprefix("torch.") == \
                         np.dtype(b[name].dtype).name
-    assert len(all_cells()) == 16
+    assert len(RECSYS_CELLS) == 16
 
 
-SERVE_CELLS = [c for c in all_cells() if c.kind != "train"]
+RECSYS_CELLS = [c for c in all_cells() if c.arch in ARCHS]
+SERVE_CELLS = [c for c in RECSYS_CELLS if c.kind != "train"]
 
 
 @pytest.mark.parametrize("cell", SERVE_CELLS, ids=lambda c: c.key)
@@ -321,8 +323,8 @@ def test_build_cell_refuses_what_is_not_ported():
     with pytest.raises(NotImplementedError, match="item 12"):
         steps.build_cell("dlrm-mlperf", "train_batch", reduced=True,
                          device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1"):
-        steps.build_cell("mistral-nemo-12b", "prefill_32k", device="cpu")
+    with pytest.raises(NotImplementedError, match="item 12"):
+        steps.build_cell("schnet", "full_graph_sm", device="cpu")
 
 
 def test_seeded_init_shapes():
