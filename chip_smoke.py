@@ -17,7 +17,9 @@ MLPerf widths, FM, Wide&Deep, BERT4Rec) serving on the card, and the
 shard fabric: sharded lakes on the card against one lake, through
 background maintenance, a shard down, an online split and a repair; and
 the LM family's serving cells, Qwen2-MoE-A2.7B at full width and depth
-through ``build_cell``, with the MoE layer's capacity dispatch.
+through ``build_cell``, with the MoE layer's capacity dispatch; and the
+train cells of the LM and recsys families on the card, with the
+hand-written backward kernels of attention and the embedding bag.
 
 Phases (any failure stops the script with a non-zero exit):
   1. setup: card name and power limit, kernel build time, and ptxas's
@@ -119,6 +121,25 @@ Phases (any failure stops the script with a non-zero exit):
      decode with finite logits. Its serving runs' launches are added to
      the two attention kernels' "launches" below; a ``{"phase9": ...}``
      line gives the weight and cache bytes and every cut (``reduced``).
+  10. training on the card: the two backward kernels
+     (``flash_attention_bwd``, ``embedding_bag_bwd``) against their plain
+     versions at the shapes of the three train cells, small fp32 cases
+     at D 64 and 128 and rows that see no key (two runs of each bit for
+     bit; the forward's output with its lse equal to the serving output),
+     timed against the plain versions and the library's backward (SDPA,
+     26 ``F.embedding_bag``); then the train cells through ``build_cell``:
+     Mistral-NeMo-12B train_4k at full width, 8 of 40 layers, 3 AdamW
+     steps of 8 x 4096 tokens in 8 microbatches with remat (host s,
+     tokens/s, peak memory, launches a step, the step's bound), and one
+     step at 2 layers in fp32 (1 x 512) card vs CPU; DLRM train_batch
+     (65,536) over tables capped at 4M rows, 3 steps on uniform ids and
+     1 on the smoke batch (every id below 3), and one step card vs CPU
+     on compact tables; BERT4Rec train_batch in 256 microbatches of 256
+     x 200, then a resume check (a Trainer with checkpoints: 2 steps,
+     save, restore, 2 more, equal to 4 straight bit for bit). The cells'
+     steps are the backward kernels' "launches" below, and add to the
+     forward kernels'; a ``{"phase10": ...}`` line gives each cell's
+     losses, step times, peak memory and cuts (``reduced``).
 It prints a ``{"kernels": [...]}`` line, then, last, the one-line
 ``{"ok": true, "device": {...}}`` result. Without a CUDA device, or
 without the package beside it, it exits non-zero and prints no result.
@@ -167,6 +188,15 @@ KERNELS = {
                      "src/repro/kernels/flash_decode/flash_decode.py:25"),
     "embedding_bag": ("src/repro_torch/csrc/embedding_bag.cu",
                       "src/repro/kernels/embedding_bag/embedding_bag.py:20"),
+    # backward kernels: repro differentiates its references with XLA
+    "flash_attention_bwd": (
+        "src/repro_torch/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention/flash_attention.py:27 (its "
+        "backward; no Pallas counterpart)"),
+    "embedding_bag_bwd": (
+        "src/repro_torch/csrc/embedding_bag.cu",
+        "src/repro/kernels/embedding_bag/embedding_bag.py:20 (its "
+        "backward; no Pallas counterpart)"),
 }
 TILE_KERNELS = ("topk_search", "temporal_window_topk", "topk_search_q8",
                 "temporal_window_topk_q8")
@@ -185,7 +215,12 @@ PTXAS_REPORT = (("flash_attention", "fa_wgmma_kernel"),
                 ("topk_search", "select_above_kernel"),
                 ("topk_search", "select_ties_kernel"),
                 ("topk_search", "select_order_kernel"),
-                ("embedding_bag", "embedding_bag_kernel"))
+                ("embedding_bag", "embedding_bag_kernel"),
+                ("flash_attention", "bwd_delta_kernel"),
+                ("flash_attention", "bwd_dkdv_kernel"),
+                ("flash_attention", "bwd_dq_kernel"),
+                ("embedding_bag", "bag_bwd_chunks"),
+                ("embedding_bag", "bag_bwd_rows"))
 
 
 def ptxas_lines(log_text: str, kernel: str) -> list[str]:
@@ -2883,6 +2918,567 @@ def phase_lm(torch, dev, kern: dict) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 10: training on the card
+# ---------------------------------------------------------------------------
+NEMO = "mistral-nemo-12b"
+NEMO_TRAIN = dict(layers=8, batch=8, steps=3)   # of 40 layers, 256 rows
+TRAIN_DLRM_ROWS = 4_000_000     # phase 10's DLRM tables, each capped here
+BERT4REC_ACCUM = 256            # microbatches of 256 x 200 (repro: 16)
+BERT4REC_STEP_S = 10.0          # a slower step cuts the global batch
+# DLRM's grads card vs CPU: relative L2 (PERF.md section 2: ReLU kinks;
+# the CPU's own fp32 against fp64 measured up to 2.0e-3 at 4096 samples)
+DLRM_REL_L2 = 1e-2
+
+
+class registered:
+    """Within the block, ``get_arch(arch).model_config`` returns ``cfg``
+    (a cut of the published config: depth, or table rows), so that
+    ``build_cell`` builds the cell over it."""
+
+    def __init__(self, arch: str, cfg):
+        from repro_torch.configs import base
+        base.get_arch(arch)
+        self.base, self.arch, self.cfg = base, arch, cfg
+
+    def __enter__(self):
+        self.saved = self.base._REGISTRY[self.arch]
+        self.base._REGISTRY[self.arch] = dataclasses.replace(
+            self.saved, model_config=lambda reduced=False: self.cfg)
+
+    def __exit__(self, *exc):
+        self.base._REGISTRY[self.arch] = self.saved
+
+
+def peak_gb(torch) -> float:
+    return torch.cuda.max_memory_allocated() / 1e9
+
+
+class BackwardCheck:
+    """Holds the two backward kernels against their plain versions on the
+    card and times them, the plain versions and the library's backward on
+    the same inputs. Attention: ``testing.grads_agree`` (fp32 within 1e-4
+    of each tensor's largest; bf16 within one rounding step of each value
+    plus 1e-4 of its row's largest, floored at 1e-2 of the tensor's),
+    the output with lse equal to the serving output bit for bit. The bag:
+    bit for bit where every bag has one slot, else within 1e-5 of the sum
+    of |coef * g| over each row's slots. Two runs of each backward bit for
+    bit."""
+
+    def __init__(self, torch, dev, seed: int):
+        self.torch, self.dev = torch, dev
+        self.gen = torch.Generator(device=dev).manual_seed(seed)
+        self.out = {name: {"err": 0.0, "times": []}
+                    for name in ("flash_attention_bwd", "embedding_bag_bwd")}
+
+    def randn(self, shape, dtype):
+        return self.torch.randn(shape, generator=self.gen,
+                                device=self.dev).to(dtype)
+
+    def row(self, name, what, err, fn, plain, library, in_bytes, out_bytes,
+            flops, peak, iters, plain_iters, **extra):
+        torch = self.torch
+        self.out[name]["err"] = max(self.out[name]["err"], err)
+        t = cuda_ms(torch, fn, iters)
+        tp = cuda_ms(torch, plain, plain_iters, 1)
+        tl = cuda_ms(torch, library, iters, 1)
+        b, by = bound_ms(in_bytes, out_bytes, flops, peak)
+        self.out[name]["times"].append(dict(
+            what=what, ms=t, plain_ms=tp, library_ms=tl, bound_ms=b,
+            bound_by=by, max_abs_err=err, **extra))
+
+    def attention(self, what, shape, dtype, causal, iters):
+        """Shape (B, H, KV, Sq, Skv, D)."""
+        import torch.nn.functional as F
+
+        from repro_torch.kernels.flash_attention import ops as fa
+        from repro_torch.kernels.flash_attention.plain import (
+            flash_attention_bwd_plain)
+        from repro_torch.testing import grads_agree
+
+        torch = self.torch
+        b, h, kv, sq, skv, d = shape
+        q, do = (self.randn((b, h, sq, d), dtype) for _ in range(2))
+        k, v = (self.randn((b, kv, skv, d), dtype) for _ in range(2))
+        o, lse = fa.flash_attention_with_lse(q, k, v, causal)
+        check(torch.equal(o, fa.flash_attention(q, k, v, causal)),
+              f"flash_attention {what}: the output with lse differs from "
+              f"the serving output")
+        got = fa.flash_attention_bwd(q, k, v, o, do, lse, causal)
+        again = fa.flash_attention_bwd(q, k, v, o, do, lse, causal)
+        check(all(torch.equal(x, y) for x, y in zip(got, again)),
+              f"flash_attention_bwd {what}: two runs differ")
+        want = flash_attention_bwd_plain(q, k, v, o, do, lse, causal)
+        err, worst = 0.0, 0.0
+        for name, x, y in zip(("dq", "dk", "dv"), got, want):
+            check(bool(torch.isfinite(x).all()),
+                  f"flash_attention_bwd {what}: {name} not finite")
+            ok, ratio = grads_agree(x, y, dtype == torch.bfloat16)
+            check(ok, f"flash_attention_bwd {what}: {name} is {ratio:.3g} "
+                      f"x its limit from plain")
+            err = max(err, float((x.float() - y.float()).abs().max()))
+            worst = max(worst, ratio)
+        if causal and sq > skv:
+            check(float(got[0][:, :, :sq - skv].abs().max()) == 0.0,
+                  f"flash_attention_bwd {what}: a row with no key has a "
+                  f"gradient")
+        del want
+        leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+        try:
+            out = F.scaled_dot_product_attention(*leaves, is_causal=causal,
+                                                 enable_gqa=True)
+        except TypeError:       # a torch without enable_gqa: repeat k, v
+            rep = [leaves[0]] + [x.repeat_interleave(h // kv, 1)
+                                 for x in leaves[1:]]
+            out = F.scaled_dot_product_attention(*rep, is_causal=causal)
+        es = q.element_size()
+        pairs = b * h * visible_pairs(sq, skv, causal)
+        self.row("flash_attention_bwd", what, err,
+                 lambda: fa.flash_attention_bwd(q, k, v, o, do, lse, causal),
+                 lambda: flash_attention_bwd_plain(q, k, v, o, do, lse,
+                                                   causal),
+                 lambda: torch.autograd.grad(out, leaves, do,
+                                             retain_graph=True),
+                 (3 * b * h * sq + 2 * b * kv * skv) * d * es + b * h * sq * 4,
+                 (b * h * sq + 2 * b * kv * skv) * d * es, 10 * pairs * d,
+                 BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS,
+                 iters, 1, dtype=str(dtype).removeprefix("torch."),
+                 err_over_limit=worst)
+        del out, leaves
+        torch.cuda.empty_cache()
+
+    def bag(self, what, sizes, b, bag, combiner, weighted, hot, iters):
+        """One grouped backward over tables of ``sizes`` rows (D 128,
+        fp32), ids uniform over each table (``hot``: below 3, the smoke
+        batch's), g the slice [:, 1:] of a (B, F + 1, D) stack as DLRM's
+        backward hands it over."""
+        import torch.nn.functional as F
+
+        from repro_torch.kernels.embedding_bag import ops as eb
+        from repro_torch.kernels.embedding_bag.plain import (
+            embedding_bag_backward_plain)
+
+        torch = self.torch
+        f, d = len(sizes), 128
+        hi = [3 if hot else n for n in sizes]
+        ids = torch.stack([torch.randint(0, n, (b, bag), generator=self.gen,
+                                         device=self.dev, dtype=torch.int32)
+                           for n in hi], 1)
+        w = torch.rand((b, f, bag), generator=self.gen, device=self.dev) \
+            if weighted else None
+        g = self.randn((b, f + 1, d), torch.float32)[:, 1:]
+        got = eb.embedding_bag_grouped_bwd(sizes, torch.float32, ids, w,
+                                           combiner, g)
+        check(torch.equal(got, eb.embedding_bag_grouped_bwd(
+            sizes, torch.float32, ids, w, combiner, g)),
+            f"embedding_bag_bwd {what}: two runs differ")
+        want = embedding_bag_backward_plain(sizes, torch.float32, ids, w,
+                                            combiner, g)
+        same = torch.equal(got, want)
+        if bag == 1:
+            check(same, f"embedding_bag_bwd {what}: one-slot bags differ "
+                        f"from plain")
+        else:
+            ones = torch.ones_like(ids, dtype=torch.float32)
+            mag = embedding_bag_backward_plain(
+                sizes, torch.float32, ids, ones if w is None else w,
+                combiner, g.abs())
+            check(bool(((got - want).abs() <= 1e-5 * mag).all()),
+                  f"embedding_bag_bwd {what}: beyond 1e-5 of sum |w g|")
+            del mag
+        err = float((got - want).abs().max())
+        del want
+        rows, n = sum(sizes), int((ids >= 0).sum())
+        # the library: one F.embedding_bag backward a table (its dense
+        # gradient), the 26 in turn
+        tabs = [torch.empty((r, d), device=self.dev).requires_grad_(True)
+                for r in sizes]
+        outs = [F.embedding_bag(ids[:, i], t, mode=combiner,
+                                per_sample_weights=None if w is None
+                                else w[:, i]) for i, t in enumerate(tabs)]
+
+        def library():
+            for i in range(f):
+                torch.autograd.grad(outs[i], tabs[i], g[:, i],
+                                    retain_graph=True)
+
+        self.row("embedding_bag_bwd", what, err,
+                 lambda: eb.embedding_bag_grouped_bwd(
+                     sizes, torch.float32, ids, w, combiner, g),
+                 lambda: embedding_bag_backward_plain(
+                     sizes, torch.float32, ids, w, combiner, g),
+                 library, b * f * d * 4 + ids.numel() * 4
+                 + (0 if w is None else w.numel() * 4), rows * d * 4,
+                 2 * n * d, FP32_FLOPS, iters, 1, bit_for_bit=same)
+        del got, tabs, outs
+        torch.cuda.empty_cache()
+
+    def log_rows(self) -> None:
+        for name, r in self.out.items():
+            for row in r["times"]:
+                log(f"  {name}: " + " ".join(
+                    f"{key}={val:.4g}" if isinstance(val, float) else
+                    f"{key}={val}" for key, val in row.items()))
+            log(f"  {name}: max_abs_err={r['err']:.3g}")
+
+
+def dlrm_train_config():
+    from repro_torch.configs.dlrm_mlperf import CONFIG
+    return dataclasses.replace(CONFIG, table_sizes=tuple(
+        min(v, TRAIN_DLRM_ROWS) for v in CONFIG.table_sizes))
+
+
+def phase_train_kernels(torch, dev) -> dict:
+    """The backward kernels at the shapes of phase 10's cells, small fp32
+    cases at D 64 and 128, and rows that see no key."""
+    from repro_torch.configs import get_arch
+
+    chk = BackwardCheck(torch, dev, SEED + 20)
+    nemo = get_arch(NEMO).model_config(False)
+    for what, shape, dtype, causal, iters in (
+            ("nemo train_4k", (1, nemo.n_heads, nemo.n_kv, 4096, 4096,
+                               nemo.d_head), torch.bfloat16, True, 3),
+            ("bert4rec train 256x200", (256, 2, 2, 200, 200, 32),
+             torch.float32, False, 5),
+            ("fp32 D64 causal", (2, 8, 2, 256, 256, 64), torch.float32, True,
+             5),
+            ("fp32 D128 causal", (1, 4, 4, 256, 256, 128), torch.float32,
+             True, 5),
+            ("empty rows 300x100", (1, 4, 2, 300, 100, 64), torch.float32,
+             True, 5)):
+        chk.attention(what, shape, dtype, causal, iters)
+    from repro_torch.configs.recsys_family import RECSYS_SHAPES
+
+    sizes = dlrm_train_config().padded_table_sizes
+    b = RECSYS_SHAPES["train_batch"]["batch"]
+    chk.bag("dlrm train_batch", sizes, b, 1, "sum", False, False, 5)
+    chk.bag("dlrm train_batch hot", sizes, b, 1, "sum", False, True, 5)
+    chk.bag("multi-hot 4096x20 weighted", sizes, 4096, 20, "sum",
+            True, False, 5)
+    chk.log_rows()
+    return chk.out
+
+
+def train_steps(torch, what: str, cell, params, opt_state, batches: list,
+                tokens: int, counters: dict, main: dict,
+                first_step: int = 0) -> tuple[list, list]:
+    """``cell.fn`` on each batch in turn, the main path of phase 10: the
+    launch counts are set to 0 before each step and read after it, into
+    ``main``. Logs each step's host s, tokens (or samples) a second, peak
+    memory and launches. Returns (losses, host ms)."""
+    losses, hosts = [], []
+    for i, batch in enumerate(batches):
+        for m, a in counters.values():
+            setattr(m, a, 0)
+        torch.cuda.reset_peak_memory_stats()
+        step = torch.tensor(first_step + i, dtype=torch.int32,
+                            device=cell.device)
+        (params, opt_state, loss), host, _, _ = timed(
+            torch, lambda: cell.fn(params, opt_state, batch, step))
+        made = {k: getattr(m, a) for k, (m, a) in counters.items()}
+        for k, n in made.items():
+            main[k] += n
+        loss = float(loss)
+        check(math.isfinite(loss), f"{what} step {i}: loss {loss}")
+        losses.append(loss)
+        hosts.append(host)
+        log(f"  {what} step {first_step + i + 1}: loss {loss:.5f}, host "
+            f"{host / 1e3:.3f} s, {tokens / host * 1e3:.0f} a second, peak "
+            f"{peak_gb(torch):.2f} GB, launches {made}")
+    return losses, hosts
+
+
+def grads_card_vs_cpu(torch, what: str, loss, params, batch, cpu_params,
+                      cpu_batch, rows=None, rel_l2=None) -> None:
+    """One step's loss and gradients on the card against the same on the
+    CPU (plain versions): the loss within 1e-4 relative, and every leaf
+    within 1e-4 of its largest |value|; or, with ``rel_l2``, within that
+    relative L2 distance (a ReLU network: a unit whose pre-activation is
+    within rounding of 0 switches its gradient on or off, so a few
+    samples' terms differ whole; see PERF.md section 2). ``rows`` maps a
+    leaf name to the card rows its CPU leaf holds (compact tables); the
+    card's other rows must be 0."""
+    from repro_torch.train.train_loop import value_and_grad
+    from repro_torch.train.tree import leaves
+
+    l_card, g_card = value_and_grad(loss, params, batch)
+    l_cpu, g_cpu = value_and_grad(loss, cpu_params, cpu_batch)
+    check(abs(float(l_card) - float(l_cpu)) <= 1e-4 * max(1.0, abs(float(
+        l_cpu))), f"{what}: loss {float(l_card)} card, {float(l_cpu)} CPU")
+    worst, worst_max, cpu = 0.0, 0.0, dict(leaves(g_cpu))
+    for name, g in leaves(g_card):
+        want = cpu[name]
+        if rows and name in rows:
+            full = g
+            g = g[rows[name]]
+            check(abs(float(full.abs().sum()) - float(g.abs().sum()))
+                  <= 1e-6 * max(1.0, float(g.abs().sum())),
+                  f"{what}: {name} has gradient outside the batch's rows")
+        g = g.detach().cpu()
+        top = float(want.abs().max())
+        err = float((g - want).abs().max())
+        by_max = err / (1e-4 * top) if top > 0 else (0.0 if err == 0 else
+                                                      float("inf"))
+        worst_max = max(worst_max, by_max)
+        if rel_l2 is None:
+            ratio = by_max
+        else:
+            norm = float(torch.linalg.vector_norm(want))
+            dist = float(torch.linalg.vector_norm(g - want))
+            ratio = dist / (rel_l2 * norm) if norm > 0 else (
+                0.0 if dist == 0 else float("inf"))
+        check(ratio <= 1.0, f"{what}: {name} card vs CPU is {ratio:.3g} x "
+                            f"its limit")
+        worst = max(worst, ratio)
+    rule = "1e-4 of its largest" if rel_l2 is None else \
+        f"{rel_l2:g} relative L2 (by 1e-4 of the largest: {worst_max:.3g} x)"
+    log(f"  {what}: card vs CPU loss {float(l_card):.6f} / "
+        f"{float(l_cpu):.6f}; every grad within {worst:.3g} x {rule}")
+
+
+def phase_train_nemo(torch, dev, reduced: list, counters: dict,
+                     main: dict) -> dict:
+    """Mistral-NeMo-12B train_4k at full width, 8 of 40 layers, through
+    ``build_cell``: AdamW, 8 sequences of 4096 in 8 microbatches, remat;
+    then one step at 2 layers in fp32 (seq 512) card vs CPU."""
+    from repro_torch.configs.mistral_nemo_12b import CONFIG
+    from repro_torch.launch.steps import build_cell, make_smoke_args
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.bridge import train_tree
+
+    cfg = dataclasses.replace(CONFIG, n_layers=NEMO_TRAIN["layers"])
+    with registered(NEMO, cfg):
+        cell = build_cell(NEMO, "train_4k", device=dev)
+    check(cell.accum == 8 and cell.optimizer == "adamw" and cfg.remat,
+          f"{NEMO} train_4k: accum {cell.accum}, {cell.optimizer}")
+    t = time.perf_counter()
+    params = train_tree(tfm.init_params(cfg, seed=SEED + 21, device=dev))
+    params, opt_state, batch, _ = make_smoke_args(cell, seed=SEED + 21,
+                                                  params=params)
+    n = NEMO_TRAIN["batch"]
+    batch = {k: v[:n] for k, v in batch.items()}
+    torch.cuda.synchronize()
+    state = sum(p.numel() * p.element_size() for p in _leaves(params)) \
+        + sum(p.numel() * 4 for p in _leaves(params)) * 2
+    log(f"  {NEMO} train_4k: {cfg.n_params()} parameters, "
+        f"{state} bytes of params and AdamW state made in "
+        f"{time.perf_counter() - t:.1f} s; batch {n} x 4096, "
+        f"{cell.accum} microbatches of {n // cell.accum}")
+    seq = batch["tokens"].shape[1]
+    pairs = cfg.n_heads * visible_pairs(seq, seq, True) * n
+    flops = 6 * cfg.n_params() * n * seq + 14 * pairs * cfg.d_head \
+        * cfg.n_layers
+    bound = flops / BF16_FLOPS * 1e3
+    losses, hosts = train_steps(torch, f"{NEMO} train_4k", cell, params,
+                                opt_state, [batch] * NEMO_TRAIN["steps"],
+                                n * seq, counters, main)
+    log(f"  {NEMO} train_4k bound: {bound:.1f} ms a step (6 N tokens + "
+        f"causal attention forward and backward, {flops:.4g} FLOPs at "
+        f"989 TFLOP/s)")
+    reduced.append(f"{NEMO} train_4k: 40 -> {cfg.n_layers} layers; global "
+                   f"batch 256 -> {n} (accum 8 kept: microbatch 1 x 4096)")
+    out = dict(step_bound_ms=bound, losses=losses,
+               host_s=[h / 1e3 for h in hosts], peak_gb=peak_gb(torch))
+    del params, opt_state, batch, cell
+    torch.cuda.empty_cache()
+
+    # one step at 2 layers, fp32, sequence 512: card vs CPU
+    cfg = dataclasses.replace(CONFIG, n_layers=2, dtype=torch.float32)
+    params = train_tree(tfm.init_params(cfg, seed=SEED + 22, device=dev))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 22)
+    batch = {"tokens": torch.randint(4, cfg.vocab, (1, 512), generator=gen,
+                                     device=dev, dtype=torch.int32),
+             "labels": torch.randint(0, cfg.vocab, (1, 512), generator=gen,
+                                     device=dev, dtype=torch.int32)}
+    t = time.perf_counter()
+    grads_card_vs_cpu(torch, f"{NEMO} 2 layers fp32 1 x 512",
+                      lambda p, b: tfm.loss_fn(p, b, cfg), params, batch,
+                      _tree_cpu(params), {k: v.cpu() for k, v in
+                                          batch.items()})
+    log(f"  ({time.perf_counter() - t:.1f} s)")
+    reduced.append(f"{NEMO} card vs CPU: 2 layers, fp32, 1 x 512 tokens")
+    del params
+    torch.cuda.empty_cache()
+    return out
+
+
+def _leaves(tree):
+    from repro_torch.train.tree import tensors
+    return list(tensors(tree))
+
+
+def _tree_cpu(tree):
+    from repro_torch.train.tree import tree_map
+    return tree_map(lambda t: t.detach().cpu(), tree)
+
+
+def phase_train_dlrm(torch, dev, reduced: list, counters: dict,
+                     main: dict) -> dict:
+    """DLRM train_batch at MLPerf widths over tables capped at 4M rows:
+    3 steps on ids uniform over each table, 1 on the smoke batch (every
+    id below 3); then one step's grads card vs CPU on compact tables of
+    a 4096-sample batch's rows."""
+    from repro_torch.launch.steps import build_cell, make_smoke_args
+    from repro_torch.models import recsys as rm
+    from repro_torch.models.bridge import train_tree
+
+    cfg = dlrm_train_config()
+    with registered("dlrm-mlperf", cfg):
+        cell = build_cell("dlrm-mlperf", "train_batch", device=dev)
+    t = time.perf_counter()
+    params = train_tree(rm.dlrm_init(cfg, seed=SEED + 23, device=dev))
+    params, opt_state, hot, _ = make_smoke_args(cell, seed=SEED + 23,
+                                                params=params)
+    torch.cuda.synchronize()
+    rows = sum(cfg.padded_table_sizes)
+    log(f"  dlrm-mlperf train_batch: {rows} table rows "
+        f"({rows * cfg.embed_dim * 4} bytes), params and AdamW state made "
+        f"in {time.perf_counter() - t:.1f} s")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 24)
+    b = hot["dense"].shape[0]
+
+    def uniform(bsz):
+        return {"dense": torch.rand((bsz, cfg.n_dense), generator=gen,
+                                    device=dev),
+                "sparse_ids": torch.stack([torch.randint(
+                    0, v, (bsz, 1), generator=gen, device=dev,
+                    dtype=torch.int32) for v in cfg.table_sizes], 1),
+                "labels": torch.randint(0, 2, (bsz,), generator=gen,
+                                        device=dev).float()}
+
+    losses, hosts = train_steps(torch, "dlrm-mlperf train_batch", cell,
+                                params, opt_state,
+                                [uniform(b) for _ in range(3)], b, counters,
+                                main)
+    more, h2 = train_steps(torch, "dlrm-mlperf train_batch (smoke batch: "
+                           "ids below 3)", cell, params, opt_state, [hot], b,
+                           counters, main, first_step=3)
+    out = dict(losses=losses + more, host_s=[h / 1e3 for h in hosts + h2],
+               peak_gb=peak_gb(torch))
+    reduced.append(f"dlrm-mlperf train_batch: tables capped at "
+                   f"{TRAIN_DLRM_ROWS} rows ({rows} rows, "
+                   f"{rows * cfg.embed_dim * 4 / 1e9:.1f} GB a copy)")
+
+    # card vs CPU on compact tables of a 4096-sample batch's rows
+    batch = uniform(4096)
+    cpu_tables, rows_of = {}, {}
+    ids = batch["sparse_ids"]
+    cpu_ids = []
+    for f in range(cfg.n_sparse):
+        name = f"table_{f}"
+        uniq, inv = torch.unique(ids[:, f], return_inverse=True)
+        cpu_tables[name] = params["tables"][name][uniq.long()].detach().cpu()
+        rows_of[f"['tables']['{name}']"] = uniq.long()
+        cpu_ids.append(inv.cpu())
+    cpu_params = {"tables": cpu_tables, "bot": _tree_cpu(params["bot"]),
+                  "top": _tree_cpu(params["top"])}
+    cpu_batch = {"dense": batch["dense"].cpu(),
+                 "sparse_ids": torch.stack(cpu_ids, 1).to(torch.int32),
+                 "labels": batch["labels"].cpu()}
+    grads_card_vs_cpu(torch, "dlrm-mlperf 4096 samples",
+                      lambda p, bb: rm.dlrm_loss(p, cfg, bb), params, batch,
+                      cpu_params, cpu_batch, rows_of, rel_l2=DLRM_REL_L2)
+    del params, opt_state, hot, batch, cell
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_bert4rec(torch, dev, reduced: list, counters: dict,
+                         main: dict) -> dict:
+    """BERT4Rec train_batch (65,536 x 200) through ``build_cell`` in
+    microbatches of 256: 2 steps (a first step over BERT4REC_STEP_S cuts
+    the global batch of the second); then the resume check: a Trainer
+    with a CheckpointManager, 4 steps straight against 2, a checkpoint,
+    a fresh Trainer restored from it and 2 more, bit for bit."""
+    from repro_torch.launch.steps import build_cell, make_smoke_args
+    from repro_torch.train.optimizer import adamw
+    from repro_torch.train.train_loop import Trainer
+    from repro_torch.train.tree import leaves, tree_map
+
+    cell = build_cell("bert4rec", "train_batch", device=dev,
+                      accum=BERT4REC_ACCUM)
+    params, opt_state, batch, _ = make_smoke_args(cell, seed=SEED + 25)
+    b, s = batch["tokens"].shape
+    p0 = tree_map(lambda t: t.detach().clone(), params)
+    losses, hosts = train_steps(torch, "bert4rec train_batch", cell, params,
+                                opt_state, [batch], b * s, counters, main)
+    reduced.append(f"bert4rec train_batch: accum 16 -> {BERT4REC_ACCUM} "
+                   f"(microbatch 4096 x 200 -> 256 x 200: 6.2 GB of fp32 "
+                   f"logits, not 99 GB)")
+    second = batch
+    if hosts[0] > BERT4REC_STEP_S * 1e3:
+        cut = max(256, int(b * BERT4REC_STEP_S * 1e3 / hosts[0]) // 256
+                  * 256)
+        cell = build_cell("bert4rec", "train_batch", device=dev,
+                          accum=cut // 256)
+        second = {k: v[:cut] for k, v in batch.items()}
+        reduced.append(f"bert4rec train_batch: step 1 took "
+                       f"{hosts[0] / 1e3:.1f} s > {BERT4REC_STEP_S} s: step "
+                       f"2's global batch 65536 -> {cut}")
+    more, h2 = train_steps(torch, "bert4rec train_batch", cell, params,
+                           opt_state, [second], second["tokens"].numel(),
+                           counters, main, first_step=1)
+    out = dict(losses=losses + more, host_s=[h / 1e3 for h in hosts + h2],
+               peak_gb=peak_gb(torch))
+    del params, opt_state
+
+    small = [{k: v[i * 128:(i + 1) * 128] for k, v in batch.items()}
+             for i in range(4)]
+
+    def fresh():
+        return tree_map(lambda t: t.clone(), p0)
+
+    one = Trainer(cell.loss, adamw(), fresh())
+    one.run(small, n_steps=4)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-ck-") as d:
+        two = Trainer(cell.loss, adamw(), fresh(), d, checkpoint_every=2)
+        two.run(small[:2], n_steps=2)              # an async save at 2
+        three = Trainer(cell.loss, adamw(), fresh(), d)
+        check(three.try_restore() and three.state.step == 2,
+              "resume: no checkpoint at step 2")
+        three.run(small[2:], n_steps=2)
+    for a, b_ in ((one.state.params, three.state.params),
+                  (one.state.opt_state, three.state.opt_state)):
+        for (name, x), (_, y) in zip(leaves(a), leaves(b_)):
+            check(torch.equal(x, y), f"resume: {name} differs from the "
+                                     f"run without a restart")
+    log(f"  resume (bert4rec, 4 steps of 128 x 200, AdamW): params and "
+        f"state after 2 + checkpoint + restore + 2 equal those of 4 "
+        f"straight, bit for bit; losses "
+        f"{[round(h['loss'], 6) for h in one.history]}")
+    del one, two, three, batch, small, p0
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train(torch, dev, kern: dict) -> dict:
+    """Phase 10. Returns the launches of the forward and backward kernels
+    on the train path: the three cells' steps (each step's counts read
+    from 0), not the checks."""
+    from repro_torch.kernels.embedding_bag import ops as eb
+    from repro_torch.kernels.flash_attention import ops as fa
+
+    t0 = time.perf_counter()
+    reduced: list = []
+    kern.update(phase_train_kernels(torch, dev))
+    torch.cuda.empty_cache()
+    counters = {"flash_attention": (fa, "launches"),
+                "flash_attention_bwd": (fa, "bwd_launches"),
+                "embedding_bag": (eb, "launches"),
+                "embedding_bag_bwd": (eb, "bwd_launches")}
+    main = {k: 0 for k in counters}
+    cells = {"nemo": phase_train_nemo(torch, dev, reduced, counters, main),
+             "dlrm": phase_train_dlrm(torch, dev, reduced, counters, main),
+             "bert4rec": phase_train_bert4rec(torch, dev, reduced, counters,
+                                              main)}
+    log(json.dumps({"phase10": dict(cells, reduced=reduced)}))
+    log(f"  launches on the train path (phase 10's steps): {main}; phase "
+        f"10 took {time.perf_counter() - t0:.1f} s")
+    for name, n in main.items():
+        check(n > 0, f"{name} was never launched on the train path")
+    return main
+
+
 def main() -> int:
     import argparse
 
@@ -2982,10 +3578,18 @@ def main() -> int:
     log(f"  launches of the four scans over phases 4 and 8: "
         f"{ {n: launches[n] for n in TILE_KERNELS} }")
 
+    start_phase(torch, "phase 10: training on the card", t0)
+    torch.cuda.empty_cache()
+    train = phase_train(torch, dev, kern)
+    for name, n in train.items():
+        launches[name] = launches.get(name, 0) + n
+
     rows = []
     main_shape = {"flash_attention": "nemo prefill 256",
                   "flash_decode": "engine cache 320",
-                  "embedding_bag": "grouped serve_p99"}
+                  "embedding_bag": "grouped serve_p99",
+                  "flash_attention_bwd": "nemo train_4k",
+                  "embedding_bag_bwd": "dlrm train_batch"}
     for name, (source, tpu) in KERNELS.items():
         if name in main_shape:
             at = next(r for r in kern[name]["times"]

@@ -7,8 +7,8 @@ shapes. An (arch x shape) cell determines the step function
 (``launch/steps.build_cell``), the exact input specs (``Spec``: shape
 and torch dtype, no allocation) and a REDUCED variant of the same family
 for the CPU tests. ``ARCH_MODULES`` is repro's list without SchNet,
-whose only cell is ``train``: it waits for the training slice (ROADMAP
-Queue 1 item 12).
+whose only cell is ``train``: it waits for ROADMAP Queue 1 item 12 (the
+training path itself is ported).
 """
 from __future__ import annotations
 

@@ -46,7 +46,7 @@ def reduce_config(cfg: TransformerConfig) -> TransformerConfig:
                                   n_shared=min(1, moe.n_shared))
     return dataclasses.replace(
         cfg, vocab=512, d_model=64, n_layers=2, n_heads=4, n_kv=kv,
-        d_head=16, d_ff=128, moe=moe, dtype=cfg.dtype)
+        d_head=16, d_ff=128, moe=moe, dtype=cfg.dtype, remat=False)
 
 
 def lm_cells(arch: str) -> list[Cell]:

@@ -14,7 +14,7 @@ CONFIG = TransformerConfig(
     name="minilm-embedder",
     vocab=30_522, d_model=384, n_layers=6,
     n_heads=12, n_kv=12, d_head=32, d_ff=1536,
-    act="gelu", causal=False,
+    act="gelu", causal=False, remat=False,
 )
 
 SHAPES = {

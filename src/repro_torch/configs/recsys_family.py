@@ -1,7 +1,7 @@
 """Shared cell and input-spec helpers for the recsys family.
 
 Shapes (assigned):
-  train_batch     batch=65,536                (training; not ported yet)
+  train_batch     batch=65,536                (training)
   serve_p99       batch=512                   (online inference)
   serve_bulk      batch=262,144               (offline scoring)
   retrieval_cand  batch=1 n_candidates=1e6    (retrieval scoring: the

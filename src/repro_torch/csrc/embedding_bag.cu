@@ -406,3 +406,161 @@ extern "C" int embedding_bag_fwd(const void* table, const void* idx,
   return embedding_bag_grouped_fwd(&t, 1, idx, w, out, dtype, D, B, L, ldi,
                                    0, ldw, 0, D, 0, mean, stream);
 }
+
+// ---------------------------------------------------------------------------
+// Backward: the dense table gradient (no Pallas counterpart: repro
+// differentiates its reference with XLA, whose VJP of `jnp.take` is a
+// scatter-add into a dense table gradient).
+//
+// For the group's stacked gradient (the F tables' rows back to back) each
+// row gets sum over its slots of coef * g[b, f], coef the slot's weight
+// (1 without weights; over max(bag's weight sum, 1e-9) for the mean
+// combiner); padding and ids >= V_f add nothing. Deterministic, with no
+// atomics: the wrapper sorts the (row, slot) pairs stably (index work,
+// kernels/embedding_bag/plain.bag_segments) and cuts each row's run of
+// slots into chunks of at most BWD_CHUNK. Then
+//   bag_bwd_chunks: a warp a chunk sums its slots' coef * g in slot order
+//     (one rounded product and one rounded add a slot, no FMA, from 0) in
+//     fp32, 4 columns a lane (128 a pass), and writes the row (rounded
+//     once to the tables' dtype) where the chunk is its row's only one,
+//     else an fp32 partial;
+//   bag_bwd_rows: a warp a row of several chunks sums its partials in
+//     order, from 0, and writes the row.
+// A hot row (DLRM's smoke batch draws every id below 3: 65,536 slots on
+// each of three rows a table) is then 256 chunks in parallel and one
+// 256-term sum, not one warp walking 65,536 slots. Rows no slot reaches
+// stay as the wrapper zeroed them.
+//
+// What bounds it on an H100 SXM: bytes. Each valid slot reads its
+// cotangent row (D * itemsize) and its sort entry; each touched row is
+// written once (D * itemsize), partials twice in fp32; the zeroing of
+// the dense gradient (every table row, D * itemsize) is the wrapper's
+// memset. 2 FLOPs an element.
+// ---------------------------------------------------------------------------
+namespace {
+
+constexpr int BWD_THREADS = 256;
+constexpr int BWD_WARPS = BWD_THREADS / 32;
+constexpr int BWD_COLS = 128;           // columns a warp holds (4 a lane)
+
+template <class T>
+__global__ void __launch_bounds__(BWD_THREADS)
+bag_bwd_chunks(const T* __restrict__ grad, long long g_b, long long g_f,
+               int F, int L, int D, const int* __restrict__ slot,
+               const float* __restrict__ coef, const int* __restrict__ start,
+               const int* __restrict__ count,
+               const long long* __restrict__ key,
+               const int* __restrict__ part, long long C, T* __restrict__ out,
+               float* __restrict__ partial) {
+  const long long c =
+      (long long)blockIdx.x * BWD_WARPS + threadIdx.x / 32;
+  if (c >= C) return;
+  const int lane = threadIdx.x % 32;
+  const int s0 = start[c];
+  const int n = count[c];
+  const int p = part[c];
+  for (int c0 = 0; c0 < D; c0 += BWD_COLS) {
+    float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    for (int j = 0; j < n; ++j) {
+      const int s = slot[s0 + j];       // flat (b, f, l)
+      const int bf = s / L;
+      const long long b = bf / F;
+      const int f = bf - (int)b * F;
+      const float w = coef != nullptr ? coef[s0 + j] : 1.0f;
+      const T* g = grad + b * g_b + (long long)f * g_f;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int d = c0 + lane + 32 * k;
+        if (d < D) acc[k] = __fadd_rn(acc[k], __fmul_rn(w, to_f(g[d])));
+      }
+    }
+    if (p < 0) {
+      T* o = out + key[c] * D;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int d = c0 + lane + 32 * k;
+        if (d < D) o[d] = from_f<T>(acc[k]);
+      }
+    } else {
+      float* o = partial + (long long)p * D;
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        const int d = c0 + lane + 32 * k;
+        if (d < D) o[d] = acc[k];
+      }
+    }
+  }
+}
+
+template <class T>
+__global__ void __launch_bounds__(BWD_THREADS)
+bag_bwd_rows(const float* __restrict__ partial,
+             const int* __restrict__ first, const int* __restrict__ cnt,
+             const long long* __restrict__ key, long long M, int D,
+             T* __restrict__ out) {
+  const long long r =
+      (long long)blockIdx.x * BWD_WARPS + threadIdx.x / 32;
+  if (r >= M) return;
+  const int lane = threadIdx.x % 32;
+  const float* p = partial + (long long)first[r] * D;
+  const int n = cnt[r];
+  T* o = out + key[r] * D;
+  for (int d = lane; d < D; d += 32) {
+    float acc = 0.0f;
+    for (int j = 0; j < n; ++j) acc = __fadd_rn(acc, p[(long long)j * D + d]);
+    o[d] = from_f<T>(acc);
+  }
+}
+
+template <class T>
+int launch_bwd(const void* grad, long long g_b, long long g_f, int F, int L,
+               int D, const int* slot, const float* coef, const int* start,
+               const int* count, const long long* key, const int* part,
+               long long C, const int* mfirst, const int* mcount,
+               const long long* mkey, long long M, float* partial, void* out,
+               cudaStream_t st) {
+  const long long g1 = (C + BWD_WARPS - 1) / BWD_WARPS;
+  const long long g2 = (M + BWD_WARPS - 1) / BWD_WARPS;
+  if (g1 > 0x7fffffffLL || g2 > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  if (g1 > 0)
+    bag_bwd_chunks<T><<<(unsigned)g1, BWD_THREADS, 0, st>>>(
+        static_cast<const T*>(grad), g_b, g_f, F, L, D, slot, coef, start,
+        count, key, part, C, static_cast<T*>(out), partial);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || g2 == 0) return (int)err;
+  bag_bwd_rows<T><<<(unsigned)g2, BWD_THREADS, 0, st>>>(
+      partial, mfirst, mcount, mkey, M, D, static_cast<T*>(out));
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// The backward of a grouped bag call: grad (B, F, D) of `dtype` (0 fp32,
+// 1 bf16) with strides (g_b, g_f, 1), the cotangent of its output; the
+// sorted slots and their chunks as `bag_segments` lays them out (C
+// chunks, M rows of several chunks, `partial` an fp32 scratch of one D
+// row a chunk of those rows); out: the group's stacked (rows, D) gradient
+// of `dtype`, zeroed by the caller, written at every row a slot reaches.
+// Ints: slot/start/count/part/mfirst/mcount int32, key/mkey int64, coef
+// fp32 or null for unit coefficients. Two launches on `stream`; returns
+// the last cudaError_t.
+extern "C" int embedding_bag_grouped_bwd(
+    const void* grad, int dtype, long long g_b, long long g_f, int F,
+    long long L, long long D, const int* slot, const float* coef,
+    const int* start, const int* count, const long long* key,
+    const int* part, long long C, const int* mfirst, const int* mcount,
+    const long long* mkey, long long M, float* partial, void* out,
+    void* stream) {
+  if (F < 1 || L < 1 || D < 1 || D > (1LL << 30) || L > (1LL << 30) ||
+      C < 0 || M < 0 || g_b < 0 || g_f < 0 || (dtype != 0 && dtype != 1))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 0)
+    return launch_bwd<float>(grad, g_b, g_f, F, (int)L, (int)D, slot, coef,
+                             start, count, key, part, C, mfirst, mcount,
+                             mkey, M, partial, out, st);
+  return launch_bwd<__nv_bfloat16>(grad, g_b, g_f, F, (int)L, (int)D, slot,
+                                   coef, start, count, key, part, C, mfirst,
+                                   mcount, mkey, M, partial, out, st);
+}

@@ -92,8 +92,9 @@ struct Smem {
 template <class T, int D>
 __global__ void __launch_bounds__(THREADS)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o, int H,
-                       int KV, int Sq, int Skv, bool causal, float scale) {
+                       const T* __restrict__ v, T* __restrict__ o,
+                       float* __restrict__ lse, int H, int KV, int Sq,
+                       int Skv, bool causal, float scale) {
   constexpr int DPT = D / TX;           // accumulator columns per thread
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Smem<D>& sm = *reinterpret_cast<Smem<D>*>(smem_raw);
@@ -215,13 +216,18 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int dd = 0; dd < DPT; ++dd)
       ob[(size_t)row * D + tx + TX * dd] = from_f<T>(acc[i][dd] / den);
+    // row logsumexp of the scaled logits (natural log; -inf for a row
+    // with no visible key), for the backward
+    if (lse != nullptr && tx == 0)
+      lse[(size_t)(b * H + h) * Sq + row] =
+          l[i] == 0.0f ? -CUDART_INF_F : m[i] + logf(l[i]);
   }
 }
 
 template <class T, int D>
-int launch(const void* q, const void* k, const void* v, void* o, long long B,
-           long long H, long long KV, long long Sq, long long Skv,
-           bool causal, float scale, cudaStream_t st) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           long long B, long long H, long long KV, long long Sq,
+           long long Skv, bool causal, float scale, cudaStream_t st) {
   const int smem = (int)sizeof(Smem<D>);
   static bool attr_set[port::kMaxDevices] = {};
   const cudaError_t err =
@@ -230,24 +236,24 @@ int launch(const void* q, const void* k, const void* v, void* o, long long B,
   const dim3 grid((unsigned)((Sq + BQ - 1) / BQ), (unsigned)H, (unsigned)B);
   flash_attention_kernel<T, D><<<grid, THREADS, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), (int)H, (int)KV, (int)Sq,
-      (int)Skv, causal, scale);
+      static_cast<const T*>(v), static_cast<T*>(o), lse, (int)H, (int)KV,
+      (int)Sq, (int)Skv, causal, scale);
   return (int)cudaGetLastError();
 }
 
 int launch_fp32(const void* q, const void* k, const void* v, void* o,
-                long long B, long long H, long long KV, long long Sq,
-                long long Skv, long long D, bool causal, float scale,
-                cudaStream_t st) {
+                float* lse, long long B, long long H, long long KV,
+                long long Sq, long long Skv, long long D, bool causal,
+                float scale, cudaStream_t st) {
   switch (D) {
     case 32:
-      return launch<float, 32>(q, k, v, o, B, H, KV, Sq, Skv, causal, scale,
-                               st);
+      return launch<float, 32>(q, k, v, o, lse, B, H, KV, Sq, Skv, causal,
+                               scale, st);
     case 64:
-      return launch<float, 64>(q, k, v, o, B, H, KV, Sq, Skv, causal, scale,
-                               st);
+      return launch<float, 64>(q, k, v, o, lse, B, H, KV, Sq, Skv, causal,
+                               scale, st);
     case 128:
-      return launch<float, 128>(q, k, v, o, B, H, KV, Sq, Skv, causal,
+      return launch<float, 128>(q, k, v, o, lse, B, H, KV, Sq, Skv, causal,
                                 scale, st);
     default:
       return (int)cudaErrorInvalidValue;
@@ -279,8 +285,9 @@ __global__ void __launch_bounds__(THREADS, 1)
 fa_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                 const __grid_constant__ CUtensorMap tk,
                 const __grid_constant__ CUtensorMap tv,
-                __nv_bfloat16* __restrict__ o, int B, int H, int KV, int Sq,
-                int Skv, int nm, bool causal, float scale_log2) {
+                __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                int B, int H, int KV, int Sq, int Skv, int nm, bool causal,
+                float scale_log2) {
   using L = Layout<D>;
   constexpr int NB = D / BOX;           // swizzled boxes across D
   constexpr int NO = D / 2;             // O accumulator registers a thread
@@ -481,6 +488,15 @@ fa_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
   }
   const float inv0 = 1.0f / (l0 == 0.0f ? 1.0f : l0);
   const float inv1 = 1.0f / (l1 == 0.0f ? 1.0f : l1);
+  if (lse != nullptr && quad == 0) {
+    // natural-log row logsumexp: m is in log2 units of the scaled logits
+    constexpr float LN2 = 0.6931471805599453f;
+    float* lb = lse + (size_t)(b * H + h) * Sq;
+    if (r_lo < Sq)
+      lb[r_lo] = l0 == 0.0f ? -CUDART_INF_F : (m0 + log2f(l0)) * LN2;
+    if (r_lo + 8 < Sq)
+      lb[r_lo + 8] = l1 == 0.0f ? -CUDART_INF_F : (m1 + log2f(l1)) * LN2;
+  }
   __nv_bfloat16* ob = o + (size_t)(b * H + h) * Sq * D;
 #pragma unroll
   for (int j = 0; j < NO / 4; ++j) {
@@ -540,9 +556,9 @@ bool make_map(EncodeTiled enc, CUtensorMap* map, const void* ptr,
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, long long B,
-           long long H, long long KV, long long Sq, long long Skv,
-           bool causal, float scale, cudaStream_t st) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           long long B, long long H, long long KV, long long Sq,
+           long long Skv, bool causal, float scale, cudaStream_t st) {
   const int smem = Layout<D>::SMEM;
   static bool attr_set[port::kMaxDevices] = {};
   const cudaError_t err =
@@ -559,8 +575,9 @@ int launch(const void* q, const void* k, const void* v, void* o, long long B,
   const long long blocks = nm * B * H;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   fa_wgmma_kernel<D><<<(unsigned)blocks, THREADS, smem, st>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(o), (int)B, (int)H, (int)KV,
-      (int)Sq, (int)Skv, (int)nm, causal, scale * 1.4426950408889634f);
+      tq, tk, tv, static_cast<__nv_bfloat16*>(o), lse, (int)B, (int)H,
+      (int)KV, (int)Sq, (int)Skv, (int)nm, causal,
+      scale * 1.4426950408889634f);
   return (int)cudaGetLastError();
 }
 
@@ -570,27 +587,413 @@ int launch(const void* q, const void* k, const void* v, void* o, long long B,
 // q (B, H, Sq, D), k/v (B, KV, Skv, D), o (B, H, Sq, D), all contiguous
 // on one device, of one type: dtype 0 = fp32 (the CUDA-core body), 1 =
 // bf16 (the tensor cores at D 64 and 128, the CUDA-core body at D 32).
+// lse: null (serving), or an fp32 (B, H, Sq) buffer that receives each
+// row's logsumexp of its scaled logits for the backward (natural log,
+// -inf for a row with no visible key); writing it changes no output bit.
 // D in {32, 64, 128}; H % KV == 0. Returns cudaGetLastError().
 extern "C" int flash_attention_fwd(const void* q, const void* k,
-                                   const void* v, void* o, int dtype,
-                                   long long B, long long H, long long KV,
-                                   long long Sq, long long Skv, long long D,
-                                   int causal, float scale, void* stream) {
+                                   const void* v, void* o, float* lse,
+                                   int dtype, long long B, long long H,
+                                   long long KV, long long Sq, long long Skv,
+                                   long long D, int causal, float scale,
+                                   void* stream) {
   if (B < 1 || H < 1 || KV < 1 || H % KV != 0 || Sq < 1 || Skv < 1 ||
       H > 65535 || B > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0)
-    return launch_fp32(q, k, v, o, B, H, KV, Sq, Skv, D, causal != 0, scale,
-                       st);
+    return launch_fp32(q, k, v, o, lse, B, H, KV, Sq, Skv, D, causal != 0,
+                       scale, st);
   if (dtype == 1 && D == 128)
-    return tc::launch<128>(q, k, v, o, B, H, KV, Sq, Skv, causal != 0, scale,
-                           st);
+    return tc::launch<128>(q, k, v, o, lse, B, H, KV, Sq, Skv, causal != 0,
+                           scale, st);
   if (dtype == 1 && D == 64)
-    return tc::launch<64>(q, k, v, o, B, H, KV, Sq, Skv, causal != 0, scale,
-                          st);
+    return tc::launch<64>(q, k, v, o, lse, B, H, KV, Sq, Skv, causal != 0,
+                          scale, st);
   if (dtype == 1 && D == 32)
-    return launch<__nv_bfloat16, 32>(q, k, v, o, B, H, KV, Sq, Skv,
+    return launch<__nv_bfloat16, 32>(q, k, v, o, lse, B, H, KV, Sq, Skv,
                                      causal != 0, scale, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------------
+// Backward (no Pallas counterpart: repro differentiates its reference with
+// XLA). Given q, k, v, the forward's o and row logsumexp lse, and dO, the
+// gradients of o = softmax(scale * q k^T) v in fp32:
+//   P  = exp(scale * q k^T - lse)      (0 where masked or the row is empty)
+//   dV = P^T dO,   dP = dO V^T,   dS = P * (dP - Delta),  Delta = rowsum(dO o)
+//   dQ = scale * dS K,   dK = scale * dS^T Q,
+// summed over the query heads of a GQA group for dK and dV. Three kernels,
+// no atomics, so a backward is bit-for-bit repeatable:
+//   bwd_delta_kernel: Delta, a warp a row (a fixed shuffle tree);
+//   bwd_dkdv_kernel:  a block a key tile of BKV rows of one (b, kv head):
+//     its K and V tiles stay in shared memory while it walks every query
+//     tile of every head of the group that can see the tile (causal: from
+//     the diagonal on), recomputing P and dS there;
+//   bwd_dq_kernel:    a block a query tile of one (b, h) walks the key
+//     tiles its rows see.
+// CUDA cores, fp32 products (each an ascending-d fmaf chain, the forward
+// CUDA-core body's order) whatever the input type; outputs rounded once
+// to it. The backward differentiates the exact function: the bf16
+// forward's P_hi + P_lo split is a rounding of the forward alone.
+//
+// What bounds it on an H100 SXM: operations. The kernels recompute the
+// scores twice and do five more products of Sq x Skv x D a head (about
+// half of each under the causal mask): 14 * B * H * Sq * Skv * D FLOPs
+// against the 4 of the forward; bytes are q, k, v, o, dO and the three
+// gradients once. On CUDA cores that is 67 TFLOP/s at best; the tensor
+// cores (wgmma) are a later step (ROADMAP Queue 2).
+// ---------------------------------------------------------------------------
+namespace {
+namespace bwd {
+
+constexpr int BQ = 64;                  // query rows a tile
+constexpr int BKV = 64;                 // key rows a tile
+constexpr int THREADS = 256;
+constexpr int TX = 16;
+constexpr int TY = THREADS / TX;        // 16
+constexpr int RPT = BQ / TY;            // rows of the 64 x 64 tile a thread (4)
+constexpr int CPT = BKV / TX;           // columns of it a thread (4)
+
+using port::from_f;
+using port::to_f;
+
+template <class T>
+__global__ void __launch_bounds__(THREADS)
+bwd_delta_kernel(const T* __restrict__ o, const T* __restrict__ dout,
+                 float* __restrict__ delta, long long rows, int D) {
+  const long long r = (long long)blockIdx.x * (THREADS / 32) + threadIdx.x / 32;
+  if (r >= rows) return;
+  const int lane = threadIdx.x % 32;
+  float acc = 0.0f;
+  for (int d = lane; d < D; d += 32)
+    acc = fmaf(to_f(o[r * D + d]), to_f(dout[r * D + d]), acc);
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) delta[r] = acc;
+}
+
+template <int D>
+struct DkdvSmem {
+  float ks[BKV][D + 1];
+  float vs[BKV][D + 1];
+  float qs[BQ][D + 1];                  // scaled q
+  float dos[BQ][D + 1];
+  float ps[BQ][BKV + 1];
+  float ds[BQ][BKV + 1];
+  float lse[BQ];
+  float delta[BQ];
+};
+
+template <int D>
+struct DqSmem {
+  float qs[BQ][D + 1];
+  float dos[BQ][D + 1];
+  float ks[BKV][D + 1];
+  float vs[BKV][D + 1];
+  float ds[BQ][BKV + 1];
+  float lse[BQ];
+  float delta[BQ];
+};
+
+// rows [r0, r0 + n) of a (rows, D) matrix of T into dst (fp32, times mul),
+// zeros past `rows`
+template <class T, int D, int N>
+__device__ __forceinline__ void stage(float (*dst)[D + 1], const T* src,
+                                      int r0, int rows, float mul) {
+  for (int e = threadIdx.x; e < N * D; e += THREADS) {
+    const int r = e / D, d = e % D;
+    dst[r][d] = r0 + r < rows ? to_f(src[(size_t)(r0 + r) * D + d]) * mul
+                              : 0.0f;
+  }
+}
+
+// The tile's P and dS for the thread's RPT x CPT entries: rows q0 + ty*RPT
+// + i (of Sq), columns kv0 + tx + TX*j (of Skv).
+template <int D>
+__device__ __forceinline__ void tile_p_ds(
+    const float (*qs)[D + 1], const float (*dos)[D + 1],
+    const float (*ks)[D + 1], const float (*vs)[D + 1], const float* lse_s,
+    const float* delta_s, int q0, int kv0, int Sq, int Skv, int q_offset,
+    bool causal, float (*ps)[BKV + 1], float (*ds)[BKV + 1]) {
+  const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
+  float s[RPT][CPT], dp[RPT][CPT];
+#pragma unroll
+  for (int i = 0; i < RPT; ++i)
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) s[i][j] = dp[i][j] = 0.0f;
+#pragma unroll 4
+  for (int d = 0; d < D; ++d) {
+    float qv[RPT], gv[RPT], kv[CPT], vv[CPT];
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {
+      qv[i] = qs[ty * RPT + i][d];
+      gv[i] = dos[ty * RPT + i][d];
+    }
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) {
+      kv[j] = ks[tx + TX * j][d];
+      vv[j] = vs[tx + TX * j][d];
+    }
+#pragma unroll
+    for (int i = 0; i < RPT; ++i)
+#pragma unroll
+      for (int j = 0; j < CPT; ++j) {
+        s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+        dp[i][j] = fmaf(gv[i], vv[j], dp[i][j]);
+      }
+  }
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    const int rl = ty * RPT + i;
+    const int row = q0 + rl;
+    const float l = lse_s[rl];
+#pragma unroll
+    for (int j = 0; j < CPT; ++j) {
+      const int cl = tx + TX * j;
+      const int col = kv0 + cl;
+      const bool vis = row < Sq && col < Skv && l != -CUDART_INF_F &&
+                       !(causal && col > row + q_offset);
+      const float p = vis ? expf(s[i][j] - l) : 0.0f;
+      ps[rl][cl] = p;
+      ds[rl][cl] = p * (dp[i][j] - delta_s[rl]);
+    }
+  }
+}
+
+template <class T, int D>
+__global__ void __launch_bounds__(THREADS)
+bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                const T* __restrict__ v, const T* __restrict__ dout,
+                const float* __restrict__ lse,
+                const float* __restrict__ delta, T* __restrict__ dk,
+                T* __restrict__ dv, int H, int KV, int Sq, int Skv,
+                bool causal, float scale) {
+  constexpr int DPT = D / TX;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  DkdvSmem<D>& sm = *reinterpret_cast<DkdvSmem<D>*>(smem_raw);
+  const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
+  const int kv0 = blockIdx.x * BKV;
+  const int kvh = blockIdx.y;
+  const int b = blockIdx.z;
+  const int G = H / KV;
+  const int q_offset = Skv - Sq;
+  const size_t kv_base = (size_t)(b * KV + kvh) * Skv * D;
+  stage<T, D, BKV>(sm.ks, k + kv_base, kv0, Skv, 1.0f);
+  stage<T, D, BKV>(sm.vs, v + kv_base, kv0, Skv, 1.0f);
+
+  float adk[RPT][DPT], adv[RPT][DPT];
+#pragma unroll
+  for (int i = 0; i < RPT; ++i)
+#pragma unroll
+    for (int dd = 0; dd < DPT; ++dd) adk[i][dd] = adv[i][dd] = 0.0f;
+
+  // the first query tile with a row that sees column kv0
+  int qt0 = 0;
+  if (causal) qt0 = max(0, kv0 - q_offset) / BQ;
+  for (int g = 0; g < G; ++g) {
+    const int h = kvh * G + g;
+    const size_t q_base = (size_t)(b * H + h) * Sq;
+    for (int q0 = qt0 * BQ; q0 < Sq; q0 += BQ) {
+      __syncthreads();                  // the last tile is consumed
+      stage<T, D, BQ>(sm.qs, q + q_base * D, q0, Sq, scale);
+      stage<T, D, BQ>(sm.dos, dout + q_base * D, q0, Sq, 1.0f);
+      for (int r = threadIdx.x; r < BQ; r += THREADS) {
+        const bool in = q0 + r < Sq;
+        sm.lse[r] = in ? lse[q_base + q0 + r] : -CUDART_INF_F;
+        sm.delta[r] = in ? delta[q_base + q0 + r] : 0.0f;
+      }
+      __syncthreads();
+      tile_p_ds<D>(sm.qs, sm.dos, sm.ks, sm.vs, sm.lse, sm.delta, q0, kv0,
+                   Sq, Skv, q_offset, causal, sm.ps, sm.ds);
+      __syncthreads();
+#pragma unroll 2
+      for (int r = 0; r < BQ; ++r) {
+        float pr[RPT], dr[RPT];
+#pragma unroll
+        for (int i = 0; i < RPT; ++i) {
+          pr[i] = sm.ps[r][ty * RPT + i];
+          dr[i] = sm.ds[r][ty * RPT + i];
+        }
+#pragma unroll
+        for (int dd = 0; dd < DPT; ++dd) {
+          const float gv = sm.dos[r][tx + TX * dd];
+          const float qv = sm.qs[r][tx + TX * dd];
+#pragma unroll
+          for (int i = 0; i < RPT; ++i) {
+            adv[i][dd] = fmaf(pr[i], gv, adv[i][dd]);
+            adk[i][dd] = fmaf(dr[i], qv, adk[i][dd]);
+          }
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    const int row = kv0 + ty * RPT + i;
+    if (row >= Skv) continue;
+#pragma unroll
+    for (int dd = 0; dd < DPT; ++dd) {
+      const size_t off = kv_base + (size_t)row * D + tx + TX * dd;
+      dk[off] = from_f<T>(adk[i][dd]);   // q was staged scaled
+      dv[off] = from_f<T>(adv[i][dd]);
+    }
+  }
+}
+
+template <class T, int D>
+__global__ void __launch_bounds__(THREADS)
+bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
+              const T* __restrict__ v, const T* __restrict__ dout,
+              const float* __restrict__ lse, const float* __restrict__ delta,
+              T* __restrict__ dq, int H, int KV, int Sq, int Skv, bool causal,
+              float scale) {
+  constexpr int DPT = D / TX;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  DqSmem<D>& sm = *reinterpret_cast<DqSmem<D>*>(smem_raw);
+  const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
+  const int q0 = blockIdx.x * BQ;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kvh = h / (H / KV);
+  const int q_offset = Skv - Sq;
+  const size_t q_base = (size_t)(b * H + h) * Sq;
+  const size_t kv_base = (size_t)(b * KV + kvh) * Skv * D;
+  stage<T, D, BQ>(sm.qs, q + q_base * D, q0, Sq, scale);
+  stage<T, D, BQ>(sm.dos, dout + q_base * D, q0, Sq, 1.0f);
+  for (int r = threadIdx.x; r < BQ; r += THREADS) {
+    const bool in = q0 + r < Sq;
+    sm.lse[r] = in ? lse[q_base + q0 + r] : -CUDART_INF_F;
+    sm.delta[r] = in ? delta[q_base + q0 + r] : 0.0f;
+  }
+
+  float adq[RPT][DPT];
+#pragma unroll
+  for (int i = 0; i < RPT; ++i)
+#pragma unroll
+    for (int dd = 0; dd < DPT; ++dd) adq[i][dd] = 0.0f;
+
+  int kv_end = Skv;
+  if (causal) kv_end = min(Skv, max(0, q0 + BQ + q_offset));
+  for (int kv0 = 0; kv0 < kv_end; kv0 += BKV) {
+    __syncthreads();                    // q staged; the last tile consumed
+    stage<T, D, BKV>(sm.ks, k + kv_base, kv0, Skv, 1.0f);
+    stage<T, D, BKV>(sm.vs, v + kv_base, kv0, Skv, 1.0f);
+    __syncthreads();
+    tile_p_ds<D>(sm.qs, sm.dos, sm.ks, sm.vs, sm.lse, sm.delta, q0, kv0, Sq,
+                 Skv, q_offset, causal, sm.ds, sm.ds);
+    __syncthreads();
+#pragma unroll 2
+    for (int c = 0; c < BKV; ++c) {
+      float dr[RPT];
+#pragma unroll
+      for (int i = 0; i < RPT; ++i) dr[i] = sm.ds[ty * RPT + i][c];
+#pragma unroll
+      for (int dd = 0; dd < DPT; ++dd) {
+        const float kv = sm.ks[c][tx + TX * dd];
+#pragma unroll
+        for (int i = 0; i < RPT; ++i) adq[i][dd] = fmaf(dr[i], kv, adq[i][dd]);
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    const int row = q0 + ty * RPT + i;
+    if (row >= Sq) continue;
+#pragma unroll
+    for (int dd = 0; dd < DPT; ++dd)
+      dq[(q_base + row) * D + tx + TX * dd] = from_f<T>(adq[i][dd] * scale);
+  }
+}
+
+template <class T, int D>
+int launch_bwd(const void* q, const void* k, const void* v, const void* o,
+               const void* dout, const float* lse, float* delta, void* dq,
+               void* dk, void* dv, long long B, long long H, long long KV,
+               long long Sq, long long Skv, bool causal, float scale,
+               cudaStream_t st) {
+  static bool set_dkdv[port::kMaxDevices] = {};
+  static bool set_dq[port::kMaxDevices] = {};
+  const int s1 = (int)sizeof(DkdvSmem<D>), s2 = (int)sizeof(DqSmem<D>);
+  cudaError_t err = port::set_smem_once(set_dkdv, bwd_dkdv_kernel<T, D>, s1);
+  if (err == cudaSuccess)
+    err = port::set_smem_once(set_dq, bwd_dq_kernel<T, D>, s2);
+  if (err != cudaSuccess) return (int)err;
+  const long long rows = B * H * Sq;
+  const long long g0 = (rows + THREADS / 32 - 1) / (THREADS / 32);
+  if (g0 > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const T* tq = static_cast<const T*>(q);
+  const T* tk = static_cast<const T*>(k);
+  const T* tv = static_cast<const T*>(v);
+  const T* tg = static_cast<const T*>(dout);
+  bwd_delta_kernel<T><<<(unsigned)g0, THREADS, 0, st>>>(
+      static_cast<const T*>(o), tg, delta, rows, D);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const dim3 g1((unsigned)((Skv + BKV - 1) / BKV), (unsigned)KV,
+                (unsigned)B);
+  bwd_dkdv_kernel<T, D><<<g1, THREADS, s1, st>>>(
+      tq, tk, tv, tg, lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
+      (int)H, (int)KV, (int)Sq, (int)Skv, causal, scale);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const dim3 g2((unsigned)((Sq + BQ - 1) / BQ), (unsigned)H, (unsigned)B);
+  bwd_dq_kernel<T, D><<<g2, THREADS, s2, st>>>(
+      tq, tk, tv, tg, lse, delta, static_cast<T*>(dq), (int)H, (int)KV,
+      (int)Sq, (int)Skv, causal, scale);
+  return (int)cudaGetLastError();
+}
+
+template <class T>
+int launch_bwd_d(long long D, const void* q, const void* k, const void* v,
+                 const void* o, const void* dout, const float* lse,
+                 float* delta, void* dq, void* dk, void* dv, long long B,
+                 long long H, long long KV, long long Sq, long long Skv,
+                 bool causal, float scale, cudaStream_t st) {
+  switch (D) {
+    case 32:
+      return launch_bwd<T, 32>(q, k, v, o, dout, lse, delta, dq, dk, dv, B,
+                               H, KV, Sq, Skv, causal, scale, st);
+    case 64:
+      return launch_bwd<T, 64>(q, k, v, o, dout, lse, delta, dq, dk, dv, B,
+                               H, KV, Sq, Skv, causal, scale, st);
+    case 128:
+      return launch_bwd<T, 128>(q, k, v, o, dout, lse, delta, dq, dk, dv, B,
+                                H, KV, Sq, Skv, causal, scale, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace bwd
+}  // namespace
+
+// The backward of `flash_attention_fwd`: q, o, dout, dq (B, H, Sq, D); k,
+// v, dk, dv (B, KV, Skv, D); lse (B, H, Sq) fp32 as the forward wrote it;
+// delta an fp32 scratch of B * H * Sq; all contiguous on one device, of
+// one type (dtype 0 fp32, 1 bf16), D in {32, 64, 128}, H % KV == 0. Every
+// element of dq, dk and dv is written. Three launches on `stream`;
+// returns the last cudaError_t.
+extern "C" int flash_attention_bwd(const void* q, const void* k,
+                                   const void* v, const void* o,
+                                   const void* dout, const float* lse,
+                                   float* delta, void* dq, void* dk,
+                                   void* dv, int dtype, long long B,
+                                   long long H, long long KV, long long Sq,
+                                   long long Skv, long long D, int causal,
+                                   float scale, void* stream) {
+  if (B < 1 || H < 1 || KV < 1 || H % KV != 0 || Sq < 1 || Skv < 1 ||
+      H > 65535 || B > 65535 || KV > 65535)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (dtype == 0)
+    return bwd::launch_bwd_d<float>(D, q, k, v, o, dout, lse, delta, dq, dk,
+                                    dv, B, H, KV, Sq, Skv, causal != 0,
+                                    scale, st);
+  if (dtype == 1)
+    return bwd::launch_bwd_d<__nv_bfloat16>(D, q, k, v, o, dout, lse, delta,
+                                            dq, dk, dv, B, H, KV, Sq, Skv,
+                                            causal != 0, scale, st);
   return (int)cudaErrorInvalidValue;
 }

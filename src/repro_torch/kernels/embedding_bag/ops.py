@@ -1,7 +1,11 @@
-"""Wrappers of the embedding-bag kernel (csrc/embedding_bag.cu): the
-sparse-feature lookup of DLRM. ``embedding_bag_grouped`` covers a group
-of tables (DLRM's 26 fields) in one launch; ``embedding_bag`` is the
-one-table call behind repro's API, the same kernel body with F = 1."""
+"""Wrappers of the embedding-bag kernels (csrc/embedding_bag.cu): the
+sparse-feature lookup of DLRM and its backward. ``embedding_bag_grouped``
+covers a group of tables (DLRM's 26 fields) in one launch;
+``embedding_bag`` is the one-table call behind repro's API, the same
+kernel body with F = 1. Both are differentiable: where autograd records
+and a table (or the weights, or ``out``) requires grad, the backward is
+``embedding_bag_grouped_bwd``, one call over the group (the backward
+kernel on the card)."""
 from __future__ import annotations
 
 import ctypes
@@ -11,9 +15,12 @@ import torch
 from ... import obs
 from .. import build
 from ..build import check
-from .plain import embedding_bag_grouped_plain, embedding_bag_plain
+from .plain import (bag_segments, embedding_bag_backward_plain,
+                    embedding_bag_grouped_plain, embedding_bag_plain,
+                    embedding_bag_weights_grad_plain)
 
-launches = 0          # CUDA kernel launches of either wrapper
+launches = 0          # CUDA kernel launches of either forward wrapper
+bwd_launches = 0      # CUDA calls of ``embedding_bag_grouped_bwd``
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 COMBINERS = {"sum": 0, "mean": 1}
@@ -46,7 +53,14 @@ def _lib():
                         + [ctypes.c_longlong] * 9
                         + [ctypes.c_int, ctypes.c_void_p])
         grp.restype = ctypes.c_int
-        _entries = (lib, one, grp)
+        bwd = lib.embedding_bag_grouped_bwd
+        bwd.argtypes = ([ctypes.c_void_p, ctypes.c_int]
+                        + [ctypes.c_longlong] * 2 + [ctypes.c_int]
+                        + [ctypes.c_longlong] * 2 + [ctypes.c_void_p] * 6
+                        + [ctypes.c_longlong] + [ctypes.c_void_p] * 3
+                        + [ctypes.c_longlong] + [ctypes.c_void_p] * 3)
+        bwd.restype = ctypes.c_int
+        _entries = (lib, one, grp, bwd)
     return _entries
 
 
@@ -140,6 +154,11 @@ def _group(tables) -> ctypes.Array:
     return desc
 
 
+def _needs_grad(tensors) -> bool:
+    return torch.is_grad_enabled() and any(
+        isinstance(t, torch.Tensor) and t.requires_grad for t in tensors)
+
+
 def embedding_bag(table: torch.Tensor, indices, weights=None,
                   combiner: str = "sum") -> torch.Tensor:
     """Multi-hot embedding lookup-reduce. table: (V, D) f32 or bf16;
@@ -151,7 +170,21 @@ def embedding_bag(table: torch.Tensor, indices, weights=None,
     rows in fp32 (``combiner="mean"``: over max(sum of the valid
     weights, 1e-9)), 0 for an all-padding bag, NaN for a bag holding an
     id >= V. A CPU table runs the plain PyTorch version; a CUDA table
-    launches the kernel."""
+    launches the kernel. Differentiable (``embedding_bag_grouped_bwd``
+    over the one table)."""
+    if _needs_grad((table, weights)):
+        idx = _on("indices", indices, torch.int32, table.device)
+        w = None if weights is None else \
+            _on("weights", weights, torch.float32, table.device)
+        out = _GroupedBag.apply(None, idx[:, None], None if w is None
+                                else w[:, None], combiner, table)
+        return out[:, 0]
+    return _bag(table, indices, weights, combiner)
+
+
+def _bag(table: torch.Tensor, indices, weights, combiner: str
+         ) -> torch.Tensor:
+    """``embedding_bag``'s forward."""
     global launches
     if combiner not in COMBINERS:
         raise ValueError(f"combiner must be 'sum' or 'mean', not "
@@ -186,7 +219,7 @@ def embedding_bag(table: torch.Tensor, indices, weights=None,
         if weights is not None:
             weights, ldw = _row_stride(weights)
             w_ptr = weights.data_ptr()
-        lib, one, _ = _lib()
+        lib, one, _, _ = _lib()
         err = _call(dev, one, table.data_ptr(), indices.data_ptr(), w_ptr,
                     out.data_ptr(), DTYPES[table.dtype], v, d, b, bag, ldi,
                     ldw, COMBINERS[combiner])
@@ -210,7 +243,17 @@ def embedding_bag_grouped(tables, indices, weights=None,
     None to allocate one. Returns ``out``: out[:, f] is
     ``embedding_bag(tables[f], indices[:, f], weights[:, f], combiner)``
     bit for bit. CPU tables run the plain version; CUDA tables launch the
-    kernel once."""
+    kernel once. Differentiable: the tables' cotangent is ``out``'s (for
+    DLRM the slice of its stack), and ``embedding_bag_grouped_bwd`` gives
+    the tables' dense gradients in one call."""
+    if _needs_grad(list(tables) + [weights, out]):
+        return _GroupedBag.apply(out, indices, weights, combiner, *tables)
+    return _grouped(tables, indices, weights, combiner, out)
+
+
+def _grouped(tables, indices, weights=None, combiner: str = "sum",
+             out: torch.Tensor | None = None) -> torch.Tensor:
+    """``embedding_bag_grouped``'s forward."""
     global launches
     if combiner not in COMBINERS:
         raise ValueError(f"combiner must be 'sum' or 'mean', not "
@@ -258,7 +301,7 @@ def embedding_bag_grouped(tables, indices, weights=None,
         if weights is not None:
             weights, w_b, w_f = _slots(weights)
             w_ptr = weights.data_ptr()
-        lib, _, grp = _lib()
+        lib, _, grp, _ = _lib()
         err = _call(dev, grp, desc, f, indices.data_ptr(), w_ptr,
                     out.data_ptr(), DTYPES[dtype], d, b, bag, ids_b, ids_f,
                     w_b, w_f, out.stride(0), out.stride(1),
@@ -266,5 +309,113 @@ def embedding_bag_grouped(tables, indices, weights=None,
         check(lib, err, "embedding_bag_grouped_fwd")
         launches += 1
         if sp is not obs.NOOP_SPAN:            # traced: span = device time
+            torch.cuda.current_stream(dev).synchronize()
+        return out
+
+
+class _GroupedBag(torch.autograd.Function):
+    """The grouped forward, written into ``out`` in place (``out`` comes
+    first: autograd hands an in-place op on a view the view's gradient as
+    that of the op's first input), and its backward."""
+
+    @staticmethod
+    def forward(ctx, out, indices, weights, combiner, *tables):
+        dev = tables[0].device
+        indices = _on("indices", indices, torch.int32, dev)
+        if weights is not None:
+            weights = _on("weights", weights, torch.float32, dev)
+        res = _grouped(tables, indices, weights, combiner, out)
+        if out is not None:
+            ctx.mark_dirty(out)
+        ctx.save_for_backward(indices, weights, *tables)
+        ctx.combiner = combiner
+        return res
+
+    @staticmethod
+    def backward(ctx, g):
+        indices, weights, *tables = ctx.saved_tensors
+        grads = [None] * len(tables)
+        if any(ctx.needs_input_grad[4:]):
+            stacked = embedding_bag_grouped_bwd(
+                [t.shape[0] for t in tables], tables[0].dtype, indices,
+                weights, ctx.combiner, g)
+            grads, row = [], 0
+            for t in tables:
+                grads.append(stacked[row:row + t.shape[0]])
+                row += t.shape[0]
+        dw = None
+        if ctx.needs_input_grad[2]:
+            dw = embedding_bag_weights_grad_plain(tables, indices, weights,
+                                                  ctx.combiner, g)
+        # ``out``'s earlier content is overwritten: its gradient is 0
+        dout = g.new_zeros(()).expand(g.shape) if ctx.needs_input_grad[0] \
+            else None
+        return (dout, None, dw, None, *grads)
+
+
+def embedding_bag_grouped_bwd(sizes, dtype: torch.dtype, indices,
+                              weights, combiner: str,
+                              grad: torch.Tensor) -> torch.Tensor:
+    """The dense gradient of a grouped bag call's tables: ``grad`` (B, F,
+    D) is the cotangent of its output (any strides, last dimension
+    contiguous), ``sizes`` the F tables' row counts. Returns the
+    (sum(sizes), D) stacked gradient in ``dtype`` (field f's rows from
+    the sum of the earlier sizes): each row the sum of coef * grad[b, f]
+    over its slots, coef the slot's weight (1 without weights; over
+    max(bag's weight sum, 1e-9) for ``mean``), padding and ids >= V_f
+    adding nothing. The slots are sorted stably by row
+    (``plain.bag_segments``, index work in PyTorch); a CPU ``grad`` then
+    runs ``embedding_bag_backward_plain``, a CUDA one the backward kernel
+    (two launches, no atomics), both in the same order: the same bits."""
+    global bwd_launches
+    if combiner not in COMBINERS:
+        raise ValueError(f"combiner must be 'sum' or 'mean', not "
+                         f"{combiner!r}")
+    with obs.span("kernel:embedding_bag_bwd") as sp:
+        dev = grad.device
+        indices = _on("indices", indices, torch.int32, dev)
+        if weights is not None:
+            weights = _on("weights", weights, torch.float32, dev)
+        b, f, bag = indices.shape
+        d = grad.shape[-1]
+        if (grad.dim() != 3 or tuple(grad.shape[:2]) != (b, f)
+                or len(sizes) != f or dtype not in DTYPES
+                or (weights is not None and weights.shape != indices.shape)):
+            raise ValueError(f"embedding_bag_grouped_bwd: grad "
+                             f"{tuple(grad.shape)}, indices "
+                             f"{tuple(indices.shape)}, {len(sizes)} sizes")
+        if b * f * bag >= 2 ** 31:
+            raise ValueError("embedding_bag_grouped_bwd: more than 2^31 "
+                             "slots")
+        seg = bag_segments(sizes, indices, weights, combiner)
+        es = torch.tensor([], dtype=dtype).element_size()
+        sp.add("rows", len(seg["slot"]))
+        sp.add("bytes", len(seg["slot"]) * (d * es + 8)
+               + seg["rows"] * d * es)
+        if dev.type == "cpu":
+            return embedding_bag_backward_plain(sizes, dtype, indices,
+                                                weights, combiner, grad, seg)
+        if dev.type != "cuda":
+            raise ValueError(f"embedding_bag runs on cpu or cuda, not {dev}")
+        grad = grad.to(dtype)
+        if d > 1 and grad.stride(2) != 1:
+            grad = grad.contiguous()
+        out = torch.zeros((seg["rows"], d), dtype=dtype, device=dev)
+        partial = torch.empty((seg["parts"], d), dtype=torch.float32,
+                              device=dev)
+        coef = seg["coef"]
+        lib, _, _, bwd = _lib()
+        err = _call(dev, bwd, grad.data_ptr(), DTYPES[dtype], grad.stride(0),
+                    grad.stride(1), f, bag, d, seg["slot"].data_ptr(),
+                    None if coef is None else coef.data_ptr(),
+                    seg["start"].data_ptr(), seg["count"].data_ptr(),
+                    seg["key"].data_ptr(), seg["part"].data_ptr(),
+                    len(seg["start"]), seg["multi_first"].data_ptr(),
+                    seg["multi_count"].data_ptr(),
+                    seg["multi_key"].data_ptr(), len(seg["multi_key"]),
+                    partial.data_ptr(), out.data_ptr())
+        check(lib, err, "embedding_bag_grouped_bwd")
+        bwd_launches += 1
+        if sp is not obs.NOOP_SPAN:
             torch.cuda.current_stream(dev).synchronize()
         return out

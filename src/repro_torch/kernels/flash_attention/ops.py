@@ -1,5 +1,6 @@
-"""Wrapper of the flash attention kernel (csrc/flash_attention.cu): the
-attention of the embedder's encoder and of the generator's prefill."""
+"""Wrappers of the flash attention kernels (csrc/flash_attention.cu): the
+attention of the embedder's encoder, of the generator's prefill and of the
+train path, forward and backward."""
 from __future__ import annotations
 
 import ctypes
@@ -9,28 +10,120 @@ import torch
 from ... import obs
 from .. import build
 from ..build import check
-from .plain import flash_attention_plain
+from .plain import flash_attention_bwd_plain, flash_attention_plain
 
-launches = 0          # CUDA kernel launches of ``flash_attention``
+launches = 0          # CUDA kernel launches of the forward
+bwd_launches = 0      # CUDA launches of ``flash_attention_bwd`` (one call)
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128)
-_fwd = None
+_entries = None
 
 
-def _entry():
-    """(library, its ``flash_attention_fwd``), built, loaded and declared
-    once."""
-    global _fwd
-    if _fwd is None:
+def _lib():
+    """(library, ``flash_attention_fwd``, ``flash_attention_bwd``), built,
+    loaded and declared once."""
+    global _entries
+    if _entries is None:
         lib = build.load("flash_attention")
-        fn = lib.flash_attention_fwd
-        fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.c_int]
-                       + [ctypes.c_longlong] * 6
-                       + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        _fwd = (lib, fn)
-    return _fwd
+        fwd = lib.flash_attention_fwd
+        fwd.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int]
+                        + [ctypes.c_longlong] * 6
+                        + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+        fwd.restype = ctypes.c_int
+        bwd = lib.flash_attention_bwd
+        bwd.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int]
+                        + [ctypes.c_longlong] * 6
+                        + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+        bwd.restype = ctypes.c_int
+        _entries = (lib, fwd, bwd)
+    return _entries
+
+
+def _call(dev: torch.device, fn, *args) -> int:
+    """``fn(*args, stream)`` on the current stream of ``dev``."""
+    idx = dev.index
+    stream = torch._C._cuda_getCurrentRawStream(idx)
+    if idx == torch.cuda.current_device():
+        return fn(*args, stream)
+    with torch.cuda.device(idx):
+        return fn(*args, stream)
+
+
+def _check(what: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    """(b, h, sq, d, kv, skv), or raise on shapes, dtypes or devices the
+    kernels do not take."""
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError(f"{what}: q, k, v must be 4-d")
+    b, h, sq, d = q.shape
+    kv, skv = k.shape[1], k.shape[2]
+    if (k.shape != v.shape or k.shape[0] != b or k.shape[3] != d
+            or kv < 1 or h % kv != 0):
+        raise ValueError(f"{what}: shapes q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)} do "
+                         f"not match")
+    if not (q.dtype == k.dtype == v.dtype) or q.dtype not in DTYPES:
+        raise TypeError(f"{what}: q, k, v must share one of "
+                        f"{list(DTYPES)}, got {q.dtype}, {k.dtype}, "
+                        f"{v.dtype}")
+    dev = q.device
+    if k.device != dev or v.device != dev:
+        raise ValueError(f"{what}: q, k, v on different devices")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what} runs on cpu or cuda, not {dev}")
+    if dev.type == "cuda" and d not in HEAD_DIMS:
+        raise ValueError(f"{what}: head dim {d} not in {HEAD_DIMS}")
+    return b, h, sq, d, kv, skv
+
+
+def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             causal: bool, want_lse: bool):
+    """(o, lse or None): the kernel for CUDA tensors (contiguous inputs),
+    the plain version for CPU tensors."""
+    global launches
+    with obs.span("kernel:flash_attention") as sp:
+        b, h, sq, d, kv, skv = _check("flash_attention", q, k, v)
+        pairs = b * h * sq * skv // (2 if causal else 1)
+        sp.add("flops", 4 * pairs * d)
+        sp.add("bytes", (2 * b * h * sq + 2 * b * kv * skv) * d
+               * q.element_size())
+        if q.device.type == "cpu":
+            if want_lse:
+                return flash_attention_plain(q, k, v, causal,
+                                             return_lse=True)
+            return flash_attention_plain(q, k, v, causal), None
+        o = torch.empty_like(q)
+        lse = torch.empty((b, h, sq), dtype=torch.float32,
+                          device=q.device) if want_lse else None
+        lib, fwd, _ = _lib()
+        err = _call(q.device, fwd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                    o.data_ptr(), None if lse is None else lse.data_ptr(),
+                    DTYPES[q.dtype], b, h, kv, sq, skv, d, int(causal),
+                    d ** -0.5)
+        check(lib, err, "flash_attention_fwd")
+        launches += 1
+        if sp is not obs.NOOP_SPAN:            # traced: span = device time
+            torch.cuda.current_stream(q.device).synchronize()
+        return o, lse
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The forward kernel (with its row logsumexp) and the backward
+    kernel, for autograd."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        o, lse = _forward(q, k, v, causal, want_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal = causal
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, o, do, lse, ctx.causal)
+        return dq, dk, dv, None
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -41,50 +134,63 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     to the last Sq key positions, 0 at a row with no visible key. A CPU
     tensor runs the plain PyTorch version; a CUDA tensor launches the
     kernel (D in 32, 64, 128): bf16 at D 64 and 128 on the tensor cores
-    (wgmma), fp32 and bf16 at D 32 on the CUDA cores."""
-    global launches
-    with obs.span("kernel:flash_attention") as sp:
-        if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
-            raise ValueError("flash_attention: q, k, v must be 4-d")
-        b, h, sq, d = q.shape
-        kv, skv = k.shape[1], k.shape[2]
-        if (k.shape != v.shape or k.shape[0] != b or k.shape[3] != d
-                or kv < 1 or h % kv != 0):
-            raise ValueError(f"flash_attention: shapes q {tuple(q.shape)}, "
-                             f"k {tuple(k.shape)}, v {tuple(v.shape)} do "
-                             f"not match")
-        if not (q.dtype == k.dtype == v.dtype) or q.dtype not in DTYPES:
-            raise TypeError(f"flash_attention: q, k, v must share one of "
-                            f"{list(DTYPES)}, got {q.dtype}, {k.dtype}, "
-                            f"{v.dtype}")
-        dev = q.device
-        if k.device != dev or v.device != dev:
-            raise ValueError("flash_attention: q, k, v on different devices")
+    (wgmma), fp32 and bf16 at D 32 on the CUDA cores. Differentiable:
+    where autograd records and an input requires grad, the forward also
+    keeps each row's logsumexp and the backward is
+    ``flash_attention_bwd`` (a kernel on the card); the output is the
+    same, bit for bit."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashAttention.apply(q, k, v, causal)
+    return _forward(q.contiguous(), k.contiguous(), v.contiguous(), causal,
+                    want_lse=False)[0]
+
+
+def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, causal: bool = True
+                             ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``flash_attention`` and each row's logsumexp of its scaled logits
+    ((B, H, Sq) fp32, -inf for a row with no visible key): what the
+    backward reads."""
+    return _forward(q.contiguous(), k.contiguous(), v.contiguous(), causal,
+                    want_lse=True)
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
+                        causal: bool = True
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Gradients (dq, dk, dv) of ``flash_attention`` against ``do`` (its
+    output's cotangent), from the forward's o and lse, in q's dtype with
+    fp32 sums. A CPU tensor runs ``flash_attention_bwd_plain``; a CUDA
+    tensor launches the backward kernel (three launches in one call, no
+    atomics: a rerun gives the same bits)."""
+    global bwd_launches
+    with obs.span("kernel:flash_attention_bwd") as sp:
+        b, h, sq, d, kv, skv = _check("flash_attention_bwd", q, k, v)
+        if o.shape != q.shape or do.shape != q.shape or \
+                tuple(lse.shape) != (b, h, sq):
+            raise ValueError(f"flash_attention_bwd: o {tuple(o.shape)}, do "
+                             f"{tuple(do.shape)}, lse {tuple(lse.shape)} do "
+                             f"not match q {tuple(q.shape)}")
         pairs = b * h * sq * skv // (2 if causal else 1)
-        sp.add("flops", 4 * pairs * d)
-        sp.add("bytes", (2 * b * h * sq + 2 * b * kv * skv) * d
+        sp.add("flops", 14 * pairs * d)
+        sp.add("bytes", (4 * b * h * sq + 4 * b * kv * skv) * d
                * q.element_size())
-        if dev.type == "cpu":
-            return flash_attention_plain(q, k, v, causal)
-        if dev.type != "cuda":
-            raise ValueError(f"flash_attention runs on cpu or cuda, not {dev}")
-        if d not in HEAD_DIMS:
-            raise ValueError(f"flash_attention: head dim {d} not in "
-                             f"{HEAD_DIMS}")
-        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-        o = torch.empty_like(q)
-        lib, fn = _entry()
-        idx = q.get_device()
-        args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                DTYPES[q.dtype], b, h, kv, sq, skv, d, int(causal), d ** -0.5,
-                torch._C._cuda_getCurrentRawStream(idx))
-        if idx == torch.cuda.current_device():
-            err = fn(*args)
-        else:
-            with torch.cuda.device(idx):
-                err = fn(*args)
-        check(lib, err, "flash_attention_fwd")
-        launches += 1
-        if sp is not obs.NOOP_SPAN:            # traced: span = device time
-            torch.cuda.current_stream(dev).synchronize()
-        return o
+        if q.device.type == "cpu":
+            return flash_attention_bwd_plain(q, k, v, o, do, lse, causal)
+        do = do.to(q.dtype)
+        q, k, v, o, do = (t.contiguous() for t in (q, k, v, o, do))
+        lse = lse.float().contiguous()
+        dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+        delta = torch.empty((b, h, sq), dtype=torch.float32,
+                            device=q.device)
+        lib, _, bwd = _lib()
+        err = _call(q.device, bwd, *(t.data_ptr() for t in (
+            q, k, v, o, do, lse, delta, dq, dk, dv)), DTYPES[q.dtype], b, h,
+            kv, sq, skv, d, int(causal), d ** -0.5)
+        check(lib, err, "flash_attention_bwd")
+        bwd_launches += 1
+        if sp is not obs.NOOP_SPAN:
+            torch.cuda.current_stream(q.device).synchronize()
+        return dq, dk, dv

@@ -1,32 +1,78 @@
-"""Plain PyTorch version of the flash attention kernel: the CPU path of
-``ops.flash_attention`` and the yardstick the CUDA kernel is held to."""
+"""Plain PyTorch versions of the flash attention kernels, forward and
+backward: the CPU paths of ``ops.flash_attention`` and
+``ops.flash_attention_bwd`` and the yardsticks the CUDA kernels are held
+to."""
 from __future__ import annotations
 
 import torch
 
 
-def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
-                          v: torch.Tensor, causal: bool = True,
-                          scale: float | None = None) -> torch.Tensor:
-    """The function of repro's Pallas ``flash_attention_fwd`` in one pass:
-    q (B, H, Sq, D), k/v (B, KV, Skv, D) -> (B, H, Sq, D) in q's dtype.
-    fp32 throughout; query head h reads kv head h // (H // KV) (grouped,
-    no repeat); causal column c is visible from row r iff
-    r + (Skv - Sq) >= c; a row with no visible column gives 0."""
+def _scores(q: torch.Tensor, k: torch.Tensor, causal: bool,
+            scale: float) -> torch.Tensor:
+    """(B, KV, G, Sq, Skv) fp32 scaled logits, -inf where masked."""
     b, h, sq, d = q.shape
     kv, skv = k.shape[1], k.shape[2]
-    g = h // kv
-    scale = scale if scale is not None else d ** -0.5
-    qf = (q.float() * scale).reshape(b, kv, g, sq, d)
+    qf = (q.float() * scale).reshape(b, kv, h // kv, sq, d)
     s = torch.einsum("bkgqd,bkcd->bkgqc", qf, k.float())
     if causal:
         rows = torch.arange(sq, device=q.device)[:, None] + (skv - sq)
         cols = torch.arange(skv, device=q.device)[None, :]
         s = s.masked_fill(~(rows >= cols), float("-inf"))
+    return s
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
+                          v: torch.Tensor, causal: bool = True,
+                          scale: float | None = None,
+                          return_lse: bool = False):
+    """The function of repro's Pallas ``flash_attention_fwd`` in one pass:
+    q (B, H, Sq, D), k/v (B, KV, Skv, D) -> (B, H, Sq, D) in q's dtype.
+    fp32 throughout; query head h reads kv head h // (H // KV) (grouped,
+    no repeat); causal column c is visible from row r iff
+    r + (Skv - Sq) >= c; a row with no visible column gives 0. With
+    ``return_lse`` also each row's logsumexp of its scaled logits (B, H,
+    Sq) fp32, -inf for a row with no visible column."""
+    b, h, sq, d = q.shape
+    scale = scale if scale is not None else d ** -0.5
+    s = _scores(q, k, causal, scale)
     m = s.amax(-1, keepdim=True)
     m_safe = torch.where(torch.isneginf(m), 0.0, m)
     p = torch.where(torch.isneginf(s), 0.0, torch.exp(s - m_safe))
     l = p.sum(-1, keepdim=True)
     out = torch.einsum("bkgqc,bkcd->bkgqd", p, v.float())
     out = out / torch.where(l == 0.0, 1.0, l)
-    return out.reshape(b, h, sq, d).to(q.dtype)
+    out = out.reshape(b, h, sq, d).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.where(l == 0.0, float("-inf"), m_safe + torch.log(l))
+    return out, lse.reshape(b, h, sq)
+
+
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, o: torch.Tensor,
+                              do: torch.Tensor, lse: torch.Tensor,
+                              causal: bool = True,
+                              scale: float | None = None):
+    """The backward of ``flash_attention_plain`` from its output ``o`` and
+    row logsumexp ``lse``, in fp32: P = exp(s - lse) (0 where masked or
+    the row is empty), dV = P^T dO, dS = P * (dO V^T - rowsum(dO o)),
+    dQ = scale dS K, dK = scale dS^T Q, dK and dV summed over each GQA
+    group. Returns (dq, dk, dv) in q's dtype."""
+    b, h, sq, d = q.shape
+    kv = k.shape[1]
+    g = h // kv
+    scale = scale if scale is not None else d ** -0.5
+    s = _scores(q, k, causal, scale)
+    lse5 = lse.float().reshape(b, kv, g, sq, 1)
+    p = torch.where(torch.isneginf(s) | torch.isneginf(lse5), 0.0,
+                    torch.exp(s - lse5))
+    dof = do.float().reshape(b, kv, g, sq, d)
+    dv = torch.einsum("bkgqc,bkgqd->bkcd", p, dof)
+    dp = torch.einsum("bkgqd,bkcd->bkgqc", dof, v.float())
+    delta = (dof * o.float().reshape(b, kv, g, sq, d)).sum(-1, keepdim=True)
+    ds = p * (dp - delta)
+    dq = torch.einsum("bkgqc,bkcd->bkgqd", ds, k.float()) * scale
+    dk = torch.einsum("bkgqc,bkgqd->bkcd", ds,
+                      q.float().reshape(b, kv, g, sq, d)) * scale
+    return (dq.reshape(b, h, sq, d).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))

@@ -3,21 +3,27 @@ concrete step function and real arrays to drive it (repro's
 ``launch/steps.py`` without JAX, sharding or lowering).
 
 A ``CellBundle`` packages:
-  - fn(params, batch) for a serve, prefill, decode or encode cell,
-    fn(batch) for a retrieval cell,
+  - fn(params, opt_state, batch, step) -> (params, opt_state, loss) for a
+    train cell (params and opt_state updated in place), fn(params, batch)
+    for a serve, prefill, decode or encode cell, fn(batch) for a
+    retrieval cell,
   - arg_specs: the ``configs.base.Spec`` trees of its arguments (a
-    params slot is None: its shapes are the model's),
-  - model_cfg and the device its arrays go to.
+    params or opt_state slot is None: its shapes are the model's),
+  - model_cfg, the device its arrays go to, and for a train cell its
+    optimizer's name and gradient-accumulation factor.
 
-Ported: the LM family's ``prefill`` and ``decode`` kinds (``long_500k``
-is a decode cell, on one card), the embedder's ``encode`` and the recsys
-family's ``serve`` and ``retrieval``. Training cells, and SchNet, whose
-only cell is ``train``, wait for ROADMAP Queue 1 item 12.
+Ported: every kind of the LM family (``train``, ``prefill``, ``decode``;
+``long_500k`` is a decode cell, on one card), the embedder's ``encode``
+and the recsys family's ``train``, ``serve`` and ``retrieval``. A train
+cell's params are repro's tree (layers stacked for a transformer,
+``models/bridge.train_tree``), so the optimizer, the gradient
+compression and the checkpoint see repro's leaves. SchNet, whose only
+cell is ``train``, waits for ROADMAP Queue 1 item 12.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
@@ -27,9 +33,47 @@ from ..kernels.common import resolve_device
 from ..kernels.topk_search.ops import topk_search
 from ..models import recsys as recsys_m
 from ..models import transformer as tfm
+from ..models.bridge import train_tree
+from ..train.optimizer import Optimizer, adafactor, adamw
+from ..train.train_loop import value_and_grad
+
+ADAFACTOR_THRESHOLD = 100e9        # params above this use factored state
+
+# Gradient-accumulation (microbatch) factors of the FULL train cells, as
+# repro sizes them; reduced configs use 1.
+TRAIN_ACCUM_STEPS = {
+    "mistral-nemo-12b": 8,
+    "nemotron-4-15b": 16,
+    "qwen1.5-32b": 16,
+    "kimi-k2-1t-a32b": 8,
+    "qwen2-moe-a2.7b": 8,
+    "bert4rec": 16,           # 65k x 200-seq Cloze batches
+}
 
 _INIT = {"fm": recsys_m.fm_init, "dlrm-mlperf": recsys_m.dlrm_init,
          "wide-deep": recsys_m.widedeep_init}
+
+
+def effective_accum(preferred: int, global_batch: int, mesh=None) -> int:
+    """repro clamps the accumulation factor so that each microbatch still
+    spans the data-parallel extent of its mesh; on one card (``mesh``
+    None) the preferred factor stands. Meshes wait for ROADMAP Queue 1
+    item 13."""
+    if mesh is not None:
+        raise NotImplementedError("meshes are not ported (ROADMAP Queue 1 "
+                                  "item 13)")
+    return preferred
+
+
+def grad_accum_value_and_grad(loss_fn, accum: int):
+    """(params, batch) -> (loss, grads) over ``accum`` microbatches, as
+    repro's: microbatch j is rows j::accum of every batch array (repro
+    splits B as (B/accum, accum) and swaps the axes), the grads
+    accumulate in each param's dtype (autograd adds each microbatch's
+    into ``.grad``), and loss and grads are then multiplied by
+    1/accum."""
+    return lambda params, batch: value_and_grad(loss_fn, params, batch,
+                                                accum)
 
 
 @dataclasses.dataclass
@@ -41,20 +85,47 @@ class CellBundle:
     arg_specs: tuple
     model_cfg: Any
     device: torch.device
+    optimizer: Optional[str] = None     # train cells
+    accum: int = 1                      # train cells: microbatches a step
+    loss: Optional[Callable] = None     # train cells: loss(params, batch)
 
 
-def _not_ported(cell) -> NotImplementedError:
-    return NotImplementedError(
-        f"{cell.key}: {cell.kind} cells are not ported yet (training: "
-        f"ROADMAP Queue 1 item 12)")
+def _train_bundle(arch_name: str, shape: str, reduced: bool, loss,
+                  opt_name: str, opt: Optimizer, accum: Optional[int],
+                  batch_specs, cfg, device) -> CellBundle:
+    if accum is None:
+        accum = effective_accum(
+            1 if reduced else TRAIN_ACCUM_STEPS.get(arch_name, 1),
+            next(iter(batch_specs.values())).shape[0])
+    vg = grad_accum_value_and_grad(loss, accum)
+
+    def fn(params, opt_state, batch, step):
+        l, grads = vg(params, batch)
+        params, opt_state = opt.update(grads, opt_state, params, step)
+        return params, opt_state, l
+
+    return CellBundle(arch_name, shape, "train", fn,
+                      (None, None, batch_specs, None), cfg, device,
+                      opt_name, accum, loss)
+
+
+def _lm_optimizer(cfg) -> tuple[str, Optimizer]:
+    if cfg.n_params() > ADAFACTOR_THRESHOLD:
+        return "adafactor", adafactor()
+    return "adamw", adamw()
 
 
 def _lm_bundle(arch_name: str, shape: str, reduced: bool, cfg,
-               device: torch.device) -> CellBundle:
+               device: torch.device, accum: Optional[int]) -> CellBundle:
     spec = get_arch(arch_name)
     cell = spec.cell(shape)
     batch_specs = spec.input_specs(shape, reduced)
 
+    if cell.kind == "train":
+        opt_name, opt = _lm_optimizer(cfg)
+        return _train_bundle(arch_name, shape, reduced,
+                             lambda p, b: tfm.loss_fn(p, b, cfg), opt_name,
+                             opt, accum, batch_specs, cfg, device)
     if cell.kind == "prefill":
         seq = batch_specs["tokens"].shape[1]
 
@@ -67,17 +138,22 @@ def _lm_bundle(arch_name: str, shape: str, reduced: bool, cfg,
             logits, new_cache, new_len = tfm.decode_step(
                 params, batch["tokens"], cache, batch["cache_len"], cfg)
             return logits, new_cache["k"], new_cache["v"], new_len
-    elif cell.kind == "encode":
+    else:
+        assert cell.kind == "encode"
+
         def fn(params, batch):
             return tfm.forward_pooled(params, batch["tokens"], cfg)
-    else:
-        raise _not_ported(cell)
     return CellBundle(arch_name, shape, cell.kind, fn, (None, batch_specs),
                       cfg, device)
 
 
+_RECSYS_LOSSES = {"fm": recsys_m.fm_loss, "wide-deep": recsys_m.widedeep_loss,
+                  "dlrm-mlperf": recsys_m.dlrm_loss,
+                  "bert4rec": recsys_m.bert4rec_loss}
+
+
 def _recsys_bundle(arch_name: str, shape: str, reduced: bool, cfg,
-                   device: torch.device) -> CellBundle:
+                   device: torch.device, accum: Optional[int]) -> CellBundle:
     spec = get_arch(arch_name)
     cell = spec.cell(shape)
     batch_specs = spec.input_specs(shape, reduced)
@@ -94,8 +170,12 @@ def _recsys_bundle(arch_name: str, shape: str, reduced: bool, cfg,
 
         return CellBundle(arch_name, shape, cell.kind, retrieval_fn,
                           (batch_specs,), cfg, device)
-    if cell.kind != "serve":
-        raise _not_ported(cell)
+    if cell.kind == "train":
+        loss = _RECSYS_LOSSES[arch_name]
+        return _train_bundle(arch_name, shape, reduced,
+                             lambda p, b: loss(p, cfg, b), "adamw", adamw(),
+                             accum, batch_specs, cfg, device)
+    assert cell.kind == "serve"
 
     if arch_name == "bert4rec":
         def fn(params, batch):
@@ -116,9 +196,11 @@ def _recsys_bundle(arch_name: str, shape: str, reduced: bool, cfg,
 
 
 def build_cell(arch_name: str, shape: str, reduced: bool = False,
-               device=None) -> CellBundle:
+               device=None, accum: Optional[int] = None) -> CellBundle:
     """The bundle of one (arch x shape) cell. ``device`` (None = the
-    card) is where ``make_smoke_args`` puts its arrays."""
+    card) is where ``make_smoke_args`` puts its arrays. ``accum``
+    overrides a train cell's microbatch count (repro's: 1 reduced, else
+    ``TRAIN_ACCUM_STEPS``), for a card that holds less of the step."""
     if arch_name not in list_archs():
         raise NotImplementedError(
             f"{arch_name}: not ported; the port registers {list_archs()} "
@@ -127,24 +209,19 @@ def build_cell(arch_name: str, shape: str, reduced: bool = False,
     spec = get_arch(arch_name)
     build = _recsys_bundle if spec.family == "recsys" else _lm_bundle
     return build(arch_name, shape, reduced, spec.model_config(reduced),
-                 resolve_device(device))
+                 resolve_device(device), accum)
 
 
 # ---------------------------------------------------------------------------
 # smoke-test batch materialization (real arrays)
 # ---------------------------------------------------------------------------
-def make_smoke_args(bundle: CellBundle, seed: int = 0,
-                    params=None) -> tuple:
-    """Real arrays matching ``bundle.arg_specs``, on ``bundle.device``.
-    The batch comes from ``np.random.default_rng(seed)``, drawn array by
-    array in the order and with the calls of repro's ``make_smoke_args``,
-    so one seed gives both packages the same batch. ``params`` fills a
-    model cell's params slot (for example repro's, carried by
-    ``models/bridge``); None makes the port's own seeded init. A decode
-    cell's ``cache_len`` stays on the host, a 0-d int32 tensor: the
-    port's ``decode_step`` reads it there (it picks flash_decode's
-    split), so reading it costs no device sync."""
-    rng = np.random.default_rng(seed)
+def smoke_batch(bundle: CellBundle, seed: int = 0,
+                rng: Optional[np.random.Generator] = None) -> dict:
+    """The batch of ``make_smoke_args`` alone (a train loop's fresh batch
+    each step, without a new init): arrays drawn from ``rng`` (default
+    ``np.random.default_rng(seed)``) in repro's order, on
+    ``bundle.device``."""
+    rng = rng if rng is not None else np.random.default_rng(seed)
     cfg, dev = bundle.model_cfg, bundle.device
 
     def put(a: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
@@ -160,6 +237,14 @@ def make_smoke_args(bundle: CellBundle, seed: int = 0,
                 out[name] = put(rng.integers(4, vocab, shape), torch.int32)
             elif name in ("cache_k", "cache_v"):
                 out[name] = torch.zeros(shape, dtype=s.dtype, device=dev)
+            elif name == "labels":
+                if s.dtype.is_floating_point:
+                    out[name] = put(rng.integers(0, 2, shape).astype(
+                        np.float32), torch.float32)
+                else:
+                    hi = getattr(cfg, "vocab", None) or \
+                        getattr(cfg, "n_classes", None) or 100
+                    out[name] = put(rng.integers(0, hi, shape), torch.int32)
             elif name == "cache_len":
                 out[name] = torch.tensor(2, dtype=torch.int32)
             elif name == "ids":
@@ -184,10 +269,33 @@ def make_smoke_args(bundle: CellBundle, seed: int = 0,
                 raise KeyError(f"no smoke generator for {name}")
         return out
 
+    idx = {"train": 2, "retrieval": 0}.get(bundle.kind, 1)
+    return batch_arrays(bundle.arg_specs[idx])
+
+
+def make_smoke_args(bundle: CellBundle, seed: int = 0,
+                    params=None) -> tuple:
+    """Real arrays matching ``bundle.arg_specs``, on ``bundle.device``.
+    The batch comes from ``np.random.default_rng(seed)``, drawn array by
+    array in the order and with the calls of repro's ``make_smoke_args``,
+    so one seed gives both packages the same batch. ``params`` fills a
+    model cell's params slot (for example repro's, carried by
+    ``models/bridge``; a train cell takes a train tree,
+    ``bridge.train_tree`` or ``tree_from_numpy``); None makes the port's
+    own seeded init. A train cell returns (params, opt_state, batch,
+    step 0): the optimizer's fresh state and a 0-d int32 step. A decode
+    cell's ``cache_len`` stays on the host, a 0-d int32 tensor: the
+    port's ``decode_step`` reads it there (it picks flash_decode's
+    split), so reading it costs no device sync."""
     if bundle.kind == "retrieval":
-        return (batch_arrays(bundle.arg_specs[0]),)
+        return (smoke_batch(bundle, seed),)
     if params is None:
         init = _INIT.get(bundle.arch, tfm.init_params)
-        params = init(cfg, seed=seed, device=dev)
-    return params, batch_arrays(bundle.arg_specs[1])
-
+        params = init(bundle.model_cfg, seed=seed, device=bundle.device)
+        if bundle.kind == "train":
+            params = train_tree(params)
+    if bundle.kind == "train":
+        opt = adafactor() if bundle.optimizer == "adafactor" else adamw()
+        return (params, opt.init(params), smoke_batch(bundle, seed),
+                torch.tensor(0, dtype=torch.int32, device=bundle.device))
+    return params, smoke_batch(bundle, seed)

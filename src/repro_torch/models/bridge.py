@@ -1,5 +1,8 @@
-"""Carry transformer weights between repro's param pytree and the port's
-modules, so that both packages compute the same function.
+"""Carry weights between repro's param pytrees and the port's params, so
+that both packages compute the same function: into the port's serving
+modules (``params_from_repro``) and, for training, into train trees, the
+port's copy of repro's own layout (``tree_from_numpy``, ``train_tree``),
+params and optimizer state alike.
 
 repro keeps a transformer's params as nested dicts of arrays, with every
 layer's params stacked on a leading (L, ...) axis:
@@ -135,4 +138,56 @@ def recsys_params_to_repro(params, arch: str) -> dict:
         for p in path:
             node = node.setdefault(p, {})
         node[leaf] = (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# train trees: repro's layout as dicts of leaf tensors
+# ---------------------------------------------------------------------------
+def tree_from_numpy(np_tree, device=None, dtype=None):
+    """repro's pytree (numpy leaves: params, optimizer state) -> a dict
+    tree of tensors on ``device`` (None = the card), each leaf in its own
+    dtype (numpy's bfloat16 -> torch.bfloat16, exactly) or in ``dtype``
+    where given. An empty dict stays empty (SGD's state)."""
+    device = resolve_device(device)
+
+    def conv(a):
+        if isinstance(a, dict):
+            return {k: conv(v) for k, v in a.items()}
+        a = np.asarray(a)
+        want = dtype
+        if a.dtype.kind not in "fiub":       # ml_dtypes' bfloat16
+            want = want or torch.bfloat16
+            a = a.astype(np.float32)
+        return torch.from_numpy(np.array(a)).to(device=device,
+                                                dtype=want)
+
+    return conv(np_tree)
+
+
+def tree_to_numpy(tree):
+    """A dict tree of tensors -> numpy leaves (bf16 widened to fp32,
+    exactly), for repro (``jnp.asarray(..., dtype)`` narrows it back)."""
+    if isinstance(tree, dict):
+        return {k: tree_to_numpy(v) for k, v in tree.items()}
+    t = tree.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+def train_tree(params) -> dict:
+    """The port's serving params (``init_params``, ``*_init``,
+    ``params_from_repro``) as a train tree: repro's layout, a dict of
+    leaf tensors; a transformer's layers stacked on a leading axis (a
+    copy), a recsys model's tensors as they lie (no copy)."""
+    from .transformer import stack_layers
+
+    if hasattr(params, "layers"):
+        return stack_layers(params)
+    out: dict = {}
+    for name, t in params.named_parameters():
+        node = out
+        *path, leaf = name.split(".")
+        for p in path:
+            node = node.setdefault(p, {})
+        node[leaf] = t.detach()
     return out

@@ -1,4 +1,4 @@
-"""Shared NN layer library, inference subset (PyTorch).
+"""Shared NN layer library (PyTorch).
 
 Conventions (those of repro's ``models/layers.py``):
   - params are dicts of tensors, or the ``ParamModule``s of
@@ -7,13 +7,17 @@ Conventions (those of repro's ``models/layers.py``):
   - attention goes through kernels/flash_attention: the hand-written
     kernel for a CUDA tensor, its plain PyTorch version for a CPU tensor.
 
-Training pieces (``chunked_attention``, ``grad_cast``,
-``cross_entropy_loss``) are not ported yet (ROADMAP Queue 1).
+Training pieces: ``cross_entropy_loss`` (the LM and BERT4Rec loss),
+``grad_cast`` (an identity here: see its docstring) and
+``chunked_attention``, repro's online-softmax scan in plain PyTorch, kept
+for the tests that hold the attention kernel's plain backward to it; no
+path of the port runs it.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -194,3 +198,69 @@ def mlp_block(p, x: torch.Tensor, act: str) -> torch.Tensor:
     else:
         h = activation(act)(h)
     return torch.matmul(h, p["wout"])
+
+
+# ---------------------------------------------------------------------------
+# training pieces
+# ---------------------------------------------------------------------------
+def chunked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      causal: bool = True, chunk: int = 1024,
+                      scale: Optional[float] = None) -> torch.Tensor:
+    """repro's memory-efficient attention: a loop over KV chunks with an
+    online softmax carry (m, l, acc), fp32, GQA by grouping the query
+    heads (no repeat of K/V). Differentiable by autograd. q: (B, H, Sq,
+    Dh); k, v: (B, KV, Skv, Dh). Returns (B, H, Sq, Dh) in q's dtype."""
+    b, h, sq, dh = q.shape
+    kv, skv = k.shape[1], k.shape[2]
+    group = h // kv
+    scale = scale if scale is not None else dh ** -0.5
+    chunk = min(chunk, skv)
+    if skv % chunk:
+        raise ValueError(f"chunked_attention: {skv} keys are not whole "
+                         f"chunks of {chunk}")
+    q_off = skv - sq                      # causal: q rows are last sq pos
+    qf = (q.float() * scale).reshape(b, kv, group, sq, dh)
+    m = torch.full((b, kv, group, sq), float("-inf"), device=q.device)
+    l = torch.zeros((b, kv, group, sq), device=q.device)
+    acc = torch.zeros((b, kv, group, sq, dh), device=q.device)
+    for j in range(skv // chunk):
+        k_j = k[:, :, j * chunk:(j + 1) * chunk].float()
+        v_j = v[:, :, j * chunk:(j + 1) * chunk].float()
+        s = torch.einsum("bkgqd,bkcd->bkgqc", qf, k_j)
+        if causal:
+            rows = torch.arange(sq, device=q.device)[:, None] + q_off
+            cols = j * chunk + torch.arange(chunk, device=q.device)[None, :]
+            s = s.masked_fill(~(rows >= cols), float("-inf"))
+        m_new = torch.maximum(m, s.amax(-1))
+        m_safe = torch.where(torch.isneginf(m_new), 0.0, m_new)
+        p = torch.where(torch.isneginf(s), 0.0,
+                        torch.exp(s - m_safe[..., None]))
+        alpha = torch.where(torch.isneginf(m), 0.0, torch.exp(m - m_safe))
+        l = alpha * l + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum("bkgqc,bkcd->bkgqd",
+                                                    p, v_j)
+        m = m_new
+    out = acc / torch.where(l == 0.0, 1.0, l)[..., None]
+    return out.reshape(b, h, sq, dh).to(q.dtype)
+
+
+def grad_cast(x: torch.Tensor) -> torch.Tensor:
+    """repro's identity whose cotangent is cast to the primal dtype, so
+    that a bf16 param's stacked gradient is bf16, not fp32. Autograd
+    already returns every gradient in its input's dtype (the backward of
+    a dtype cast casts back), so here it is the identity: a bf16 param's
+    grad is bf16 without it."""
+    return x
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       ignore_id: int = -1) -> torch.Tensor:
+    """logits (B, S, V) fp32/bf16; labels (B, S) int. Mean of
+    logsumexp - gold logit in fp32 over the positions whose label is not
+    ``ignore_id``, over max(count, 1)."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1,
+                        torch.clamp(labels, min=0).long()[..., None])[..., 0]
+    mask = (labels != ignore_id).float()
+    return ((logz - gold) * mask).sum() / torch.clamp(mask.sum(), min=1.0)

@@ -1,4 +1,5 @@
-"""RecSys model family, serving (PyTorch): FM, DLRM, Wide&Deep, BERT4Rec.
+"""RecSys model family (PyTorch): FM, DLRM, Wide&Deep, BERT4Rec, serving
+and training.
 
 All four share the sparse substrate: huge embedding tables plus
 kernels/embedding_bag (gather + weighted segment reduce), which DLRM
@@ -8,8 +9,10 @@ kernel as the LiveVectorLake hot tier (``score_candidates`` ->
 kernels/topk_search).
 
 Parameters are the ``ParamModule``s of models/transformer.py (frozen,
-indexed by name like repro's dict pytrees); an MLP is an ``MLP`` module
-whose weights stay (d_in, d_out) as in repro (``x @ w + b``). Init
+indexed by name like repro's dict pytrees) for serving, or repro's dict
+tree of leaf tensors for training (``bridge.train_tree``); an MLP is an
+``MLP`` module or a dict of ``w{i}``/``b{i}``, weights (d_in, d_out) as in
+repro (``x @ w + b``, ``mlp_apply``). Init
 functions take a seed and a device (None = the card) and make every
 table in place on it: ``normal_`` into the allocated table, then an
 in-place scale, so a 12.8 GB table needs no scaled temporary. JAX's PRNG
@@ -18,11 +21,14 @@ across with ``models/bridge.recsys_params_from_repro``.
 
 ``lookup`` (FM, Wide&Deep) matches repro's ``jnp.take``: an id in
 [-V, -1] wraps to id + V, and any id still outside [0, V) gives a NaN
-row, on the CPU and on the card alike, with no host sync. DLRM's bags
-follow repro exactly (kernels/embedding_bag: NaN for an id >= V).
+row, on the CPU and on the card alike, with no host sync; in the
+backward such an id adds to no row, as ``jnp.take``'s VJP. It is plain
+PyTorch: repro has no kernel there. DLRM's bags follow repro exactly
+(kernels/embedding_bag: NaN for an id >= V, which adds to no row in the
+backward kernel).
 
-Not ported yet (ROADMAP Queue 1 item 12): the losses (``bce_loss``,
-``*_loss``) and training.
+The losses (``bce_loss``, ``fm_loss``, ``dlrm_loss``, ``widedeep_loss``,
+``bert4rec_loss``) are repro's: ``launch/steps`` trains them.
 """
 from __future__ import annotations
 
@@ -34,7 +40,7 @@ import torch
 from ..kernels.common import resolve_device
 from ..kernels.embedding_bag.ops import embedding_bag_grouped
 from ..kernels.topk_search.ops import topk_search
-from .layers import dense_init
+from .layers import cross_entropy_loss, dense_init
 from .transformer import (ParamModule, TransformerConfig, forward,
                           forward_pooled, logits_fn)
 
@@ -42,9 +48,20 @@ from .transformer import (ParamModule, TransformerConfig, forward,
 # ---------------------------------------------------------------------------
 # shared pieces
 # ---------------------------------------------------------------------------
+def mlp_apply(p, x: torch.Tensor, final_act: bool = False) -> torch.Tensor:
+    """Dense layers ``x @ w{i} + b{i}`` of ``p`` (an ``MLP`` or a dict),
+    ReLU after every layer but the last (and after the last too with
+    ``final_act``)."""
+    n = p.n if isinstance(p, MLP) else len(p) // 2
+    for i in range(n):
+        x = x @ p[f"w{i}"] + p[f"b{i}"]
+        if i < n - 1 or final_act:
+            x = torch.relu(x)
+    return x
+
+
 class MLP(ParamModule):
-    """Dense layers ``x @ w{i} + b{i}``, ReLU after every layer but the
-    last (and after the last too with ``final_act``)."""
+    """``mlp_apply``'s dense layers as a module."""
 
     def __init__(self, tensors: dict):
         super().__init__(tensors)
@@ -52,11 +69,15 @@ class MLP(ParamModule):
 
     def forward(self, x: torch.Tensor, final_act: bool = False
                 ) -> torch.Tensor:
-        for i in range(self.n):
-            x = x @ self[f"w{i}"] + self[f"b{i}"]
-            if i < self.n - 1 or final_act:
-                x = torch.relu(x)
-        return x
+        return mlp_apply(self, x, final_act)
+
+
+def bce_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean binary cross entropy of logits against 0/1 labels, fp32, in
+    the overflow-safe form max(l, 0) - l*y + log1p(exp(-|l|))."""
+    logits = logits.float()
+    return torch.mean(torch.clamp(logits, min=0) - logits * labels
+                      + torch.log1p(torch.exp(-logits.abs())))
 
 
 def mlp_params(gen: torch.Generator, dims: Sequence[int], dtype,
@@ -151,6 +172,10 @@ def fm_forward(params, cfg: FMConfig, ids: torch.Tensor) -> torch.Tensor:
     return params["w0"] + linear + pairwise
 
 
+def fm_loss(params, cfg: FMConfig, batch: dict) -> torch.Tensor:
+    return bce_loss(fm_forward(params, cfg, batch["ids"]), batch["labels"])
+
+
 def fm_user_embedding(params, cfg: FMConfig, ids: torch.Tensor
                       ) -> torch.Tensor:
     """Retrieval tower: normalized mean of field factors."""
@@ -232,7 +257,8 @@ def dlrm_forward(params, cfg: DLRMConfig, dense: torch.Tensor,
     (the kernel's grouped wrapper; a check may pass its plain version)
     writes the bags into the feature stack after x_bot, with no copy of
     the ids or the features. Returns (B,) logits."""
-    x_bot = params["bot"](dense.to(cfg.dtype), final_act=True)  # (B, 128)
+    x_bot = mlp_apply(params["bot"], dense.to(cfg.dtype),
+                      final_act=True)                           # (B, 128)
     feats = x_bot.new_empty((x_bot.shape[0], cfg.n_sparse + 1,
                              cfg.embed_dim))                     # (B, 27, k)
     feats[:, 0] = x_bot
@@ -245,12 +271,20 @@ def dlrm_forward(params, cfg: DLRMConfig, dense: torch.Tensor,
     n_f = feats.shape[1]
     iu, ju = torch.triu_indices(n_f, n_f, offset=1, device=feats.device)
     top_in = torch.cat([x_bot, inter[:, iu, ju]], dim=-1)       # (B, 479)
-    return params["top"](top_in)[:, 0]
+    return mlp_apply(params["top"], top_in)[:, 0]
+
+
+def dlrm_loss(params, cfg: DLRMConfig, batch: dict,
+              bag: Callable = embedding_bag_grouped) -> torch.Tensor:
+    logits = dlrm_forward(params, cfg, batch["dense"], batch["sparse_ids"],
+                          batch.get("weights"), bag=bag)
+    return bce_loss(logits, batch["labels"])
 
 
 def dlrm_user_embedding(params, cfg: DLRMConfig, dense: torch.Tensor,
                         sparse_ids: torch.Tensor) -> torch.Tensor:
-    return _unit(params["bot"](dense.to(cfg.dtype), final_act=True))
+    return _unit(mlp_apply(params["bot"], dense.to(cfg.dtype),
+                           final_act=True))
 
 
 # ---------------------------------------------------------------------------
@@ -304,8 +338,13 @@ def widedeep_forward(params, cfg: WideDeepConfig, ids: torch.Tensor
     """ids: (B, F) global ids. wide linear + deep MLP over concat embeds."""
     wide = lookup(params["wide_w"], ids).sum(-1) + params["wide_b"]
     emb = lookup(params["embed"], ids)                        # (B, F, k)
-    deep = params["deep"](emb.reshape(ids.shape[0], -1))[:, 0]
+    deep = mlp_apply(params["deep"], emb.reshape(ids.shape[0], -1))[:, 0]
     return wide + deep
+
+
+def widedeep_loss(params, cfg: WideDeepConfig, batch: dict) -> torch.Tensor:
+    return bce_loss(widedeep_forward(params, cfg, batch["ids"]),
+                    batch["labels"])
 
 
 def widedeep_user_embedding(params, cfg: WideDeepConfig, ids: torch.Tensor
@@ -325,7 +364,7 @@ def bert4rec_config(n_items: int = 30_000, dtype=torch.float32,
     return TransformerConfig(
         name=name, vocab=vocab,
         d_model=64, n_layers=2, n_heads=2, n_kv=2, d_head=32, d_ff=256,
-        act="gelu", causal=False, dtype=dtype)
+        act="gelu", causal=False, dtype=dtype, remat=False)
 
 
 def bert4rec_forward(params, cfg: TransformerConfig, tokens: torch.Tensor
@@ -333,6 +372,14 @@ def bert4rec_forward(params, cfg: TransformerConfig, tokens: torch.Tensor
     """Serve: the item logits of the last position, (B, vocab)."""
     hidden, _ = forward(params, tokens, cfg)
     return logits_fn(params, hidden[:, -1:])[:, 0]
+
+
+def bert4rec_loss(params, cfg: TransformerConfig, batch: dict
+                  ) -> torch.Tensor:
+    """Cloze loss: batch {tokens (B, S) with MASK ids, labels (B, S) = the
+    item id at masked positions, -1 elsewhere}."""
+    hidden, _ = forward(params, batch["tokens"], cfg)
+    return cross_entropy_loss(logits_fn(params, hidden), batch["labels"])
 
 
 def bert4rec_user_embedding(params, cfg: TransformerConfig,

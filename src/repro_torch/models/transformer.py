@@ -1,16 +1,26 @@
-"""Decoder/encoder transformer family, inference (PyTorch).
+"""Decoder/encoder transformer family (PyTorch): serving and training.
 
 One parametric implementation covers the five LM architectures (dense
 GQA: Mistral-NeMo, Nemotron-4, Qwen1.5; MoE: Kimi-K2, Qwen2-MoE), the
 MiniLM-class embedder (``causal=False``, mean-pooled) and BERT4Rec's
-bidirectional backbone. Layers are ``nn.Module``s holding frozen
-parameters in a ``ModuleList``; the functions below take them with the
-config, as repro's take its param pytree. repro stacks layer params on a
-leading (L, ...) axis for ``lax.scan``; here each layer is its own
-module and the loop over layers is a Python loop (models/bridge.py
-converts between the two).
+bidirectional backbone. The functions below take the params with the
+config, as repro's take its param pytree, in either of two forms:
 
-Attention goes through kernels/flash_attention (encoder, prefill) and
+  - serving: ``ParamModule``s holding frozen parameters, each layer its
+    own module in a ``ModuleList`` (``init_params``; models/bridge.py
+    carries repro's tree across);
+  - training: repro's own layout, a dict of leaf tensors with every
+    layer's params stacked on a leading (L, ...) axis (``stack_layers``),
+    so that the optimizer, the gradient compression and the checkpoint
+    see repro's leaves. ``forward`` takes per-layer views of the stacks
+    with one ``unbind(0)`` a leaf (indexing each layer instead would make
+    autograd build a zero gradient of the whole stack for every layer).
+
+The loop over layers is a Python loop in both; ``cfg.remat`` wraps each
+layer in ``torch.utils.checkpoint`` (non-reentrant) when autograd records,
+so the backward recomputes the layer's forward, its attention kernel
+included. Attention goes through kernels/flash_attention (encoder,
+prefill, training; its backward is a kernel too) and
 kernels/flash_decode (decode): the hand-written kernels for CUDA tensors,
 their plain versions for CPU tensors. The KV cache is allocated once at
 ``cache_size`` by ``prefill`` and written in place by ``decode_step``
@@ -18,9 +28,9 @@ their plain versions for CPU tensors. The KV cache is allocated once at
 models/moe.py's ``moe_block``: the capacity path in ``forward`` and
 ``prefill``, the dropless path in ``decode_step``, as in repro.
 
-Not ported yet (ROADMAP Queue 1): ``loss_fn`` (training), the sharded
-MoE path, and repro's ``remat``, ``unroll_layers``, ``moe_mesh`` and
-``attn_impl`` options, which have no counterpart here.
+Not ported (ROADMAP Queue 1 item 13): the sharded MoE path and repro's
+``unroll_layers``, ``moe_mesh`` and ``attn_impl`` options, which have no
+counterpart on one card.
 """
 from __future__ import annotations
 
@@ -29,12 +39,14 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels.common import resolve_device
 from ..kernels.flash_decode.ops import flash_decode
 from .layers import (AttentionConfig, attention_block, attention_impl,
                      attention_params, attention_qkv, dense_init,
-                     embed_init, mlp_block, mlp_params, rmsnorm)
+                     cross_entropy_loss, embed_init, mlp_block, mlp_params,
+                     rmsnorm)
 from .moe import MoEConfig, moe_block, moe_params
 
 
@@ -53,6 +65,7 @@ class TransformerConfig:
     rope_theta: float = 10_000.0
     causal: bool = True
     moe: Optional[MoEConfig] = None
+    remat: bool = True                  # recompute each layer in backward
     dtype: torch.dtype = torch.float32  # parameter / activation dtype
 
     @property
@@ -98,7 +111,8 @@ class TransformerConfig:
 
 class ParamModule(nn.Module):
     """Named tensors as frozen parameters, plus named submodules, read as
-    ``p["name"]`` like repro's dict pytrees."""
+    ``p["name"]`` like repro's dict pytrees. Serving only: the train path
+    takes plain dicts of leaf tensors (``stack_layers``)."""
 
     def __init__(self, tensors: Optional[dict] = None, **modules):
         super().__init__()
@@ -185,24 +199,86 @@ def _layer_fn(lp, x, cfg: TransformerConfig, positions):
     return x + f, aux
 
 
+def layer_list(layers) -> list:
+    """The layers' params one by one: a ``ModuleList`` as it is; a
+    stacked dict (repro's layout) as per-layer dicts of views, one
+    ``unbind(0)`` a leaf."""
+    if not isinstance(layers, dict):
+        return layers
+
+    def unbind(node):
+        if isinstance(node, dict):
+            return {k: unbind(v) for k, v in node.items()}
+        return node.unbind(0)
+
+    def pick(node, i):
+        if isinstance(node, dict):
+            return {k: pick(v, i) for k, v in node.items()}
+        return node[i]
+
+    views = unbind(layers)
+    n = len(layers["ln1"])
+    return [pick(views, i) for i in range(n)]
+
+
+def stack_layers(params) -> dict:
+    """A serving tree (``init_params``, ``params_from_repro``) as repro's
+    layout: a dict of new leaf tensors, every layer's params stacked on a
+    leading axis. The copy is the caller's to keep; the modules can go."""
+    layers = list(params["layers"])
+
+    def group(mods, sub=None):
+        first = mods[0] if sub is None else mods[0][sub]
+        out = {}
+        for name, _ in first.named_parameters(recurse=False):
+            out[name] = torch.stack([(m if sub is None else m[sub])[name]
+                                     .detach() for m in mods])
+        return out
+
+    ffn = "moe" if hasattr(layers[0], "moe") else "mlp"
+    stacked = group(layers)                   # ln1, ln2
+    stacked["attn"] = group(layers, "attn")
+    stacked[ffn] = group(layers, ffn)
+    return {"embed": params["embed"].detach().clone(),
+            "final_ln": params["final_ln"].detach().clone(),
+            "lm_head": params["lm_head"].detach().clone(),
+            "layers": stacked}
+
+
 def forward(params, tokens: torch.Tensor, cfg: TransformerConfig,
             positions: Optional[torch.Tensor] = None
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """tokens (B, S) int -> (hidden (B, S, D), aux_loss). aux_loss sums
-    the MoE layers' load-balance losses (0 for a dense model)."""
+    the MoE layers' load-balance losses (0 for a dense model). With
+    ``cfg.remat`` and autograd recording, each layer is checkpointed."""
     x = params["embed"][tokens]
     if positions is None:
         positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                                  device=x.device)[None, :]
+    remat = cfg.remat and torch.is_grad_enabled()
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
-    for lp in params["layers"]:
-        x, aux = _layer_fn(lp, x, cfg, positions)
+    for lp in layer_list(params["layers"]):
+        if remat:
+            x, aux = checkpoint(_layer_fn, lp, x, cfg, positions,
+                                use_reentrant=False)
+        else:
+            x, aux = _layer_fn(lp, x, cfg, positions)
         aux_total = aux_total + aux
     return rmsnorm(x, params["final_ln"]), aux_total
 
 
 def logits_fn(params, hidden: torch.Tensor) -> torch.Tensor:
     return torch.matmul(hidden, params["lm_head"])
+
+
+def loss_fn(params, batch: dict, cfg: TransformerConfig) -> torch.Tensor:
+    """Next-token cross entropy of ``batch["tokens"]`` against
+    ``batch["labels"]`` (-1 ignored) plus the MoE aux loss. The logits
+    come out of the head in the model's dtype (bf16 for the LM archs, as
+    repro's bf16 einsum rounds them) before the fp32 loss."""
+    hidden, aux = forward(params, batch["tokens"], cfg)
+    return cross_entropy_loss(logits_fn(params, hidden),
+                              batch["labels"]) + aux
 
 
 def forward_pooled(params, tokens: torch.Tensor, cfg: TransformerConfig,

@@ -180,3 +180,33 @@ def partials_agree(got, want, rel: float = 1e-4) -> tuple[bool, float, str]:
     if not ok:
         return False, r, f"acc differs by {r:.3g} x its limit"
     return True, max(worst, r), ""
+
+
+def grads_agree(got, want, bf16: bool) -> tuple[bool, float]:
+    """Hold a backward kernel's gradient ``got`` to its plain version's
+    ``want`` (tensors of one shape, both summed in fp32 from the same
+    inputs). fp32: within 1e-4 of the tensor's largest |value| (other sum
+    orders). bf16: each element within one rounding step (2**-7) of its
+    value plus 1e-4 of its row's largest (``rounding_agree``), the row's
+    largest floored at 1e-2 of the tensor's: a row whose exact gradient
+    is 0 (attention's first causal row sees one key, and its
+    dS = P (dP - Delta) cancels) holds only the two sums' rounding noise,
+    with no scale of its own. Returns (agree, largest ratio of an error
+    to its limit)."""
+    import torch
+
+    g, w = got.float(), want.float()
+    if g.shape != w.shape:
+        return False, float("inf")
+    top = float(w.abs().max()) if w.numel() else 0.0
+    diff = (g - w).abs()
+    if not bf16:
+        err = float(diff.max()) if diff.numel() else 0.0
+        worst = 0.0 if err == 0 else (err / (1e-4 * top) if top > 0
+                                      else float("inf"))
+        return worst <= 1.0, worst
+    row = torch.clamp(w.abs().amax(-1, keepdim=True), min=1e-2 * top)
+    lim = 2 ** -7 * w.abs() + 1e-4 * row
+    ratio = torch.where(diff == 0, torch.zeros_like(diff), diff / lim)
+    worst = float(ratio.max()) if ratio.numel() else 0.0
+    return worst <= 1.0, worst

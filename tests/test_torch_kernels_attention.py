@@ -305,3 +305,103 @@ def test_partials_agree_holds_each_split():
     acc = want[2].clone()
     acc[0, 1, 2, 5] *= 1.01
     assert not partials_agree((want[0], want[1], acc), want)[0]
+
+
+# ---------------------------------------------------------------------------
+# backward: the plain backward (the CPU path of flash_attention_bwd and of
+# flash_attention's autograd) against jax.grad of repro's references
+# ---------------------------------------------------------------------------
+BWD_SHAPES = [
+    (1, 4, 4, 64, 64, 32, True),        # MHA causal
+    (2, 8, 2, 48, 96, 64, True),        # GQA 4, queries the last 48 keys
+    (1, 4, 1, 64, 64, 32, False),       # MQA bidirectional
+    (1, 2, 2, 32, 128, 128, True),      # D 128
+]
+
+
+def _jax_grads(fn, q, k, v, g):
+    import jax
+    _, vjp = jax.vjp(fn, jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    return [np.asarray(x) for x in vjp(jnp.asarray(g))]
+
+
+@pytest.mark.parametrize("b,h,kv,sq,skv,d,causal", BWD_SHAPES)
+def test_plain_backward_matches_jax_grad(b, h, kv, sq, skv, d, causal):
+    """dq, dk, dv of the plain backward (from the plain forward's o and
+    lse) against jax.vjp of repro's attention_ref and chunked_attention,
+    within 2e-5 (fp32); the same through torch.autograd of
+    ``flash_attention``."""
+    from repro.models.layers import chunked_attention as repro_chunked
+    q, k, v = (_rand((b, h, sq, d), 11), _rand((b, kv, skv, d), 12),
+               _rand((b, kv, skv, d), 13))
+    g = _rand((b, h, sq, d), 14)
+    tq, tk, tv, tg = _t(q, k, v, g)
+    o, lse = fa_ops.flash_attention_with_lse(tq, tk, tv, causal)
+    got = fa_ops.flash_attention_bwd(tq, tk, tv, o, tg, lse, causal)
+    for ref in (lambda a, b_, c: repro_aref(a, b_, c, causal=causal),
+                lambda a, b_, c: repro_chunked(a, b_, c, causal=causal,
+                                               chunk=32)):
+        want = _jax_grads(ref, q, k, v, g)
+        for x, w in zip(got, want):
+            np.testing.assert_allclose(x.numpy(), w, **F32)
+    leaves = [t.clone().requires_grad_(True) for t in (tq, tk, tv)]
+    out = fa_ops.flash_attention(*leaves, causal=causal)
+    assert torch.equal(out.detach(), o)        # the lse changes no bit
+    out.backward(tg)
+    for leaf, x in zip(leaves, got):
+        assert torch.equal(leaf.grad, x)
+
+
+def test_lse_is_the_rows_logsumexp():
+    q, k, v = _rand((1, 4, 40, 32), 21), _rand((1, 2, 64, 32), 22), \
+        _rand((1, 2, 64, 32), 23)
+    tq, tk, tv = _t(q, k, v)
+    o, lse = fa_ops.flash_attention_with_lse(tq, tk, tv, True)
+    assert torch.equal(o, fa_ops.flash_attention(tq, tk, tv, True))
+    s = torch.einsum("bhqd,bhkd->bhqk", tq * 32 ** -0.5,
+                     torch.repeat_interleave(tk, 2, dim=1))
+    rows = torch.arange(40)[:, None] + 24
+    s = s.masked_fill(~(rows >= torch.arange(64)[None]), float("-inf"))
+    np.testing.assert_allclose(lse.numpy(), torch.logsumexp(s, -1).numpy(),
+                               **F32)
+
+
+def test_empty_rows_have_zero_gradient():
+    """Causal with Sq > Skv: the first Sq - Skv rows see no key. Their
+    lse is -inf, and their gradients, and their share of dk and dv, are
+    0, never NaN; the other rows' gradients are those of jax.vjp of
+    repro's chunked attention (which also gives 0 there)."""
+    from repro.models.layers import chunked_attention as repro_chunked
+    b, h, kv, sq, skv, d = 1, 4, 2, 80, 48, 64
+    q, k, v = (_rand((b, h, sq, d), 31), _rand((b, kv, skv, d), 32),
+               _rand((b, kv, skv, d), 33))
+    g = _rand((b, h, sq, d), 34)
+    tq, tk, tv, tg = _t(q, k, v, g)
+    o, lse = fa_ops.flash_attention_with_lse(tq, tk, tv, True)
+    assert bool(torch.isneginf(lse[:, :, :sq - skv]).all())
+    assert bool(torch.isfinite(lse[:, :, sq - skv:]).all())
+    dq, dk, dv = fa_ops.flash_attention_bwd(tq, tk, tv, o, tg, lse, True)
+    for x in (dq, dk, dv):
+        assert bool(torch.isfinite(x).all())
+    assert float(dq[:, :, :sq - skv].abs().max()) == 0.0
+    want = _jax_grads(lambda a, b_, c: repro_chunked(a, b_, c, chunk=48),
+                      q, k, v, g)
+    for x, w in zip((dq, dk, dv), want):
+        np.testing.assert_allclose(x.numpy(), w, **F32)
+
+
+def test_bf16_backward_is_the_fp32_one_rounded():
+    """bf16 inputs: the plain backward computes in fp32 and rounds once,
+    so it equals the fp32 backward on the same (bf16-exact) values,
+    rounded."""
+    b, h, kv, sq, skv, d = 1, 4, 2, 32, 32, 64
+    x = [torch.from_numpy(_rand(s, 40 + i)).to(torch.bfloat16)
+         for i, s in enumerate([(b, h, sq, d), (b, kv, skv, d),
+                                (b, kv, skv, d), (b, h, sq, d)])]
+    o, lse = fa_ops.flash_attention_with_lse(*x[:3], True)
+    got = fa_ops.flash_attention_bwd(*x[:3], o, x[3], lse, True)
+    want = fa_ops.flash_attention_bwd(*(t.float() for t in x[:3]),
+                                      o.float(), x[3].float(), lse, True)
+    for gt, w in zip(got, want):
+        assert gt.dtype == torch.bfloat16
+        assert torch.equal(gt, w.to(torch.bfloat16))

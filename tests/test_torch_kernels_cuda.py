@@ -25,7 +25,19 @@ once either way), else each component within 1e-5 of the sum of
 |w * row| over the bag (fmaf against a product then an add: at most one
 rounding a term apart); a bf16 table within one rounding step of
 bf16 (2**-7 of the value plus 1e-4 of the row's largest); NaN rows (an
-id >= V) at exactly the same bags."""
+id >= V) at exactly the same bags.
+
+The backward kernels, against their plain versions on the same inputs
+(o and lse from the forward kernel): flash_attention_bwd's dq, dk, dv in
+fp32 within 1e-4 of each tensor's largest |value|, in bf16 within one
+rounding step of each value plus 1e-4 of its row's largest, floored at
+1e-2 of the tensor's (``testing.grads_agree``: both sum in fp32 and round
+once; a row whose exact gradient is 0 holds only rounding noise); rows
+that see no key get 0, never NaN. The bag's
+backward sums in the plain version's order (slots sorted stably by row,
+chunks of 256, one rounded product and one rounded add a slot): its
+table gradient equals the plain one bit for bit, fp32 and bf16. Two runs
+of either backward are bit for bit equal."""
 import numpy as np
 import pytest
 import torch
@@ -1017,3 +1029,127 @@ def test_first_q8_calls_from_eight_threads(dev):
                        env=env, capture_output=True, text=True, timeout=600)
     assert r.returncode == 0, r.stderr[-4000:]
     assert r.stdout.strip().endswith("ok")
+
+
+# ---------------------------------------------------------------------------
+# backward kernels
+# ---------------------------------------------------------------------------
+from repro_torch.kernels.embedding_bag.plain import (  # noqa: E402
+    embedding_bag_backward_plain)
+from repro_torch.kernels.flash_attention.plain import (  # noqa: E402
+    flash_attention_bwd_plain)
+
+
+def _grads_agree(got, want, dtype):
+    from repro_torch.testing import grads_agree
+    for g, w in zip(got, want):
+        assert g.dtype == dtype and g.shape == w.shape
+        assert bool(torch.isfinite(g.float()).all())
+        ok, ratio = grads_agree(g, w, dtype == torch.bfloat16)
+        assert ok, f"a gradient is {ratio:.3g} x its limit from plain"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,kv,sq,skv,d,causal", [
+    (1, 4, 4, 128, 128, 64, True), (2, 8, 2, 100, 300, 64, True),
+    (1, 4, 1, 77, 77, 32, False), (1, 8, 2, 130, 390, 128, False),
+    (1, 32, 8, 256, 256, 128, True),       # Mistral-NeMo's heads
+    (16, 2, 2, 200, 200, 32, False),       # BERT4Rec
+    (1, 2, 2, 100, 40, 128, True),         # 60 rows that see no key
+    (2, 4, 4, 65, 129, 64, False),
+])
+def test_flash_attention_bwd_kernel_matches_plain(dev, dtype, b, h, kv, sq,
+                                                  skv, d, causal):
+    q = _randn((b, h, sq, d), 90, dev, dtype)
+    k = _randn((b, kv, skv, d), 91, dev, dtype)
+    v = _randn((b, kv, skv, d), 92, dev, dtype)
+    do = _randn((b, h, sq, d), 93, dev, dtype)
+    o, lse = fa_ops.flash_attention_with_lse(q, k, v, causal)
+    assert torch.equal(o, fa_ops.flash_attention(q, k, v, causal))
+    before = fa_ops.bwd_launches
+    got = fa_ops.flash_attention_bwd(q, k, v, o, do, lse, causal)
+    torch.cuda.synchronize()
+    assert fa_ops.bwd_launches == before + 1
+    _grads_agree(got, flash_attention_bwd_plain(q, k, v, o, do, lse, causal),
+                 dtype)
+    again = fa_ops.flash_attention_bwd(q, k, v, o, do, lse, causal)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    if causal and sq > skv:
+        assert bool(torch.isneginf(lse[:, :, :sq - skv]).all())
+        assert float(got[0][:, :, :sq - skv].abs().max()) == 0.0
+
+
+def test_flash_attention_autograd_on_the_card(dev):
+    """torch.autograd through flash_attention launches the forward with
+    its lse and the backward kernel once; the output is the serving
+    output bit for bit and the grads are flash_attention_bwd's."""
+    q, k, v = (_randn(s, 94 + i, dev, torch.bfloat16) for i, s in
+               enumerate([(1, 8, 200, 128), (1, 2, 200, 128),
+                          (1, 2, 200, 128)]))
+    do = _randn((1, 8, 200, 128), 97, dev, torch.bfloat16)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    f0, b0 = fa_ops.launches, fa_ops.bwd_launches
+    out = fa_ops.flash_attention(*leaves, causal=True)
+    out.backward(do)
+    assert (fa_ops.launches, fa_ops.bwd_launches) == (f0 + 1, b0 + 1)
+    assert torch.equal(out.detach(), fa_ops.flash_attention(q, k, v, True))
+    o, lse = fa_ops.flash_attention_with_lse(q, k, v, True)
+    want = fa_ops.flash_attention_bwd(q, k, v, o, do, lse, True)
+    for leaf, w in zip(leaves, want):
+        assert torch.equal(leaf.grad, w)
+
+
+@pytest.mark.parametrize("weighted", [False, True])
+@pytest.mark.parametrize("combiner", ["sum", "mean"])
+@pytest.mark.parametrize("bag,d,dtype,hot", [
+    (1, 128, torch.float32, False),     # DLRM one-hot
+    (1, 128, torch.float32, True),      # every id below 3: long runs
+    (4, 128, torch.float32, False),
+    (100, 64, torch.float32, True),
+    (3, 10, torch.float32, False),      # D % 4 != 0
+    (2, 200, torch.float32, False),     # two column passes
+    (4, 128, torch.bfloat16, True),
+])
+def test_embedding_bag_bwd_kernel_matches_plain(dev, weighted, combiner, bag,
+                                                d, dtype, hot):
+    tables, ids, w = _group_inputs(DLRM_LIKE, d, 3000, bag, 95, dev, dtype)
+    if hot:
+        ids = torch.where(ids >= 0, ids % 3, ids)
+    w = w if weighted else None
+    sizes = [t.shape[0] for t in tables]
+    g = _randn((3000, len(tables) + 1, d), 96, dev, dtype)[:, 1:]
+    before = eb_ops.bwd_launches
+    got = eb_ops.embedding_bag_grouped_bwd(sizes, dtype, ids, w, combiner, g)
+    torch.cuda.synchronize()
+    assert eb_ops.bwd_launches == before + 1
+    assert got.dtype == dtype and got.shape == (sum(sizes), d)
+    want = embedding_bag_backward_plain(sizes, dtype, ids, w, combiner, g)
+    assert torch.equal(got, want)
+    again = eb_ops.embedding_bag_grouped_bwd(sizes, dtype, ids, w, combiner,
+                                             g)
+    assert torch.equal(got, again)
+
+
+def test_embedding_bag_autograd_on_the_card(dev):
+    """DLRM's call under autograd: the grouped bags into feats[:, 1:] of a
+    stack, backward through it, one backward launch; each table's grad
+    is its rows of embedding_bag_grouped_bwd's stacked gradient."""
+    tables, ids, _ = _group_inputs(DLRM_LIKE, 128, 512, 1, 98, dev,
+                                   torch.float32)
+    leaves = [t.clone().requires_grad_(True) for t in tables]
+    x0 = torch.randn(512, 128, device=dev, requires_grad=True)
+    feats = x0.new_empty((512, len(tables) + 1, 128))
+    feats[:, 0] = x0
+    eb_ops.embedding_bag_grouped(leaves, ids, None, "sum", out=feats[:, 1:])
+    g = _randn(tuple(feats.shape), 99, dev, torch.float32)
+    b0 = eb_ops.bwd_launches
+    feats.backward(g)
+    assert eb_ops.bwd_launches == b0 + 1
+    assert torch.equal(x0.grad, g[:, 0])
+    sizes = [t.shape[0] for t in tables]
+    want = eb_ops.embedding_bag_grouped_bwd(sizes, torch.float32, ids, None,
+                                            "sum", g[:, 1:])
+    row = 0
+    for leaf, n in zip(leaves, sizes):
+        assert torch.equal(leaf.grad, want[row:row + n])
+        row += n

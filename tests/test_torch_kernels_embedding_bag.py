@@ -333,3 +333,126 @@ def test_grouped_wrapper_rejects_bad_input(what):
     eb.embedding_bag_grouped([torch.zeros((10, 4))] * eb.MAX_TABLES,
                              torch.zeros((2, eb.MAX_TABLES, 1),
                                          dtype=torch.int32))
+
+
+# ---------------------------------------------------------------------------
+# backward: the table gradient (the CPU path of embedding_bag_grouped_bwd
+# and of the bags' autograd) against jax.grad of repro's "ref" mode
+# ---------------------------------------------------------------------------
+def _jax_table_grad(table, idx, w, combiner, g):
+    import jax
+    fn = lambda t: repro_bag(t, jnp.asarray(idx),              # noqa: E731
+                             None if w is None else jnp.asarray(w),
+                             combiner, mode="ref")
+    _, vjp = jax.vjp(fn, jnp.asarray(table))
+    return np.asarray(vjp(jnp.asarray(g))[0])
+
+
+@pytest.mark.parametrize("v,d,b,bag,combiner,weighted", [
+    (1000, 64, 8, 16, "sum", True),
+    (5000, 128, 4, 8, "mean", True),
+    (128, 32, 16, 4, "sum", False),
+    (64, 16, 32, 3, "mean", False),
+])
+def test_bag_backward_matches_jax_grad(v, d, b, bag, combiner, weighted):
+    """The table gradient through torch.autograd of ``embedding_bag``
+    (padding, weights, mean, and an id >= V in one bag, which adds to no
+    row) against jax.vjp of repro's wrapper in "ref" mode, within 1e-5;
+    and the weights' gradient against jax's, but for the NaN bag's (jax
+    gives NaN there, the port 0: the forward masks that bag with NaN
+    after the sum, which passes no gradient to its weights)."""
+    table, idx, w = _setup(v, d, b, bag, seed=5)
+    idx[0, 0] = v + 3                                  # out of range
+    w = w if weighted else None
+    g = np.random.default_rng(6).standard_normal((b, d)).astype(np.float32)
+    g[0] = 0.0                  # the NaN bag's cotangent (its loss term)
+    tt = torch.from_numpy(table).requires_grad_(True)
+    tw = None if w is None else torch.from_numpy(w).requires_grad_(True)
+    out = eb.embedding_bag(tt, torch.from_numpy(idx), tw, combiner)
+    out.backward(torch.from_numpy(g))
+    want = _jax_table_grad(table, idx, w, combiner, g)
+    np.testing.assert_allclose(tt.grad.numpy(), want, rtol=1e-5, atol=1e-5)
+    untouched = np.ones(v, bool)
+    untouched[idx[(idx >= 0) & (idx < v)]] = False
+    assert float(tt.grad[torch.from_numpy(untouched)].abs().sum()) == 0.0
+    if w is not None:
+        import jax
+        fn = lambda ww: repro_bag(jnp.asarray(table),           # noqa: E731
+                                  jnp.asarray(idx), ww, combiner,
+                                  mode="ref")
+        _, vjp = jax.vjp(fn, jnp.asarray(w))
+        want_w = np.asarray(vjp(jnp.asarray(g))[0])
+        keep = idx >= 0
+        keep[0] = False                                # the NaN bag
+        np.testing.assert_allclose(tw.grad.numpy()[keep], want_w[keep],
+                                   rtol=1e-5, atol=1e-5)
+
+
+def test_grouped_backward_into_a_stack_slice():
+    """DLRM's call: the grouped bags written into ``feats[:, 1:]`` of a
+    stack whose field 0 is another input. autograd gives each table its
+    field's gradient (jax.vjp of repro's bags, per field) and the other
+    input its own slice's."""
+    rng = np.random.default_rng(8)
+    sizes, d, b, bag = (50, 7, 200, 3), 16, 64, 2
+    tabs = [rng.standard_normal((n, d)).astype(np.float32) for n in sizes]
+    idx = np.stack([rng.integers(-1, n, (b, bag)) for n in sizes],
+                   1).astype(np.int32)
+    g = rng.standard_normal((b, len(sizes) + 1, d)).astype(np.float32)
+    tt = [torch.from_numpy(t).requires_grad_(True) for t in tabs]
+    x0 = torch.from_numpy(rng.standard_normal((b, d)).astype(np.float32)
+                          ).requires_grad_(True)
+    feats = x0.new_empty((b, len(sizes) + 1, d))
+    feats[:, 0] = x0
+    eb.embedding_bag_grouped(tt, torch.from_numpy(idx), None, "sum",
+                             out=feats[:, 1:])
+    feats.backward(torch.from_numpy(g))
+    np.testing.assert_array_equal(x0.grad.numpy(), g[:, 0])
+    for f, t in enumerate(tt):
+        want = _jax_table_grad(tabs[f], idx[:, f], None, "sum", g[:, f + 1])
+        np.testing.assert_allclose(t.grad.numpy(), want, rtol=1e-5,
+                                   atol=1e-5)
+
+
+def test_bag_segments_cut_hot_rows_into_chunks():
+    """A hot row's slots are cut into chunks in slot order; the backward
+    over chunks of 4 equals the one over chunks of 256 within rounding,
+    and both equal jax's within 1e-5. Rows no slot reaches stay 0."""
+    from repro_torch.kernels.embedding_bag.plain import (
+        bag_segments, embedding_bag_backward_plain)
+    rng = np.random.default_rng(9)
+    b, bag, d, v = 300, 1, 8, 10
+    idx = rng.integers(0, 3, (b, 1, bag)).astype(np.int32)  # 3 hot rows
+    idx[::7] = -1
+    g = rng.standard_normal((b, 1, d)).astype(np.float32)
+    ti, tg = torch.from_numpy(idx), torch.from_numpy(g)
+    seg = bag_segments((v,), ti, None, "sum", chunk=4)
+    counts = seg["count"].tolist()
+    assert max(counts) == 4 and len(seg["multi_key"]) == 3
+    assert seg["slot"].tolist() == sorted(
+        seg["slot"].tolist(), key=lambda s: (idx.reshape(-1)[s], s))
+    got = embedding_bag_backward_plain((v,), torch.float32, ti, None, "sum",
+                                       tg, seg)
+    ref = embedding_bag_backward_plain((v,), torch.float32, ti, None, "sum",
+                                       tg)
+    want = _jax_table_grad(np.zeros((v, d), np.float32), idx[:, 0], None,
+                           "sum", g[:, 0])
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(ref.numpy(), want, rtol=1e-5, atol=1e-5)
+    assert float(got[3:].abs().sum()) == 0.0
+
+
+def test_bag_backward_bf16_rounds_once():
+    """A bf16 table: the gradient is the fp32 sums of the bf16 cotangent,
+    rounded once to bf16."""
+    table, idx, w = _setup(300, 32, 16, 4, seed=10)
+    g = torch.randn(16, 1, 32, generator=torch.Generator().manual_seed(0)
+                    ).to(torch.bfloat16)
+    ti = torch.from_numpy(idx)[:, None]
+    tw = torch.from_numpy(w)[:, None]
+    got = eb.embedding_bag_grouped_bwd((300,), torch.bfloat16, ti, tw, "mean",
+                                       g)
+    want = eb.embedding_bag_grouped_bwd((300,), torch.float32, ti, tw, "mean",
+                                        g.float())
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, want.to(torch.bfloat16))

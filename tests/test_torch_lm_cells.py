@@ -137,9 +137,16 @@ def test_lm_cell_matches_repro(cell):
 
 @pytest.mark.parametrize("arch", LM_ARCHS + ["schnet"])
 def test_train_cells_raise_naming_item_12(arch):
-    shape = "train_4k" if arch != "schnet" else "full_graph_sm"
+    """The LM archs' train cells are ported (tests/test_torch_train_cells.py
+    holds them to repro); SchNet, whose only cell is train, still raises
+    naming ROADMAP Queue 1 item 12."""
+    if arch != "schnet":
+        bundle = steps.build_cell(arch, "train_4k", reduced=True,
+                                  device="cpu")
+        assert (bundle.kind, bundle.optimizer) == ("train", "adamw")
+        return
     with pytest.raises(NotImplementedError, match="item 12"):
-        steps.build_cell(arch, shape, reduced=True, device="cpu")
+        steps.build_cell(arch, "full_graph_sm", reduced=True, device="cpu")
 
 
 @pytest.mark.parametrize("arch", LM_ARCHS)
