@@ -2924,30 +2924,9 @@ def phase_lm(torch, dev, kern: dict) -> dict:
 NEMO = "mistral-nemo-12b"
 NEMO_TRAIN = dict(layers=8, batch=8, steps=3)   # of 40 layers, 256 rows
 TRAIN_DLRM_ROWS = 4_000_000     # phase 10's DLRM tables, each capped here
-BERT4REC_ACCUM = 256            # microbatches of 256 x 200 (repro: 16)
-BERT4REC_STEP_S = 10.0          # a slower step cuts the global batch
-# DLRM's grads card vs CPU: relative L2 (PERF.md section 2: ReLU kinks;
-# the CPU's own fp32 against fp64 measured up to 2.0e-3 at 4096 samples)
-DLRM_REL_L2 = 1e-2
-
-
-class registered:
-    """Within the block, ``get_arch(arch).model_config`` returns ``cfg``
-    (a cut of the published config: depth, or table rows), so that
-    ``build_cell`` builds the cell over it."""
-
-    def __init__(self, arch: str, cfg):
-        from repro_torch.configs import base
-        base.get_arch(arch)
-        self.base, self.arch, self.cfg = base, arch, cfg
-
-    def __enter__(self):
-        self.saved = self.base._REGISTRY[self.arch]
-        self.base._REGISTRY[self.arch] = dataclasses.replace(
-            self.saved, model_config=lambda reduced=False: self.cfg)
-
-    def __exit__(self, *exc):
-        self.base._REGISTRY[self.arch] = self.saved
+BERT4REC_BATCH = 32_768         # of 65,536, to keep phase 10 short
+BERT4REC_ACCUM = 128            # microbatches of 256 x 200 (repro: 16)
+DLRM_KINK_SHARE = 0.05          # card vs CPU: at most this share dropped
 
 
 def peak_gb(torch) -> float:
@@ -2957,10 +2936,16 @@ def peak_gb(torch) -> float:
 class BackwardCheck:
     """Holds the two backward kernels against their plain versions on the
     card and times them, the plain versions and the library's backward on
-    the same inputs. Attention: ``testing.grads_agree`` (fp32 within 1e-4
-    of each tensor's largest; bf16 within one rounding step of each value
-    plus 1e-4 of its row's largest, floored at 1e-2 of the tensor's),
-    the output with lse equal to the serving output bit for bit. The bag:
+    the same inputs. Attention: the kernel's lse against the plain
+    forward's by ``testing.lse_agree`` (-inf at the same rows, else 1e-5
+    of max(1, |lse|)); the backward kernel against the plain backward on
+    the kernel's o and lse, dq, dk, dv by ``testing.grads_agree`` (fp32
+    within 1e-4 of each tensor's largest; bf16 within one rounding step of
+    each value plus 1e-4 of its row's largest, floored at 1e-2 of the
+    tensor's); the chain (forward with lse, then backward) against the
+    plain chain (the plain backward on the plain forward's o and lse) by
+    the same rule plus, in bf16, ``o_rounding_bound``; the output with
+    lse equal to the serving output bit for bit. The bag:
     bit for bit where every bag has one slot, else within 1e-5 of the sum
     of |coef * g| over each row's slots. Two runs of each backward bit for
     bit."""
@@ -2993,10 +2978,12 @@ class BackwardCheck:
 
         from repro_torch.kernels.flash_attention import ops as fa
         from repro_torch.kernels.flash_attention.plain import (
-            flash_attention_bwd_plain)
-        from repro_torch.testing import grads_agree
+            flash_attention_bwd_plain, flash_attention_plain,
+            o_rounding_bound)
+        from repro_torch.testing import grads_agree, lse_agree
 
         torch = self.torch
+        bf16 = dtype == torch.bfloat16
         b, h, kv, sq, skv, d = shape
         q, do = (self.randn((b, h, sq, d), dtype) for _ in range(2))
         k, v = (self.randn((b, kv, skv, d), dtype) for _ in range(2))
@@ -3004,25 +2991,44 @@ class BackwardCheck:
         check(torch.equal(o, fa.flash_attention(q, k, v, causal)),
               f"flash_attention {what}: the output with lse differs from "
               f"the serving output")
+        o_p, lse_p = flash_attention_plain(q, k, v, causal, return_lse=True)
+        ok, lse_ratio = lse_agree(lse, lse_p)
+        check(ok, f"flash_attention {what}: lse is {lse_ratio:.3g} x its "
+                  f"limit from plain")
         got = fa.flash_attention_bwd(q, k, v, o, do, lse, causal)
         again = fa.flash_attention_bwd(q, k, v, o, do, lse, causal)
         check(all(torch.equal(x, y) for x, y in zip(got, again)),
               f"flash_attention_bwd {what}: two runs differ")
-        want = flash_attention_bwd_plain(q, k, v, o, do, lse, causal)
-        err, worst = 0.0, 0.0
-        for name, x, y in zip(("dq", "dk", "dv"), got, want):
-            check(bool(torch.isfinite(x).all()),
-                  f"flash_attention_bwd {what}: {name} not finite")
-            ok, ratio = grads_agree(x, y, dtype == torch.bfloat16)
-            check(ok, f"flash_attention_bwd {what}: {name} is {ratio:.3g} "
-                      f"x its limit from plain")
-            err = max(err, float((x.float() - y.float()).abs().max()))
-            worst = max(worst, ratio)
+        # the backward alone (the plain backward on the kernel's o and
+        # lse), then the chain forward-with-lse and backward (the plain
+        # backward on the plain forward's o and lse; in bf16 the two
+        # forwards' o may round apart, o_rounding_bound)
+        env = o_rounding_bound(q, k, v, o_p, do, lse_p, causal) if bf16 \
+            else (None,) * 3
+        err, worst, chain, unbound = 0.0, 0.0, 0.0, 0.0
+        for label, want, bound in (
+                ("", flash_attention_bwd_plain(q, k, v, o, do, lse, causal),
+                 (None,) * 3),
+                (" (the chain)", flash_attention_bwd_plain(
+                    q, k, v, o_p, do, lse_p, causal), env)):
+            for name, x, y, e in zip(("dq", "dk", "dv"), got, want, bound):
+                check(bool(torch.isfinite(x).all()),
+                      f"flash_attention_bwd {what}: {name} not finite")
+                ok, ratio = grads_agree(x, y, bf16, e)
+                check(ok, f"flash_attention_bwd {what}{label}: {name} is "
+                          f"{ratio:.3g} x its limit from plain")
+                if label:
+                    chain = max(chain, ratio)
+                    unbound = max(unbound, grads_agree(x, y, bf16)[1])
+                else:
+                    err = max(err, float((x.float() - y.float()).abs().max()))
+                    worst = max(worst, ratio)
+            del want
         if causal and sq > skv:
             check(float(got[0][:, :, :sq - skv].abs().max()) == 0.0,
                   f"flash_attention_bwd {what}: a row with no key has a "
                   f"gradient")
-        del want
+        del env, o_p, lse_p
         leaves = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
         try:
             out = F.scaled_dot_product_attention(*leaves, is_causal=causal,
@@ -3043,8 +3049,54 @@ class BackwardCheck:
                  (b * h * sq + 2 * b * kv * skv) * d * es, 10 * pairs * d,
                  BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS,
                  iters, 1, dtype=str(dtype).removeprefix("torch."),
-                 err_over_limit=worst)
+                 err_over_limit=worst, chain_over_limit=chain,
+                 chain_without_bound=unbound, lse_over_limit=lse_ratio)
         del out, leaves
+        torch.cuda.empty_cache()
+
+    def autograd_vs_cpu(self, what, shape, dtype, causal):
+        """torch.autograd through ``flash_attention`` on the card (the
+        forward kernel with its lse, then the backward kernel) against
+        torch.autograd through the plain forward on the CPU: the output
+        and dq, dk, dv by ``testing.grads_agree``, in bf16 with
+        ``o_rounding_bound`` (the CPU's gradient reads the fp32 output,
+        the card's its bf16 rounding)."""
+        from repro_torch.kernels.flash_attention import ops as fa
+        from repro_torch.kernels.flash_attention.plain import (
+            flash_attention_plain, o_rounding_bound)
+        from repro_torch.testing import grads_agree
+
+        torch = self.torch
+        b, h, kv, sq, skv, d = shape
+        x = [self.randn(s, dtype) for s in ((b, h, sq, d), (b, kv, skv, d),
+                                            (b, kv, skv, d), (b, h, sq, d))]
+        card = [t.clone().requires_grad_(True) for t in x[:3]]
+        cpu = [t.cpu().requires_grad_(True) for t in x[:3]]
+        out = fa.flash_attention(*card, causal=causal)
+        out.backward(x[3])
+        want, lse = flash_attention_plain(*cpu, causal=causal,
+                                          return_lse=True)
+        want.backward(x[3].cpu())
+        env = o_rounding_bound(*(t.detach() for t in cpu), want.detach(),
+                               x[3].cpu(), lse.detach(), causal)
+        worst, unbound = 0.0, 0.0
+        for name, got, ref, e in zip(("o", "dq", "dk", "dv"),
+                                     [out.detach()] + [t.grad for t in card],
+                                     [want.detach()] + [t.grad for t in cpu],
+                                     (None,) + env):
+            check(got.dtype == dtype and bool(torch.isfinite(got).all()),
+                  f"flash_attention autograd {what}: {name}")
+            ok, ratio = grads_agree(got.cpu(), ref, dtype == torch.bfloat16,
+                                    e)
+            check(ok, f"flash_attention autograd {what}: {name} card vs "
+                      f"CPU is {ratio:.3g} x its limit")
+            worst = max(worst, ratio)
+            unbound = max(unbound, grads_agree(got.cpu(), ref, dtype ==
+                                               torch.bfloat16)[1])
+        log(f"  flash_attention autograd {what}: card vs CPU plain autograd, "
+            f"o, dq, dk, dv within {worst:.3g} x their limits "
+            f"({unbound:.3g} x without o_rounding_bound)")
+        del out, card, x
         torch.cuda.empty_cache()
 
     def bag(self, what, sizes, b, bag, combiner, weighted, hot, iters):
@@ -3145,8 +3197,13 @@ def phase_train_kernels(torch, dev) -> dict:
             ("fp32 D128 causal", (1, 4, 4, 256, 256, 128), torch.float32,
              True, 5),
             ("empty rows 300x100", (1, 4, 2, 300, 100, 64), torch.float32,
-             True, 5)):
+             True, 5),
+            ("bf16 D128 empty rows 300x100", (1, 8, 2, 300, 100, 128),
+             torch.bfloat16, True, 5)):
         chk.attention(what, shape, dtype, causal, iters)
+    chk.autograd_vs_cpu("bf16 D128 1x512", (1, nemo.n_heads, nemo.n_kv, 512,
+                                            512, nemo.d_head),
+                        torch.bfloat16, True)
     from repro_torch.configs.recsys_family import RECSYS_SHAPES
 
     sizes = dlrm_train_config().padded_table_sizes
@@ -3188,24 +3245,23 @@ def train_steps(torch, what: str, cell, params, opt_state, batches: list,
     return losses, hosts
 
 
-def grads_card_vs_cpu(torch, what: str, loss, params, batch, cpu_params,
-                      cpu_batch, rows=None, rel_l2=None) -> None:
+def card_vs_cpu(torch, loss, params, batch, cpu_params, cpu_batch,
+                rows=None) -> tuple[float, float, float, str]:
     """One step's loss and gradients on the card against the same on the
-    CPU (plain versions): the loss within 1e-4 relative, and every leaf
-    within 1e-4 of its largest |value|; or, with ``rel_l2``, within that
-    relative L2 distance (a ReLU network: a unit whose pre-activation is
-    within rounding of 0 switches its gradient on or off, so a few
-    samples' terms differ whole; see PERF.md section 2). ``rows`` maps a
-    leaf name to the card rows its CPU leaf holds (compact tables); the
-    card's other rows must be 0."""
-    from repro_torch.train.train_loop import value_and_grad
+    CPU (plain versions). Returns (card loss, CPU loss, the largest ratio
+    of a leaf's error to 1e-4 of its largest |value|, that leaf). The
+    loss's error counts as a leaf's, against 1e-4 of max(1, |loss|).
+    ``rows`` maps a leaf name to the card rows its CPU leaf holds
+    (compact tables); the card's other rows must be 0."""
+    from repro_torch.train.train_loop import grad_accum_value_and_grad
     from repro_torch.train.tree import leaves
 
-    l_card, g_card = value_and_grad(loss, params, batch)
-    l_cpu, g_cpu = value_and_grad(loss, cpu_params, cpu_batch)
-    check(abs(float(l_card) - float(l_cpu)) <= 1e-4 * max(1.0, abs(float(
-        l_cpu))), f"{what}: loss {float(l_card)} card, {float(l_cpu)} CPU")
-    worst, worst_max, cpu = 0.0, 0.0, dict(leaves(g_cpu))
+    vg = grad_accum_value_and_grad(loss)
+    l_card, g_card = vg(params, batch)
+    l_cpu, g_cpu = vg(cpu_params, cpu_batch)
+    l_card, l_cpu = float(l_card), float(l_cpu)
+    worst = abs(l_card - l_cpu) / (1e-4 * max(1.0, abs(l_cpu)))
+    at, cpu = "the loss", dict(leaves(g_cpu))
     for name, g in leaves(g_card):
         want = cpu[name]
         if rows and name in rows:
@@ -3213,27 +3269,46 @@ def grads_card_vs_cpu(torch, what: str, loss, params, batch, cpu_params,
             g = g[rows[name]]
             check(abs(float(full.abs().sum()) - float(g.abs().sum()))
                   <= 1e-6 * max(1.0, float(g.abs().sum())),
-                  f"{what}: {name} has gradient outside the batch's rows")
+                  f"{name} has gradient outside the batch's rows")
         g = g.detach().cpu()
         top = float(want.abs().max())
         err = float((g - want).abs().max())
-        by_max = err / (1e-4 * top) if top > 0 else (0.0 if err == 0 else
-                                                      float("inf"))
-        worst_max = max(worst_max, by_max)
-        if rel_l2 is None:
-            ratio = by_max
-        else:
-            norm = float(torch.linalg.vector_norm(want))
-            dist = float(torch.linalg.vector_norm(g - want))
-            ratio = dist / (rel_l2 * norm) if norm > 0 else (
-                0.0 if dist == 0 else float("inf"))
-        check(ratio <= 1.0, f"{what}: {name} card vs CPU is {ratio:.3g} x "
-                            f"its limit")
-        worst = max(worst, ratio)
-    rule = "1e-4 of its largest" if rel_l2 is None else \
-        f"{rel_l2:g} relative L2 (by 1e-4 of the largest: {worst_max:.3g} x)"
-    log(f"  {what}: card vs CPU loss {float(l_card):.6f} / "
-        f"{float(l_cpu):.6f}; every grad within {worst:.3g} x {rule}")
+        ratio = err / (1e-4 * top) if top > 0 else (0.0 if err == 0 else
+                                                    float("inf"))
+        if ratio > worst:
+            worst, at = ratio, name
+    return l_card, l_cpu, worst, at
+
+
+def grads_card_vs_cpu(torch, what: str, *args, **kwargs) -> None:
+    """``card_vs_cpu``, held: the loss and every leaf within 1e-4 of its
+    largest |value|."""
+    l_card, l_cpu, worst, at = card_vs_cpu(torch, *args, **kwargs)
+    check(worst <= 1.0, f"{what}: {at} card vs CPU is {worst:.3g} x its "
+                        f"limit (loss {l_card} card, {l_cpu} CPU)")
+    log(f"  {what}: card vs CPU loss {l_card:.6f} / {l_cpu:.6f}; the loss "
+        f"and every grad within {worst:.3g} x 1e-4 of its largest")
+
+
+class relu_signs:
+    """Within the block, every ``torch.relu`` call records its input's
+    signs (x > 0) into ``masks``, in call order."""
+
+    def __init__(self, torch):
+        self.torch, self.masks = torch, []
+
+    def __enter__(self):
+        self.relu = self.torch.relu
+
+        def relu(x):
+            self.masks.append((x > 0).detach())
+            return self.relu(x)
+
+        self.torch.relu = relu
+        return self
+
+    def __exit__(self, *exc):
+        self.torch.relu = self.relu
 
 
 def phase_train_nemo(torch, dev, reduced: list, counters: dict,
@@ -3247,8 +3322,7 @@ def phase_train_nemo(torch, dev, reduced: list, counters: dict,
     from repro_torch.models.bridge import train_tree
 
     cfg = dataclasses.replace(CONFIG, n_layers=NEMO_TRAIN["layers"])
-    with registered(NEMO, cfg):
-        cell = build_cell(NEMO, "train_4k", device=dev)
+    cell = build_cell(NEMO, "train_4k", device=dev, model_cfg=cfg)
     check(cell.accum == 8 and cell.optimizer == "adamw" and cfg.remat,
           f"{NEMO} train_4k: accum {cell.accum}, {cell.optimizer}")
     t = time.perf_counter()
@@ -3323,8 +3397,8 @@ def phase_train_dlrm(torch, dev, reduced: list, counters: dict,
     from repro_torch.models.bridge import train_tree
 
     cfg = dlrm_train_config()
-    with registered("dlrm-mlperf", cfg):
-        cell = build_cell("dlrm-mlperf", "train_batch", device=dev)
+    cell = build_cell("dlrm-mlperf", "train_batch", device=dev,
+                      model_cfg=cfg)
     t = time.perf_counter()
     params = train_tree(rm.dlrm_init(cfg, seed=SEED + 23, device=dev))
     params, opt_state, hot, _ = make_smoke_args(cell, seed=SEED + 23,
@@ -3359,7 +3433,10 @@ def phase_train_dlrm(torch, dev, reduced: list, counters: dict,
                    f"{TRAIN_DLRM_ROWS} rows ({rows} rows, "
                    f"{rows * cfg.embed_dim * 4 / 1e9:.1f} GB a copy)")
 
-    # card vs CPU on compact tables of a 4096-sample batch's rows
+    # card vs CPU on compact tables of a 4096-sample batch's rows, over
+    # the samples whose every ReLU unit is on or off alike on both: a
+    # pre-activation within rounding of 0 may switch a unit on one side
+    # only, and that sample's terms then differ whole (PERF.md section 2)
     batch = uniform(4096)
     cpu_tables, rows_of = {}, {}
     ids = batch["sparse_ids"]
@@ -3375,9 +3452,36 @@ def phase_train_dlrm(torch, dev, reduced: list, counters: dict,
     cpu_batch = {"dense": batch["dense"].cpu(),
                  "sparse_ids": torch.stack(cpu_ids, 1).to(torch.int32),
                  "labels": batch["labels"].cpu()}
-    grads_card_vs_cpu(torch, "dlrm-mlperf 4096 samples",
-                      lambda p, bb: rm.dlrm_loss(p, cfg, bb), params, batch,
-                      cpu_params, cpu_batch, rows_of, rel_l2=DLRM_REL_L2)
+    signs = []
+    for p, bb in ((params, batch), (cpu_params, cpu_batch)):
+        with torch.no_grad(), relu_signs(torch) as r:
+            rm.dlrm_forward(p, cfg, bb["dense"], bb["sparse_ids"])
+        signs.append([m.cpu() for m in r.masks])
+    keep = torch.stack([(a == c).all(-1) for a, c in zip(*signs)]).all(0)
+    dropped = len(keep) - int(keep.sum())
+    check(dropped <= DLRM_KINK_SHARE * len(keep),
+          f"dlrm-mlperf card vs CPU: {dropped} of {len(keep)} samples "
+          f"switch a ReLU unit on one side only")
+    batch["keep"], cpu_batch["keep"] = keep.to(dev), keep
+
+    def kept_loss(p, bb):
+        logits = rm.dlrm_forward(p, cfg, bb["dense"], bb["sparse_ids"])
+        return rm.bce_loss(logits[bb["keep"]], bb["labels"][bb["keep"]])
+
+    what = (f"dlrm-mlperf 4096 samples ({dropped} dropped: a ReLU unit "
+            f"switched on one side only)")
+    args = (kept_loss, params, batch, cpu_params, cpu_batch, rows_of)
+    grads_card_vs_cpu(torch, what, *args)
+    # the control: TF32 matmuls on the card must fail the same rule
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        _, _, worst, at = card_vs_cpu(torch, *args)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    check(worst > 1.0, f"dlrm-mlperf card vs CPU: TF32 matmuls pass the "
+                       f"rule ({worst:.3g} x at {at}): it cannot tell")
+    log(f"  control, TF32 matmuls on the card: {worst:.3g} x the limit at "
+        f"{at} (must exceed 1)")
     del params, opt_state, hot, batch, cell
     torch.cuda.empty_cache()
     return out
@@ -3385,11 +3489,11 @@ def phase_train_dlrm(torch, dev, reduced: list, counters: dict,
 
 def phase_train_bert4rec(torch, dev, reduced: list, counters: dict,
                          main: dict) -> dict:
-    """BERT4Rec train_batch (65,536 x 200) through ``build_cell`` in
-    microbatches of 256: 2 steps (a first step over BERT4REC_STEP_S cuts
-    the global batch of the second); then the resume check: a Trainer
-    with a CheckpointManager, 4 steps straight against 2, a checkpoint,
-    a fresh Trainer restored from it and 2 more, bit for bit."""
+    """BERT4Rec train_batch through ``build_cell``: 2 steps of
+    BERT4REC_BATCH x 200 in microbatches of 256; then the resume check: a
+    Trainer with a CheckpointManager, 4 steps straight against 2, a
+    checkpoint, a fresh Trainer restored from it and 2 more, bit for
+    bit."""
     from repro_torch.launch.steps import build_cell, make_smoke_args
     from repro_torch.train.optimizer import adamw
     from repro_torch.train.train_loop import Trainer
@@ -3398,27 +3502,17 @@ def phase_train_bert4rec(torch, dev, reduced: list, counters: dict,
     cell = build_cell("bert4rec", "train_batch", device=dev,
                       accum=BERT4REC_ACCUM)
     params, opt_state, batch, _ = make_smoke_args(cell, seed=SEED + 25)
+    batch = {k: v[:BERT4REC_BATCH] for k, v in batch.items()}
     b, s = batch["tokens"].shape
     p0 = tree_map(lambda t: t.detach().clone(), params)
     losses, hosts = train_steps(torch, "bert4rec train_batch", cell, params,
-                                opt_state, [batch], b * s, counters, main)
-    reduced.append(f"bert4rec train_batch: accum 16 -> {BERT4REC_ACCUM} "
-                   f"(microbatch 4096 x 200 -> 256 x 200: 6.2 GB of fp32 "
-                   f"logits, not 99 GB)")
-    second = batch
-    if hosts[0] > BERT4REC_STEP_S * 1e3:
-        cut = max(256, int(b * BERT4REC_STEP_S * 1e3 / hosts[0]) // 256
-                  * 256)
-        cell = build_cell("bert4rec", "train_batch", device=dev,
-                          accum=cut // 256)
-        second = {k: v[:cut] for k, v in batch.items()}
-        reduced.append(f"bert4rec train_batch: step 1 took "
-                       f"{hosts[0] / 1e3:.1f} s > {BERT4REC_STEP_S} s: step "
-                       f"2's global batch 65536 -> {cut}")
-    more, h2 = train_steps(torch, "bert4rec train_batch", cell, params,
-                           opt_state, [second], second["tokens"].numel(),
-                           counters, main, first_step=1)
-    out = dict(losses=losses + more, host_s=[h / 1e3 for h in hosts + h2],
+                                opt_state, [batch] * 2, b * s, counters,
+                                main)
+    reduced.append(f"bert4rec train_batch: global batch 65536 -> {b}, "
+                   f"accum 16 -> {BERT4REC_ACCUM} (microbatch 4096 x 200 -> "
+                   f"{b // BERT4REC_ACCUM} x 200: 6.2 GB of fp32 logits, not "
+                   f"99 GB)")
+    out = dict(losses=losses, host_s=[h / 1e3 for h in hosts],
                peak_gb=peak_gb(torch))
     del params, opt_state
 

@@ -76,3 +76,38 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
                       q.float().reshape(b, kv, g, sq, d)) * scale
     return (dq.reshape(b, h, sq, d).to(q.dtype), dk.to(k.dtype),
             dv.to(v.dtype))
+
+
+def o_rounding_bound(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     o: torch.Tensor, do: torch.Tensor, lse: torch.Tensor,
+                     causal: bool = True, scale: float | None = None):
+    """How far the backward's (dq, dk, dv) may move, element by element,
+    between two bf16 forwards of the same inputs. Each rounds its fp32
+    output to bf16 once, and the two fp32 outputs differ by their sums'
+    rounding; so o_d may move by one bf16 rounding step (2**-7 of
+    itself) plus 2**-15 of sum_j P_ij |v_jd| (where o cancels). The
+    backward reads o only through Delta = rowsum(dO * o), which then
+    moves by at most E_i = 2**-7 sum_d |dO_id| (|o_id| + 2**-8
+    sum_j P_ij |v_jd|). With P = exp(s - lse): dq_i moves by at most
+    scale E_i sum_j P_ij |k_j|, dk_j by scale sum_i P_ij E_i |q_i|
+    (summed over its GQA group), dv not at all. A row that sees few keys
+    is ill-conditioned there (dS = P (dP - Delta) cancels), so this can
+    exceed one rounding step of the gradient by far. Returns fp32
+    tensors of the shapes of q, k and v."""
+    b, h, sq, d = q.shape
+    kv = k.shape[1]
+    g = h // kv
+    scale = scale if scale is not None else d ** -0.5
+    s = _scores(q, k, causal, scale)
+    lse5 = lse.float().reshape(b, kv, g, sq, 1)
+    p = torch.where(torch.isneginf(s) | torch.isneginf(lse5), 0.0,
+                    torch.exp(s - lse5))
+    pv = torch.einsum("bkgqc,bkcd->bkgqd", p, v.float().abs())
+    dof = do.float().abs().reshape(b, kv, g, sq, d)
+    e = 2.0 ** -7 * (dof * (o.float().abs().reshape(b, kv, g, sq, d)
+                            + 2.0 ** -8 * pv)).sum(-1, keepdim=True)
+    dq = scale * e * torch.einsum("bkgqc,bkcd->bkgqd", p, k.float().abs())
+    dk = scale * torch.einsum("bkgqc,bkgqd->bkcd", p,
+                              e * q.float().abs().reshape(b, kv, g, sq, d))
+    return dq.reshape(b, h, sq, d), dk, torch.zeros(k.shape,
+                                                    device=k.device)

@@ -35,7 +35,7 @@ from ..models import recsys as recsys_m
 from ..models import transformer as tfm
 from ..models.bridge import train_tree
 from ..train.optimizer import Optimizer, adafactor, adamw
-from ..train.train_loop import value_and_grad
+from ..train.train_loop import grad_accum_value_and_grad
 
 ADAFACTOR_THRESHOLD = 100e9        # params above this use factored state
 
@@ -54,7 +54,7 @@ _INIT = {"fm": recsys_m.fm_init, "dlrm-mlperf": recsys_m.dlrm_init,
          "wide-deep": recsys_m.widedeep_init}
 
 
-def effective_accum(preferred: int, global_batch: int, mesh=None) -> int:
+def effective_accum(preferred: int, mesh=None) -> int:
     """repro clamps the accumulation factor so that each microbatch still
     spans the data-parallel extent of its mesh; on one card (``mesh``
     None) the preferred factor stands. Meshes wait for ROADMAP Queue 1
@@ -63,17 +63,6 @@ def effective_accum(preferred: int, global_batch: int, mesh=None) -> int:
         raise NotImplementedError("meshes are not ported (ROADMAP Queue 1 "
                                   "item 13)")
     return preferred
-
-
-def grad_accum_value_and_grad(loss_fn, accum: int):
-    """(params, batch) -> (loss, grads) over ``accum`` microbatches, as
-    repro's: microbatch j is rows j::accum of every batch array (repro
-    splits B as (B/accum, accum) and swaps the axes), the grads
-    accumulate in each param's dtype (autograd adds each microbatch's
-    into ``.grad``), and loss and grads are then multiplied by
-    1/accum."""
-    return lambda params, batch: value_and_grad(loss_fn, params, batch,
-                                                accum)
 
 
 @dataclasses.dataclass
@@ -95,8 +84,7 @@ def _train_bundle(arch_name: str, shape: str, reduced: bool, loss,
                   batch_specs, cfg, device) -> CellBundle:
     if accum is None:
         accum = effective_accum(
-            1 if reduced else TRAIN_ACCUM_STEPS.get(arch_name, 1),
-            next(iter(batch_specs.values())).shape[0])
+            1 if reduced else TRAIN_ACCUM_STEPS.get(arch_name, 1))
     vg = grad_accum_value_and_grad(loss, accum)
 
     def fn(params, opt_state, batch, step):
@@ -196,11 +184,16 @@ def _recsys_bundle(arch_name: str, shape: str, reduced: bool, cfg,
 
 
 def build_cell(arch_name: str, shape: str, reduced: bool = False,
-               device=None, accum: Optional[int] = None) -> CellBundle:
+               device=None, accum: Optional[int] = None,
+               model_cfg=None) -> CellBundle:
     """The bundle of one (arch x shape) cell. ``device`` (None = the
     card) is where ``make_smoke_args`` puts its arrays. ``accum``
     overrides a train cell's microbatch count (repro's: 1 reduced, else
-    ``TRAIN_ACCUM_STEPS``), for a card that holds less of the step."""
+    ``TRAIN_ACCUM_STEPS``), for a card that holds less of the step.
+    ``model_cfg`` replaces the arch's ``model_config(reduced)``, for a
+    cut of it that one card holds (fewer layers, capped tables); the
+    cell's shapes and batch stay the arch's, and an LM's optimizer
+    follows the config's parameter count, as repro's does."""
     if arch_name not in list_archs():
         raise NotImplementedError(
             f"{arch_name}: not ported; the port registers {list_archs()} "
@@ -208,8 +201,9 @@ def build_cell(arch_name: str, shape: str, reduced: bool = False,
             f"item 12)")
     spec = get_arch(arch_name)
     build = _recsys_bundle if spec.family == "recsys" else _lm_bundle
-    return build(arch_name, shape, reduced, spec.model_config(reduced),
-                 resolve_device(device), accum)
+    cfg = spec.model_config(reduced) if model_cfg is None else model_cfg
+    return build(arch_name, shape, reduced, cfg, resolve_device(device),
+                 accum)
 
 
 # ---------------------------------------------------------------------------

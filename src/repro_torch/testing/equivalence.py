@@ -182,7 +182,7 @@ def partials_agree(got, want, rel: float = 1e-4) -> tuple[bool, float, str]:
     return True, max(worst, r), ""
 
 
-def grads_agree(got, want, bf16: bool) -> tuple[bool, float]:
+def grads_agree(got, want, bf16: bool, envelope=None) -> tuple[bool, float]:
     """Hold a backward kernel's gradient ``got`` to its plain version's
     ``want`` (tensors of one shape, both summed in fp32 from the same
     inputs). fp32: within 1e-4 of the tensor's largest |value| (other sum
@@ -191,8 +191,11 @@ def grads_agree(got, want, bf16: bool) -> tuple[bool, float]:
     largest floored at 1e-2 of the tensor's: a row whose exact gradient
     is 0 (attention's first causal row sees one key, and its
     dS = P (dP - Delta) cancels) holds only the two sums' rounding noise,
-    with no scale of its own. Returns (agree, largest ratio of an error
-    to its limit)."""
+    with no scale of its own. ``envelope`` (bf16 only; of the same shape)
+    is added to each element's limit where the two sides read inputs
+    rounded apart, as ``flash_attention.plain.o_rounding_bound`` gives for
+    two forwards' outputs. Returns (agree, largest ratio of an error to
+    its limit)."""
     import torch
 
     g, w = got.float(), want.float()
@@ -207,6 +210,30 @@ def grads_agree(got, want, bf16: bool) -> tuple[bool, float]:
         return worst <= 1.0, worst
     row = torch.clamp(w.abs().amax(-1, keepdim=True), min=1e-2 * top)
     lim = 2 ** -7 * w.abs() + 1e-4 * row
+    if envelope is not None:
+        lim = lim + envelope.float()
     ratio = torch.where(diff == 0, torch.zeros_like(diff), diff / lim)
     worst = float(ratio.max()) if ratio.numel() else 0.0
+    return worst <= 1.0, worst
+
+
+def lse_agree(got, want, rel: float = 1e-5) -> tuple[bool, float]:
+    """Hold a row logsumexp ``got`` (fp32) to ``want`` from another
+    computation of it: -inf at the same rows (rows that see no key),
+    elsewhere within ``rel`` of max(1, |want|) (both sum exp of the same
+    scaled logits in fp32, in other orders, one of them in base 2).
+    Returns (agree, largest ratio of an error to its limit)."""
+    import torch
+
+    g, w = got.float(), want.float()
+    if g.shape != w.shape:
+        return False, float("inf")
+    empty = torch.isneginf(w)
+    if not torch.equal(torch.isneginf(g), empty):
+        return False, float("inf")
+    g, w = g[~empty], w[~empty]
+    if not bool(torch.isfinite(g).all()):
+        return False, float("inf")
+    lim = rel * torch.clamp(w.abs(), min=1.0)
+    worst = float(((g - w).abs() / lim).max()) if g.numel() else 0.0
     return worst <= 1.0, worst

@@ -31,36 +31,43 @@ class TrainState:
     ef_state: Any = None          # error-feedback accumulators (optional)
 
 
-def value_and_grad(loss_fn: Callable, params, batch, accum: int = 1):
-    """(loss, grads) of ``loss_fn(params, batch)``: grads a tree like
-    ``params`` (each in its param's dtype, zeros where the loss does not
-    reach a leaf, as ``jax.grad`` gives). With ``accum`` > 1 the batch is
-    cut into ``accum`` microbatches, microbatch j rows j::accum of every
-    array (repro's split); each one's gradient is added into the params'
-    ``.grad`` in the param dtype, and loss and grads are multiplied by
-    1/accum at the end."""
-    named = leaves(params)
-    for _, p in named:
-        p.requires_grad_(True)
-        p.grad = None
-    total = None
-    for j in range(accum):
-        mb = batch if accum == 1 else {k: v[j::accum]
-                                       for k, v in batch.items()}
-        loss = loss_fn(params, mb)
-        loss.backward()
-        total = loss.detach() if total is None else total + loss.detach()
-    grads = []
-    with torch.no_grad():
+def grad_accum_value_and_grad(loss_fn: Callable, accum: int = 1
+                              ) -> Callable:
+    """(params, batch) -> (loss, grads) of ``loss_fn(params, batch)``:
+    grads a tree like ``params`` (each in its param's dtype, zeros where
+    the loss does not reach a leaf, as ``jax.grad`` gives). With
+    ``accum`` > 1 the batch is cut into ``accum`` microbatches as repro
+    cuts it: microbatch j is rows j::accum of every array (repro splits B
+    as (B/accum, accum) and swaps the axes). Each one's gradient is added
+    into the params' ``.grad`` in the param dtype, and loss and grads are
+    multiplied by 1/accum at the end."""
+
+    def fn(params, batch):
+        named = leaves(params)
         for _, p in named:
-            g = p.grad if p.grad is not None else torch.zeros_like(p)
+            p.requires_grad_(True)
             p.grad = None
-            if accum > 1:
-                g.mul_(1.0 / accum)
-            grads.append(g)
-    if accum > 1:
-        total = total * (1.0 / accum)
-    return total, unflatten(params, grads)
+        total = None
+        for j in range(accum):
+            mb = batch if accum == 1 else {k: v[j::accum]
+                                           for k, v in batch.items()}
+            loss = loss_fn(params, mb)
+            loss.backward()
+            total = loss.detach() if total is None else \
+                total + loss.detach()
+        grads = []
+        with torch.no_grad():
+            for _, p in named:
+                g = p.grad if p.grad is not None else torch.zeros_like(p)
+                p.grad = None
+                if accum > 1:
+                    g.mul_(1.0 / accum)
+                grads.append(g)
+        if accum > 1:
+            total = total * (1.0 / accum)
+        return total, unflatten(params, grads)
+
+    return fn
 
 
 def grad_norm(grads) -> torch.Tensor:
@@ -78,9 +85,10 @@ def make_train_step(loss_fn: Callable, optimizer: Optimizer,
     step(params, opt_state, ef_state, batch, step) ->
     (params, opt_state, ef_state, metrics), params and opt_state updated
     in place."""
+    vg = grad_accum_value_and_grad(loss_fn)
 
     def step_fn(params, opt_state, ef_state, batch, step):
-        loss, grads = value_and_grad(loss_fn, params, batch)
+        loss, grads = vg(params, batch)
         if compress:
             grads, ef_state = grad_compress.compress_decompress(
                 grads, ef_state)

@@ -405,3 +405,31 @@ def test_bf16_backward_is_the_fp32_one_rounded():
     for gt, w in zip(got, want):
         assert gt.dtype == torch.bfloat16
         assert torch.equal(gt, w.to(torch.bfloat16))
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_o_rounding_bound_covers_a_step_of_o(causal):
+    """The plain backward on o moved by one bf16 step in each element (up
+    or down at random) stays within ``o_rounding_bound`` of the backward
+    on o (fp32 sums of bf16 values; plus 1e-6 of each tensor's largest
+    for the sums' own rounding), and dv does not move beyond that."""
+    from repro_torch.kernels.flash_attention.plain import (
+        flash_attention_bwd_plain, flash_attention_plain, o_rounding_bound)
+    b, h, kv, sq, skv, d = 1, 4, 2, 64, 64, 32
+    x = [torch.from_numpy(_rand(s, 50 + i)).to(torch.bfloat16).float()
+         for i, s in enumerate([(b, h, sq, d), (b, kv, skv, d),
+                                (b, kv, skv, d), (b, h, sq, d)])]
+    q, k, v, do = x
+    o, lse = flash_attention_plain(q, k, v, causal, return_lse=True)
+    o16 = o.to(torch.bfloat16)
+    step = torch.from_numpy(np.random.default_rng(5).choice(
+        [-1, 1], o.shape).astype(np.int16))
+    moved = (o16.view(torch.int16) + step).view(torch.bfloat16)
+    base = flash_attention_bwd_plain(q, k, v, o16.float(), do, lse, causal)
+    alt = flash_attention_bwd_plain(q, k, v, moved.float(), do, lse, causal)
+    bound = o_rounding_bound(q, k, v, o16.float(), do, lse, causal)
+    for x0, x1, e in zip(base, alt, bound):
+        assert e.shape == x0.shape and e.dtype == torch.float32
+        lim = e + 1e-6 * float(x0.abs().max())
+        assert bool(((x1 - x0).abs() <= lim).all())
+    assert float((alt[0] - base[0]).abs().max()) > 0

@@ -27,13 +27,20 @@ rounding a term apart); a bf16 table within one rounding step of
 bf16 (2**-7 of the value plus 1e-4 of the row's largest); NaN rows (an
 id >= V) at exactly the same bags.
 
-The backward kernels, against their plain versions on the same inputs
-(o and lse from the forward kernel): flash_attention_bwd's dq, dk, dv in
-fp32 within 1e-4 of each tensor's largest |value|, in bf16 within one
-rounding step of each value plus 1e-4 of its row's largest, floored at
-1e-2 of the tensor's (``testing.grads_agree``: both sum in fp32 and round
-once; a row whose exact gradient is 0 holds only rounding noise); rows
-that see no key get 0, never NaN. The bag's
+The backward kernels, against their plain versions on the same inputs:
+the forward kernel's row logsumexp within 1e-5 of max(1, |lse|) of the
+plain forward's, -inf at the same rows (``testing.lse_agree``); then
+flash_attention_bwd's dq, dk, dv against the plain backward's on the
+kernel's o and lse, in fp32 within 1e-4 of each tensor's largest
+|value|, in bf16 within one rounding step of each value plus 1e-4 of its
+row's largest, floored at 1e-2 of the tensor's (``testing.grads_agree``:
+both sum in fp32 and round once; a row whose exact gradient is 0 holds
+only rounding noise); against the plain backward on the plain forward's
+o and lse by the same rule plus, in bf16, ``o_rounding_bound`` (the two
+forwards' bf16 outputs may round apart); rows that see no key get 0,
+never NaN; torch.autograd through the kernels on the card against
+torch.autograd through the plain forward on the CPU, bf16 at D 128, by
+the rule with the bound. The bag's
 backward sums in the plain version's order (slots sorted stably by row,
 chunks of 256, one rounded product and one rounded add a slot): its
 table gradient equals the plain one bit for bit, fp32 and bf16. Two runs
@@ -1037,15 +1044,18 @@ def test_first_q8_calls_from_eight_threads(dev):
 from repro_torch.kernels.embedding_bag.plain import (  # noqa: E402
     embedding_bag_backward_plain)
 from repro_torch.kernels.flash_attention.plain import (  # noqa: E402
-    flash_attention_bwd_plain)
+    flash_attention_bwd_plain, o_rounding_bound)
+from repro_torch.testing import lse_agree  # noqa: E402
 
 
-def _grads_agree(got, want, dtype):
+def _grads_agree(got, want, dtype, bound=(None,) * 3):
+    """``bound``: ``o_rounding_bound``'s, used in bf16 only."""
     from repro_torch.testing import grads_agree
-    for g, w in zip(got, want):
+    bf16 = dtype == torch.bfloat16
+    for g, w, e in zip(got, want, bound):
         assert g.dtype == dtype and g.shape == w.shape
         assert bool(torch.isfinite(g.float()).all())
-        ok, ratio = grads_agree(g, w, dtype == torch.bfloat16)
+        ok, ratio = grads_agree(g, w, bf16, e if bf16 else None)
         assert ok, f"a gradient is {ratio:.3g} x its limit from plain"
 
 
@@ -1066,12 +1076,19 @@ def test_flash_attention_bwd_kernel_matches_plain(dev, dtype, b, h, kv, sq,
     do = _randn((b, h, sq, d), 93, dev, dtype)
     o, lse = fa_ops.flash_attention_with_lse(q, k, v, causal)
     assert torch.equal(o, fa_ops.flash_attention(q, k, v, causal))
+    o_p, lse_p = flash_attention_plain(q, k, v, causal, return_lse=True)
+    ok, ratio = lse_agree(lse, lse_p)
+    assert ok, f"lse is {ratio:.3g} x its limit from plain"
     before = fa_ops.bwd_launches
     got = fa_ops.flash_attention_bwd(q, k, v, o, do, lse, causal)
     torch.cuda.synchronize()
     assert fa_ops.bwd_launches == before + 1
     _grads_agree(got, flash_attention_bwd_plain(q, k, v, o, do, lse, causal),
                  dtype)
+    # the chain: the plain backward on the plain forward's o and lse
+    _grads_agree(got, flash_attention_bwd_plain(q, k, v, o_p, do, lse_p,
+                                                causal), dtype,
+                 o_rounding_bound(q, k, v, o_p, do, lse_p, causal))
     again = fa_ops.flash_attention_bwd(q, k, v, o, do, lse, causal)
     assert all(torch.equal(x, y) for x, y in zip(got, again))
     if causal and sq > skv:
@@ -1097,6 +1114,33 @@ def test_flash_attention_autograd_on_the_card(dev):
     want = fa_ops.flash_attention_bwd(q, k, v, o, do, lse, True)
     for leaf, w in zip(leaves, want):
         assert torch.equal(leaf.grad, w)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_attention_autograd_card_vs_cpu_plain(dev, causal):
+    """bf16 at D 128 (the wgmma forward): torch.autograd through
+    flash_attention on the card against torch.autograd through the plain
+    forward on the CPU, the output and dq, dk, dv by grads_agree, the
+    grads with o_rounding_bound (the CPU's gradient reads the fp32
+    output, the card's its bf16 rounding)."""
+    from repro_torch.testing import grads_agree
+    x = [_randn(s, 100 + i, dev, torch.bfloat16) for i, s in
+         enumerate([(1, 8, 300, 128), (1, 2, 300, 128), (1, 2, 300, 128),
+                    (1, 8, 300, 128)])]
+    card = [t.clone().requires_grad_(True) for t in x[:3]]
+    cpu = [t.cpu().requires_grad_(True) for t in x[:3]]
+    out = fa_ops.flash_attention(*card, causal=causal)
+    out.backward(x[3])
+    want, lse = flash_attention_plain(*cpu, causal=causal, return_lse=True)
+    want.backward(x[3].cpu())
+    bound = o_rounding_bound(*(t.detach() for t in cpu), want.detach(),
+                             x[3].cpu(), lse.detach(), causal)
+    for got, ref, e in zip([out.detach()] + [t.grad for t in card],
+                           [want.detach()] + [t.grad for t in cpu],
+                           (None,) + bound):
+        assert got.dtype == torch.bfloat16
+        ok, ratio = grads_agree(got.cpu(), ref, True, e)
+        assert ok, f"{ratio:.3g} x its limit from the CPU"
 
 
 @pytest.mark.parametrize("weighted", [False, True])

@@ -32,7 +32,8 @@ from repro_torch.models import layers
 from repro_torch.models.bridge import tree_from_numpy, tree_to_numpy
 from repro_torch.train import grad_compress, optimizer
 from repro_torch.train.checkpoint import CheckpointManager
-from repro_torch.train.train_loop import Trainer, value_and_grad
+from repro_torch.train.train_loop import (Trainer,
+                                          grad_accum_value_and_grad)
 from repro_torch.train.tree import leaves
 
 L = 3
@@ -374,8 +375,8 @@ def test_remat_gives_the_same_grads():
     out = []
     for remat in (False, True):
         cfg = dataclasses.replace(pb.model_cfg, remat=remat)
-        out.append(value_and_grad(
-            lambda p, b: steps.tfm.loss_fn(p, b, cfg), params, batch))
+        out.append(grad_accum_value_and_grad(
+            lambda p, b: steps.tfm.loss_fn(p, b, cfg))(params, batch))
     assert torch.equal(out[0][0], out[1][0])
     for (n, a), (_, b) in zip(leaves(out[0][1]), leaves(out[1][1])):
         assert torch.equal(a, b), n
