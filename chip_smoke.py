@@ -125,12 +125,15 @@ Phases (any failure stops the script with a non-zero exit):
      (``flash_attention_bwd``, ``embedding_bag_bwd``) against their plain
      versions at the shapes of the three train cells, small fp32 cases
      at D 64 and 128 and rows that see no key (two runs of each bit for
-     bit; the forward's output with its lse equal to the serving output),
-     timed against the plain versions and the library's backward (SDPA,
-     26 ``F.embedding_bag``); then the train cells through ``build_cell``:
-     Mistral-NeMo-12B train_4k at full width, 8 of 40 layers, 3 AdamW
-     steps of 8 x 4096 tokens in 8 microbatches with remat (host s,
-     tokens/s, peak memory, launches a step, the step's bound), and one
+     bit; the forward's output with its lse equal to the serving output;
+     bf16 at D 64 and 128 on the tensor-core body, by its own launch
+     count, with its TFLOP/s), timed against the plain versions and the
+     library's backward (SDPA, 26 ``F.embedding_bag``); then the train
+     cells through ``build_cell``: Mistral-NeMo-12B train_4k at full
+     width, 8 of 40 layers, 3 AdamW steps of 8 x 4096 tokens in 8
+     microbatches with remat (host s, tokens/s, peak memory, launches a
+     step, every attention backward on the tensor cores, the step's
+     bound), and one
      step at 2 layers in fp32 (1 x 512) card vs CPU; DLRM train_batch
      (65,536) over tables capped at 4M rows, 3 steps on uniform ids and
      1 on the smoke batch (every id below 3), and one step card vs CPU
@@ -219,6 +222,9 @@ PTXAS_REPORT = (("flash_attention", "fa_wgmma_kernel"),
                 ("flash_attention", "bwd_delta_kernel"),
                 ("flash_attention", "bwd_dkdv_kernel"),
                 ("flash_attention", "bwd_dq_kernel"),
+                ("flash_attention", "bwd_prep_kernel"),
+                ("flash_attention", "bwd_dkdv_wgmma_kernel"),
+                ("flash_attention", "bwd_dq_wgmma_kernel"),
                 ("embedding_bag", "bag_bwd_chunks"),
                 ("embedding_bag", "bag_bwd_rows"))
 
@@ -2927,6 +2933,7 @@ TRAIN_DLRM_ROWS = 4_000_000     # phase 10's DLRM tables, each capped here
 BERT4REC_BATCH = 32_768         # of 65,536, to keep phase 10 short
 BERT4REC_ACCUM = 128            # microbatches of 256 x 200 (repro: 16)
 DLRM_KINK_SHARE = 0.05          # card vs CPU: at most this share dropped
+TC_BWD_DIMS = (64, 128)         # bf16 head dims whose backward is on wgmma
 
 
 def peak_gb(torch) -> float:
@@ -2995,7 +3002,11 @@ class BackwardCheck:
         ok, lse_ratio = lse_agree(lse, lse_p)
         check(ok, f"flash_attention {what}: lse is {lse_ratio:.3g} x its "
                   f"limit from plain")
+        tc0 = fa.bwd_tc_launches
         got = fa.flash_attention_bwd(q, k, v, o, do, lse, causal)
+        tc = fa.bwd_tc_launches - tc0
+        check(tc == (bf16 and d in TC_BWD_DIMS),
+              f"flash_attention_bwd {what}: {tc} tensor-core launches")
         again = fa.flash_attention_bwd(q, k, v, o, do, lse, causal)
         check(all(torch.equal(x, y) for x, y in zip(got, again)),
               f"flash_attention_bwd {what}: two runs differ")
@@ -3039,6 +3050,9 @@ class BackwardCheck:
             out = F.scaled_dot_product_attention(*rep, is_causal=causal)
         es = q.element_size()
         pairs = b * h * visible_pairs(sq, skv, causal)
+        # what the body executes: 20 pairs x D on the tensor cores (P and
+        # dS split in two), 14 on the CUDA cores (S and dP recomputed)
+        executed = (20 if tc else 14) * pairs * d
         self.row("flash_attention_bwd", what, err,
                  lambda: fa.flash_attention_bwd(q, k, v, o, do, lse, causal),
                  lambda: flash_attention_bwd_plain(q, k, v, o, do, lse,
@@ -3049,8 +3063,12 @@ class BackwardCheck:
                  (b * h * sq + 2 * b * kv * skv) * d * es, 10 * pairs * d,
                  BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS,
                  iters, 1, dtype=str(dtype).removeprefix("torch."),
-                 err_over_limit=worst, chain_over_limit=chain,
-                 chain_without_bound=unbound, lse_over_limit=lse_ratio)
+                 body="wgmma" if tc else "cuda cores",
+                 executed_flops=executed, err_over_limit=worst,
+                 chain_over_limit=chain, chain_without_bound=unbound,
+                 lse_over_limit=lse_ratio)
+        row = self.out["flash_attention_bwd"]["times"][-1]
+        row["tflops"] = executed / row["ms"] / 1e9
         del out, leaves
         torch.cuda.empty_cache()
 
@@ -3199,6 +3217,8 @@ def phase_train_kernels(torch, dev) -> dict:
             ("empty rows 300x100", (1, 4, 2, 300, 100, 64), torch.float32,
              True, 5),
             ("bf16 D128 empty rows 300x100", (1, 8, 2, 300, 100, 128),
+             torch.bfloat16, True, 5),
+            ("bf16 D64 causal GQA 4", (1, 8, 2, 512, 512, 64),
              torch.bfloat16, True, 5)):
         chk.attention(what, shape, dtype, causal, iters)
     chk.autograd_vs_cpu("bf16 D128 1x512", (1, nemo.n_heads, nemo.n_kv, 512,
@@ -3343,9 +3363,13 @@ def phase_train_nemo(torch, dev, reduced: list, counters: dict,
     flops = 6 * cfg.n_params() * n * seq + 14 * pairs * cfg.d_head \
         * cfg.n_layers
     bound = flops / BF16_FLOPS * 1e3
+    before = main["flash_attention_bwd"], main["flash_attention_bwd_wgmma"]
     losses, hosts = train_steps(torch, f"{NEMO} train_4k", cell, params,
                                 opt_state, [batch] * NEMO_TRAIN["steps"],
                                 n * seq, counters, main)
+    bwd = main["flash_attention_bwd"] - before[0]
+    check(bwd > 0 and main["flash_attention_bwd_wgmma"] - before[1] == bwd,
+          f"{NEMO} train_4k: not every attention backward ran on wgmma")
     log(f"  {NEMO} train_4k bound: {bound:.1f} ms a step (6 N tokens + "
         f"causal attention forward and backward, {flops:.4g} FLOPs at "
         f"989 TFLOP/s)")
@@ -3558,6 +3582,7 @@ def phase_train(torch, dev, kern: dict) -> dict:
     torch.cuda.empty_cache()
     counters = {"flash_attention": (fa, "launches"),
                 "flash_attention_bwd": (fa, "bwd_launches"),
+                "flash_attention_bwd_wgmma": (fa, "bwd_tc_launches"),
                 "embedding_bag": (eb, "launches"),
                 "embedding_bag_bwd": (eb, "bwd_launches")}
     main = {k: 0 for k in counters}

@@ -538,6 +538,22 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
+// Makes the current device's primary context current on the calling
+// thread, which cuTensorMapEncodeTiled needs, once a thread. A thread that
+// PyTorch starts (autograd's device thread) may not have it yet: PyTorch
+// calls cudaSetDevice only when the device index changes, and the other
+// runtime calls a launch makes here need no context. Once bound, a thread
+// keeps a context: a later change of device makes that device's current.
+cudaError_t bind_context() {
+  thread_local bool bound = false;
+  if (bound) return cudaSuccess;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaSetDevice(dev);
+  bound = err == cudaSuccess;
+  return err;
+}
+
 // (rows, D) bf16 matrices, `mats` of them back to back, read in boxes of
 // (box_rows, 64) with the 128-byte swizzle; rows past `rows` read as 0.
 bool make_map(EncodeTiled enc, CUtensorMap* map, const void* ptr,
@@ -564,6 +580,8 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
   const cudaError_t err =
       port::set_smem_once(attr_set, fa_wgmma_kernel<D>, smem);
   if (err != cudaSuccess) return (int)err;
+  const cudaError_t bound = bind_context();
+  if (bound != cudaSuccess) return (int)bound;
   const EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return (int)cudaErrorNotSupported;
   CUtensorMap tq, tk, tv;
@@ -617,32 +635,60 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
 }
 
 // ---------------------------------------------------------------------------
-// Backward (no Pallas counterpart: repro differentiates its reference with
-// XLA). Given q, k, v, the forward's o and row logsumexp lse, and dO, the
-// gradients of o = softmax(scale * q k^T) v in fp32:
+// Backward of the attention above. The TPU kernel it belongs to is
+// src/repro/kernels/flash_attention/flash_attention.py `_kernel`; repro
+// has no Pallas backward and differentiates its reference with XLA
+// (jax.vjp). Given q, k, v, the forward's o and row logsumexp lse, and
+// dO, the gradients of o = softmax(scale * q k^T) v, in fp32:
 //   P  = exp(scale * q k^T - lse)      (0 where masked or the row is empty)
 //   dV = P^T dO,   dP = dO V^T,   dS = P * (dP - Delta),  Delta = rowsum(dO o)
 //   dQ = scale * dS K,   dK = scale * dS^T Q,
-// summed over the query heads of a GQA group for dK and dV. Three kernels,
-// no atomics, so a backward is bit-for-bit repeatable:
-//   bwd_delta_kernel: Delta, a warp a row (a fixed shuffle tree);
-//   bwd_dkdv_kernel:  a block a key tile of BKV rows of one (b, kv head):
-//     its K and V tiles stay in shared memory while it walks every query
-//     tile of every head of the group that can see the tile (causal: from
-//     the diagonal on), recomputing P and dS there;
-//   bwd_dq_kernel:    a block a query tile of one (b, h) walks the key
-//     tiles its rows see.
-// CUDA cores, fp32 products (each an ascending-d fmaf chain, the forward
-// CUDA-core body's order) whatever the input type; outputs rounded once
-// to it. The backward differentiates the exact function: the bf16
-// forward's P_hi + P_lo split is a rounding of the forward alone.
+// summed over the query heads of a GQA group for dK and dV. No atomics:
+// dK and dV are summed inside the block that owns their key rows, dQ
+// inside the block that owns its query rows, each in a fixed order, so a
+// backward is bit-for-bit repeatable. Outputs are rounded once.
 //
-// What bounds it on an H100 SXM: operations. The kernels recompute the
-// scores twice and do five more products of Sq x Skv x D a head (about
-// half of each under the causal mask): 14 * B * H * Sq * Skv * D FLOPs
-// against the 4 of the forward; bytes are q, k, v, o, dO and the three
-// gradients once. On CUDA cores that is 67 TFLOP/s at best; the tensor
-// cores (wgmma) are a later step (ROADMAP Queue 2).
+// What bounds it on an H100 SXM: operations. The least work is five
+// products of Sq x Skv x D a head (S, dP, dV, dK, dQ: 10 * pairs * D
+// FLOPs, pairs = B * H * Sq * Skv, about half under the causal mask),
+// against the bytes of q, k, v, o, dO and the three gradients once.
+//
+// bf16 at D 64 and 128: the tensor cores (namespace bwd_tc), three
+// launches, each with a producer warpgroup (one thread issues every TMA
+// copy: 128-byte swizzle, 64-column boxes, rows past Sq or Skv read as
+// zeros) and two consumer warpgroups of 64 rows:
+//   bwd_prep_kernel: Delta (a warp a row, a fixed shuffle tree) and
+//     lse * log2(e), padded to a multiple of PAD rows a (b, h), +inf at
+//     rows that see no key or lie past Sq: their P is exp2(-inf) = 0;
+//   bwd_dkdv_wgmma_kernel: a block owns 128 key rows of one (b, kv head).
+//     Its K and V tiles are loaded once; (Q, dO) tiles of 64 query rows
+//     with their lse and Delta stream through a ring of STAGES full/empty
+//     mbarriers, over every head of the group and, causal, only the tiles
+//     from the diagonal on. Per tile, keys as the M side: S^T = K Q^T and
+//     dP^T = V dO^T on wgmma from shared memory; P^T and dS^T on the
+//     accumulator fragments; dV += P^T dO and dK += dS^T Q with A from
+//     registers and Q, dO read MN-major (the transpose bit);
+//   bwd_dq_wgmma_kernel: a block owns 128 query rows of one (b, h), the
+//     forward's layout; (K, V) tiles of 64 rows stream through the ring.
+//     Per tile: S = Q K^T and dP = dO V^T, then dQ += dS K with K read
+//     MN-major. Causal, a block stops at its last visible tile; blocks
+//     are numbered heaviest first.
+// The tensor cores take bf16 operands and P and dS are fp32: rounded once
+// (2^-9 a term) they move the gradients by ~20x the one output rounding
+// step the port allows. Each enters as hi + lo, two bf16 values whose sum
+// is it to ~2^-17, in two wgmmas into one accumulator (both emulated in
+// tests/test_torch_kernels_attention.py). So the body executes 20 * pairs
+// * D FLOPs (dK/dV: 2 score products + 2 x 2 split ones; dQ: 2 + 2), 2x
+// the least work, at up to 989 TFLOP/s.
+//
+// fp32 (any D) and bf16 at D 32 (a 64-byte row is below the swizzle):
+// the CUDA-core body (namespace bwd), three launches: bwd_delta_kernel
+// (Delta, as above); bwd_dkdv_kernel, a block a key tile of BKV rows of
+// one (b, kv head) that keeps K and V in shared memory while it walks the
+// query tiles of the group that see it; bwd_dq_kernel, a block a query
+// tile that walks the key tiles its rows see. 64 x 64 tiles, fp32 in
+// shared memory, each product an ascending-d fmaf chain: exact fp32
+// products, 14 * pairs * D FLOPs at 67 TFLOP/s at best.
 // ---------------------------------------------------------------------------
 namespace {
 namespace bwd {
@@ -945,36 +991,583 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o,
   return (int)cudaGetLastError();
 }
 
-template <class T>
-int launch_bwd_d(long long D, const void* q, const void* k, const void* v,
-                 const void* o, const void* dout, const float* lse,
-                 float* delta, void* dq, void* dk, void* dv, long long B,
-                 long long H, long long KV, long long Sq, long long Skv,
-                 bool causal, float scale, cudaStream_t st) {
+int launch_bwd_fp32(long long D, const void* q, const void* k,
+                    const void* v, const void* o, const void* dout,
+                    const float* lse, float* delta, void* dq, void* dk,
+                    void* dv, long long B, long long H, long long KV,
+                    long long Sq, long long Skv, bool causal, float scale,
+                    cudaStream_t st) {
   switch (D) {
     case 32:
-      return launch_bwd<T, 32>(q, k, v, o, dout, lse, delta, dq, dk, dv, B,
-                               H, KV, Sq, Skv, causal, scale, st);
+      return launch_bwd<float, 32>(q, k, v, o, dout, lse, delta, dq, dk, dv,
+                                   B, H, KV, Sq, Skv, causal, scale, st);
     case 64:
-      return launch_bwd<T, 64>(q, k, v, o, dout, lse, delta, dq, dk, dv, B,
-                               H, KV, Sq, Skv, causal, scale, st);
+      return launch_bwd<float, 64>(q, k, v, o, dout, lse, delta, dq, dk, dv,
+                                   B, H, KV, Sq, Skv, causal, scale, st);
     case 128:
-      return launch_bwd<T, 128>(q, k, v, o, dout, lse, delta, dq, dk, dv, B,
-                                H, KV, Sq, Skv, causal, scale, st);
+      return launch_bwd<float, 128>(q, k, v, o, dout, lse, delta, dq, dk, dv,
+                                    B, H, KV, Sq, Skv, causal, scale, st);
     default:
       return (int)cudaErrorInvalidValue;
   }
 }
 
 }  // namespace bwd
+
+namespace bwd_tc {
+
+using namespace hopper;
+
+constexpr int THREADS = 384;            // producer + 2 consumer warpgroups
+constexpr int BOX = 64;                 // bf16 columns of one swizzled box
+constexpr int BIG = 128;                // rows a block owns (2 x 64)
+constexpr int TILE = 64;                // rows of a streamed tile
+constexpr int STAGES = 4;               // streamed tiles in flight
+constexpr int PAD = 128;                // lse2 / Delta rows a (b, h): a multiple
+constexpr int PREP_THREADS = 256;
+constexpr float LOG2E = 1.4426950408889634f;
+
+template <int D>
+struct Layout {
+  static constexpr int BIG_BYTES = BIG * D * 2;     // a 128-row tile
+  static constexpr int TILE_BYTES = TILE * D * 2;   // a 64-row tile
+  static constexpr int LD_BYTES = 2 * TILE * 4;     // lse2 and Delta of one
+  // two 128-row tiles the block keeps, a ring of two 64-row tiles (and, in
+  // the dK/dV kernel, their lse2 and Delta) a stage, 1024 for alignment
+  static constexpr int SMEM =
+      2 * BIG_BYTES + STAGES * (2 * TILE_BYTES + LD_BYTES) + 1024;
+};
+
+__device__ __forceinline__ uint32_t bits(__nv_bfloat162 x) {
+  return *reinterpret_cast<const uint32_t*>(&x);
+}
+
+// The register A operand of a product over the 64 columns of an m64n64
+// fp32 accumulator fragment x (k step kk: columns 16kk..16kk+15), as two
+// bf16 terms: hi = x rounded, lo = (x - hi) rounded.
+__device__ __forceinline__ void split_frag(const float (&x)[32],
+                                           uint32_t (&hi)[4][4],
+                                           uint32_t (&lo)[4][4]) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const __nv_bfloat162 h0 = __floats2bfloat162_rn(x[4 * j], x[4 * j + 1]);
+    const __nv_bfloat162 h1 =
+        __floats2bfloat162_rn(x[4 * j + 2], x[4 * j + 3]);
+    const __nv_bfloat162 r0 = __floats2bfloat162_rn(
+        x[4 * j] - __low2float(h0), x[4 * j + 1] - __high2float(h0));
+    const __nv_bfloat162 r1 = __floats2bfloat162_rn(
+        x[4 * j + 2] - __low2float(h1), x[4 * j + 3] - __high2float(h1));
+    const int kk = j / 2, o = (j % 2) * 2;
+    hi[kk][o] = bits(h0);
+    hi[kk][o + 1] = bits(h1);
+    lo[kk][o] = bits(r0);
+    lo[kk][o + 1] = bits(r1);
+  }
+}
+
+// acc (64 x D) += the split A (64 x 64) times the 64 x D tile at `b`, read
+// MN-major (its rows the reduction; `box` bytes between 64-column boxes).
+template <int D>
+__device__ __forceinline__ void mma_split(float (&acc)[D / 2],
+                                          const uint32_t (&hi)[4][4],
+                                          const uint32_t (&lo)[4][4],
+                                          uint32_t b, uint32_t box) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t db = desc_sw128(b + kk * 16 * 128, box, 1024);
+    if constexpr (D == 128) {
+      wgmma_rs_n128(acc, hi[kk], db);
+      wgmma_rs_n128(acc, lo[kk], db);
+    } else {
+      wgmma_rs_n64(acc, hi[kk], db);
+      wgmma_rs_n64(acc, lo[kk], db);
+    }
+  }
+}
+
+// acc (64 x 64) = A (64 x D at `a`) times B^T (64 x D at `b`), both K-major
+// with `a_box` and `b_box` bytes between their 64-column boxes.
+template <int D>
+__device__ __forceinline__ void mma_scores(float (&acc)[32], uint32_t a,
+                                           uint32_t a_box, uint32_t b,
+                                           uint32_t b_box) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t off = (kk % 4) * 32;     // 16 columns of a 64-column box
+    wgmma_ss_n64(acc, desc_sw128(a + (kk / 4) * a_box + off, 16, 1024),
+                 desc_sw128(b + (kk / 4) * b_box + off, 16, 1024), kk > 0);
+  }
+}
+
+// lse2 = lse * log2(e), +inf where the row sees no key (lse = -inf) or
+// lies past Sq, and Delta = rowsum(dO o) (0 past Sq), Sqp rows a (b, h); a
+// warp a row.
+__global__ void __launch_bounds__(PREP_THREADS)
+bwd_prep_kernel(const __nv_bfloat16* __restrict__ o,
+                const __nv_bfloat16* __restrict__ dout,
+                const float* __restrict__ lse, float* __restrict__ lse2,
+                float* __restrict__ delta, long long rows, int Sq, int Sqp,
+                int D) {
+  const long long r =
+      (long long)blockIdx.x * (PREP_THREADS / 32) + threadIdx.x / 32;
+  if (r >= rows) return;
+  const int lane = threadIdx.x % 32;
+  const long long bh = r / Sqp;
+  const int row = (int)(r % Sqp);
+  float acc = 0.0f, l2 = CUDART_INF_F;
+  if (row < Sq) {
+    const size_t src = (size_t)(bh * Sq + row);
+    for (int d = lane; d < D; d += 32)
+      acc = fmaf(port::to_f(o[src * D + d]), port::to_f(dout[src * D + d]),
+                 acc);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      acc += __shfl_xor_sync(0xffffffffu, acc, off);
+    const float l = lse[src];
+    if (l != -CUDART_INF_F) l2 = l * LOG2E;
+  }
+  if (lane == 0) {
+    lse2[r] = l2;
+    delta[r] = acc;
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+bwd_dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap tq,    // 64 rows
+                      const __grid_constant__ CUtensorMap tdo,   // 64 rows
+                      const __grid_constant__ CUtensorMap tk,    // 128 rows
+                      const __grid_constant__ CUtensorMap tv,    // 128 rows
+                      const float* __restrict__ lse2,
+                      const float* __restrict__ delta,
+                      __nv_bfloat16* __restrict__ dk,
+                      __nv_bfloat16* __restrict__ dv, int B, int H, int KV,
+                      int Sq, int Skv, int Sqp, bool causal, float scale,
+                      float scale_log2) {
+  using L = Layout<D>;
+  constexpr int NB = D / BOX;
+  constexpr int NA = D / 2;             // dK, dV accumulator registers
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t bars[1 + 2 * STAGES];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t s_k = base;
+  const uint32_t s_v = s_k + L::BIG_BYTES;
+  const uint32_t s_q = s_v + L::BIG_BYTES;              // + stage * TILE_BYTES
+  const uint32_t s_do = s_q + STAGES * L::TILE_BYTES;
+  const uint32_t s_ld = s_do + STAGES * L::TILE_BYTES;  // + stage * LD_BYTES
+  const float* ld = reinterpret_cast<const float*>(smem_raw + (s_ld - raw));
+  const uint32_t bar_kv = smem_u32(&bars[0]);
+  const uint32_t bar_full = smem_u32(&bars[1]);             // + 8 * stage
+  const uint32_t bar_empty = smem_u32(&bars[1 + STAGES]);   // + 8 * stage
+
+  // key tiles in order: under the causal mask the first sees the most
+  // query tiles, so the heaviest blocks start first
+  const int bkv = blockIdx.x % (B * KV);
+  const int k0 = (int)(blockIdx.x / (B * KV)) * BIG;
+  const int kvh = bkv % KV;
+  const int b = bkv / KV;
+  const int G = H / KV;
+  const int q_offset = Skv - Sq;
+  // the first query tile with a row that sees key k0; tiles t of the walk:
+  // head kvh * G + t / nqt, query tile qt0 + t % nqt
+  const int qt0 = causal ? max(0, k0 - q_offset) / TILE : 0;
+  const int nqt = max(0, (Sq + TILE - 1) / TILE - qt0);
+  const int ntiles = G * nqt;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_kv, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, 8);  // one arrival a consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // -- producer: one thread issues every copy ------------------------------
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(bar_kv, 2 * L::BIG_BYTES);
+      for (int x = 0; x < NB; ++x) {
+        tma_load_3d(s_k + x * BIG * 128, &tk, bar_kv, x * BOX, k0,
+                    b * KV + kvh);
+        tma_load_3d(s_v + x * BIG * 128, &tv, bar_kv, x * BOX, k0,
+                    b * KV + kvh);
+      }
+      for (int t = 0; t < ntiles; ++t) {
+        const int s = t % STAGES;
+        const int h = kvh * G + t / nqt;
+        const int q0 = (qt0 + t % nqt) * TILE;
+        if (t >= STAGES) mbar_wait(bar_empty + 8 * s, ((t / STAGES) + 1) & 1);
+        const uint32_t full = bar_full + 8 * s;
+        mbar_expect_tx(full, 2 * L::TILE_BYTES + L::LD_BYTES);
+        for (int x = 0; x < NB; ++x) {
+          tma_load_3d(s_q + s * L::TILE_BYTES + x * TILE * 128, &tq, full,
+                      x * BOX, q0, b * H + h);
+          tma_load_3d(s_do + s * L::TILE_BYTES + x * TILE * 128, &tdo, full,
+                      x * BOX, q0, b * H + h);
+        }
+        const size_t row = (size_t)(b * H + h) * Sqp + q0;
+        bulk_load(s_ld + s * L::LD_BYTES, lse2 + row, TILE * 4, full);
+        bulk_load(s_ld + s * L::LD_BYTES + TILE * 4, delta + row, TILE * 4,
+                  full);
+      }
+    }
+    return;
+  }
+
+  // -- consumers: 64 key rows each -------------------------------------------
+  setmaxnreg_inc<240>();
+  const int cw = wg - 1;
+  const int t128 = threadIdx.x % 128;
+  const int lane = t128 % 32;
+  const int quad = lane % 4;
+  const int kw0 = k0 + cw * 64;                        // the warpgroup's keys
+  const int key = kw0 + (t128 / 32) * 16 + lane / 4;   // and key + 8
+
+  float adk[NA], adv[NA];
+#pragma unroll
+  for (int i = 0; i < NA; ++i) adk[i] = adv[i] = 0.0f;
+
+  mbar_wait(bar_kv, 0);
+  const uint32_t ka = s_k + cw * 64 * 128;
+  const uint32_t va = s_v + cw * 64 * 128;
+
+  for (int t = 0; t < ntiles; ++t) {
+    const int s = t % STAGES;
+    const int q0 = (qt0 + t % nqt) * TILE;
+    mbar_wait(bar_full + 8 * s, (t / STAGES) & 1);
+    const uint32_t qt = s_q + s * L::TILE_BYTES;
+    const uint32_t dot = s_do + s * L::TILE_BYTES;
+
+    // S^T = K q^T and dP^T = V dO^T, 64 keys x 64 queries fp32
+    float sacc[32], pacc[32];
+    fence_regs(sacc);
+    fence_regs(pacc);
+    wgmma_fence();
+    mma_scores<D>(sacc, ka, BIG * 128, qt, TILE * 128);
+    mma_scores<D>(pacc, va, BIG * 128, dot, TILE * 128);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sacc);
+    fence_regs(pacc);
+
+    // P^T and dS^T in place: column c of the tile is query q0 + c
+    const float* l2 = ld + s * (L::LD_BYTES / 4);
+    const float* dl = l2 + TILE;
+    const bool mask = causal && kw0 + 63 > q0 + q_offset;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int col = 8 * j + 2 * quad + c;
+        const float lj = l2[col], dj = dl[col];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int x = 4 * j + 2 * i + c;
+          float p = exp2f(fmaf(sacc[x], scale_log2, -lj));
+          if (mask && key + 8 * i > q0 + col + q_offset) p = 0.0f;
+          sacc[x] = p;
+          pacc[x] = p * (pacc[x] - dj);
+        }
+      }
+    }
+    uint32_t phi[4][4], plo[4][4], dhi[4][4], dlo[4][4];
+    split_frag(sacc, phi, plo);
+    split_frag(pacc, dhi, dlo);
+
+    // dV += (P_hi + P_lo)^T dO, dK += (dS_hi + dS_lo)^T q
+    fence_regs(adv);
+    fence_regs(adk);
+    fence_regs(phi);
+    fence_regs(plo);
+    fence_regs(dhi);
+    fence_regs(dlo);
+    wgmma_fence();
+    mma_split<D>(adv, phi, plo, dot, TILE * 128);
+    mma_split<D>(adk, dhi, dlo, qt, TILE * 128);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(adv);
+    fence_regs(adk);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar_empty + 8 * s);
+  }
+
+  const size_t kv_base = (size_t)(b * KV + kvh) * Skv * D;
+#pragma unroll
+  for (int j = 0; j < NA / 4; ++j) {
+    const int col = 8 * j + 2 * quad;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      if (key + 8 * i >= Skv) continue;
+      const size_t off = kv_base + (size_t)(key + 8 * i) * D + col;
+      *reinterpret_cast<__nv_bfloat162*>(dk + off) = __floats2bfloat162_rn(
+          adk[4 * j + 2 * i] * scale, adk[4 * j + 2 * i + 1] * scale);
+      *reinterpret_cast<__nv_bfloat162*>(dv + off) = __floats2bfloat162_rn(
+          adv[4 * j + 2 * i], adv[4 * j + 2 * i + 1]);
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,    // 128 rows
+                    const __grid_constant__ CUtensorMap tdo,   // 128 rows
+                    const __grid_constant__ CUtensorMap tk,    // 64 rows
+                    const __grid_constant__ CUtensorMap tv,    // 64 rows
+                    const float* __restrict__ lse2,
+                    const float* __restrict__ delta,
+                    __nv_bfloat16* __restrict__ dq, int B, int H, int KV,
+                    int Sq, int Skv, int Sqp, int nm, bool causal,
+                    float scale, float scale_log2) {
+  using L = Layout<D>;
+  constexpr int NB = D / BOX;
+  constexpr int NA = D / 2;             // dQ accumulator registers
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t bars[1 + 2 * STAGES];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t s_q = base;
+  const uint32_t s_do = s_q + L::BIG_BYTES;
+  const uint32_t s_k = s_do + L::BIG_BYTES;             // + stage * TILE_BYTES
+  const uint32_t s_v = s_k + STAGES * L::TILE_BYTES;
+  const uint32_t bar_q = smem_u32(&bars[0]);
+  const uint32_t bar_full = smem_u32(&bars[1]);             // + 8 * stage
+  const uint32_t bar_empty = smem_u32(&bars[1 + STAGES]);   // + 8 * stage
+
+  // heaviest query block first: block index -> (m block, b, h)
+  const int bh = blockIdx.x % (B * H);
+  const int mb = nm - 1 - (int)(blockIdx.x / (B * H));
+  const int h = bh % H;
+  const int b = bh / H;
+  const int kvh = h / (H / KV);
+  const int q0 = mb * BIG;
+  const int q_offset = Skv - Sq;
+  int kv_end = Skv;
+  if (causal) kv_end = min(Skv, max(0, q0 + BIG + q_offset));
+  const int ntiles = (kv_end + TILE - 1) / TILE;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, 8);  // one arrival a consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // -- producer: one thread issues every copy ------------------------------
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(bar_q, 2 * L::BIG_BYTES);
+      for (int x = 0; x < NB; ++x) {
+        tma_load_3d(s_q + x * BIG * 128, &tq, bar_q, x * BOX, q0, b * H + h);
+        tma_load_3d(s_do + x * BIG * 128, &tdo, bar_q, x * BOX, q0,
+                    b * H + h);
+      }
+      for (int t = 0; t < ntiles; ++t) {
+        const int s = t % STAGES;
+        if (t >= STAGES) mbar_wait(bar_empty + 8 * s, ((t / STAGES) + 1) & 1);
+        const uint32_t full = bar_full + 8 * s;
+        mbar_expect_tx(full, 2 * L::TILE_BYTES);
+        for (int x = 0; x < NB; ++x) {
+          tma_load_3d(s_k + s * L::TILE_BYTES + x * TILE * 128, &tk, full,
+                      x * BOX, t * TILE, b * KV + kvh);
+          tma_load_3d(s_v + s * L::TILE_BYTES + x * TILE * 128, &tv, full,
+                      x * BOX, t * TILE, b * KV + kvh);
+        }
+      }
+    }
+    return;
+  }
+
+  // -- consumers: 64 query rows each -----------------------------------------
+  setmaxnreg_inc<240>();
+  const int cw = wg - 1;
+  const int t128 = threadIdx.x % 128;
+  const int lane = t128 % 32;
+  const int quad = lane % 4;
+  const int wg_row0 = q0 + cw * 64;
+  const int r_lo = wg_row0 + (t128 / 32) * 16 + lane / 4;    // and r_lo + 8
+  const size_t lrow = (size_t)bh * Sqp + r_lo;               // < Sqp rows
+  const float l0 = lse2[lrow], l1 = lse2[lrow + 8];
+  const float d0 = delta[lrow], d1 = delta[lrow + 8];
+
+  float adq[NA];
+#pragma unroll
+  for (int i = 0; i < NA; ++i) adq[i] = 0.0f;
+
+  mbar_wait(bar_q, 0);
+  const uint32_t qa = s_q + cw * 64 * 128;       // this warpgroup's rows
+  const uint32_t da = s_do + cw * 64 * 128;
+
+  for (int t = 0; t < ntiles; ++t) {
+    const int s = t % STAGES;
+    mbar_wait(bar_full + 8 * s, (t / STAGES) & 1);
+    const uint32_t kt = s_k + s * L::TILE_BYTES;
+    const uint32_t vt = s_v + s * L::TILE_BYTES;
+
+    // S = q K^T and dP = dO V^T, 64 queries x 64 keys fp32
+    float sacc[32], pacc[32];
+    fence_regs(sacc);
+    fence_regs(pacc);
+    wgmma_fence();
+    mma_scores<D>(sacc, qa, BIG * 128, kt, TILE * 128);
+    mma_scores<D>(pacc, da, BIG * 128, vt, TILE * 128);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sacc);
+    fence_regs(pacc);
+
+    // dS in place of dP
+    const int kv0 = t * TILE;
+    const bool mask = kv0 + TILE > Skv ||
+                      (causal && kv0 + TILE - 1 > wg_row0 + q_offset);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int col = kv0 + 8 * j + 2 * quad + c;
+        float p0 = exp2f(fmaf(sacc[4 * j + c], scale_log2, -l0));
+        float p1 = exp2f(fmaf(sacc[4 * j + 2 + c], scale_log2, -l1));
+        if (mask) {
+          if (col >= Skv || (causal && col > r_lo + q_offset)) p0 = 0.0f;
+          if (col >= Skv || (causal && col > r_lo + 8 + q_offset)) p1 = 0.0f;
+        }
+        pacc[4 * j + c] = p0 * (pacc[4 * j + c] - d0);
+        pacc[4 * j + 2 + c] = p1 * (pacc[4 * j + 2 + c] - d1);
+      }
+    }
+    uint32_t dhi[4][4], dlo[4][4];
+    split_frag(pacc, dhi, dlo);
+
+    // dQ += (dS_hi + dS_lo) K
+    fence_regs(adq);
+    fence_regs(dhi);
+    fence_regs(dlo);
+    wgmma_fence();
+    mma_split<D>(adq, dhi, dlo, kt, TILE * 128);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(adq);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar_empty + 8 * s);
+  }
+
+  __nv_bfloat16* qb = dq + (size_t)(b * H + h) * Sq * D;
+#pragma unroll
+  for (int j = 0; j < NA / 4; ++j) {
+    const int col = 8 * j + 2 * quad;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      if (r_lo + 8 * i >= Sq) continue;
+      *reinterpret_cast<__nv_bfloat162*>(qb + (size_t)(r_lo + 8 * i) * D +
+                                         col) =
+          __floats2bfloat162_rn(adq[4 * j + 2 * i] * scale,
+                                adq[4 * j + 2 * i + 1] * scale);
+    }
+  }
+}
+
+// Calls on this thread that launched this body's three kernels.
+thread_local long long calls = 0;
+
+// Rows of lse2 and Delta a (b, h) in the scratch.
+inline long long padded_rows(long long Sq) {
+  return (Sq + PAD - 1) / PAD * PAD;
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, const void* o,
+           const void* dout, const float* lse, float* scratch, void* dq,
+           void* dk, void* dv, long long B, long long H, long long KV,
+           long long Sq, long long Skv, bool causal, float scale,
+           cudaStream_t st) {
+  const int smem = Layout<D>::SMEM;
+  static bool set_dkdv[port::kMaxDevices] = {};
+  static bool set_dq[port::kMaxDevices] = {};
+  cudaError_t err =
+      port::set_smem_once(set_dkdv, bwd_dkdv_wgmma_kernel<D>, smem);
+  if (err == cudaSuccess)
+    err = port::set_smem_once(set_dq, bwd_dq_wgmma_kernel<D>, smem);
+  if (err == cudaSuccess) err = tc::bind_context();
+  if (err != cudaSuccess) return (int)err;
+  const tc::EncodeTiled enc = tc::encode_tiled();
+  if (enc == nullptr) return (int)cudaErrorNotSupported;
+  // (Q, dO) in boxes of 64 rows for the dK/dV kernel and 128 for dQ;
+  // (K, V) the other way round
+  CUtensorMap q64, do64, k128, v128, q128, do128, k64, v64;
+  if (!tc::make_map(enc, &q64, q, D, Sq, B * H, TILE) ||
+      !tc::make_map(enc, &do64, dout, D, Sq, B * H, TILE) ||
+      !tc::make_map(enc, &k128, k, D, Skv, B * KV, BIG) ||
+      !tc::make_map(enc, &v128, v, D, Skv, B * KV, BIG) ||
+      !tc::make_map(enc, &q128, q, D, Sq, B * H, BIG) ||
+      !tc::make_map(enc, &do128, dout, D, Sq, B * H, BIG) ||
+      !tc::make_map(enc, &k64, k, D, Skv, B * KV, TILE) ||
+      !tc::make_map(enc, &v64, v, D, Skv, B * KV, TILE))
+    return (int)cudaErrorInvalidValue;
+  const long long Sqp = padded_rows(Sq);
+  const long long rows = B * H * Sqp;
+  const long long nm = (Sq + BIG - 1) / BIG;
+  const long long g0 = (rows + PREP_THREADS / 32 - 1) / (PREP_THREADS / 32);
+  const long long g1 = (Skv + BIG - 1) / BIG * B * KV;
+  const long long g2 = nm * B * H;
+  if (g0 > 0x7fffffffLL || g1 > 0x7fffffffLL || g2 > 0x7fffffffLL ||
+      rows > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  float* lse2 = scratch;
+  float* delta = scratch + rows;
+  const float sl2 = scale * LOG2E;
+  bwd_prep_kernel<<<(unsigned)g0, PREP_THREADS, 0, st>>>(
+      static_cast<const __nv_bfloat16*>(o),
+      static_cast<const __nv_bfloat16*>(dout), lse, lse2, delta, rows,
+      (int)Sq, (int)Sqp, D);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  bwd_dkdv_wgmma_kernel<D><<<(unsigned)g1, THREADS, smem, st>>>(
+      q64, do64, k128, v128, lse2, delta, static_cast<__nv_bfloat16*>(dk),
+      static_cast<__nv_bfloat16*>(dv), (int)B, (int)H, (int)KV, (int)Sq,
+      (int)Skv, (int)Sqp, causal, scale, sl2);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  bwd_dq_wgmma_kernel<D><<<(unsigned)g2, THREADS, smem, st>>>(
+      q128, do128, k64, v64, lse2, delta, static_cast<__nv_bfloat16*>(dq),
+      (int)B, (int)H, (int)KV, (int)Sq, (int)Skv, (int)Sqp, (int)nm, causal,
+      scale, sl2);
+  err = cudaGetLastError();
+  if (err == cudaSuccess) ++calls;
+  return (int)err;
+}
+
+}  // namespace bwd_tc
 }  // namespace
+
+// Calls of `flash_attention_bwd` on the calling thread that launched the
+// tensor-core body, counted where its kernels are launched.
+extern "C" long long flash_attention_bwd_tc_calls() { return bwd_tc::calls; }
+
+// Floats of the fp32 scratch `flash_attention_bwd` takes as `delta`: two
+// arrays (lse * log2 e and Delta) of B * H * Sq rows, Sq rounded up to a
+// multiple of bwd_tc::PAD; the CUDA-core body uses the first B * H * Sq.
+extern "C" long long flash_attention_bwd_scratch_floats(long long B,
+                                                         long long H,
+                                                         long long Sq) {
+  return 2 * B * H * bwd_tc::padded_rows(Sq);
+}
 
 // The backward of `flash_attention_fwd`: q, o, dout, dq (B, H, Sq, D); k,
 // v, dk, dv (B, KV, Skv, D); lse (B, H, Sq) fp32 as the forward wrote it;
-// delta an fp32 scratch of B * H * Sq; all contiguous on one device, of
-// one type (dtype 0 fp32, 1 bf16), D in {32, 64, 128}, H % KV == 0. Every
-// element of dq, dk and dv is written. Three launches on `stream`;
-// returns the last cudaError_t.
+// delta an fp32 scratch of `flash_attention_bwd_scratch_floats(B, H, Sq)`
+// floats; all contiguous on one device, of one type (dtype 0 fp32, 1
+// bf16), D in {32, 64, 128}, H % KV == 0. Every element of dq, dk and dv
+// is written. Three launches on `stream` (bf16 at D 64 and 128 on the
+// tensor cores, else on the CUDA cores); returns the last cudaError_t.
 extern "C" int flash_attention_bwd(const void* q, const void* k,
                                    const void* v, const void* o,
                                    const void* dout, const float* lse,
@@ -988,12 +1581,18 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (dtype == 0)
-    return bwd::launch_bwd_d<float>(D, q, k, v, o, dout, lse, delta, dq, dk,
-                                    dv, B, H, KV, Sq, Skv, causal != 0,
-                                    scale, st);
-  if (dtype == 1)
-    return bwd::launch_bwd_d<__nv_bfloat16>(D, q, k, v, o, dout, lse, delta,
-                                            dq, dk, dv, B, H, KV, Sq, Skv,
-                                            causal != 0, scale, st);
+    return bwd::launch_bwd_fp32(D, q, k, v, o, dout, lse, delta, dq, dk,
+                                dv, B, H, KV, Sq, Skv, causal != 0, scale,
+                                st);
+  if (dtype == 1 && D == 128)
+    return bwd_tc::launch<128>(q, k, v, o, dout, lse, delta, dq, dk, dv, B,
+                               H, KV, Sq, Skv, causal != 0, scale, st);
+  if (dtype == 1 && D == 64)
+    return bwd_tc::launch<64>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, H,
+                              KV, Sq, Skv, causal != 0, scale, st);
+  if (dtype == 1 && D == 32)
+    return bwd::launch_bwd<__nv_bfloat16, 32>(q, k, v, o, dout, lse, delta,
+                                              dq, dk, dv, B, H, KV, Sq, Skv,
+                                              causal != 0, scale, st);
   return (int)cudaErrorInvalidValue;
 }

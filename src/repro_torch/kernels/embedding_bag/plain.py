@@ -18,9 +18,12 @@ def embedding_bag_plain(table: torch.Tensor, indices: torch.Tensor,
     summed in fp32 in slot order j = 0..L-1 (the Pallas body's order),
     divided by max(sum of those w, 1e-9) for ``combiner="mean"``, and
     rounded once to the table's dtype. Padding adds nothing and does not
-    count toward the sum of w; an all-padding bag gives 0. A bag with an
-    id >= V is NaN (repro's ``jnp.take`` fills out-of-range rows with
-    NaN); no row is read out of range."""
+    count toward the sum of w; an all-padding bag gives 0. An id >= V
+    adds a row of NaN to the sum, as repro's ``jnp.take`` fills
+    out-of-range rows with NaN: its bag is NaN, and so is autograd's
+    gradient of its weights (``sum``: at that slot; ``mean``: at every
+    slot but padding, through the division). No row is read out of
+    range."""
     if combiner not in ("sum", "mean"):
         raise ValueError(f"combiner must be 'sum' or 'mean', not "
                          f"{combiner!r}")
@@ -36,12 +39,12 @@ def embedding_bag_plain(table: torch.Tensor, indices: torch.Tensor,
     acc = torch.zeros((b, d), dtype=torch.float32, device=table.device)
     wsum = torch.zeros((b, 1), dtype=torch.float32, device=table.device)
     for j in range(bag):
-        term = w[:, j, None] * table[safe[:, j]].float()
-        acc = torch.where(valid[:, j, None], acc + term, acc)
+        row = torch.where(oob[:, j, None], float("nan"),
+                          table[safe[:, j]].float())
+        acc = torch.where(valid[:, j, None], acc + w[:, j, None] * row, acc)
         wsum = wsum + w[:, j, None]
     if combiner == "mean":
         acc = acc / torch.clamp(wsum, min=1e-9)
-    acc = torch.where(oob.any(1, keepdim=True), float("nan"), acc)
     return acc.to(table.dtype)
 
 

@@ -14,6 +14,7 @@ from .plain import flash_attention_bwd_plain, flash_attention_plain
 
 launches = 0          # CUDA kernel launches of the forward
 bwd_launches = 0      # CUDA launches of ``flash_attention_bwd`` (one call)
+bwd_tc_launches = 0   # of those, on the tensor-core body (the library counts)
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128)
@@ -21,8 +22,9 @@ _entries = None
 
 
 def _lib():
-    """(library, ``flash_attention_fwd``, ``flash_attention_bwd``), built,
-    loaded and declared once."""
+    """(library, ``flash_attention_fwd``, ``flash_attention_bwd``,
+    ``flash_attention_bwd_tc_calls``, ``flash_attention_bwd_scratch_floats``),
+    built, loaded and declared once."""
     global _entries
     if _entries is None:
         lib = build.load("flash_attention")
@@ -36,7 +38,13 @@ def _lib():
                         + [ctypes.c_longlong] * 6
                         + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
         bwd.restype = ctypes.c_int
-        _entries = (lib, fwd, bwd)
+        tc_calls = lib.flash_attention_bwd_tc_calls
+        tc_calls.argtypes = []
+        tc_calls.restype = ctypes.c_longlong
+        scratch = lib.flash_attention_bwd_scratch_floats
+        scratch.argtypes = [ctypes.c_longlong] * 3
+        scratch.restype = ctypes.c_longlong
+        _entries = (lib, fwd, bwd, tc_calls, scratch)
     return _entries
 
 
@@ -95,7 +103,7 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         o = torch.empty_like(q)
         lse = torch.empty((b, h, sq), dtype=torch.float32,
                           device=q.device) if want_lse else None
-        lib, fwd, _ = _lib()
+        lib, fwd = _lib()[:2]
         err = _call(q.device, fwd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                     o.data_ptr(), None if lse is None else lse.data_ptr(),
                     DTYPES[q.dtype], b, h, kv, sq, skv, d, int(causal),
@@ -164,8 +172,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     output's cotangent), from the forward's o and lse, in q's dtype with
     fp32 sums. A CPU tensor runs ``flash_attention_bwd_plain``; a CUDA
     tensor launches the backward kernel (three launches in one call, no
-    atomics: a rerun gives the same bits)."""
-    global bwd_launches
+    atomics: a rerun gives the same bits): bf16 at D 64 and 128 on the
+    tensor cores (``wgmma``, P and dS each as two bf16 terms), fp32 and
+    bf16 at D 32 on the CUDA cores."""
+    global bwd_launches, bwd_tc_launches
     with obs.span("kernel:flash_attention_bwd") as sp:
         b, h, sq, d, kv, skv = _check("flash_attention_bwd", q, k, v)
         if o.shape != q.shape or do.shape != q.shape or \
@@ -174,23 +184,29 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              f"{tuple(do.shape)}, lse {tuple(lse.shape)} do "
                              f"not match q {tuple(q.shape)}")
         pairs = b * h * sq * skv // (2 if causal else 1)
-        sp.add("flops", 14 * pairs * d)
         sp.add("bytes", (4 * b * h * sq + 4 * b * kv * skv) * d
                * q.element_size())
         if q.device.type == "cpu":
+            sp.add("flops", 10 * pairs * d)     # the plain five products
             return flash_attention_bwd_plain(q, k, v, o, do, lse, causal)
+        lib, _, bwd, tc_calls, scratch_floats = _lib()
         do = do.to(q.dtype)
         q, k, v, o, do = (t.contiguous() for t in (q, k, v, o, do))
         lse = lse.float().contiguous()
         dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
-        delta = torch.empty((b, h, sq), dtype=torch.float32,
-                            device=q.device)
-        lib, _, bwd = _lib()
+        scratch = torch.empty(scratch_floats(b, h, sq), dtype=torch.float32,
+                              device=q.device)
+        tc0 = tc_calls()
         err = _call(q.device, bwd, *(t.data_ptr() for t in (
-            q, k, v, o, do, lse, delta, dq, dk, dv)), DTYPES[q.dtype], b, h,
-            kv, sq, skv, d, int(causal), d ** -0.5)
+            q, k, v, o, do, lse, scratch, dq, dk, dv)), DTYPES[q.dtype], b,
+            h, kv, sq, skv, d, int(causal), d ** -0.5)
         check(lib, err, "flash_attention_bwd")
+        tc = tc_calls() - tc0                   # this thread's last call
+        # what the body executed: the tensor cores' split P and dS double
+        # three of the five products; the CUDA cores recompute S and dP
+        sp.add("flops", (20 if tc else 14) * pairs * d)
         bwd_launches += 1
+        bwd_tc_launches += tc
         if sp is not obs.NOOP_SPAN:
             torch.cuda.current_stream(q.device).synchronize()
         return dq, dk, dv

@@ -433,3 +433,78 @@ def test_o_rounding_bound_covers_a_step_of_o(causal):
         lim = e + 1e-6 * float(x0.abs().max())
         assert bool(((x1 - x0).abs() <= lim).all())
     assert float((alt[0] - base[0]).abs().max()) > 0
+
+
+# ---------------------------------------------------------------------------
+# the rounding design of the bf16 backward on the tensor cores
+# ---------------------------------------------------------------------------
+def _tensor_core_backward(q, k, v, o, do, lse, causal, split):
+    """The bf16 tensor-core backward's rounding points, emulated in fp32:
+    S = q k^T and dP = dO V^T summed in fp32 from the bf16 inputs; P =
+    2^(S scale log2(e) - lse log2(e)) and dS = P (dP - Delta) in fp32;
+    P and dS then enter the products in bf16, as hi + lo (``split``: two
+    bf16 terms whose sum is the fp32 value to ~2^-17) or rounded once;
+    dV = P^T dO, dK = scale dS^T Q and dQ = scale dS K summed in fp32 and
+    rounded once to bf16."""
+    b, h, sq, d = q.shape
+    kv, skv = k.shape[1], k.shape[2]
+    g = h // kv
+    scale, log2e = d ** -0.5, 1.4426950408889634
+    qf = q.float().reshape(b, kv, g, sq, d)
+    dof = do.float().reshape(b, kv, g, sq, d)
+    lse5 = lse.reshape(b, kv, g, sq, 1)
+    s = torch.einsum("bkgqd,bkcd->bkgqc", qf, k.float())
+    p = torch.exp2(s * (scale * log2e) - lse5 * log2e)
+    seen = ~torch.isneginf(lse5).expand_as(p)
+    if causal:
+        rows = torch.arange(sq)[:, None] + (skv - sq)
+        seen = seen & (rows >= torch.arange(skv)[None])
+    p = torch.where(seen, p, 0.0)
+    dp = torch.einsum("bkgqd,bkcd->bkgqc", dof, v.float())
+    delta = (dof * o.float().reshape(b, kv, g, sq, d)).sum(-1, keepdim=True)
+    ds = p * (dp - delta)
+
+    def to_bf16(x):
+        hi = x.to(torch.bfloat16).float()
+        return hi + (x - hi).to(torch.bfloat16).float() if split else hi
+
+    p, ds = to_bf16(p), to_bf16(ds)
+    dv = torch.einsum("bkgqc,bkgqd->bkcd", p, dof)
+    dk = torch.einsum("bkgqc,bkgqd->bkcd", ds, qf) * scale
+    dq = torch.einsum("bkgqc,bkcd->bkgqd", ds, k.float()) * scale
+    return tuple(x.to(torch.bfloat16)
+                 for x in (dq.reshape(b, h, sq, d), dk, dv))
+
+
+@pytest.mark.parametrize("b,h,kv,sq,skv,d,causal", [
+    (1, 4, 2, 256, 256, 64, True),      # GQA 2, causal
+    (1, 4, 2, 256, 256, 128, False),    # D 128, bidirectional
+    (1, 6, 1, 200, 136, 128, True),     # GQA 6, Sq > Skv, ragged tiles
+    (1, 10, 2, 100, 300, 64, True),     # GQA 5, queries the last 100 keys
+    (2, 4, 4, 130, 70, 64, True),       # 60 rows a head that see no key
+])
+def test_bf16_backward_needs_p_and_ds_split(b, h, kv, sq, skv, d, causal):
+    """The bf16 backward on the tensor cores holds ``grads_agree``'s bf16
+    rule against the plain backward only with P and dS each split into
+    bf16 hi + lo: rounded once to bf16, the same products miss the rule
+    (by ~15-30x at these shapes)."""
+    from repro_torch.kernels.flash_attention.plain import (
+        flash_attention_bwd_plain)
+    from repro_torch.testing import grads_agree
+    x = [torch.from_numpy(_rand(s, 60 + i)).to(torch.bfloat16)
+         for i, s in enumerate([(b, h, sq, d), (b, kv, skv, d),
+                                (b, kv, skv, d), (b, h, sq, d)])]
+    q, k, v, do = x
+    o, lse = flash_attention_plain(q, k, v, causal, return_lse=True)
+    want = flash_attention_bwd_plain(q, k, v, o, do, lse, causal)
+    split = _tensor_core_backward(q, k, v, o, do, lse, causal, True)
+    once = _tensor_core_backward(q, k, v, o, do, lse, causal, False)
+    for name, got_split, got_once, w in zip(("dq", "dk", "dv"), split, once,
+                                            want):
+        ok, ratio = grads_agree(got_split, w, True)
+        assert ok, f"{name} with P, dS split: {ratio:.3g} x its limit"
+        ok, ratio = grads_agree(got_once, w, True)
+        assert not ok and ratio > 4, \
+            f"{name} with P, dS rounded once: {ratio:.3g} x its limit"
+    if causal and sq > skv:
+        assert float(split[0][:, :, :sq - skv].abs().max()) == 0.0

@@ -1067,9 +1067,16 @@ def _grads_agree(got, want, dtype, bound=(None,) * 3):
     (16, 2, 2, 200, 200, 32, False),       # BERT4Rec
     (1, 2, 2, 100, 40, 128, True),         # 60 rows that see no key
     (2, 4, 4, 65, 129, 64, False),
+    (1, 10, 2, 200, 333, 128, True),       # GQA 5 (Qwen1.5-32B's group)
+    (1, 12, 2, 333, 200, 64, True),        # GQA 6 (Nemotron-4), Sq > Skv
+    (1, 4, 2, 191, 257, 64, False),        # Sq, Skv off the 64/128 tiles
+    (1, 4, 2, 257, 191, 128, True),
+    (1, 8, 2, 4096, 4096, 128, True),      # a 4096-token causal layer
 ])
 def test_flash_attention_bwd_kernel_matches_plain(dev, dtype, b, h, kv, sq,
                                                   skv, d, causal):
+    """bf16 at D 64 and 128 runs the tensor-core body (its own launch
+    count moves), fp32 and bf16 at D 32 the CUDA-core body."""
     q = _randn((b, h, sq, d), 90, dev, dtype)
     k = _randn((b, kv, skv, d), 91, dev, dtype)
     v = _randn((b, kv, skv, d), 92, dev, dtype)
@@ -1079,10 +1086,12 @@ def test_flash_attention_bwd_kernel_matches_plain(dev, dtype, b, h, kv, sq,
     o_p, lse_p = flash_attention_plain(q, k, v, causal, return_lse=True)
     ok, ratio = lse_agree(lse, lse_p)
     assert ok, f"lse is {ratio:.3g} x its limit from plain"
-    before = fa_ops.bwd_launches
+    before, before_tc = fa_ops.bwd_launches, fa_ops.bwd_tc_launches
     got = fa_ops.flash_attention_bwd(q, k, v, o, do, lse, causal)
     torch.cuda.synchronize()
     assert fa_ops.bwd_launches == before + 1
+    tc = dtype == torch.bfloat16 and d in (64, 128)
+    assert fa_ops.bwd_tc_launches == before_tc + tc
     _grads_agree(got, flash_attention_bwd_plain(q, k, v, o, do, lse, causal),
                  dtype)
     # the chain: the plain backward on the plain forward's o and lse
@@ -1114,6 +1123,43 @@ def test_flash_attention_autograd_on_the_card(dev):
     want = fa_ops.flash_attention_bwd(q, k, v, o, do, lse, True)
     for leaf, w in zip(leaves, want):
         assert torch.equal(leaf.grad, w)
+
+
+def test_tensor_core_attention_from_a_fresh_thread(dev):
+    """A thread that has made no CUDA call yet, whose allocations the
+    caching allocator serves from freed blocks (as autograd's device
+    thread after a larger call), runs the bf16 forward and backward on
+    the tensor cores bit for bit with the main thread: a launch makes the
+    device's primary context current before it encodes its tensor maps
+    (``cuTensorMapEncodeTiled`` fails with "invalid argument" without
+    one)."""
+    import threading
+    q, do = (_randn((1, 8, 200, 128), 110 + i, dev, torch.bfloat16)
+             for i in range(2))
+    k, v = (_randn((1, 2, 200, 128), 112 + i, dev, torch.bfloat16)
+            for i in range(2))
+    o, lse = fa_ops.flash_attention_with_lse(q, k, v, True)
+    want = fa_ops.flash_attention_bwd(q, k, v, o, do, lse, True)
+    spare = (fa_ops.flash_attention_with_lse(q, k, v, True),
+             fa_ops.flash_attention_bwd(q, k, v, o, do, lse, True))
+    del spare                   # freed blocks for the thread's outputs
+    out, errors = {}, []
+
+    def run():
+        try:
+            out["fwd"] = fa_ops.flash_attention_with_lse(q, k, v, True)
+            out["bwd"] = fa_ops.flash_attention_bwd(q, k, v, o, do, lse,
+                                                    True)
+            torch.cuda.synchronize()
+        except Exception as exc:                   # noqa: BLE001
+            errors.append(exc)
+
+    t = threading.Thread(target=run)
+    t.start()
+    t.join(timeout=300)
+    assert not t.is_alive() and not errors, errors
+    assert torch.equal(out["fwd"][0], o) and torch.equal(out["fwd"][1], lse)
+    assert all(torch.equal(x, y) for x, y in zip(out["bwd"], want))
 
 
 @pytest.mark.parametrize("causal", [True, False])

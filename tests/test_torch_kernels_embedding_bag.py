@@ -358,14 +358,14 @@ def test_bag_backward_matches_jax_grad(v, d, b, bag, combiner, weighted):
     """The table gradient through torch.autograd of ``embedding_bag``
     (padding, weights, mean, and an id >= V in one bag, which adds to no
     row) against jax.vjp of repro's wrapper in "ref" mode, within 1e-5;
-    and the weights' gradient against jax's, but for the NaN bag's (jax
-    gives NaN there, the port 0: the forward masks that bag with NaN
-    after the sum, which passes no gradient to its weights)."""
+    and the weights' gradient against jax's at every slot, the NaN bag's
+    included (a nonzero cotangent there): NaN at the same slots (``sum``:
+    the out-of-range one; ``mean``: every slot but padding), within 1e-5
+    elsewhere."""
     table, idx, w = _setup(v, d, b, bag, seed=5)
     idx[0, 0] = v + 3                                  # out of range
     w = w if weighted else None
     g = np.random.default_rng(6).standard_normal((b, d)).astype(np.float32)
-    g[0] = 0.0                  # the NaN bag's cotangent (its loss term)
     tt = torch.from_numpy(table).requires_grad_(True)
     tw = None if w is None else torch.from_numpy(w).requires_grad_(True)
     out = eb.embedding_bag(tt, torch.from_numpy(idx), tw, combiner)
@@ -382,10 +382,16 @@ def test_bag_backward_matches_jax_grad(v, d, b, bag, combiner, weighted):
                                   mode="ref")
         _, vjp = jax.vjp(fn, jnp.asarray(w))
         want_w = np.asarray(vjp(jnp.asarray(g))[0])
-        keep = idx >= 0
-        keep[0] = False                                # the NaN bag
-        np.testing.assert_allclose(tw.grad.numpy()[keep], want_w[keep],
-                                   rtol=1e-5, atol=1e-5)
+        got_w = tw.grad.numpy()
+        nan = np.isnan(want_w)
+        assert nan[0, 0] and not nan[1:].any()
+        if combiner == "sum":
+            assert nan[0].sum() == 1
+        else:
+            assert (nan[0] == (idx[0] >= 0)).all()
+        np.testing.assert_array_equal(np.isnan(got_w), nan)
+        np.testing.assert_allclose(got_w[~nan], want_w[~nan], rtol=1e-5,
+                                   atol=1e-5)
 
 
 def test_grouped_backward_into_a_stack_slice():
