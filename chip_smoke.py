@@ -19,7 +19,9 @@ background maintenance, a shard down, an online split and a repair; and
 the LM family's serving cells, Qwen2-MoE-A2.7B at full width and depth
 through ``build_cell``, with the MoE layer's capacity dispatch; and the
 train cells of the LM and recsys families on the card, with the
-hand-written backward kernels of attention and the embedding bag.
+hand-written backward kernels of attention and the embedding bag; and
+SchNet's train cells, message passing on the hand-written
+gather-segment-sum kernel.
 
 Phases (any failure stops the script with a non-zero exit):
   1. setup: card name and power limit, kernel build time, and ptxas's
@@ -142,7 +144,25 @@ Phases (any failure stops the script with a non-zero exit):
      save, restore, 2 more, equal to 4 straight bit for bit). The cells'
      steps are the backward kernels' "launches" below, and add to the
      forward kernels'; a ``{"phase10": ...}`` line gives each cell's
-     losses, step times, peak memory and cuts (``reduced``).
+     losses, step times, peak memory and cuts (``reduced``);
+  11. SchNet's train cells on the card: ``gather_segment_sum`` against its
+     plain version (forward, the gradient of x by the kernel, that of w;
+     bit for bit, two runs bit for bit) at molecule (8,192 edges into
+     3,840 atoms), its energy readout (D 1), minibatch_lg's smoke batch,
+     a minibatch_lg batch from ``sample_subgraph`` (1,024 seeds, fanout
+     15-10, over a seeded 232,965-node graph with lognormal out-degrees
+     of mean 50: node 0, the padding edges' end, is hot) and a 2^22-edge
+     slice of ogb_products, timed against the plain version and
+     ``index_add_``; then the four cells through ``build_cell`` at their
+     published sizes, three AdamW steps each (ogb_products: 2,449,056
+     nodes, 61,859,328 edges, the filter network in chunks of 2^22
+     edges under checkpoint), one step on the sampled batch, grads card
+     vs CPU at molecule and minibatch_lg, minibatch_lg at edge_chunk
+     2^14 against one chunk, a checkpointed resume at molecule and two
+     ogb_products steps from one state, bit for bit. The cells' steps are
+     the kernel's "launches" below; a ``{"phase11": ...}`` line gives
+     each cell's losses, step times, edges a second, peak memory, the
+     ogb_products step's bound and the cuts (``reduced``).
 It prints a ``{"kernels": [...]}`` line, then, last, the one-line
 ``{"ok": true, "device": {...}}`` result. Without a CUDA device, or
 without the package beside it, it exits non-zero and prints no result.
@@ -200,6 +220,11 @@ KERNELS = {
         "src/repro_torch/csrc/embedding_bag.cu",
         "src/repro/kernels/embedding_bag/embedding_bag.py:20 (its "
         "backward; no Pallas counterpart)"),
+    # SchNet's message passing: repro leaves it to XLA
+    "gather_segment_sum": (
+        "src/repro_torch/csrc/segment_sum.cu",
+        "src/repro/models/schnet.py:100 (jax.ops.segment_sum; no Pallas "
+        "counterpart)"),
 }
 TILE_KERNELS = ("topk_search", "temporal_window_topk", "topk_search_q8",
                 "temporal_window_topk_q8")
@@ -226,7 +251,9 @@ PTXAS_REPORT = (("flash_attention", "fa_wgmma_kernel"),
                 ("flash_attention", "bwd_dkdv_wgmma_kernel"),
                 ("flash_attention", "bwd_dq_wgmma_kernel"),
                 ("embedding_bag", "bag_bwd_chunks"),
-                ("embedding_bag", "bag_bwd_rows"))
+                ("embedding_bag", "bag_bwd_rows"),
+                ("segment_sum", "gss_chunks"),
+                ("segment_sum", "gss_rows"))
 
 
 def ptxas_lines(log_text: str, kernel: str) -> list[str]:
@@ -3598,6 +3625,413 @@ def phase_train(torch, dev, kern: dict) -> dict:
     return main
 
 
+SCHNET = "schnet"
+SCHNET_STEPS = 3
+SCHNET_CHUNK_CHECK = 1 << 14     # card: minibatch_lg at this edge_chunk
+# the kernel's check and times on ogb_products: the plan of the cell's
+# first edge chunk (2^22 edges of the dst-sorted batch; its plan_ms is
+# ``edge_chunks`` over the whole batch)
+OGB_CHUNK = "ogb_products chunk 0"
+# minibatch_lg on a sampled batch: a seeded graph of Reddit's 232,965
+# nodes, out-degrees lognormal (sigma 1.5) with mean 50, dst uniform
+REDDIT = dict(nodes=232_965, degree=50, sigma=1.5, seeds=1024,
+              fanout=(15, 10))
+
+
+def same_values(torch, a, b) -> bool:
+    """Equal bit for bit where not NaN, NaN at the same places (the card
+    gives its canonical NaN for arithmetic on a NaN, whatever the
+    input's bits)."""
+    return (a.shape == b.shape and torch.equal(a.isnan(), b.isnan())
+            and torch.equal(torch.where(a.isnan(), 0.0, a),
+                            torch.where(b.isnan(), 0.0, b)))
+
+
+class SegmentCheck:
+    """``gather_segment_sum`` against its plain version on the card, bit
+    for bit: the forward over the plan's dst order, the gradient of x
+    over its src order, the gradient of w (two gathers and a product,
+    the same code both ways) through autograd; two runs of each bit for
+    bit; the largest |kernel - plain| over the non-NaN entries; times of
+    the kernel, the plain version and the library
+    (``out.index_add_(0, dst, x[src] * w)``: float atomics), and the
+    bound (the bytes of w, of the gathered rows of x, of the indices and
+    of out over 3.35 TB/s, an x of at most 50 MB counted at most its size
+    once, as it stays in L2; 2 FLOPs an element, 1 without w)."""
+
+    def __init__(self, torch, dev, seed: int):
+        self.torch, self.dev = torch, dev
+        self.gen = torch.Generator(device=dev).manual_seed(seed)
+        self.out = {"err": 0.0, "times": []}
+
+    def randn(self, shape):
+        return self.torch.randn(shape, generator=self.gen, device=self.dev)
+
+    def case(self, what: str, make_plan, d: int, weighted: bool = True,
+             iters: int = 20) -> None:
+        """The check and the times over ``make_plan()``'s ``EdgePlan`` (its
+        time is the row's plan_ms) with seeded x (n_src, d), w and the
+        cotangent."""
+        from repro_torch.kernels.segment_sum import (gather_segment_sum,
+                                                     segment_sum,
+                                                     segment_sum_plain,
+                                                     weight_grad)
+
+        torch = self.torch
+        t = time.perf_counter()
+        plan = make_plan()
+        torch.cuda.synchronize()
+        plan_ms = (time.perf_counter() - t) * 1e3
+        n, n_out, e = plan.n_src, plan.n_out, plan.src.shape[0]
+        x = self.randn((n, d))
+        w = self.randn((e, d)) if weighted else None
+        g = self.randn((n_out, d))
+        xg = x.clone().requires_grad_(True)
+        wg = None if w is None else w.clone().requires_grad_(True)
+        out = gather_segment_sum(xg, None, None, n_out, wg, plan=plan)
+        out.backward(g)
+        fwd = segment_sum(x, w, plan.fwd)
+        dx = segment_sum(g, w, plan.bwd)
+        err = 0.0
+        for name, got, want, again in (
+                ("forward", out.detach(), segment_sum_plain(
+                    x, w, plan.fwd), fwd),
+                ("dx", xg.grad, segment_sum_plain(g, w, plan.bwd), dx)):
+            check(same_values(torch, got, want),
+                  f"gather_segment_sum {what}: {name} differs from plain")
+            check(same_values(torch, got, again),
+                  f"gather_segment_sum {what}: two runs of {name} differ")
+            err = max(err, float(torch.where(
+                got.isnan() | want.isnan(), 0.0, got - want).abs().max()))
+        if w is not None:
+            check(same_values(torch, wg.grad, weight_grad(x, g, plan)),
+                  f"gather_segment_sum {what}: dw differs")
+        self.out["err"] = max(self.out["err"], err)
+        hot = int(plan.fwd["count"].max()) if len(plan.fwd["count"]) else 0
+        parts = int((plan.fwd["part"] >= 0).sum())
+        src, dst = plan.src.long(), plan.dst.long()
+        check(bool(((src >= 0) & (dst >= 0)).all()),
+              "library inputs out of range")
+        top = int(torch.bincount(dst).max())
+        del out, xg, wg, fwd, dx
+
+        def library():
+            rows = x[src]
+            return torch.zeros((n_out, d), device=self.dev).index_add_(
+                0, dst, rows if w is None else rows * w)
+
+        def bwd():
+            return segment_sum(g, w, plan.bwd)
+
+        rows = e * d * 4
+        x_bytes = min(n * d * 4, rows) if n * d * 4 <= L2_BYTES else rows
+        in_bytes = x_bytes + (rows if weighted else 0) + e * 8
+        tb = cuda_ms(torch, bwd, iters)
+        tk = cuda_ms(torch, lambda: segment_sum(x, w, plan.fwd), iters)
+        tp = cuda_ms(torch, lambda: segment_sum_plain(x, w, plan.fwd), 3,
+                     1)
+        tl = cuda_ms(torch, library, iters, 1)
+        b, by = bound_ms(in_bytes, n_out * d * 4,
+                         (2 if weighted else 1) * e * d)
+        self.out["times"].append(dict(
+            what=what, E=e, n_src=n, n_out=n_out, D=d, ms=tk, plain_ms=tp,
+            library_ms=tl, bound_ms=b, bound_by=by, bwd_dx_ms=tb,
+            plan_ms=plan_ms, most_edges_a_row=top, longest_chunk=hot,
+            chunked_rows=parts, max_abs_err=err))
+        del plan, x, w, g
+        torch.cuda.empty_cache()
+
+    def log_rows(self) -> None:
+        for row in self.out["times"]:
+            log("  gather_segment_sum: " + " ".join(
+                f"{key}={val:.4g}" if isinstance(val, float) else
+                f"{key}={val}" for key, val in row.items()))
+
+
+def reddit_sampled_batch(torch, dev, cfg, seed: int) -> tuple[dict, dict]:
+    """A minibatch_lg batch from the port's ``sample_subgraph``: 1,024
+    seeds, fanout 15-10, over a seeded graph of 232,965 nodes whose
+    out-degrees are lognormal with mean 50 (a heavy tail, as Reddit's;
+    nodes with fewer than 15 or 10 neighbours leave padding edges (0, 0),
+    so node 0 is a hot row). Features (602) and labels (41) of the graph
+    are made on the card from ``seed``; labels are -1 off the seeds."""
+    import numpy as np
+
+    from repro_torch.data.sampler import make_csr, sample_subgraph
+
+    r = REDDIT
+    rng = np.random.default_rng(seed)
+    n = r["nodes"]
+    deg = rng.lognormal(math.log(r["degree"]) - r["sigma"] ** 2 / 2,
+                        r["sigma"], n)
+    deg = np.maximum(1, np.round(deg * r["degree"] * n / deg.sum())).astype(
+        np.int64)
+    edges = np.stack([np.repeat(np.arange(n), deg),
+                      rng.integers(0, n, int(deg.sum()))])
+    t = time.perf_counter()
+    indptr, indices = make_csr(n, edges)
+    seeds = rng.choice(n, r["seeds"], replace=False)
+    sub = sample_subgraph(indptr, indices, seeds, r["fanout"], rng)
+    host_s = time.perf_counter() - t
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    feats = torch.randn((n, cfg.d_feat), generator=gen, device=dev)
+    labels = torch.randint(0, cfg.n_classes, (n,), generator=gen,
+                           device=dev, dtype=torch.int32)
+    ids = torch.from_numpy(sub.node_ids).to(dev)
+    safe = ids.clamp(min=0)
+    seed_mask = torch.from_numpy(sub.seed_mask).to(dev)
+    batch = {"edge_index": torch.from_numpy(sub.edge_index).to(dev),
+             "edge_dist": torch.from_numpy(sub.edge_dist).to(dev),
+             "node_feat": torch.where(ids[:, None] >= 0, feats[safe], 0.0),
+             "labels": torch.where(seed_mask, labels[safe], -1)}
+    ei = sub.edge_index
+    info = dict(graph_edges=int(deg.sum()), real_nodes=sub.n_real_nodes,
+                real_edges=sub.n_real_edges,
+                edges_into_node_0=int((ei[1] == 0).sum()),
+                edges_from_node_0=int((ei[0] == 0).sum()),
+                sample_host_s=host_s)
+    del feats, labels
+    return batch, info
+
+
+def ogb_step_bound(cfg, n: int, e: int) -> tuple[float, float]:
+    """(FLOPs, ms) of one ogb_products step at fp32's 67 TFLOP/s: per
+    interaction the filter products forward (rbf @ filt_w1, @ filt_w2),
+    again in the backward's recompute, and their backward (the gradients
+    of filt_w1, of filt_w2 and of the ssp output; rbf takes none); the
+    node products (in2f, f2out, atom_w) forward and backward (3 each);
+    the input projection and the head forward and backward."""
+    d, r = cfg.d_hidden, cfg.n_rbf
+    filt = 2 * e * (r * d + d * d)
+    per = 2 * filt + 2 * e * r * d + 2 * 2 * e * d * d + 3 * 3 * 2 * n * d * d
+    head = 3 * 2 * n * (cfg.d_feat * d + d * (d // 2)
+                        + (d // 2) * cfg.n_classes)
+    flops = cfg.n_interactions * per + head
+    return flops, flops / FP32_FLOPS * 1e3
+
+
+def phase_schnet(torch, dev, kern: dict) -> dict:
+    """Phase 11. Returns the launches of ``gather_segment_sum`` on the
+    train path (the cells' steps, each step's count read from 0), not the
+    checks."""
+    from repro_torch.configs.schnet import SHAPES
+    from repro_torch.kernels.segment_sum import EdgePlan
+    from repro_torch.kernels.segment_sum import ops as ss
+    from repro_torch.launch.steps import build_cell, smoke_batch
+    from repro_torch.models import schnet as sm
+    from repro_torch.testing import accumulating_ops
+    from repro_torch.train.optimizer import adamw
+    from repro_torch.train.train_loop import (Trainer,
+                                              grad_accum_value_and_grad)
+    from repro_torch.train.tree import leaves, tree_map
+
+    t0 = time.perf_counter()
+    reduced: list = []
+    counters = {"gather_segment_sum": (ss, "launches")}
+    main = {"gather_segment_sum": 0}
+    chk = SegmentCheck(torch, dev, SEED + 30)
+    out: dict = {}
+
+    def clone(tree):
+        return tree_map(lambda t: t.detach().clone(), tree)
+
+    def fresh(cell, seed):
+        """Seeded params and AdamW's fresh state (the smoke args without
+        a batch)."""
+        params = sm.init_params(cell.model_cfg, seed=seed, device=dev)
+        return params, adamw().init(params)
+
+    # the kernel at the cells' shapes
+    cells = {s: build_cell(SCHNET, s, device=dev) for s in SHAPES}
+    batches = {s: smoke_batch(cells[s], seed=SEED + 31)
+               for s in ("molecule", "full_graph_sm", "minibatch_lg")}
+    mol = batches["molecule"]
+    n_mol = mol["atom_z"].shape[0]
+    chk.case("molecule", lambda: EdgePlan(
+        mol["edge_index"][0], mol["edge_index"][1], n_mol, n_mol), 64)
+    chk.case("molecule readout", lambda: EdgePlan(
+        torch.arange(n_mol, device=dev), mol["graph_ids"], n_mol,
+        SHAPES["molecule"]["graphs"]), 1, weighted=False)
+    n_types = cells["molecule"].model_cfg.n_atom_types
+    chk.case("molecule embedding gradient", lambda: EdgePlan(
+        torch.arange(n_mol, device=dev), mol["atom_z"], n_mol, n_types), 64,
+        weighted=False)
+    mb = batches["minibatch_lg"]
+    n_mb = mb["node_feat"].shape[0]
+    chk.case("minibatch_lg", lambda: EdgePlan(
+        mb["edge_index"][0], mb["edge_index"][1], n_mb, n_mb), 64)
+    sampled, sinfo = reddit_sampled_batch(
+        torch, dev, cells["minibatch_lg"].model_cfg, SEED + 32)
+    log(f"  minibatch_lg sampled batch: {sinfo}")
+    reduced.append(f"minibatch_lg sampled: Reddit's 114,615,892 edges -> "
+                   f"{sinfo['graph_edges']} (a seeded graph of 232,965 "
+                   f"nodes, lognormal out-degrees of mean 50; 602 seeded "
+                   f"features, 41 classes)")
+    si = sampled["edge_index"]
+    chk.case("minibatch_lg sampled (hot node 0)",
+             lambda: EdgePlan(si[0], si[1], n_mb, n_mb), 64)
+
+    # the train cells at their published sizes: 3 AdamW steps each
+    for shape in ("molecule", "full_graph_sm", "minibatch_lg"):
+        cell = cells[shape]
+        params, opt_state = fresh(cell, SEED + 33)
+        batch = batches[shape]
+        e = batch["edge_index"].shape[1]
+        losses, hosts = train_steps(torch, f"{SCHNET} {shape}", cell,
+                                    params, opt_state,
+                                    [batch] * SCHNET_STEPS, e, counters,
+                                    main)
+        out[shape] = dict(losses=losses, host_s=[h / 1e3 for h in hosts],
+                          edges_a_s=[e / h * 1e3 for h in hosts],
+                          peak_gb=peak_gb(torch))
+        if shape == "minibatch_lg":               # and one sampled step
+            losses, hosts = train_steps(
+                torch, f"{SCHNET} minibatch_lg sampled", cell, params,
+                opt_state, [sampled], sampled["edge_index"].shape[1],
+                counters, main, first_step=SCHNET_STEPS)
+            out["minibatch_lg_sampled"] = dict(
+                sinfo, loss=losses[0], host_s=hosts[0] / 1e3,
+                peak_gb=peak_gb(torch))
+        del params, opt_state
+
+    # card vs CPU at full size, same weights
+    for shape in ("molecule", "minibatch_lg"):
+        cell = cells[shape]
+        params = fresh(cell, SEED + 34)[0]
+        t = time.perf_counter()
+        grads_card_vs_cpu(torch, f"{SCHNET} {shape}", cell.loss, params,
+                          batches[shape], _tree_cpu(params),
+                          {k: v.cpu() for k, v in batches[shape].items()})
+        log(f"  ({time.perf_counter() - t:.1f} s)")
+
+    # the chunked path on the card: edge_chunk 2^14 against one chunk;
+    # both, and a molecule step, run no aten op that adds at indices
+    # (atomics on the card; the control: index_select's backward is one)
+    x = torch.zeros((3, 2), device=dev, requires_grad=True)
+    control = accumulating_ops(lambda: x.index_select(
+        0, torch.tensor([0, 1, 1], device=dev)).sum().backward())
+    check(control != [], "accumulating_ops missed index_select's backward")
+    cell = cells["molecule"]
+    params = fresh(cell, SEED + 35)[0]
+    seen = accumulating_ops(lambda: grad_accum_value_and_grad(cell.loss)(
+        params, mol))
+    cell = cells["minibatch_lg"]
+    cfg = cell.model_cfg
+    params = fresh(cell, SEED + 35)[0]
+    res = []
+    seen += accumulating_ops(lambda: res.extend([
+        grad_accum_value_and_grad(cell.loss)(params, mb),
+        grad_accum_value_and_grad(
+            lambda p, b: sm.node_class_loss(p, cfg, b,
+                                            edge_chunk=SCHNET_CHUNK_CHECK))(
+            params, mb)]))
+    check(seen == [], f"{SCHNET}: ops that add at indices on the train "
+                      f"path: {seen}")
+    (one_l, one_g), (ch_l, ch_g) = res
+    worst = abs(float(ch_l) - float(one_l)) / (1e-5 * max(1.0,
+                                                          abs(float(one_l))))
+    want = dict(leaves(one_g))
+    for name, gch in leaves(ch_g):
+        top = float(want[name].abs().max())
+        worst = max(worst, float((gch - want[name]).abs().max())
+                    / (1e-5 * max(top, 1e-30)))
+    check(worst <= 1.0, f"{SCHNET} minibatch_lg: edge_chunk "
+                        f"{SCHNET_CHUNK_CHECK} vs one chunk at {worst:.3g} "
+                        f"x the limit")
+    n_chunks = -(-mb["edge_index"].shape[1] // SCHNET_CHUNK_CHECK)
+    log(f"  {SCHNET} minibatch_lg: {n_chunks} chunks of {SCHNET_CHUNK_CHECK} "
+        f"edges against one: loss and every grad within {worst:.3g} x 1e-5 "
+        f"of its largest; no op that adds at indices there or in a "
+        f"molecule step (the control's: {control})")
+    del params, one_g, ch_g, res
+
+    # resume at molecule: 2 steps + checkpoint + restore + 2 = 4 straight
+    cell = cells["molecule"]
+    p0 = fresh(cell, SEED + 36)[0]
+    four = [smoke_batch(cell, seed=SEED + 40 + i) for i in range(4)]
+    one = Trainer(cell.loss, adamw(), clone(p0))
+    one.run(four, n_steps=4)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-ck-") as d:
+        two = Trainer(cell.loss, adamw(), clone(p0), d, checkpoint_every=2)
+        two.run(four[:2], n_steps=2)
+        three = Trainer(cell.loss, adamw(), clone(p0), d)
+        check(three.try_restore() and three.state.step == 2,
+              "schnet resume: no checkpoint at step 2")
+        three.run(four[2:], n_steps=2)
+    for a, b in ((one.state.params, three.state.params),
+                 (one.state.opt_state, three.state.opt_state)):
+        for (name, x), (_, y) in zip(leaves(a), leaves(b)):
+            check(torch.equal(x, y), f"schnet resume: {name} differs from "
+                                     f"the run without a restart")
+    log(f"  resume ({SCHNET} molecule, 4 steps, AdamW): params and state "
+        f"after 2 + checkpoint + restore + 2 equal those of 4 straight, bit "
+        f"for bit; losses {[round(h['loss'], 6) for h in one.history]}")
+    del one, two, three, batches, sampled, mb, mol
+    torch.cuda.empty_cache()
+
+    # ogb_products at its published size
+    cell = cells["ogb_products"]
+    cfg = cell.model_cfg
+    t = time.perf_counter()
+    batch = smoke_batch(cell, seed=SEED + 37)
+    torch.cuda.synchronize()
+    n, e = batch["node_feat"].shape[0], batch["edge_index"].shape[1]
+    log(f"  {SCHNET} ogb_products: {n} nodes, {e} edges, d_feat "
+        f"{cfg.d_feat}, {cfg.n_classes} classes; batch made in "
+        f"{time.perf_counter() - t:.1f} s, "
+        f"{sum(v.numel() * v.element_size() for v in batch.values()) / 1e9:.2f}"
+        f" GB")
+    ei = batch["edge_index"]
+    chk.case(OGB_CHUNK, lambda: sm.edge_chunks(ei, n)[0][2], 64, iters=5)
+    params, opt_state = fresh(cell, SEED + 38)
+    p0, o0 = clone(params), clone(opt_state)
+    flops, bound = ogb_step_bound(cfg, n, e)
+    losses, hosts = train_steps(torch, f"{SCHNET} ogb_products", cell,
+                                params, opt_state, [batch] * SCHNET_STEPS, e,
+                                counters, main)
+    peak = peak_gb(torch)
+    check(peak < 80.0, f"ogb_products peaked at {peak:.2f} GB")
+    log(f"  {SCHNET} ogb_products bound: {bound:.1f} ms a step ({flops:.4g} "
+        f"FLOPs of products at 67 TFLOP/s fp32, rbf recomputed per chunk of "
+        f"{sm.EDGE_CHUNK} edges)")
+    out["ogb_products"] = dict(losses=losses, host_s=[h / 1e3 for h in hosts],
+                               edges_a_s=[e / h * 1e3 for h in hosts],
+                               peak_gb=peak, step_bound_ms=bound,
+                               step_flops=flops)
+    del params, opt_state
+    steps_again = []
+    for _ in range(2):                     # two steps from the same state
+        p, o = clone(p0), clone(o0)
+        p, o, loss = cell.fn(p, o, batch, torch.tensor(0, dtype=torch.int32,
+                                                       device=dev))
+        steps_again.append((p, o, loss))
+    (pa, oa, la), (pb, ob, lb) = steps_again
+    check(torch.equal(la, lb) and float(la) == losses[0],
+          f"ogb_products: two steps from one state: loss {float(la)} / "
+          f"{float(lb)} / {losses[0]}")
+    for a, b in ((pa, pb), (oa, ob)):
+        for (name, x), (_, y) in zip(leaves(a), leaves(b)):
+            check(torch.equal(x, y), f"ogb_products: two steps from one "
+                                     f"state differ at {name}")
+    log(f"  {SCHNET} ogb_products: two steps from one state equal bit for "
+        f"bit (loss {float(la):.6f})")
+    reduced.append("ogb_products: the published graph's sizes (2,449,029 "
+                   "nodes padded to 2,449,056; 61,859,140 edges padded to "
+                   "61,859,328; 100 features, 47 classes) over seeded edges, "
+                   "features and labels (the graph is not in the repository)")
+    del steps_again, pa, pb, oa, ob, p0, o0, batch, cells
+    torch.cuda.empty_cache()
+
+    chk.log_rows()
+    kern["gather_segment_sum"] = chk.out
+    log(json.dumps({"phase11": dict(out, reduced=reduced)}))
+    log(f"  launches on the train path (phase 11's steps): {main}; phase 11 "
+        f"took {time.perf_counter() - t0:.1f} s")
+    check(main["gather_segment_sum"] > 0,
+          "gather_segment_sum was never launched on the SchNet train path")
+    return main
+
+
 def main() -> int:
     import argparse
 
@@ -3703,12 +4137,18 @@ def main() -> int:
     for name, n in train.items():
         launches[name] = launches.get(name, 0) + n
 
+    start_phase(torch, "phase 11: SchNet's train cells on the card", t0)
+    torch.cuda.empty_cache()
+    for name, n in phase_schnet(torch, dev, kern).items():
+        launches[name] = launches.get(name, 0) + n
+
     rows = []
     main_shape = {"flash_attention": "nemo prefill 256",
                   "flash_decode": "engine cache 320",
                   "embedding_bag": "grouped serve_p99",
                   "flash_attention_bwd": "nemo train_4k",
-                  "embedding_bag_bwd": "dlrm train_batch"}
+                  "embedding_bag_bwd": "dlrm train_batch",
+                  "gather_segment_sum": OGB_CHUNK}
     for name, (source, tpu) in KERNELS.items():
         if name in main_shape:
             at = next(r for r in kern[name]["times"]

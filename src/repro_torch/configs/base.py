@@ -6,9 +6,9 @@ Every ported architecture ships as one ``configs/<id>.py`` exposing
 shapes. An (arch x shape) cell determines the step function
 (``launch/steps.build_cell``), the exact input specs (``Spec``: shape
 and torch dtype, no allocation) and a REDUCED variant of the same family
-for the CPU tests. ``ARCH_MODULES`` is repro's list without SchNet,
-whose only cell is ``train``: it waits for ROADMAP Queue 1 item 12 (the
-training path itself is ported).
+for the CPU tests. ``ARCH_MODULES`` is repro's list: the LM family, the
+GNN (SchNet, whose cells are all ``train``), the recsys family and the
+embedder.
 """
 from __future__ import annotations
 
@@ -67,8 +67,8 @@ _REGISTRY: dict[str, ArchSpec] = {}
 
 ARCH_MODULES = (
     "mistral_nemo_12b", "nemotron_4_15b", "qwen1_5_32b", "kimi_k2_1t_a32b",
-    "qwen2_moe_a2_7b", "fm", "bert4rec", "dlrm_mlperf", "wide_deep",
-    "minilm_embedder",
+    "qwen2_moe_a2_7b", "schnet", "fm", "bert4rec", "dlrm_mlperf",
+    "wide_deep", "minilm_embedder",
 )
 
 

@@ -14,11 +14,12 @@ A ``CellBundle`` packages:
 
 Ported: every kind of the LM family (``train``, ``prefill``, ``decode``;
 ``long_500k`` is a decode cell, on one card), the embedder's ``encode``
-and the recsys family's ``train``, ``serve`` and ``retrieval``. A train
-cell's params are repro's tree (layers stacked for a transformer,
-``models/bridge.train_tree``), so the optimizer, the gradient
-compression and the checkpoint see repro's leaves. SchNet, whose only
-cell is ``train``, waits for ROADMAP Queue 1 item 12.
+the recsys family's ``train``, ``serve`` and ``retrieval``, and SchNet's
+``train`` cells (the GNN family: molecule, full_graph_sm, minibatch_lg,
+ogb_products). A train cell's params are repro's tree (layers stacked
+for a transformer or SchNet's interactions, ``models/bridge.train_tree``),
+so the optimizer, the gradient compression and the checkpoint see repro's
+leaves.
 """
 from __future__ import annotations
 
@@ -29,9 +30,11 @@ import numpy as np
 import torch
 
 from ..configs import get_arch, list_archs
+from ..configs import schnet as schnet_cfg
 from ..kernels.common import resolve_device
 from ..kernels.topk_search.ops import topk_search
 from ..models import recsys as recsys_m
+from ..models import schnet as schnet_m
 from ..models import transformer as tfm
 from ..models.bridge import train_tree
 from ..train.optimizer import Optimizer, adafactor, adamw
@@ -51,7 +54,8 @@ TRAIN_ACCUM_STEPS = {
 }
 
 _INIT = {"fm": recsys_m.fm_init, "dlrm-mlperf": recsys_m.dlrm_init,
-         "wide-deep": recsys_m.widedeep_init}
+         "wide-deep": recsys_m.widedeep_init,
+         "schnet": schnet_m.init_params}
 
 
 def effective_accum(preferred: int, mesh=None) -> int:
@@ -183,6 +187,32 @@ def _recsys_bundle(arch_name: str, shape: str, reduced: bool, cfg,
                       cfg, device)
 
 
+def _gnn_bundle(arch_name: str, shape: str, reduced: bool, cfg,
+                device: torch.device, accum: Optional[int]) -> CellBundle:
+    """SchNet's train cell: AdamW on ``energy_loss`` (molecules, with
+    ``n_graphs`` from the shape) or ``node_class_loss``; one microbatch,
+    as repro (``TRAIN_ACCUM_STEPS`` has no schnet)."""
+    if accum not in (None, 1):
+        raise ValueError(f"{arch_name}: accum {accum}: a graph batch's rows "
+                         f"are nodes and edges of one graph, not samples, "
+                         f"so it is not cut into microbatches")
+    spec = get_arch(arch_name)
+    batch_specs = spec.input_specs(shape, reduced)
+    info = (schnet_cfg.SHAPES_REDUCED if reduced
+            else schnet_cfg.SHAPES)[shape]
+    if info.get("molecular"):
+        n_graphs = info["graphs"]
+
+        def loss(params, batch):
+            return schnet_m.energy_loss(params, cfg,
+                                        dict(batch, n_graphs=n_graphs))
+    else:
+        def loss(params, batch):
+            return schnet_m.node_class_loss(params, cfg, batch)
+    return _train_bundle(arch_name, shape, reduced, loss, "adamw", adamw(),
+                         1, batch_specs, cfg, device)
+
+
 def build_cell(arch_name: str, shape: str, reduced: bool = False,
                device=None, accum: Optional[int] = None,
                model_cfg=None) -> CellBundle:
@@ -193,17 +223,21 @@ def build_cell(arch_name: str, shape: str, reduced: bool = False,
     ``model_cfg`` replaces the arch's ``model_config(reduced)``, for a
     cut of it that one card holds (fewer layers, capped tables); the
     cell's shapes and batch stay the arch's, and an LM's optimizer
-    follows the config's parameter count, as repro's does."""
+    follows the config's parameter count, as repro's does. A GNN cell's
+    config depends on its shape (``model_config(reduced, shape)``) and it
+    takes no ``accum`` but 1."""
     if arch_name not in list_archs():
         raise NotImplementedError(
-            f"{arch_name}: not ported; the port registers {list_archs()} "
-            f"(SchNet, whose only cell is train, waits for ROADMAP Queue 1 "
-            f"item 12)")
+            f"{arch_name}: not ported; the port registers {list_archs()}")
     spec = get_arch(arch_name)
-    build = _recsys_bundle if spec.family == "recsys" else _lm_bundle
-    cfg = spec.model_config(reduced) if model_cfg is None else model_cfg
-    return build(arch_name, shape, reduced, cfg, resolve_device(device),
-                 accum)
+    gnn = spec.family == "gnn"
+    if model_cfg is None:
+        model_cfg = spec.model_config(reduced, shape) if gnn else \
+            spec.model_config(reduced)
+    build = {"gnn": _gnn_bundle, "recsys": _recsys_bundle}.get(spec.family,
+                                                               _lm_bundle)
+    return build(arch_name, shape, reduced, model_cfg,
+                 resolve_device(device), accum)
 
 
 # ---------------------------------------------------------------------------
@@ -217,6 +251,8 @@ def smoke_batch(bundle: CellBundle, seed: int = 0,
     ``bundle.device``."""
     rng = rng if rng is not None else np.random.default_rng(seed)
     cfg, dev = bundle.model_cfg, bundle.device
+    specs = bundle.arg_specs[{"train": 2, "retrieval": 0}.get(bundle.kind,
+                                                             1)]
 
     def put(a: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(device=dev,
@@ -241,6 +277,26 @@ def smoke_batch(bundle: CellBundle, seed: int = 0,
                     out[name] = put(rng.integers(0, hi, shape), torch.int32)
             elif name == "cache_len":
                 out[name] = torch.tensor(2, dtype=torch.int32)
+            elif name == "edge_index":
+                n_nodes = next(specs[k].shape[0] for k in specs
+                               if k in ("node_feat", "atom_z"))
+                out[name] = put(rng.integers(0, n_nodes, shape), torch.int32)
+            elif name == "edge_dist":
+                out[name] = put((rng.random(shape) * 9).astype(np.float32),
+                                torch.float32)
+            elif name == "node_feat":
+                out[name] = put(rng.standard_normal(shape).astype(
+                    np.float32), torch.float32)
+            elif name == "atom_z":
+                out[name] = put(rng.integers(1, 50, shape), torch.int32)
+            elif name == "graph_ids":
+                n_graphs = specs["energy"].shape[0]
+                out[name] = put(np.repeat(np.arange(n_graphs),
+                                          shape[0] // n_graphs),
+                                torch.int32)
+            elif name == "energy":
+                out[name] = put(rng.standard_normal(shape).astype(
+                    np.float32), torch.float32)
             elif name == "ids":
                 out[name] = put(rng.integers(0, cfg.total_vocab, shape),
                                 torch.int32)
@@ -263,8 +319,7 @@ def smoke_batch(bundle: CellBundle, seed: int = 0,
                 raise KeyError(f"no smoke generator for {name}")
         return out
 
-    idx = {"train": 2, "retrieval": 0}.get(bundle.kind, 1)
-    return batch_arrays(bundle.arg_specs[idx])
+    return batch_arrays(specs)
 
 
 def make_smoke_args(bundle: CellBundle, seed: int = 0,

@@ -178,9 +178,12 @@ def train_tree(params) -> dict:
     """The port's serving params (``init_params``, ``*_init``,
     ``params_from_repro``) as a train tree: repro's layout, a dict of
     leaf tensors; a transformer's layers stacked on a leading axis (a
-    copy), a recsys model's tensors as they lie (no copy)."""
+    copy), a recsys model's tensors as they lie (no copy). A dict is
+    already one (SchNet's ``init_params``) and comes back as it is."""
     from .transformer import stack_layers
 
+    if isinstance(params, dict):
+        return params
     if hasattr(params, "layers"):
         return stack_layers(params)
     out: dict = {}

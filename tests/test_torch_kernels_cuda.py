@@ -44,7 +44,15 @@ the rule with the bound. The bag's
 backward sums in the plain version's order (slots sorted stably by row,
 chunks of 256, one rounded product and one rounded add a slot): its
 table gradient equals the plain one bit for bit, fp32 and bf16. Two runs
-of either backward are bit for bit equal."""
+of either backward are bit for bit equal.
+
+gather_segment_sum (SchNet's message passing) sums the plain version's
+terms in its order (edges sorted stably by row, chunks of 256, one
+rounded product and one rounded add an edge): its forward and the
+gradient of x equal the plain ones bit for bit, NaN rows (an
+out-of-range src) at the same places, and two runs too; the reduced
+SchNet cells' loss and gradients repeat bit for bit on the card and stay
+within 1e-4 of each leaf's largest of the CPU's."""
 import numpy as np
 import pytest
 import torch
@@ -1243,3 +1251,114 @@ def test_embedding_bag_autograd_on_the_card(dev):
     for leaf, n in zip(leaves, sizes):
         assert torch.equal(leaf.grad, want[row:row + n])
         row += n
+
+
+# ---------------------------------------------------------------------------
+# gather_segment_sum (SchNet's message passing): the kernel sums the plain
+# version's terms in its order, so the two agree bit for bit (NaN rows at
+# the same places), and two runs do too.
+# ---------------------------------------------------------------------------
+def _same(a, b) -> bool:
+    """Equal bit for bit where not NaN, NaN at the same places (the card
+    returns its canonical NaN for any arithmetic on one)."""
+    return (a.shape == b.shape and torch.equal(a.isnan(), b.isnan())
+            and torch.equal(torch.where(a.isnan(), 0.0, a),
+                            torch.where(b.isnan(), 0.0, b)))
+
+
+def _segment_inputs(dev, n, n_out, e, d, seed, hot=False, bad=False):
+    rng = np.random.default_rng(seed)
+    src = rng.integers(0, n, e)
+    dst = rng.integers(0, n_out, e)
+    if hot:                                   # a sampled batch's padding
+        src[::2] = 0
+        dst[::2] = 0
+    if bad:                                   # jnp.take's fill, dropped dst
+        src[::17] = n + 5
+        src[1::19] -= n
+        dst[::13] = -1
+        dst[2::23] = n_out
+    x = _randn((n, d), seed + 1, dev, torch.float32)
+    w = _randn((e, d), seed + 2, dev, torch.float32)
+    return (x, w, torch.tensor(src, device=dev, dtype=torch.int32),
+            torch.tensor(dst, device=dev, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("n,n_out,e,d,hot,bad,weighted", [
+    (3840, 3840, 8192, 64, False, False, True),        # molecule
+    (3840, 128, 3840, 1, False, False, False),         # energy readout
+    (5000, 5000, 40_000, 64, True, False, True),       # a hot row 0
+    (700, 600, 9000, 64, False, True, True),           # NaN rows, dropped
+    (300, 200, 5000, 100, False, False, True),         # two column passes
+    (1000, 1000, 3000, 16, False, True, False),
+])
+def test_gather_segment_sum_kernel_matches_plain(dev, n, n_out, e, d, hot,
+                                                 bad, weighted):
+    from repro_torch.kernels.segment_sum import (EdgePlan, gather_segment_sum,
+                                                 segment_sum_plain,
+                                                 weight_grad)
+    from repro_torch.kernels.segment_sum import ops as ss_ops
+    x, w, src, dst = _segment_inputs(dev, n, n_out, e, d, 200 + e, hot, bad)
+    w = w if weighted else None
+    plan = EdgePlan(src, dst, n, n_out)
+    xg = x.clone().requires_grad_(True)
+    wg = None if w is None else w.clone().requires_grad_(True)
+    before = ss_ops.launches
+    out = gather_segment_sum(xg, None, None, n_out, wg, plan=plan)
+    g = _randn((n_out, d), 300 + e, dev, torch.float32)
+    out.backward(g)
+    torch.cuda.synchronize()
+    assert ss_ops.launches == before + 2           # forward, dx
+    assert _same(out, segment_sum_plain(x, w, plan.fwd))
+    assert _same(xg.grad, segment_sum_plain(g, w, plan.bwd))
+    if w is not None:
+        assert _same(wg.grad, weight_grad(x, g, plan))
+    if bad:
+        assert bool(out.isnan().any())
+    again = gather_segment_sum(x, src, dst, n_out, w)
+    assert _same(out.detach(), again)
+
+
+def test_gather_segment_sum_rejects_bad_input(dev):
+    from repro_torch.kernels.segment_sum import EdgePlan, gather_segment_sum
+    x, w, src, dst = _segment_inputs(dev, 50, 40, 300, 8, 7)
+    with pytest.raises(TypeError, match="float32"):
+        gather_segment_sum(x.double(), src, dst, 40, w.double())
+    with pytest.raises(ValueError, match="plan wants"):
+        gather_segment_sum(x, src, dst, 40, w[:-1])
+    plan = EdgePlan(src.cpu(), dst.cpu(), 50, 40)
+    with pytest.raises(ValueError, match="plan on"):
+        gather_segment_sum(x, None, None, 40, w, plan=plan)
+
+
+def test_schnet_step_repeats_on_the_card(dev):
+    """The reduced SchNet cells' loss and gradients, twice on the card from
+    the same params and batch: bit for bit, with no aten op on the path
+    that adds at indices (atomics on the card; index_select's backward,
+    the control, is one), and within 1e-4 of each leaf's largest of the
+    CPU's."""
+    from repro_torch.launch import steps
+    from repro_torch.testing import accumulating_ops
+    from repro_torch.train.train_loop import grad_accum_value_and_grad
+    from repro_torch.train.tree import leaves, tree_map
+    x = torch.zeros((3, 2), device=dev, requires_grad=True)
+    idx = torch.tensor([0, 1, 1], device=dev)
+    assert accumulating_ops(
+        lambda: x.index_select(0, idx).sum().backward()) != []
+    for shape in ("molecule", "minibatch_lg"):
+        cell = steps.build_cell("schnet", shape, reduced=True, device=dev)
+        params, _, batch, _ = steps.make_smoke_args(cell, seed=3)
+        vg = grad_accum_value_and_grad(cell.loss)
+        out = []
+        assert accumulating_ops(lambda: out.append(vg(params, batch))) == []
+        l1, g1 = out[0]
+        l2, g2 = vg(tree_map(lambda t: t.detach().clone(), params), batch)
+        assert torch.equal(l1, l2)
+        for (name, a), (_, b) in zip(leaves(g1), leaves(g2)):
+            assert torch.equal(a, b), name
+        cpu = tree_map(lambda t: t.detach().cpu(), params)
+        lc, gc = vg(cpu, {k: v.cpu() for k, v in batch.items()})
+        assert abs(float(l1) - float(lc)) <= 1e-4 * max(1.0, abs(float(lc)))
+        for (name, a), (_, b) in zip(leaves(g1), leaves(gc)):
+            lim = 1e-4 * max(float(b.abs().max()), 1e-30)
+            assert float((a.cpu() - b).abs().max()) <= lim, name

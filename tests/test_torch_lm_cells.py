@@ -52,7 +52,9 @@ def _f32(t):
 
 
 def test_registry_is_repros_without_schnet():
-    assert list_archs() == [a for a in repro_list_archs() if a != "schnet"]
+    """The registry is repro's, SchNet included (its name is kept from
+    when the port registered every arch but SchNet)."""
+    assert list_archs() == repro_list_archs()
     for arch in list_archs():
         ours, theirs = get_arch(arch), repro_get_arch(arch)
         assert (ours.family, ours.source) == (theirs.family, theirs.source)
@@ -67,8 +69,8 @@ def test_registry_is_repros_without_schnet():
                     assert a[name].shape == tuple(b[name].shape)
                     assert str(a[name].dtype).removeprefix("torch.") == \
                         np.dtype(b[name].dtype).name
-    assert [c.key for c in all_cells()] == [
-        c.key for c in repro_all_cells() if c.arch != "schnet"]
+    assert [c.key for c in all_cells()] == [c.key for c in
+                                             repro_all_cells()]
     assert len(CELLS) == 17
 
 
@@ -137,16 +139,14 @@ def test_lm_cell_matches_repro(cell):
 
 @pytest.mark.parametrize("arch", LM_ARCHS + ["schnet"])
 def test_train_cells_raise_naming_item_12(arch):
-    """The LM archs' train cells are ported (tests/test_torch_train_cells.py
-    holds them to repro); SchNet, whose only cell is train, still raises
-    naming ROADMAP Queue 1 item 12."""
-    if arch != "schnet":
-        bundle = steps.build_cell(arch, "train_4k", reduced=True,
-                                  device="cpu")
-        assert (bundle.kind, bundle.optimizer) == ("train", "adamw")
-        return
-    with pytest.raises(NotImplementedError, match="item 12"):
-        steps.build_cell(arch, "full_graph_sm", reduced=True, device="cpu")
+    """The LM archs' and SchNet's train cells are ported
+    (tests/test_torch_train_cells.py holds them to repro): each builds an
+    AdamW train cell, none raises (the name is kept from when SchNet
+    raised naming ROADMAP Queue 1 item 12)."""
+    shape = "full_graph_sm" if arch == "schnet" else "train_4k"
+    bundle = steps.build_cell(arch, shape, reduced=True, device="cpu")
+    assert (bundle.kind, bundle.optimizer, bundle.accum) == (
+        "train", "adamw", 1)
 
 
 @pytest.mark.parametrize("arch", LM_ARCHS)

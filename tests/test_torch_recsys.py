@@ -320,12 +320,15 @@ def test_cell_bundle_matches_repro(cell):
 
 
 def test_build_cell_refuses_what_is_not_ported():
-    """DLRM's train cell is ported (tests/test_torch_train_cells.py);
-    SchNet is not."""
+    """DLRM's and SchNet's train cells are ported
+    (tests/test_torch_train_cells.py); an arch the registry does not hold
+    is refused."""
     assert steps.build_cell("dlrm-mlperf", "train_batch", reduced=True,
                             device="cpu").kind == "train"
-    with pytest.raises(NotImplementedError, match="item 12"):
-        steps.build_cell("schnet", "full_graph_sm", device="cpu")
+    assert steps.build_cell("schnet", "full_graph_sm",
+                            device="cpu").kind == "train"
+    with pytest.raises(NotImplementedError, match="not ported"):
+        steps.build_cell("graphsage", "full_graph_sm", device="cpu")
 
 
 def test_seeded_init_shapes():

@@ -1,5 +1,5 @@
 """Port parity for the train cells: repro_torch's ``launch/steps``
-``build_cell`` of every LM and recsys arch's train shape, at reduced
+``build_cell`` of every LM, recsys and GNN arch's train shape, at reduced
 size on the CPU, against repro's on the same arrays (``make_smoke_args``
 gives both the same batch; repro's params and optimizer state cross as
 numpy through ``models/bridge.tree_from_numpy``). The reference is
@@ -30,8 +30,10 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import schnet as repro_schnet_cfg
 from repro.launch import steps as repro_steps
 from repro.models import recsys as repro_recsys
+from repro.models import schnet as repro_schnet
 from repro.models import transformer as repro_tfm
 from repro_torch.configs import all_cells
 from repro_torch.launch import steps
@@ -57,6 +59,12 @@ def _f32(tree):
 
 def _repro_loss(rb):
     cfg = rb.model_cfg
+    if rb.arch == "schnet":
+        info = repro_schnet_cfg.SHAPES_REDUCED[rb.shape]
+        if info.get("molecular"):
+            return lambda p, b: repro_schnet.energy_loss(
+                p, cfg, dict(b, n_graphs=info["graphs"]))
+        return lambda p, b: repro_schnet.node_class_loss(p, cfg, b)
     fns = {"fm": repro_recsys.fm_loss,
            "wide-deep": repro_recsys.widedeep_loss,
            "dlrm-mlperf": repro_recsys.dlrm_loss,
@@ -86,7 +94,7 @@ def _cells(seed):
 
 
 def test_train_cells_are_repros():
-    assert len(TRAIN_CELLS) == 9
+    assert len(TRAIN_CELLS) == 13
     for c in TRAIN_CELLS:
         rb = repro_steps.build_cell(c.arch, c.shape, reduced=True)
         pb = steps.build_cell(c.arch, c.shape, reduced=True, device="cpu")
