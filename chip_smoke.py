@@ -21,7 +21,9 @@ through ``build_cell``, with the MoE layer's capacity dispatch; and the
 train cells of the LM and recsys families on the card, with the
 hand-written backward kernels of attention and the embedding bag; and
 SchNet's train cells, message passing on the hand-written
-gather-segment-sum kernel.
+gather-segment-sum kernel; and the distribution layer: meshes, the
+expert-parallel MoE block, DLRM's published 91.1 GB of tables as row
+shards, and sharded retrieval.
 
 Phases (any failure stops the script with a non-zero exit):
   1. setup: card name and power limit, kernel build time, and ptxas's
@@ -163,6 +165,30 @@ Phases (any failure stops the script with a non-zero exit):
      the kernel's "launches" below; a ``{"phase11": ...}`` line gives
      each cell's losses, step times, edges a second, peak memory, the
      ogb_products step's bound and the cuts (``reduced``).
+  12. distribution on the card: (a) the collective path at world
+     ``torch.cuda.device_count()`` (NCCL, a ``FileStore``; one process a
+     card): Qwen2-MoE-A2.7B's train_4k step at full width (2 of 24
+     layers, 8 sequences of 4096 in 8 microbatches, expert-parallel) and
+     a DLRM serve_p99 batch (MLPerf widths, tables capped at 25M rows as
+     in phase 7, a NaN bag) through ``build_cell(..., mesh=
+     make_host_mesh(1, world))`` against the no-mesh runs: in bf16 bit
+     for bit at world 1 (loss, params and the AdamW first moments, so
+     the gradients too), in fp32 by a 1e-5 rule beyond; with each path's
+     ``collective_stats``; (b) Qwen2-MoE-A2.7B's MoE block at full width
+     (64 padded experts, d_model 2048) as the 8 ranks of a 2 x 4 mesh run
+     one after another (``moe_local``, partials summed as the collective
+     would), bf16 and fp32, dropless and with capacity, against
+     ``moe_block`` (fp32 1e-4, bf16 ``BF16_MOE``), the dropped pairs
+     against ``moe_block``'s and the CPU's, two replays bit for bit, with
+     the ranks' times; (c) DLRM at its published 91.1 GB of tables as 2
+     row shards of 45.55 GB made one at a time, at serve_p99 and
+     serve_bulk: each shard's one grouped bag, the sum, then the forward,
+     bit for bit (NaN bags included) with a one-card forward over compact
+     tables of the batch's rows, each shard's time and the peak memory;
+     (d) retrieval_cand (1 x 1,000,448, k 100) as 8 candidate shards and
+     a merge, held to one topk_search by phase 2's rule. No interconnect
+     is measured: (b)-(d) replay a mesh's ranks on one card. A
+     ``{"phase12": ...}`` line gives every number and cut.
 It prints a ``{"kernels": [...]}`` line, then, last, the one-line
 ``{"ok": true, "device": {...}}`` result. Without a CUDA device, or
 without the package beside it, it exits non-zero and prints no result.
@@ -4032,6 +4058,535 @@ def phase_schnet(torch, dev, kern: dict) -> dict:
     return main
 
 
+# ---------------------------------------------------------------------------
+# phase 12: distribution on the card
+# ---------------------------------------------------------------------------
+DIST_QWEN = dict(layers=2, batch=8)   # 12(a): of 24 layers and 256 rows
+# 12(a) beyond one card the mesh step sums the MoE's partial outputs over
+# the model ranks, in another order than moe_block's k slots. In bf16 each
+# such value moves by a rounding step, and the gradients' bf16 sums over
+# tokens and microbatches, which cancel, carry that past any limit on a
+# leaf's largest value that would still catch a wrong gradient. So there
+# the step runs at the same widths in fp32 and is held as the CPU test of
+# the 2 x 4 step holds it: the loss within 1e-5 relative, each leaf's
+# AdamW first moment ((1 - b1) g after step 0) within 1e-5 of the leaf's
+# largest, each param within 1e-5 + 2 lr_t
+DIST_FP32 = dict(loss=1e-5, grad=1e-5, param=1e-5)
+MOE_REPLAY = (2, 4)             # 12(b): the (data, model) mesh replayed
+MOE_REPLAY_TOKENS = 2048        # 12(b): tokens a data rank
+DLRM_SHARDS = 2                 # 12(c): model ranks of DLRM's tables
+RETRIEVAL_SHARDS = 8            # 12(d): candidate shards
+DIST_TIMEOUT = 300              # 12(a) with more than one card: rank timeout
+
+
+class PathCounts:
+    """Launch counts of the calls made through it: ``count(fn, *args)``
+    reads each kernel's counter just before and just after ``fn`` and adds
+    the difference (reference runs made beside the path go around it)."""
+
+    def __init__(self, counters: dict):
+        self.counters, self.n = counters, {k: 0 for k in counters}
+
+    def __call__(self, fn, *args, **kwargs):
+        before = {k: getattr(m, a) for k, (m, a) in self.counters.items()}
+        res = fn(*args, **kwargs)
+        for k, (m, a) in self.counters.items():
+            self.n[k] += getattr(m, a) - before[k]
+        return res
+
+
+def dist_rank(torch, rank: int, world: int, store: str,
+              dev_type: str = "cuda", count=None) -> dict:
+    """12(a) on one rank of a NCCL process group of ``world`` ranks, one
+    a card, met through a ``FileStore`` at ``store``: Qwen2-MoE-A2.7B's
+    train_4k step at full width (``DIST_QWEN``'s cut of layers and
+    batch, accum 8 kept), in its bf16 at world 1 and in fp32 beyond and a DLRM serve_p99 batch (MLPerf
+    widths, tables capped at 25M rows, a NaN bag) through
+    ``build_cell(..., mesh=make_host_mesh(1, world))``, each against the
+    no-mesh run on the same card: at world 1 (every collective a copy)
+    the loss, the params and the AdamW first moments after the step bit
+    for bit, so the gradients too; beyond, by ``DIST_FP32``. The DLRM
+    logits are bit for bit at any world (one rank's row plus zeros).
+    Returns the losses, the times and each path's ``collective_stats``.
+    ``count`` (a ``PathCounts``) wraps the mesh path's calls."""
+    import torch.distributed as dist
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.dlrm_mlperf import ONE_CARD
+    from repro_torch.launch import collectives as col
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.sharding import distribute_tree
+    from repro_torch.launch.steps import build_cell, make_smoke_args
+    from repro_torch.models.bridge import train_tree
+    from repro_torch.models.recsys import dlrm_init
+
+    count = count or (lambda fn, *a, **k: fn(*a, **k))
+    if dev_type == "cuda":
+        torch.cuda.set_device(rank)
+    dev = torch.device(dev_type, rank if dev_type == "cuda" else None)
+    dist.init_process_group("nccl" if dev_type == "cuda" else "gloo",
+                            store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    out = {"world": world, "device": dev_type}
+    try:
+        mesh = make_host_mesh(1, world, device_type=dev_type)
+        cfg = dataclasses.replace(get_arch(QWEN_MOE).model_config(False),
+                                  n_layers=DIST_QWEN["layers"])
+        if world > 1:
+            cfg = dataclasses.replace(cfg, dtype=torch.float32)
+        one = build_cell(QWEN_MOE, "train_4k", device=dev, model_cfg=cfg)
+        sharded = build_cell(QWEN_MOE, "train_4k", device=dev,
+                             model_cfg=cfg, mesh=mesh)
+        check(sharded.model_cfg.moe_mesh is mesh,
+              "12(a): the Qwen2-MoE cell did not take the expert-parallel "
+              "path")
+        check(one.accum == sharded.accum == 8,
+              f"12(a) Qwen2-MoE: accum {one.accum}, {sharded.accum} on the "
+              f"mesh")
+
+        def args_of(cell):
+            params, opt, batch, step = make_smoke_args(cell, seed=SEED)
+            n = DIST_QWEN["batch"]
+            return params, opt, {k: v[:n] for k, v in batch.items()}, step
+
+        torch.cuda.reset_peak_memory_stats()
+        p1, o1, l1 = one.fn(*args_of(one))
+        m1 = o1["m"]           # (1 - b1) g after step 0: the gradients
+        del o1
+        torch.cuda.empty_cache()
+        args = args_of(sharded)
+        col.take_records()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        p2, o2, l2 = count(sharded.fn, *args)
+        torch.cuda.synchronize()
+        out["qwen_step_ms"] = (time.perf_counter() - t) * 1e3
+        out["qwen_collectives"] = col.collective_stats(col.take_records())
+        out["qwen_peak_gb"] = peak_gb(torch)
+        specs = sharded.executed_specs()[0]
+        worst = {what: held_step_leaves(torch, what, distribute_tree(
+            want, specs, mesh), got, world) for what, want, got in
+            (("param", p1, p2), ("m", m1, o2["m"]))}
+        if world == 1:
+            check(torch.equal(l1, l2), f"12(a) Qwen2-MoE: loss {float(l2)} "
+                                       f"on the mesh, {float(l1)} without")
+        else:
+            rel = abs(float(l1) - float(l2)) / abs(float(l1))
+            worst["loss"] = rel / DIST_FP32["loss"]
+            check(rel <= DIST_FP32["loss"],
+                  f"12(a) Qwen2-MoE: loss {float(l2)} vs {float(l1)}")
+            out["qwen_worst_ratio"] = worst
+        out["qwen_loss"] = float(l2)
+        del p1, p2, m1, o2, args
+        torch.cuda.empty_cache()
+
+        params = train_tree(dlrm_init(ONE_CARD, seed=SEED, device=dev))
+        serve_one = build_cell("dlrm-mlperf", "serve_p99", device=dev,
+                               model_cfg=ONE_CARD)
+        serve = build_cell("dlrm-mlperf", "serve_p99", device=dev,
+                           model_cfg=ONE_CARD, mesh=mesh)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 41)
+        b = 512
+        ids = torch.stack([torch.randint(0, v, (b,), generator=gen,
+                                         device=dev, dtype=torch.int32)
+                           for v in ONE_CARD.table_sizes], 1)[..., None]
+        ids[0, 0, 0] = ONE_CARD.padded_table_sizes[0]      # a NaN bag
+        batch = {"dense": torch.rand((b, ONE_CARD.n_dense), generator=gen,
+                                     device=dev), "sparse_ids": ids}
+        pspec, bspec = serve.executed_specs()
+        with torch.no_grad():
+            want = serve_one.fn(params, batch)
+            # views of the rank's blocks: a copy of 58.3 GB would not fit
+            p_loc = distribute_tree(params, pspec, mesh)
+            b_loc = distribute_tree(batch, bspec, mesh)
+            col.take_records()
+            got = count(serve.fn, p_loc, b_loc)
+        out["dlrm_collectives"] = col.collective_stats(col.take_records())
+        check(bool(want[0].isnan()) and same_values(torch, got, want),
+              "12(a) DLRM serve_p99: logits on the mesh differ from one "
+              "card's")
+        del params, p_loc
+        torch.cuda.empty_cache()
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def held_step_leaves(torch, what: str, want, got, world: int) -> float:
+    """12(a): each leaf of ``got`` (the mesh step's params, or its AdamW
+    first moments ``what`` = "m") against this rank's block of ``want``
+    (the no-mesh step's): bit for bit at world 1, else by ``DIST_FP32``.
+    Returns the largest ratio of an error to its limit."""
+    from repro_torch.train.tree import leaves
+
+    lr_t = 1e-4 / 100                          # AdamW's warmup at step 0
+    worst = 0.0
+    for (name, a), (_, b) in zip(leaves(want), leaves(got)):
+        a, b = a.detach().float(), b.detach().float()
+        if world == 1:
+            check(torch.equal(a, b), f"12(a) Qwen2-MoE: {what} {name} "
+                                     f"differs")
+            continue
+        err = (a - b).abs()
+        lim = DIST_FP32["param"] + 2 * lr_t if what == "param" \
+            else DIST_FP32["grad"] * a.abs().max()
+        ratio = float(torch.where(err == 0, 0.0, err / lim).max())
+        worst = max(worst, ratio)
+        check(ratio <= 1.0, f"12(a) Qwen2-MoE: {what} {name} at "
+                            f"{ratio:.3g} x its limit")
+    return worst
+
+
+def phase_dist_collective(torch, work: str, dev_type: str,
+                          count) -> dict:
+    """12(a) at world ``torch.cuda.device_count()``: in this process on
+    one card; with more, one process a card (this script with
+    ``--dist-rank``), each held to its own no-mesh runs, killed after
+    ``DIST_TIMEOUT`` s."""
+    world = torch.cuda.device_count()
+    store = str(Path(work) / "nccl-store")
+    if world == 1:
+        return dist_rank(torch, 0, 1, store, dev_type, count)
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--dist-rank",
+         str(r), "--dist-world", str(world), "--dist-store", store],
+        stdout=subprocess.PIPE, text=True) for r in range(1, world)]
+    try:
+        out = dist_rank(torch, 0, world, store, dev_type, count)
+        for p in procs:
+            p.communicate(timeout=DIST_TIMEOUT)
+            check(p.returncode == 0, f"12(a): a rank exited {p.returncode}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return out
+
+
+def phase_moe_replay(torch, dev) -> dict:
+    """12(b): Qwen2-MoE-A2.7B's MoE block at full width (64 padded
+    experts, 16 a model rank, d_model 2048) as the ranks of a 2 x 4
+    mesh, one after another on the card: each rank's ``moe_local`` on its
+    data rank's tokens and its experts, the partials summed over the
+    model ranks in order as the collective would, the shared experts
+    added; held to ``moe_block`` on each data rank's tokens (the same
+    local capacity), fp32 at 1e-4 and bf16 by ``BF16_MOE``, dropless and
+    with capacity (expert 0's router column x 3 so that some drop); the
+    dropped pairs against ``moe_block``'s and against a CPU run of each
+    rank's ``moe_local`` routing; two replays bit for bit. Times each
+    rank's body and ``moe_block`` (CUDA events)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import moe as pm
+    from repro_torch.testing import rounding_agree
+
+    cfg = get_arch(QWEN_MOE).model_config(False)
+    m = cfg.moe
+    n_data, n_model = MOE_REPLAY
+    gen = torch.Generator(device=dev).manual_seed(SEED + 31)
+    p = pm.moe_params(gen, cfg.d_model, m, torch.bfloat16, dev)
+    p["router"][:, 0] *= 3.0
+    e_pad = p["w_in"].shape[0]
+    e_loc = e_pad // n_model
+    x = torch.randn((n_data, MOE_REPLAY_TOKENS, cfg.d_model), generator=gen,
+                    device=dev, dtype=torch.bfloat16)
+    out = {}
+
+    def replay(pw, xw, dropless):
+        outs, auxes = [], []
+        for d in range(n_data):
+            xd = xw[d:d + 1]
+            total = None
+            for r in range(n_model):
+                sl = slice(r * e_loc, (r + 1) * e_loc)
+                part, aux = pm.moe_local(xd, pw["router"], pw["w_in"][sl],
+                                         pw["w_out"][sl], r, e_loc, m,
+                                         dropless)
+                total = part if total is None else total + part
+            t = xd.shape[0] * xd.shape[1]
+            outs.append(total + pm._shared_ffn(
+                pw, xd.reshape(t, -1), m.act).reshape(xd.shape))
+            auxes.append(aux)
+        return outs, auxes
+
+    with torch.no_grad():
+        for dtype, rule in ((torch.bfloat16, BF16_MOE),
+                            (torch.float32, dict(rel=1e-4, slack=1e-4))):
+            name = str(dtype).removeprefix("torch.")
+            pw = {k: (v if k == "router" else v.to(dtype))
+                  for k, v in p.items()}
+            xw = x.to(dtype)
+            for dropless in (True, False):
+                mode = "dropless" if dropless else "capacity"
+                got, _ = replay(pw, xw, dropless)
+                again, _ = replay(pw, xw, dropless)
+                check(all(torch.equal(a, b) for a, b in zip(got, again)),
+                      f"12(b) {name} {mode}: two replays differ")
+                worst, n_drops = 0.0, 0
+                for d in range(n_data):
+                    xd = xw[d:d + 1]
+                    want, _ = pm.moe_block(pw, xd, m, dropless)
+                    ok, ratio = rounding_agree(got[d], want, **rule)
+                    check(ok, f"12(b) {name} {mode} data rank {d}: "
+                              f"{ratio:.3g} x the limit")
+                    worst = max(worst, ratio)
+                    ranks = [pm.local_dropped_pairs(
+                        xd, pw["router"], r, e_loc, e_pad, m, dropless)
+                        for r in range(n_model)]
+                    mine = torch.cat(ranks)
+                    mine = mine[torch.argsort(mine[:, 0] * e_pad
+                                              + mine[:, 1])]
+                    check(torch.equal(mine, pm.dropped_pairs(
+                        pw, xd, m, dropless)),
+                          f"12(b) {name} {mode}: the ranks' dropped pairs "
+                          f"differ from moe_block's")
+                    for r in range(n_model):
+                        check(torch.equal(ranks[r].cpu(),
+                                          pm.local_dropped_pairs(
+                                              xd.cpu(), pw["router"].cpu(),
+                                              r, e_loc, e_pad, m,
+                                              dropless)),
+                              f"12(b) {name} {mode} rank ({d}, {r}): dropped "
+                              f"pairs card vs CPU")
+                    n_drops += len(mine)
+                check(dropless == (n_drops == 0),
+                      f"12(b) {name} {mode}: {n_drops} dropped pairs")
+                xd = xw[:1]
+                rank_ms = [cuda_ms(torch, lambda r=r: pm.moe_local(
+                    xd, pw["router"], pw["w_in"][r * e_loc:(r + 1) * e_loc],
+                    pw["w_out"][r * e_loc:(r + 1) * e_loc], r, e_loc, m,
+                    dropless), 3, 1) for r in range(n_model)]
+                block_ms = cuda_ms(torch, lambda: pm.moe_block(
+                    pw, xd, m, dropless), 3, 1)
+                out[f"{name}_{mode}"] = dict(
+                    ratio=worst, dropped=n_drops, rank_ms=rank_ms,
+                    moe_block_ms=block_ms)
+                log(f"  12(b) MoE block 2x4 replay, {name} {mode} "
+                    f"(cap {pm.capacity(MOE_REPLAY_TOKENS, m, dropless)} a "
+                    f"rank): {worst:.3g} x the limit against moe_block; "
+                    f"{n_drops} pairs dropped, the same as moe_block's and "
+                    f"as the CPU's; two replays bit for bit; a data rank's "
+                    f"4 model-rank bodies {', '.join(f'{t:.3f}' for t in rank_ms)}"
+                    f" ms (sum {sum(rank_ms):.3f}) against moe_block on its "
+                    f"{MOE_REPLAY_TOKENS} tokens {block_ms:.3f} ms")
+            del pw
+    del p, x
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_dlrm_shards(torch, dev, count) -> dict:
+    """12(c): DLRM at its published 91.1 GB of tables as 2 row shards of
+    45.55 GB, made one at a time on the card (``dlrm_shard_init``: each
+    shard's rows from generators of its own, shard 0 freed before shard
+    1 is made), at serve_p99 and serve_bulk: each shard's one grouped
+    ``embedding_bag`` launch over its blocks (``RowShardedBag.local``,
+    timed), the two partials summed over the row-sharded fields as the
+    collective would, then the forward's rest; held bit for bit (NaN bags
+    included) to a one-card forward over compact tables of the batch's
+    rows gathered from the same shards."""
+    from repro_torch.configs.dlrm_mlperf import CONFIG
+    from repro_torch.launch.mesh import MeshShape
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.models import recsys as rm
+
+    cfg = CONFIG
+    mesh = MeshShape((1, DLRM_SHARDS), ("data", "model"))
+    gen = torch.Generator(device=dev).manual_seed(SEED + 43)
+    batches = {}
+    for shape in ("serve_p99", "serve_bulk"):
+        b = next(iter(build_cell("dlrm-mlperf", shape,
+                                 device=dev).arg_specs[1].values())).shape[0]
+        ids = torch.stack([torch.randint(0, v, (b,), generator=gen,
+                                         device=dev, dtype=torch.int32)
+                           for v in cfg.table_sizes], 1)[..., None]
+        if shape == "serve_p99":
+            ids[0, 0, 0] = cfg.padded_table_sizes[0]     # past a sharded one
+            ids[1, 5, 0] = cfg.padded_table_sizes[5]     # past a whole one
+        comp_ids = torch.empty_like(ids)
+        uniq = []
+        for i, vp in enumerate(cfg.padded_table_sizes):
+            col = ids[:, i, 0]
+            ok = (col >= 0) & (col < vp)
+            u, inv = torch.unique(col[ok], return_inverse=True)
+            c = torch.full_like(col, len(u))               # past: NaN
+            c[ok] = inv.to(c.dtype)
+            comp_ids[:, i, 0] = c
+            uniq.append(u)
+        batches[shape] = dict(
+            dense=torch.rand((b, cfg.n_dense), generator=gen, device=dev),
+            ids=ids, comp_ids=comp_ids, uniq=uniq,
+            compact=[torch.empty((len(u), cfg.embed_dim), device=dev)
+                     for u in uniq], partials=[], ms=[])
+    torch.cuda.reset_peak_memory_stats()
+    out = {"shards": []}
+    mlps = None
+    for shard in range(DLRM_SHARDS):
+        t = time.perf_counter()
+        params = rm.dlrm_shard_init(cfg, mesh, shard, seed=SEED, device=dev)
+        torch.cuda.synchronize()
+        make_s = time.perf_counter() - t
+        gb = sum(x.numel() * 4 for x in params["tables"].values()) / 1e9
+        bag = rm.RowShardedBag(cfg, mesh, shard=shard)
+        tables = [params["tables"][f"table_{i}"] for i in range(cfg.n_sparse)]
+        rec = {"shard": shard, "table_gb": gb, "make_s": make_s}
+        with torch.no_grad():
+            for shape, bt in batches.items():
+                bt["partials"].append(count(bag.local, tables, bt["ids"]))
+                ms = cuda_ms(torch, lambda: count(bag.local, tables,
+                                                  bt["ids"]),
+                             20 if shape == "serve_p99" else 3, 1)
+                bt["ms"].append(ms)
+                rec[f"{shape}_bag_ms"] = ms
+                for i, (lo, hi) in enumerate(bag.rows):
+                    whole = hi - lo == cfg.padded_table_sizes[i]
+                    if whole and shard > 0:
+                        continue                 # whole on every shard
+                    u = bt["uniq"][i]
+                    sel = (u >= lo) & (u < hi)
+                    bt["compact"][i][sel] = tables[i][u[sel] - lo]
+        torch.cuda.synchronize()
+        rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        log(f"  12(c) DLRM shard {shard} of {DLRM_SHARDS}: {gb:.2f} GB of "
+            f"tables made in {make_s:.1f} s; its grouped bag "
+            + ", ".join(f"{s} {batches[s]['ms'][-1]:.4f} ms"
+                        for s in batches)
+            + f" (CUDA events); peak allocated {rec['peak_gb']:.2f} GB")
+        out["shards"].append(rec)
+        if mlps is None:
+            mlps = {"bot": params["bot"], "top": params["top"]}
+        del params, tables, bag
+        torch.cuda.empty_cache()
+    sharded = rm.RowShardedBag(cfg, mesh, shard=0).sharded
+    with torch.no_grad():
+        for shape, bt in batches.items():
+            feats = bt["partials"][0].clone()
+            for part in bt["partials"][1:]:
+                feats[:, sharded] = feats[:, sharded] + part[:, sharded]
+
+            def summed_bag(tables, ids, weights, combiner, out=None):
+                return out.copy_(feats)
+
+            compact = {"tables": {f"table_{i}": c for i, c in
+                                  enumerate(bt["compact"])}, **mlps}
+            got = rm.dlrm_forward(compact, cfg, bt["dense"], bt["ids"],
+                                  bag=summed_bag)
+            want = rm.dlrm_forward(compact, cfg, bt["dense"], bt["comp_ids"])
+            nan = int(want.isnan().sum())
+            check(same_values(torch, got, want),
+                  f"12(c) DLRM {shape}: the shards' summed forward differs "
+                  f"from the compact-table forward")
+            check(nan == (2 if shape == "serve_p99" else 0),
+                  f"12(c) DLRM {shape}: {nan} NaN logits")
+            out[shape] = dict(b=int(bt["ids"].shape[0]), bag_ms=bt["ms"],
+                              nan=nan)
+            log(f"  12(c) DLRM {shape} (B={bt['ids'].shape[0]}): the 2 row "
+                f"shards' summed forward equals the one-card forward over "
+                f"compact tables of the batch's rows bit for bit ({nan} NaN "
+                f"bags at the same samples)")
+            del feats, bt["partials"]
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["table_gb"] = sum(r["table_gb"] for r in out["shards"])
+    del batches, mlps
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_retrieval_shards(torch, dev, count) -> dict:
+    """12(d): retrieval_cand (1 x 1,000,448, k 100; DLRM's d = 128) as 8
+    candidate shards: ``retrieval_shard_topk`` on each shard's rows, then
+    the merge of the 8 (Q, k) blocks, held to one ``topk_search`` over
+    all rows by phase 2's rule; times each."""
+    from repro_torch.kernels.common import merge_candidates
+    from repro_torch.launch.steps import (build_cell, retrieval_shard_topk,
+                                          smoke_batch)
+    from repro_torch.testing import topk_agree
+
+    bundle = build_cell("dlrm-mlperf", "retrieval_cand", device=dev)
+    batch = smoke_batch(bundle, seed=SEED)
+    n = batch["candidates"].shape[0]
+    n_loc = n // RETRIEVAL_SHARDS
+    check(n % RETRIEVAL_SHARDS == 0, f"12(d): {n} rows over "
+                                     f"{RETRIEVAL_SHARDS} shards")
+    shards = [{k: (v if k == "query" else v[r * n_loc:(r + 1) * n_loc])
+               for k, v in batch.items()} for r in range(RETRIEVAL_SHARDS)]
+
+    def sharded():
+        blocks = [retrieval_shard_topk(b, 100, r)
+                  for r, b in enumerate(shards)]
+        return merge_candidates(torch.stack([s for s, _ in blocks]),
+                                torch.stack([i for _, i in blocks]), 100)
+
+    with torch.no_grad():
+        s, i = count(sharded)
+        ws, wi = bundle.fn(batch)
+        ok, err, why = topk_agree(s, i, ws, wi)
+        check(ok, f"12(d) retrieval over {RETRIEVAL_SHARDS} shards: {why}")
+        exact = bool(torch.equal(s, ws) and torch.equal(i, wi))
+        shard_ms = cuda_ms(torch, lambda: count(
+            retrieval_shard_topk, shards[0], 100, 0), 20, 2)
+        all_ms = cuda_ms(torch, lambda: count(sharded), 20, 2)
+        one_ms = cuda_ms(torch, lambda: bundle.fn(batch), 20, 2)
+    log(f"  12(d) retrieval_cand (1 x {n}, k 100) over {RETRIEVAL_SHARDS} "
+        f"shards of {n_loc}: equal to one topk_search by phase 2's rule "
+        f"(max score diff {err:.3g}; bit for bit: {exact}); a shard "
+        f"{shard_ms:.4f} ms, the 8 shards and the merge in turn "
+        f"{all_ms:.4f} ms, one scan of all rows {one_ms:.4f} ms")
+    return dict(exact=exact, shard_ms=shard_ms, replay_ms=all_ms,
+                one_ms=one_ms)
+
+
+def phase_distribution(torch, dev) -> dict:
+    """Phase 12. Returns the launches of the kernels on its sharded paths
+    (12(a), (c), (d): each call's counts read from just before it to just
+    after), not those of the runs they are held to."""
+    from repro_torch.kernels.embedding_bag import ops as eb
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.topk_search import ops as kops
+
+    t0 = time.perf_counter()
+    count = PathCounts({"flash_attention": (fa, "launches"),
+                        "flash_attention_bwd": (fa, "bwd_launches"),
+                        "embedding_bag": (eb, "launches"),
+                        "topk_search": (kops, "launches")})
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-dist-") as work:
+        a = phase_dist_collective(torch, work, dev.type, count)
+    held = "in bf16 bit for bit, AdamW first moments included" \
+        if a["world"] == 1 else \
+        f"in fp32 by DIST_FP32 {json.dumps(a['qwen_worst_ratio'])}"
+    log(f"  12(a) NCCL world {a['world']}: Qwen2-MoE train_4k at full width "
+        f"({DIST_QWEN['layers']} layers, {DIST_QWEN['batch']} x 4096 "
+        f"in 8 microbatches) through build_cell(mesh=) equal to the "
+        f"no-mesh step {held} (loss {a['qwen_loss']:.6f}, "
+        f"{a['qwen_step_ms']:.1f} ms, peak "
+        f"{a['qwen_peak_gb']:.2f} GB); DLRM serve_p99 (tables capped at 25M "
+        f"rows) bit for bit, NaN bag included")
+    log(f"  12(a) collective_stats, Qwen2-MoE step: "
+        f"{json.dumps(a['qwen_collectives'])}")
+    log(f"  12(a) collective_stats, DLRM batch: "
+        f"{json.dumps(a['dlrm_collectives'])}")
+    torch.cuda.empty_cache()
+    b = phase_moe_replay(torch, dev)
+    c = phase_dlrm_shards(torch, dev, count)
+    d = phase_retrieval_shards(torch, dev, count)
+    main = count.n
+    log(json.dumps({"phase12": dict(
+        collective=a, moe_replay=b, dlrm_shards=c, retrieval=d,
+        reduced=[f"12(a): Qwen2-MoE train_4k 24 -> {DIST_QWEN['layers']} "
+                 f"layers; global batch 256 -> {DIST_QWEN['batch']} "
+                 f"(accum 8 kept: microbatch 1 x 4096)", "12(a): DLRM "
+                 "at MLPerf widths, tables capped at 25M rows (58.3 of "
+                 "91.1 GB, as phase 7)", "12(b): one MoE layer, 2 x "
+                 f"{MOE_REPLAY_TOKENS} tokens", "12(b)-(d): the ranks run "
+                 f"one after another on one card: no interconnect is "
+                 f"measured"])}))
+    log(f"  launches on phase 12's paths: {main}; phase 12 took "
+        f"{time.perf_counter() - t0:.1f} s")
+    for name, n in main.items():
+        check(n > 0, f"{name} was never launched on phase 12's paths")
+    return main
+
+
 def main() -> int:
     import argparse
 
@@ -4040,6 +4595,11 @@ def main() -> int:
                     help="a checkout of an earlier commit: phases 2 and "
                          "7 also hold each top-k and bag call against its "
                          "kernels, bit for bit, and time them")
+    ap.add_argument("--dist-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)      # phase 12(a)'s other ranks
+    ap.add_argument("--dist-world", type=int, default=None,
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--dist-store", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     try:
         import torch
@@ -4056,6 +4616,12 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     from repro_torch.kernels import build
 
+    if args.dist_rank is not None:       # phase 12(a) on a card of its own
+        torch.backends.cuda.matmul.allow_tf32 = False
+        for name in build.sources():
+            build.load(name)
+        dist_rank(torch, args.dist_rank, args.dist_world, args.dist_store)
+        return 0
     t0 = time.perf_counter()
     log("phase 1: setup")
     card = subprocess.run(
@@ -4140,6 +4706,11 @@ def main() -> int:
     start_phase(torch, "phase 11: SchNet's train cells on the card", t0)
     torch.cuda.empty_cache()
     for name, n in phase_schnet(torch, dev, kern).items():
+        launches[name] = launches.get(name, 0) + n
+
+    start_phase(torch, "phase 12: distribution on the card", t0)
+    torch.cuda.empty_cache()
+    for name, n in phase_distribution(torch, dev).items():
         launches[name] = launches.get(name, 0) + n
 
     rows = []

@@ -45,6 +45,13 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
+def seeded_generator(seed: int, device: torch.device) -> torch.Generator:
+    """A ``torch.Generator`` on ``device`` seeded with ``seed``; a CPU one
+    for ``meta`` (whose tensors hold no values: the dry run's shapes)."""
+    gen_dev = "cpu" if device.type == "meta" else device
+    return torch.Generator(device=gen_dev).manual_seed(seed)
+
+
 def check_tensor(name: str, t: torch.Tensor, dtype: torch.dtype,
                  ndim: int, device: torch.device) -> None:
     """Raise unless ``t`` is a contiguous ``dtype`` tensor of rank

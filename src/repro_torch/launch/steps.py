@@ -1,6 +1,6 @@
 """Cell bundles of the port: for every (arch x shape) cell it serves, the
 concrete step function and real arrays to drive it (repro's
-``launch/steps.py`` without JAX, sharding or lowering).
+``launch/steps.py`` without JAX or lowering).
 
 A ``CellBundle`` packages:
   - fn(params, opt_state, batch, step) -> (params, opt_state, loss) for a
@@ -9,6 +9,10 @@ A ``CellBundle`` packages:
     retrieval cell,
   - arg_specs: the ``configs.base.Spec`` trees of its arguments (a
     params or opt_state slot is None: its shapes are the model's),
+  - sharding_fn(mesh): repro's spec trees of the arguments on a mesh
+    (``launch/sharding``: params, optimizer state, batch, step for a
+    train cell; params, batch for the others; batch for retrieval),
+    from shapes alone (``param_shapes``: the init on ``meta``),
   - model_cfg, the device its arrays go to, and for a train cell its
     optimizer's name and gradient-accumulation factor.
 
@@ -20,10 +24,21 @@ ogb_products). A train cell's params are repro's tree (layers stacked
 for a transformer or SchNet's interactions, ``models/bridge.train_tree``),
 so the optimizer, the gradient compression and the checkpoint see repro's
 leaves.
+
+On a mesh (``build_cell(..., mesh=)``, one rank of a ``DeviceMesh``)
+``fn`` is that rank's step on its blocks (``make_smoke_args`` cuts
+them): the batch is split over the data-parallel axes, an LM's MoE
+layers run expert-parallel (``moe_mesh``), DLRM's tables are row-sharded
+over "model" (``recsys.RowShardedBag``), the retrieval cell scores each
+rank's candidate rows and merges the all-gathered blocks (repro's
+shard_map). What repro tensor-parallelises through GSPMD runs replicated
+(``launch/sharding.executed``); a train step reduces each gradient by
+its leaf's spec (``train/train_loop``). SchNet on a mesh is not ported.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Callable, Optional
 
 import numpy as np
@@ -31,14 +46,18 @@ import torch
 
 from ..configs import get_arch, list_archs
 from ..configs import schnet as schnet_cfg
-from ..kernels.common import resolve_device
+from ..kernels.common import merge_candidates, resolve_device
 from ..kernels.topk_search.ops import topk_search
 from ..models import recsys as recsys_m
 from ..models import schnet as schnet_m
 from ..models import transformer as tfm
 from ..models.bridge import train_tree
+from ..models.moe import sharded_moe_applicable
 from ..train.optimizer import Optimizer, adafactor, adamw
 from ..train.train_loop import grad_accum_value_and_grad
+from . import sharding as shd
+from .collectives import all_gather
+from .mesh import axis_size, coordinate, dp_axes
 
 ADAFACTOR_THRESHOLD = 100e9        # params above this use factored state
 
@@ -58,15 +77,24 @@ _INIT = {"fm": recsys_m.fm_init, "dlrm-mlperf": recsys_m.dlrm_init,
          "schnet": schnet_m.init_params}
 
 
-def effective_accum(preferred: int, mesh=None) -> int:
-    """repro clamps the accumulation factor so that each microbatch still
-    spans the data-parallel extent of its mesh; on one card (``mesh``
-    None) the preferred factor stands. Meshes wait for ROADMAP Queue 1
-    item 13."""
-    if mesh is not None:
-        raise NotImplementedError("meshes are not ported (ROADMAP Queue 1 "
-                                  "item 13)")
-    return preferred
+def effective_accum(preferred: int, global_batch: int, mesh=None) -> int:
+    """Microbatches must keep the PER-MICROBATCH global batch divisible
+    by (and >= ) the DP extent, or the batch could not be split over it.
+    Clamp the preferred factor to global_batch // dp (repro's rule); on
+    one card (``mesh`` None) the preferred factor stands."""
+    if mesh is None:
+        return preferred
+    dp = axis_size(mesh, dp_axes(mesh))
+    return max(1, min(preferred, global_batch // dp))
+
+
+@functools.lru_cache(maxsize=8)
+def param_shapes(arch_name: str, cfg) -> dict:
+    """The cell's param train tree on the ``meta`` device: shapes and
+    dtypes, no values (repro's ``params_shape``). Cached: the dry run
+    asks for each arch's tree once a cell and mesh; callers read it."""
+    init = _INIT.get(arch_name, tfm.init_params)
+    return train_tree(init(cfg, seed=0, device="meta"))
 
 
 @dataclasses.dataclass
@@ -81,43 +109,100 @@ class CellBundle:
     optimizer: Optional[str] = None     # train cells
     accum: int = 1                      # train cells: microbatches a step
     loss: Optional[Callable] = None     # train cells: loss(params, batch)
+    sharding_fn: Optional[Callable] = None   # mesh -> spec trees (repro's)
+    mesh: Any = None                    # the rank's mesh (None: one card)
+
+    @property
+    def batch_index(self) -> int:
+        return {"train": 2, "retrieval": 0}.get(self.kind, 1)
+
+    def executed_specs(self) -> tuple:
+        """(params spec tree or None, batch specs) that this rank's ``fn``
+        executes sharded on ``mesh`` (``sharding.executed``; the batch
+        split over the data-parallel axes only, the retrieval candidates
+        over every axis)."""
+        trees = self.sharding_fn(self.mesh)
+        pspec = None if self.kind == "retrieval" else \
+            shd.executed(trees[0])
+        return pspec, shd.executed_batch(trees[self.batch_index], self.mesh)
+
+
+def _optimizer(name: str) -> Optimizer:
+    return adafactor() if name == "adafactor" else adamw()
+
+
+def _sharding_fn(arch_name: str, kind: str, cfg, batch_specs,
+                 param_rule, batch_rule, opt_name: Optional[str]):
+    """mesh -> repro's spec trees of the cell's arguments."""
+
+    def fn(mesh):
+        bspec = batch_rule(batch_specs, mesh)
+        if kind == "retrieval":
+            return (bspec,)
+        params = param_shapes(arch_name, cfg)
+        pspec = param_rule(params, mesh)
+        if kind != "train":
+            return (pspec, bspec)
+        opt_shape = _optimizer(opt_name).init(params)
+        ospec = shd.replicated(opt_shape) if param_rule is \
+            shd.gnn_param_specs else shd.zero1_opt_specs(pspec, opt_shape,
+                                                         mesh)
+        return (pspec, ospec, bspec, shd.P())
+
+    return fn
 
 
 def _train_bundle(arch_name: str, shape: str, reduced: bool, loss,
-                  opt_name: str, opt: Optimizer, accum: Optional[int],
-                  batch_specs, cfg, device) -> CellBundle:
+                  opt_name: str, accum: Optional[int], batch_specs, cfg,
+                  device, sharding_fn, mesh) -> CellBundle:
     if accum is None:
+        global_batch = next(iter(batch_specs.values())).shape[0]
         accum = effective_accum(
-            1 if reduced else TRAIN_ACCUM_STEPS.get(arch_name, 1))
-    vg = grad_accum_value_and_grad(loss, accum)
+            1 if reduced else TRAIN_ACCUM_STEPS.get(arch_name, 1),
+            global_batch, mesh)
+    bundle = CellBundle(arch_name, shape, "train", None,
+                        (None, None, batch_specs, None), cfg, device,
+                        opt_name, accum, loss, sharding_fn, mesh)
+    specs = None if mesh is None else bundle.executed_specs()[0]
+    vg = grad_accum_value_and_grad(loss, accum, mesh, specs)
+    opt = _optimizer(opt_name)
 
     def fn(params, opt_state, batch, step):
         l, grads = vg(params, batch)
         params, opt_state = opt.update(grads, opt_state, params, step)
         return params, opt_state, l
 
-    return CellBundle(arch_name, shape, "train", fn,
-                      (None, None, batch_specs, None), cfg, device,
-                      opt_name, accum, loss)
+    bundle.fn = fn
+    return bundle
 
 
-def _lm_optimizer(cfg) -> tuple[str, Optimizer]:
-    if cfg.n_params() > ADAFACTOR_THRESHOLD:
-        return "adafactor", adafactor()
-    return "adamw", adamw()
+def _lm_optimizer(cfg) -> str:
+    return "adafactor" if cfg.n_params() > ADAFACTOR_THRESHOLD else "adamw"
 
 
 def _lm_bundle(arch_name: str, shape: str, reduced: bool, cfg,
-               device: torch.device, accum: Optional[int]) -> CellBundle:
+               device: torch.device, accum: Optional[int],
+               mesh) -> CellBundle:
     spec = get_arch(arch_name)
     cell = spec.cell(shape)
     batch_specs = spec.input_specs(shape, reduced)
+    global_batch = batch_specs["tokens"].shape[0]
+    opt_name = _lm_optimizer(cfg) if cell.kind == "train" else None
+    sharding_fn = _sharding_fn(
+        arch_name, cell.kind, cfg, batch_specs, shd.lm_param_specs,
+        lambda b, m: shd.lm_batch_specs(
+            b, m, cfg, cell.kind, long_context=shape.startswith("long")),
+        opt_name)
+    if mesh is not None and cfg.moe is not None and \
+            sharded_moe_applicable(cfg.moe, mesh, cfg.d_model,
+                                   batch=global_batch):
+        cfg = dataclasses.replace(cfg, moe_mesh=mesh)
 
     if cell.kind == "train":
-        opt_name, opt = _lm_optimizer(cfg)
         return _train_bundle(arch_name, shape, reduced,
                              lambda p, b: tfm.loss_fn(p, b, cfg), opt_name,
-                             opt, accum, batch_specs, cfg, device)
+                             accum, batch_specs, cfg, device, sharding_fn,
+                             mesh)
     if cell.kind == "prefill":
         seq = batch_specs["tokens"].shape[1]
 
@@ -136,7 +221,7 @@ def _lm_bundle(arch_name: str, shape: str, reduced: bool, cfg,
         def fn(params, batch):
             return tfm.forward_pooled(params, batch["tokens"], cfg)
     return CellBundle(arch_name, shape, cell.kind, fn, (None, batch_specs),
-                      cfg, device)
+                      cfg, device, sharding_fn=sharding_fn, mesh=mesh)
 
 
 _RECSYS_LOSSES = {"fm": recsys_m.fm_loss, "wide-deep": recsys_m.widedeep_loss,
@@ -144,29 +229,70 @@ _RECSYS_LOSSES = {"fm": recsys_m.fm_loss, "wide-deep": recsys_m.widedeep_loss,
                   "bert4rec": recsys_m.bert4rec_loss}
 
 
-def _recsys_bundle(arch_name: str, shape: str, reduced: bool, cfg,
-                   device: torch.device, accum: Optional[int]) -> CellBundle:
-    spec = get_arch(arch_name)
-    cell = spec.cell(shape)
-    batch_specs = spec.input_specs(shape, reduced)
+def retrieval_shard_topk(batch: dict, k: int, rank: int):
+    """One rank's part of the sharded retrieval: the masked top-k of the
+    query over the rank's block of candidate rows (rank r holds rows
+    [r * n_loc, (r + 1) * n_loc)), its ids made global (-1 stays -1)."""
+    n_loc = batch["candidates"].shape[0]
+    s, i = topk_search(batch["query"].float(), batch["candidates"].float(),
+                       batch["candidate_mask"], min(k, n_loc))
+    return s, torch.where(i >= 0, i + rank * n_loc, i)
 
-    if cell.kind == "retrieval":
-        k_top = min(100, batch_specs["candidates"].shape[0])
 
-        def retrieval_fn(batch):
-            # one card: the masked top-k of repro's shard_map (local top-k
-            # + all-gather + merge) is one fused scan
+def _retrieval_fn(batch_specs, mesh) -> Callable:
+    """The retrieval step: one masked top-k (``topk_search``) of the
+    query over the candidates. On a mesh, repro's shard_map: each rank
+    holds a block of the candidate rows (split over every axis), scores
+    it (``retrieval_shard_topk``), and the (Q, k) blocks of all ranks
+    are all-gathered and merged (stable by score, the blocks in row
+    order, so ties keep the lower row, as one scan ranks them)."""
+    k_top = min(100, batch_specs["candidates"].shape[0])
+    if mesh is None or shd.recsys_batch_specs(
+            batch_specs, mesh)["candidates"][0] is None:   # not divisible
+        def fn(batch):
             return topk_search(batch["query"].float(),
                                batch["candidates"].float(),
                                batch["candidate_mask"], k_top)
+        return fn
+    every = tuple(mesh.mesh_dim_names)
 
-        return CellBundle(arch_name, shape, cell.kind, retrieval_fn,
-                          (batch_specs,), cfg, device)
+    def fn(batch):
+        sizes, coord, rank = dict(zip(every, mesh.shape)), \
+            coordinate(mesh), 0
+        for a in every:
+            rank = rank * sizes[a] + coord[a]
+        s, i = retrieval_shard_topk(batch, k_top, rank)
+        s_all = all_gather(s[None], mesh, every, dim=0)
+        i_all = all_gather(i[None], mesh, every, dim=0)
+        return merge_candidates(s_all, i_all,
+                                min(k_top, s_all.shape[0] * s.shape[1]))
+    return fn
+
+
+def _recsys_bundle(arch_name: str, shape: str, reduced: bool, cfg,
+                   device: torch.device, accum: Optional[int],
+                   mesh) -> CellBundle:
+    spec = get_arch(arch_name)
+    cell = spec.cell(shape)
+    batch_specs = spec.input_specs(shape, reduced)
+    param_rule = shd.lm_param_specs if arch_name == "bert4rec" \
+        else shd.recsys_param_specs
+    sharding_fn = _sharding_fn(arch_name, cell.kind, cfg, batch_specs,
+                               param_rule, shd.recsys_batch_specs, "adamw")
+
+    if cell.kind == "retrieval":
+        return CellBundle(arch_name, shape, cell.kind,
+                          _retrieval_fn(batch_specs, mesh), (batch_specs,),
+                          cfg, device, sharding_fn=sharding_fn, mesh=mesh)
+    bag = {}
+    if arch_name == "dlrm-mlperf" and mesh is not None:
+        bag = {"bag": recsys_m.RowShardedBag(cfg, mesh)}
     if cell.kind == "train":
         loss = _RECSYS_LOSSES[arch_name]
         return _train_bundle(arch_name, shape, reduced,
-                             lambda p, b: loss(p, cfg, b), "adamw", adamw(),
-                             accum, batch_specs, cfg, device)
+                             lambda p, b: loss(p, cfg, b, **bag), "adamw",
+                             accum, batch_specs, cfg, device, sharding_fn,
+                             mesh)
     assert cell.kind == "serve"
 
     if arch_name == "bert4rec":
@@ -175,7 +301,7 @@ def _recsys_bundle(arch_name: str, shape: str, reduced: bool, cfg,
     elif arch_name == "dlrm-mlperf":
         def fn(params, batch):
             return recsys_m.dlrm_forward(params, cfg, batch["dense"],
-                                         batch["sparse_ids"])
+                                         batch["sparse_ids"], **bag)
     else:
         fwd = {"fm": recsys_m.fm_forward,
                "wide-deep": recsys_m.widedeep_forward}[arch_name]
@@ -184,11 +310,12 @@ def _recsys_bundle(arch_name: str, shape: str, reduced: bool, cfg,
             return fwd(params, cfg, batch["ids"])
 
     return CellBundle(arch_name, shape, cell.kind, fn, (None, batch_specs),
-                      cfg, device)
+                      cfg, device, sharding_fn=sharding_fn, mesh=mesh)
 
 
 def _gnn_bundle(arch_name: str, shape: str, reduced: bool, cfg,
-                device: torch.device, accum: Optional[int]) -> CellBundle:
+                device: torch.device, accum: Optional[int],
+                mesh) -> CellBundle:
     """SchNet's train cell: AdamW on ``energy_loss`` (molecules, with
     ``n_graphs`` from the shape) or ``node_class_loss``; one microbatch,
     as repro (``TRAIN_ACCUM_STEPS`` has no schnet)."""
@@ -196,6 +323,10 @@ def _gnn_bundle(arch_name: str, shape: str, reduced: bool, cfg,
         raise ValueError(f"{arch_name}: accum {accum}: a graph batch's rows "
                          f"are nodes and edges of one graph, not samples, "
                          f"so it is not cut into microbatches")
+    if mesh is not None:
+        raise NotImplementedError(
+            f"{arch_name}: the edge-sharded segment sum over a mesh is not "
+            f"ported; its placements are the dry run's (launch/dryrun)")
     spec = get_arch(arch_name)
     batch_specs = spec.input_specs(shape, reduced)
     info = (schnet_cfg.SHAPES_REDUCED if reduced
@@ -209,23 +340,29 @@ def _gnn_bundle(arch_name: str, shape: str, reduced: bool, cfg,
     else:
         def loss(params, batch):
             return schnet_m.node_class_loss(params, cfg, batch)
-    return _train_bundle(arch_name, shape, reduced, loss, "adamw", adamw(),
-                         1, batch_specs, cfg, device)
+    sharding_fn = _sharding_fn(arch_name, "train", cfg, batch_specs,
+                               shd.gnn_param_specs, shd.gnn_batch_specs,
+                               "adamw")
+    return _train_bundle(arch_name, shape, reduced, loss, "adamw", 1,
+                         batch_specs, cfg, device, sharding_fn, None)
 
 
 def build_cell(arch_name: str, shape: str, reduced: bool = False,
                device=None, accum: Optional[int] = None,
-               model_cfg=None) -> CellBundle:
+               model_cfg=None, mesh=None) -> CellBundle:
     """The bundle of one (arch x shape) cell. ``device`` (None = the
     card) is where ``make_smoke_args`` puts its arrays. ``accum``
     overrides a train cell's microbatch count (repro's: 1 reduced, else
-    ``TRAIN_ACCUM_STEPS``), for a card that holds less of the step.
-    ``model_cfg`` replaces the arch's ``model_config(reduced)``, for a
-    cut of it that one card holds (fewer layers, capped tables); the
-    cell's shapes and batch stay the arch's, and an LM's optimizer
-    follows the config's parameter count, as repro's does. A GNN cell's
-    config depends on its shape (``model_config(reduced, shape)``) and it
-    takes no ``accum`` but 1."""
+    ``TRAIN_ACCUM_STEPS``, clamped on a mesh by ``effective_accum``), for
+    a card that holds less of the step. ``model_cfg`` replaces the arch's
+    ``model_config(reduced)``, for a cut of it that one card holds (fewer
+    layers, capped tables); the cell's shapes and batch stay the arch's,
+    and an LM's optimizer follows the config's parameter count, as
+    repro's does. A GNN cell's config depends on its shape
+    (``model_config(reduced, shape)``) and it takes no ``accum`` but 1.
+    ``mesh`` (a ``DeviceMesh`` over the process group, ``launch/mesh``)
+    makes ``fn`` this rank's step (module docstring); None is one card,
+    bit for bit what it was before meshes."""
     if arch_name not in list_archs():
         raise NotImplementedError(
             f"{arch_name}: not ported; the port registers {list_archs()}")
@@ -237,7 +374,7 @@ def build_cell(arch_name: str, shape: str, reduced: bool = False,
     build = {"gnn": _gnn_bundle, "recsys": _recsys_bundle}.get(spec.family,
                                                                _lm_bundle)
     return build(arch_name, shape, reduced, model_cfg,
-                 resolve_device(device), accum)
+                 resolve_device(device), accum, mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -251,8 +388,7 @@ def smoke_batch(bundle: CellBundle, seed: int = 0,
     ``bundle.device``."""
     rng = rng if rng is not None else np.random.default_rng(seed)
     cfg, dev = bundle.model_cfg, bundle.device
-    specs = bundle.arg_specs[{"train": 2, "retrieval": 0}.get(bundle.kind,
-                                                             1)]
+    specs = bundle.arg_specs[bundle.batch_index]
 
     def put(a: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(device=dev,
@@ -335,16 +471,40 @@ def make_smoke_args(bundle: CellBundle, seed: int = 0,
     step 0): the optimizer's fresh state and a 0-d int32 step. A decode
     cell's ``cache_len`` stays on the host, a 0-d int32 tensor: the
     port's ``decode_step`` reads it there (it picks flash_decode's
-    split), so reading it costs no device sync."""
+    split), so reading it costs no device sync. On a mesh, the rank's
+    blocks of the same arrays (``shard_args``)."""
     if bundle.kind == "retrieval":
-        return (smoke_batch(bundle, seed),)
+        args = (smoke_batch(bundle, seed),)
+        return args if bundle.mesh is None else shard_args(bundle, args)
     if params is None:
         init = _INIT.get(bundle.arch, tfm.init_params)
         params = init(bundle.model_cfg, seed=seed, device=bundle.device)
-        if bundle.kind == "train":
-            params = train_tree(params)
+    if bundle.kind == "train" or bundle.mesh is not None:
+        params = train_tree(params)
     if bundle.kind == "train":
-        opt = adafactor() if bundle.optimizer == "adafactor" else adamw()
-        return (params, opt.init(params), smoke_batch(bundle, seed),
+        args = (params, _optimizer(bundle.optimizer).init(params),
+                smoke_batch(bundle, seed),
                 torch.tensor(0, dtype=torch.int32, device=bundle.device))
-    return params, smoke_batch(bundle, seed)
+    else:
+        args = (params, smoke_batch(bundle, seed))
+    return args if bundle.mesh is None else shard_args(bundle, args)
+
+
+def shard_args(bundle: CellBundle, args: tuple) -> tuple:
+    """The blocks of the whole arguments ``args`` (``make_smoke_args``
+    without a mesh: a train tree of params) that this rank of
+    ``bundle.mesh`` holds, as copies; a train cell's optimizer state is
+    made fresh over the rank's params."""
+    pspec, bspec = bundle.executed_specs()
+
+    def cut(tree, specs):
+        return shd.distribute_tree(tree, specs, bundle.mesh, copy=True)
+
+    batch = cut(args[bundle.batch_index], bspec)
+    if bundle.kind == "retrieval":
+        return (batch,)
+    params = cut(args[0], pspec)
+    if bundle.kind != "train":
+        return params, batch
+    return (params, _optimizer(bundle.optimizer).init(params), batch,
+            args[3])

@@ -36,13 +36,17 @@ blocks (the weight broadcast, not copied); the expert buffer is laid out
 block-major, (C / ROWS, E, ROWS, D), so each block is one contiguous
 batched GEMM over the experts.
 
-Not ported yet: ``moe_block_sharded`` and ``sharded_moe_applicable``
-(expert parallelism over a device mesh) wait for the mesh and sharding
-(ROADMAP Queue 1 item 13).
+Expert parallelism over a mesh (``moe_block_sharded``): each rank runs
+``moe_local``, the same dispatch restricted to its own experts, on its
+own tokens; the collectives sit at the block's boundary
+(``launch/collectives``): the experts' d_model blocks are all-gathered
+over "data", the partial outputs summed over "model", the aux loss
+averaged over the data-parallel axes.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -87,8 +91,8 @@ def moe_params(gen: torch.Generator, d_model: int, cfg: MoEConfig,
     for name, shape, std in (("w_in", (d_model, f * mult), d_model ** -0.5),
                              ("w_out", (f, d_model), f ** -0.5)):
         w = torch.empty((e_pad,) + shape, dtype=dtype, device=device)
-        for i in range(e_pad):
-            w[i].normal_(0.0, std, generator=gen)
+        for i in range(e_pad if w.device.type != "meta" else 0):
+            w[i].normal_(0.0, std, generator=gen)     # meta: shapes only
         p[name] = w
     if cfg.n_shared:
         fs = cfg.n_shared * f
@@ -170,23 +174,79 @@ def capacity(t: int, cfg: MoEConfig, dropless: bool = False) -> int:
     return int(-(-cap // 8) * 8)
 
 
-def _plan(top_e: torch.Tensor, e_pad: int, cap: int):
-    """The dispatch of the (T*k) assignments in token-major order: (their
-    source tokens in expert order ``tok``, ``order``, each sorted
-    assignment's ``keep`` and buffer row ``slot``; dropped ones point at
-    the trash row after the last block)."""
+def _plan(top_e: torch.Tensor, n_exp: int, cap: int,
+          lo: Optional[int] = None):
+    """The dispatch of the (T*k) assignments in token-major order to the
+    n_exp experts, or with ``lo`` to experts [lo, lo + n_exp) alone (the
+    others', another rank's, go with the dropped ones, in the trash
+    group n_exp): (their source tokens in expert order ``tok``,
+    ``order``, each sorted assignment's ``keep`` and buffer row ``slot``;
+    dropped ones point at the trash row after the last block)."""
     t, k = top_e.shape
     dev = top_e.device
     flat_e = top_e.reshape(-1)
+    if lo is not None:
+        flat_e = torch.where((flat_e >= lo) & (flat_e < lo + n_exp),
+                             flat_e - lo, n_exp)
     order = torch.argsort(flat_e, stable=True)
     sorted_e = flat_e[order]
-    starts = torch.searchsorted(sorted_e, torch.arange(e_pad, device=dev))
+    starts = torch.searchsorted(sorted_e, torch.arange(n_exp + 1,
+                                                       device=dev))
     pos = torch.arange(t * k, device=dev) - starts[sorted_e]
     keep = pos < cap
+    if lo is not None:
+        keep &= sorted_e < n_exp
     nb = -(-cap // ROWS)
-    slot = torch.where(keep, (pos // ROWS) * (e_pad * ROWS)
-                       + sorted_e * ROWS + pos % ROWS, nb * e_pad * ROWS)
+    slot = torch.where(keep, (pos // ROWS) * (n_exp * ROWS)
+                       + sorted_e * ROWS + pos % ROWS, nb * n_exp * ROWS)
     return order // k, order, keep, slot
+
+
+def _aux(probs: torch.Tensor, top_e: torch.Tensor, cfg: MoEConfig):
+    """Switch aux loss: fraction routed vs mean prob, per expert (a count
+    of ones in fp32 is exact, whatever order the adds run in)."""
+    t, e = probs.shape[0], cfg.n_experts
+    frac = torch.zeros(e, dtype=torch.float32,
+                       device=probs.device).scatter_add_(
+        0, top_e[:, 0], torch.ones(t, dtype=torch.float32,
+                                   device=probs.device))
+    return e * torch.mean(frac / t * probs.mean(0)) * cfg.router_aux_weight
+
+
+def _dispatch(xf: torch.Tensor, top_w, top_e, w_in, w_out, act: str,
+              cap: int, lo: Optional[int] = None) -> torch.Tensor:
+    """The (T, D) sum of each token's weighted outputs of the E experts
+    that ``w_in`` / ``w_out`` (E, ...) hold (with ``lo``: experts [lo,
+    lo + E) of the router's): scatter into the block-major (C / ROWS, E,
+    ROWS, D) buffer, the expert GEMMs a block, then the combine: each
+    token's k outputs in ascending expert id (another rank's or a dropped
+    one adds a zero), summed in x's dtype from zero."""
+    t, d = xf.shape
+    k = top_e.shape[1]
+    n_exp = w_in.shape[0]
+    nb = -(-cap // ROWS)
+    tok, order, keep, slot = _plan(top_e, n_exp, cap, lo)
+    dtype = xf.dtype
+    buf = torch.zeros((nb * n_exp * ROWS + 1, d), dtype=dtype,
+                      device=xf.device)
+    buf[slot] = xf[tok]               # dropped rows land on the trash row
+    ebuf = buf[:-1].view(nb, n_exp, ROWS, d)
+    y = torch.cat([_expert_ffn(ebuf[j], w_in, w_out, act)
+                   for j in range(nb)]).view(-1, d)
+
+    # ---- combine: each token's k outputs, in ascending expert id -----
+    by_id = torch.argsort(top_e, dim=-1)               # distinct ids
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(t * k, device=xf.device)
+    at = inv.view(t, k).gather(1, by_id).reshape(-1)   # sorted positions
+    kept = keep[at]
+    gathered = y[torch.where(kept, slot[at], 0)] * kept[:, None]
+    w = top_w.gather(1, by_id).reshape(-1, 1)
+    contrib = (gathered.float() * w).to(dtype).view(t, k, d)
+    out = torch.zeros((t, d), dtype=dtype, device=xf.device)
+    for j in range(k):
+        out = out + contrib[:, j]
+    return out
 
 
 def moe_block(p, x: torch.Tensor, cfg: MoEConfig,
@@ -198,46 +258,95 @@ def moe_block(p, x: torch.Tensor, cfg: MoEConfig,
     teacher-forcing consistency matters. Prefill uses the bounded
     capacity_factor buffer (GShard drops)."""
     b, s, d = x.shape
-    t = b * s
-    e, k = cfg.n_experts, cfg.top_k
-    xf = x.reshape(t, d)
-    probs, top_w, top_e = _route(p, xf, cfg)
-
-    # Switch aux loss: fraction routed vs mean prob, per expert (a count
-    # of ones in fp32 is exact, whatever order the adds run in)
-    frac = torch.zeros(e, dtype=torch.float32, device=x.device).scatter_add_(
-        0, top_e[:, 0], torch.ones(t, dtype=torch.float32, device=x.device))
-    aux = e * torch.mean(frac / t * probs.mean(0)) * cfg.router_aux_weight
-
-    # ---- sort-based dispatch (static shapes) -------------------------
-    e_pad = p["w_in"].shape[0]        # experts padded to EXPERT_PAD
-    cap = capacity(t, cfg, dropless)
-    nb = -(-cap // ROWS)
-    tok, order, keep, slot = _plan(top_e, e_pad, cap)
-    dtype = x.dtype
-    buf = torch.zeros((nb * e_pad * ROWS + 1, d), dtype=dtype,
-                      device=x.device)
-    buf[slot] = xf[tok]               # dropped rows land on the trash row
-    ebuf = buf[:-1].view(nb, e_pad, ROWS, d)
-    y = torch.cat([_expert_ffn(ebuf[j], p["w_in"], p["w_out"], cfg.act)
-                   for j in range(nb)]).view(-1, d)
-
-    # ---- combine: each token's k outputs, in ascending expert id -----
-    by_id = torch.argsort(top_e, dim=-1)               # distinct ids
-    inv = torch.empty_like(order)
-    inv[order] = torch.arange(t * k, device=x.device)
-    at = inv.view(t, k).gather(1, by_id).reshape(-1)   # sorted positions
-    kept = keep[at]
-    gathered = y[torch.where(kept, slot[at], 0)] * kept[:, None]
-    w = top_w.gather(1, by_id).reshape(-1, 1)
-    contrib = (gathered.float() * w).to(dtype).view(t, k, d)
-    out = torch.zeros((t, d), dtype=dtype, device=x.device)
-    for j in range(k):
-        out = out + contrib[:, j]
-
+    out, aux = _routed(x, p["router"], p["w_in"], p["w_out"], cfg,
+                       dropless)
     if cfg.n_shared:
-        out = out + _shared_ffn(p, xf, cfg.act)
+        out = out + _shared_ffn(p, x.reshape(b * s, d),
+                                cfg.act).reshape(b, s, d)
+    return out, aux
+
+
+def _routed(x: torch.Tensor, router, w_in, w_out, cfg: MoEConfig,
+            dropless: bool, lo: Optional[int] = None):
+    """The routed experts' part of the block on x (B, S, D): (out, aux).
+    The shared experts read x through a reshape of their own, in
+    ``moe_block`` and ``moe_block_sharded`` alike, so that autograd adds
+    x's gradient terms in the same order on both paths."""
+    b, s, d = x.shape
+    t = b * s
+    xf = x.reshape(t, d)
+    probs, top_w, top_e = _route({"router": router}, xf, cfg)
+    aux = _aux(probs, top_e, cfg)
+    out = _dispatch(xf, top_w, top_e, w_in, w_out, cfg.act,
+                    capacity(t, cfg, dropless), lo)
     return out.reshape(b, s, d), aux
+
+
+def moe_local(x_loc: torch.Tensor, router: torch.Tensor,
+              w_in: torch.Tensor, w_out: torch.Tensor, m_idx: int,
+              e_loc: int, cfg: MoEConfig, dropless: bool = False
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """One rank's body of ``moe_block_sharded`` (repro's shard_map
+    ``body``), on local tensors and no collective: x_loc (B, S, D) the
+    rank's tokens, router (D, E), w_in / w_out the e_loc experts of
+    model index ``m_idx`` (experts [m_idx * e_loc, (m_idx + 1) * e_loc)),
+    whole in d_model. It routes its own tokens, takes the capacity from
+    its own token count (as repro's body), and dispatches only to its own
+    experts, by ``moe_block``'s rule (stable sorts, ties to the lower
+    expert id, GEMMs in ``ROWS``-row blocks). Returns (partial (B, S, D):
+    the weighted outputs of its experts, zero elsewhere; aux_local: the
+    aux loss of its tokens)."""
+    return _routed(x_loc, router, w_in, w_out, cfg, dropless,
+                   lo=m_idx * e_loc)
+
+
+def moe_block_sharded(p, x: torch.Tensor, cfg: MoEConfig, mesh,
+                      dropless: bool = False
+                      ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Expert-parallel MoE on one rank of ``mesh`` (a ``DeviceMesh``
+    with "data" and "model" axes), repro's ``moe_block_sharded``: x (B,
+    S, D) is this rank's tokens (its data-parallel block), p["w_in"] /
+    p["w_out"] its (E_pad / model, D / data, ...) blocks of the experts
+    (``launch/sharding.distribute_tree`` under ``lm_param_specs``), the
+    router and shared experts whole. The experts' d_model blocks are
+    all-gathered over "data", ``moe_local`` runs this rank's experts on
+    its tokens, the partials are summed over "model" and the aux loss
+    averaged over the data-parallel axes; the shared experts are added
+    as repro adds them. Returns (out (B, S, D), aux)."""
+    from ..launch import collectives as col
+    from ..launch.mesh import coordinate, dp_axes
+
+    b, s, d = x.shape
+    e_loc = p["w_in"].shape[0]
+    w_in = col.all_gather(p["w_in"], mesh, "data", dim=1)
+    w_out = col.all_gather(p["w_out"], mesh, "data", dim=1)
+    partial, aux = moe_local(x, p["router"], w_in, w_out,
+                             coordinate(mesh)["model"], e_loc, cfg, dropless)
+    out = col.all_reduce_sum(partial, mesh, "model")
+    aux = col.all_reduce_mean(aux, mesh, dp_axes(mesh))
+    if cfg.n_shared:
+        out = out + _shared_ffn(p, x.reshape(b * s, d),
+                                cfg.act).reshape(b, s, d)
+    return out, aux
+
+
+def sharded_moe_applicable(cfg: MoEConfig, mesh, d_model: int,
+                           batch: Optional[int] = None) -> bool:
+    """repro's rule: a mesh with "data" and "model" axes whose model
+    extent divides the padded experts and whose data extent divides
+    d_model (and, given the global ``batch``, whose data-parallel extent
+    divides it). Reads only the mesh's names and shape."""
+    from ..launch.mesh import axis_size, dp_axes
+
+    names = () if mesh is None else tuple(mesh.mesh_dim_names)
+    if (mesh is None or "model" not in names or "data" not in names
+            or padded_experts(cfg.n_experts) % axis_size(mesh, "model")
+            or d_model % axis_size(mesh, "data")):
+        return False
+    if batch is not None:
+        if batch % axis_size(mesh, dp_axes(mesh)) != 0:
+            return False               # e.g. long_500k batch=1
+    return True
 
 
 def dropped_pairs(p, x: torch.Tensor, cfg: MoEConfig,
@@ -248,8 +357,27 @@ def dropped_pairs(p, x: torch.Tensor, cfg: MoEConfig,
     t = x.shape[0] * x.shape[1]
     _, _, top_e = _route(p, x.reshape(t, -1), cfg)
     e_pad = p["w_in"].shape[0]
-    tok, order, keep, _ = _plan(top_e, e_pad, capacity(t, cfg, dropless))
-    pairs = torch.stack([tok, top_e.reshape(-1)[order]], 1)[~keep]
+    return _drops(top_e, e_pad, capacity(t, cfg, dropless))
+
+
+def local_dropped_pairs(x_loc: torch.Tensor, router: torch.Tensor,
+                        m_idx: int, e_loc: int, e_pad: int, cfg: MoEConfig,
+                        dropless: bool = False) -> torch.Tensor:
+    """The (token, expert) assignments to its own experts that
+    ``moe_local`` drops for x_loc, as ``dropped_pairs`` gives them."""
+    t = x_loc.shape[0] * x_loc.shape[1]
+    _, _, top_e = _route({"router": router}, x_loc.reshape(t, -1), cfg)
+    return _drops(top_e, e_pad, capacity(t, cfg, dropless),
+                  (m_idx * e_loc, e_loc))
+
+
+def _drops(top_e: torch.Tensor, e_pad: int, cap: int, local=None):
+    lo, n_exp = local if local is not None else (None, e_pad)
+    tok, order, keep, _ = _plan(top_e, n_exp, cap, lo)
+    flat_e = top_e.reshape(-1)[order]
+    mine = torch.ones_like(keep) if lo is None else \
+        (flat_e >= lo) & (flat_e < lo + n_exp)
+    pairs = torch.stack([tok, flat_e], 1)[mine & ~keep]
     return pairs[torch.argsort(pairs[:, 0] * e_pad + pairs[:, 1])]
 
 

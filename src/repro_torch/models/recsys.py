@@ -37,7 +37,7 @@ from typing import Callable, Optional, Sequence
 
 import torch
 
-from ..kernels.common import resolve_device
+from ..kernels.common import resolve_device, seeded_generator
 from ..kernels.embedding_bag.ops import embedding_bag_grouped
 from ..kernels.topk_search.ops import topk_search
 from .layers import cross_entropy_loss, dense_init
@@ -124,7 +124,7 @@ def _unit(x: torch.Tensor) -> torch.Tensor:
 
 def _generator(seed: int, device) -> tuple[torch.Generator, torch.device]:
     device = resolve_device(device)
-    return torch.Generator(device=device).manual_seed(seed), device
+    return seeded_generator(seed, device), device
 
 
 # ---------------------------------------------------------------------------
@@ -285,6 +285,122 @@ def dlrm_user_embedding(params, cfg: DLRMConfig, dense: torch.Tensor,
                         sparse_ids: torch.Tensor) -> torch.Tensor:
     return _unit(mlp_apply(params["bot"], dense.to(cfg.dtype),
                            final_act=True))
+
+
+# ---------------------------------------------------------------------------
+# DLRM with row-sharded tables (recsys_param_specs over a mesh's "model")
+# ---------------------------------------------------------------------------
+def dlrm_table_rows(cfg: DLRMConfig, mesh, shard: int) -> list:
+    """[lo, hi) of each table's padded rows that model index ``shard`` of
+    ``mesh`` holds: the rows ``launch/sharding.recsys_param_specs``
+    gives it (tables of >= 4096 rows split evenly over "model"; the
+    padded sizes are multiples of 256), the whole table for the others
+    (replicated)."""
+    from ..configs.base import Spec
+    from ..launch.sharding import local_slice, recsys_param_specs
+
+    shapes = {f"table_{i}": Spec((v, cfg.embed_dim), cfg.dtype)
+              for i, v in enumerate(cfg.padded_table_sizes)}
+    specs = recsys_param_specs({"tables": shapes}, mesh)["tables"]
+    coord = {a: 0 for a in mesh.mesh_dim_names}
+    coord["model"] = shard
+    rows = []
+    for i in range(cfg.n_sparse):
+        name = f"table_{i}"
+        sl = local_slice(shapes[name].shape, specs[name], mesh, coord)[0]
+        rows.append((sl.start, sl.stop))
+    return rows
+
+
+class RowShardedBag:
+    """DLRM's ``bag`` on one rank of a mesh whose "model" axis row-shards
+    the tables: the rank holds rows [lo, hi) of each row-sharded table
+    (``dlrm_table_rows``) and the small tables whole. ``local`` maps each
+    id into the rank's rows (another rank's id becomes padding, -1; an id
+    at or past the padded size stays out of range on the last model rank
+    alone, so its bag is NaN exactly where one card makes it NaN) and runs
+    ONE ``embedding_bag_grouped`` launch over the rank's blocks;
+    ``__call__`` then sums the row-sharded fields over "model" (the
+    replicated fields are whole on every rank). At L = 1 each sharded
+    bag is one rank's row plus zeros: the sum is the one-card bag bit for
+    bit, NaN included. The tables' gradient reaches each rank's own rows
+    only, through ``embedding_bag_grouped_bwd`` on the local ids."""
+
+    def __init__(self, cfg: DLRMConfig, mesh, shard: Optional[int] = None):
+        from ..launch.mesh import axis_size, coordinate
+
+        self.mesh = mesh
+        if shard is None:
+            shard = coordinate(mesh)["model"]
+        self.rows = dlrm_table_rows(cfg, mesh, shard)
+        last = shard == axis_size(mesh, "model") - 1
+        full = cfg.padded_table_sizes
+        self.sharded = [i for i, (lo, hi) in enumerate(self.rows)
+                        if hi - lo < full[i]]
+        big = torch.iinfo(torch.int64).max
+        self._bounds = ([lo for lo, _ in self.rows],
+                        [big if (last or hi == full[i]) else hi
+                         for i, (_, hi) in enumerate(self.rows)],
+                        self.sharded)
+        self._on = {}                # device -> the bounds as tensors there
+
+    def _tensors(self, device: torch.device) -> tuple:
+        """(lo, hi, sharded fields) on ``device``, copied there once."""
+        if device not in self._on:
+            lo, hi, sh = (torch.tensor(x, device=device)
+                          for x in self._bounds)
+            self._on[device] = (lo[None, :, None], hi[None, :, None], sh)
+        return self._on[device]
+
+    def local_ids(self, ids: torch.Tensor) -> torch.Tensor:
+        """ids (B, F, L) as indices into this rank's blocks (int32)."""
+        lo, hi, _ = self._tensors(ids.device)
+        ids = ids.long()
+        return torch.where((ids >= lo) & (ids < hi), ids - lo,
+                           -1).to(torch.int32)
+
+    def local(self, tables, ids, weights=None, combiner: str = "sum",
+              out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """This rank's bags: one grouped launch over its blocks."""
+        return embedding_bag_grouped(tables, self.local_ids(ids), weights,
+                                     combiner, out=out)
+
+    def __call__(self, tables, ids, weights=None, combiner: str = "sum",
+                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        from ..launch.collectives import all_reduce_sum
+
+        res = self.local(tables, ids, weights, combiner, out)
+        if self.sharded:
+            idx = self._tensors(res.device)[2]
+            res.index_copy_(1, idx, all_reduce_sum(
+                res.index_select(1, idx), self.mesh, "model"))
+        return res
+
+
+def _table_seed(seed: int, table: int, shard: int) -> int:
+    return seed + 1 + 1009 * (64 * table + shard)
+
+
+@torch.no_grad()
+def dlrm_shard_init(cfg: DLRMConfig, mesh, shard: int, seed: int = 0,
+                    device=None) -> dict:
+    """Model index ``shard``'s DLRM params on ``mesh`` as a train tree:
+    the MLPs as ``dlrm_init`` makes them, and rows [lo, hi) of each
+    row-sharded table (the small tables whole), N(0, 1) * V^-0.25 over
+    the padded V, each from a generator of its own (seed, table, shard)
+    (a replicated table's of shard 0): no rank's rows need another's, so
+    one card can make the shards of 91.1 GB of tables one at a time."""
+    gen, device = _generator(seed, device)
+    params = {"bot": mlp_params(gen, cfg.bot_mlp, cfg.dtype, device),
+              "top": mlp_params(gen, (cfg.d_interact,) + cfg.top_mlp,
+                                cfg.dtype, device), "tables": {}}
+    rows = dlrm_table_rows(cfg, mesh, shard)
+    for i, (v, (lo, hi)) in enumerate(zip(cfg.padded_table_sizes, rows)):
+        tgen, _ = _generator(_table_seed(seed, i, shard if hi - lo < v
+                                         else 0), device)
+        params["tables"][f"table_{i}"] = table_init(
+            tgen, (hi - lo, cfg.embed_dim), v ** -0.25, cfg.dtype, device)
+    return params
 
 
 # ---------------------------------------------------------------------------

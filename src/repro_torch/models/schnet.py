@@ -38,7 +38,7 @@ from typing import Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..kernels.common import resolve_device
+from ..kernels.common import resolve_device, seeded_generator
 from ..kernels.segment_sum import EdgePlan, gather_segment_sum, take_rows
 from .layers import activation, dense_init
 
@@ -74,7 +74,7 @@ def init_params(cfg: SchNetConfig, seed: int = 0, device=None) -> dict:
     """Seeded params in repro's tree (a train tree: dicts of leaf
     tensors), on ``device`` (None = the card)."""
     device = resolve_device(device)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = seeded_generator(seed, device)
     d, r, dt = cfg.d_hidden, cfg.n_rbf, cfg.dtype
 
     def dense(d_in, d_out):

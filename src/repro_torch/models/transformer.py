@@ -26,28 +26,32 @@ their plain versions for CPU tensors. The KV cache is allocated once at
 ``cache_size`` by ``prefill`` and written in place by ``decode_step``
 (repro's functions return a new cache each step). MoE layers run
 models/moe.py's ``moe_block``: the capacity path in ``forward`` and
-``prefill``, the dropless path in ``decode_step``, as in repro.
+``prefill``, the dropless path in ``decode_step``, as in repro. With
+``moe_mesh`` set (``launch/steps.build_cell(..., mesh=)``), each rank's
+MoE layers run ``moe_block_sharded`` on its tokens and its experts
+(``_moe_dispatch``).
 
-Not ported (ROADMAP Queue 1 item 13): the sharded MoE path and repro's
-``unroll_layers``, ``moe_mesh`` and ``attn_impl`` options, which have no
-counterpart on one card.
+Not ported: repro's ``unroll_layers`` (XLA cost-analysis probes) and
+``attn_impl`` (its choice among JAX attention paths) options, which have
+no counterpart here.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Any, Optional
 
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..kernels.common import resolve_device
+from ..kernels.common import resolve_device, seeded_generator
 from ..kernels.flash_decode.ops import flash_decode
 from .layers import (AttentionConfig, attention_block, attention_impl,
                      attention_params, attention_qkv, dense_init,
                      cross_entropy_loss, embed_init, mlp_block, mlp_params,
                      rmsnorm)
-from .moe import MoEConfig, moe_block, moe_params
+from .moe import (MoEConfig, moe_block, moe_block_sharded, moe_params,
+                  sharded_moe_applicable)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,6 +71,9 @@ class TransformerConfig:
     moe: Optional[MoEConfig] = None
     remat: bool = True                  # recompute each layer in backward
     dtype: torch.dtype = torch.float32  # parameter / activation dtype
+    # the mesh of the expert-parallel MoE path (launch/steps.build_cell
+    # sets it on each rank; None = moe_block on one card)
+    moe_mesh: Any = None
 
     @property
     def attn(self) -> AttentionConfig:
@@ -168,7 +175,7 @@ def init_params(cfg: TransformerConfig, seed: int = 0,
     reproduced: to compute repro's function, carry its params across with
     models/bridge.py."""
     device = resolve_device(device)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = seeded_generator(seed, device)
     embed = embed_init(gen, cfg.vocab, cfg.d_model, cfg.dtype, device)
     layers = [layer_module(_layer_params(gen, cfg, device))
               for _ in range(cfg.n_layers)]
@@ -182,12 +189,21 @@ def init_params(cfg: TransformerConfig, seed: int = 0,
 # ---------------------------------------------------------------------------
 # forward
 # ---------------------------------------------------------------------------
+def _moe_dispatch(lp, h, cfg: TransformerConfig, dropless: bool = False):
+    """repro's choice of MoE path: ``moe_block_sharded`` where
+    ``cfg.moe_mesh`` allows it, else ``moe_block``. h is this rank's
+    tokens: ``build_cell`` split the global batch and checked it against
+    the mesh before it set ``moe_mesh``."""
+    if sharded_moe_applicable(cfg.moe, cfg.moe_mesh, cfg.d_model):
+        return moe_block_sharded(lp["moe"], h, cfg.moe, cfg.moe_mesh,
+                                 dropless=dropless)
+    return moe_block(lp["moe"], h, cfg.moe, dropless=dropless)
+
+
 def _ffn(lp, h, cfg: TransformerConfig, dropless: bool = False):
-    """The layer's feed-forward block of h: (out, aux_loss). repro's
-    ``_moe_dispatch`` picks its sharded MoE path where a mesh allows; the
-    port has only ``moe_block``."""
+    """The layer's feed-forward block of h: (out, aux_loss)."""
     if cfg.moe:
-        return moe_block(lp["moe"], h, cfg.moe, dropless=dropless)
+        return _moe_dispatch(lp, h, cfg, dropless=dropless)
     return (mlp_block(lp["mlp"], h, cfg.act),
             torch.zeros((), dtype=torch.float32, device=h.device))
 
@@ -312,7 +328,7 @@ def prefill(params, tokens: torch.Tensor, cfg: TransformerConfig,
     shape = (cfg.n_layers, b, cfg.n_kv, cache_size, cfg.d_head)
     ck = torch.zeros(shape, dtype=x.dtype, device=x.device)
     cv = torch.zeros(shape, dtype=x.dtype, device=x.device)
-    for i, lp in enumerate(params["layers"]):
+    for i, lp in enumerate(layer_list(params["layers"])):
         q, k, v = attention_qkv(lp["attn"], rmsnorm(x, lp["ln1"]), cfg.attn,
                                 positions)
         ck[i, :, :, :s] = k
@@ -341,7 +357,7 @@ def decode_step(params, tokens: torch.Tensor, cache: dict, cache_len: int,
     x = params["embed"][tokens]                                # (B, 1, D)
     positions = torch.full((b, 1), cache_len, dtype=torch.int32,
                            device=x.device)
-    for i, lp in enumerate(params["layers"]):
+    for i, lp in enumerate(layer_list(params["layers"])):
         q, k_new, v_new = attention_qkv(lp["attn"], rmsnorm(x, lp["ln1"]),
                                         cfg.attn, positions)
         ck, cv = cache["k"][i], cache["v"][i]                  # views

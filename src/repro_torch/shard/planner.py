@@ -32,6 +32,14 @@ Correctness model (the oracle-equivalence guarantee, property-tested;
     Within an equal-score run order is layout-dependent on BOTH sides
     (memtable slot order vs shard order) and therefore unordered.
 
+One ring a gather: ``query_batch`` reads ``fabric.ring`` once and both
+the scatter and the merge's ownership filter use that ring. A split
+that flips between the two (R = 1) would otherwise filter the old
+owners' candidates of moved docs by the new ring, which the scatter
+never asked. This is where the port's copy differs: repro's
+``shard/planner.py`` reads the ring again in its merge (ROADMAP Queue 3,
+repaired in the port only; repro is the frozen reference).
+
 Failure: a shard raising mid-gather is tolerated while fewer than R
 shards failed (every record has R distinct owners, so some responding
 owner still serves it); otherwise ``ShardGatherError`` fails just this
@@ -204,7 +212,7 @@ class ScatterGatherPlanner:
                 "failures": {s: f"{type(e).__name__}: {e}"
                              for s, e in failures.items()},
             }
-            return self._merge(texts, per_shard, k)
+            return self._merge(texts, per_shard, k, ring)
 
     def _scatter_parallel(self, ring, texts, k, at, window,
                           per_shard: dict, failures: dict,
@@ -253,17 +261,16 @@ class ScatterGatherPlanner:
 
     # ------------------------------------------------------------------
     def _merge(self, texts: Sequence[str],
-               per_shard: dict[str, list[list[SearchResult]]], k: int
-               ) -> list[list[SearchResult]]:
+               per_shard: dict[str, list[list[SearchResult]]], k: int,
+               ring) -> list[list[SearchResult]]:
         """Build the (Q, S*k) candidate matrix + the per-candidate
-        authority mask (ownership AND replica-dedup) and run the shared
-        stable top-k merge."""
+        authority mask (ownership AND replica-dedup) under ``ring``, the
+        ring the scatter read, and run the shared stable top-k merge."""
         with span("merge") as merge_sp:
-            return self._merge_inner(texts, per_shard, k, merge_sp)
+            return self._merge_inner(texts, per_shard, k, merge_sp, ring)
 
-    def _merge_inner(self, texts, per_shard, k, merge_sp
+    def _merge_inner(self, texts, per_shard, k, merge_sp, ring
                      ) -> list[list[SearchResult]]:
-        ring = self.fabric.ring
         shards = [s for s in ring.shards if s in per_shard]
         nq = len(texts)
         width = max(len(shards) * k, 1)
@@ -313,7 +320,7 @@ class ScatterGatherPlanner:
 
 
 def device_fanout_topk(queries, emb_stack, mask_stack, k: int,
-                       devices=None):
+                       devices=None, mesh=None):
     """Device fan-out hook (DESIGN.md §10.5): score a (Q, d) query block
     against S shard-local corpora stacked as (S, N_pad, d) with alive
     masks (S, N_pad), returning per-shard candidate blocks
@@ -327,7 +334,14 @@ def device_fanout_topk(queries, emb_stack, mask_stack, k: int,
     kernel's plain version): when ``len(devices)`` divides S, each
     device takes a contiguous block of shards, otherwise every shard
     runs on ``devices[0]``. Torch stacks stay on the device they lie on,
-    so a resident corpus is not copied each call."""
+    so a resident corpus is not copied each call.
+
+    With ``mesh`` (one rank of a ``DeviceMesh``; every rank calls with
+    the same arguments), the shard dimension is split over the
+    data-parallel axes by ``launch/sharding.fabric_fanout_specs``: the
+    rank scores its own block of shards (one ``topk_search`` a shard, on
+    the mesh's device) and the (S, Q, k) blocks are all-gathered. A DP
+    extent that does not divide S leaves every rank all the shards."""
     import torch
 
     from ..kernels.common import resolve_device
@@ -339,6 +353,8 @@ def device_fanout_topk(queries, emb_stack, mask_stack, k: int,
     if n_shards == 0 or k == 0:
         return (np.zeros((n_shards, q.shape[0], 0), np.float32),
                 np.zeros((n_shards, q.shape[0], 0), np.int32))
+    if mesh is not None:
+        return _fanout_on_mesh(q, emb_stack, mask_stack, k, mesh)
     if isinstance(emb_stack, torch.Tensor):
         emb = emb_stack.to(torch.float32)
         mask = torch.as_tensor(mask_stack).to(emb.device, torch.bool)
@@ -363,3 +379,32 @@ def device_fanout_topk(queries, emb_stack, mask_stack, k: int,
                                   m_dev[si - lo].contiguous(), k)
     return (np.stack([o[0].cpu().numpy() for o in out]),
             np.stack([o[1].cpu().numpy() for o in out]))
+
+
+def _fanout_on_mesh(q: np.ndarray, emb_stack, mask_stack, k: int, mesh):
+    """``device_fanout_topk`` on one rank of ``mesh``."""
+    import torch
+
+    from ..kernels.common import resolve_device
+    from ..kernels.topk_search.ops import topk_search
+    from ..launch.collectives import all_gather
+    from ..launch.mesh import coordinate
+    from ..launch.sharding import fabric_fanout_specs, local_slice
+
+    n_shards = int(emb_stack.shape[0])
+    _, emb_spec, _, _ = fabric_fanout_specs(mesh, n_shards)
+    dev = resolve_device(None if mesh.device_type == "cuda" else
+                         mesh.device_type)
+    rows = local_slice((n_shards,), emb_spec[:1], mesh,
+                       coordinate(mesh))[0]
+    emb = torch.as_tensor(emb_stack[rows]).to(dev, torch.float32)
+    mask = torch.as_tensor(mask_stack[rows]).to(dev, torch.bool)
+    q_dev = torch.as_tensor(q).to(dev)
+    out = [topk_search(q_dev, emb[i].contiguous(), mask[i].contiguous(), k)
+           for i in range(emb.shape[0])]
+    s = torch.stack([o[0] for o in out])
+    i = torch.stack([o[1] for o in out])
+    if emb_spec[0] is not None:
+        s = all_gather(s, mesh, emb_spec[0], dim=0)
+        i = all_gather(i, mesh, emb_spec[0], dim=0)
+    return s.cpu().numpy(), i.cpu().numpy()

@@ -31,8 +31,8 @@ class TrainState:
     ef_state: Any = None          # error-feedback accumulators (optional)
 
 
-def grad_accum_value_and_grad(loss_fn: Callable, accum: int = 1
-                              ) -> Callable:
+def grad_accum_value_and_grad(loss_fn: Callable, accum: int = 1,
+                              mesh=None, specs=None) -> Callable:
     """(params, batch) -> (loss, grads) of ``loss_fn(params, batch)``:
     grads a tree like ``params`` (each in its param's dtype, zeros where
     the loss does not reach a leaf, as ``jax.grad`` gives). With
@@ -40,7 +40,24 @@ def grad_accum_value_and_grad(loss_fn: Callable, accum: int = 1
     cuts it: microbatch j is rows j::accum of every array (repro splits B
     as (B/accum, accum) and swaps the axes). Each one's gradient is added
     into the params' ``.grad`` in the param dtype, and loss and grads are
-    multiplied by 1/accum at the end."""
+    multiplied by 1/accum at the end.
+
+    On one rank of a ``mesh`` (params and batch this rank's blocks,
+    ``specs`` the params' executed spec tree), the loss stays the global
+    mean: the returned loss is the mean over the data-parallel axes of
+    the ranks' local losses (the model axis computes the same one). Each
+    rank differentiates its share of that mean, its local loss over the
+    world size (the collectives' backwards sum the shares,
+    ``launch/collectives``), and each leaf's gradient is then summed
+    over every mesh axis its spec does not name (``reduce_grads``): over
+    a data-parallel axis that is the mean of the ranks' local-mean
+    gradients; a leaf that the forward all-gathers over "data" (the MoE
+    experts) names "data", and has its sum from the gather's backward
+    alone. Nothing is summed twice."""
+    share = 1.0
+    if mesh is not None:
+        from ..launch.mesh import axis_size
+        share = 1.0 / axis_size(mesh, mesh.mesh_dim_names)
 
     def fn(params, batch):
         named = leaves(params)
@@ -52,7 +69,7 @@ def grad_accum_value_and_grad(loss_fn: Callable, accum: int = 1
             mb = batch if accum == 1 else {k: v[j::accum]
                                            for k, v in batch.items()}
             loss = loss_fn(params, mb)
-            loss.backward()
+            (loss if mesh is None else loss * share).backward()
             total = loss.detach() if total is None else \
                 total + loss.detach()
         grads = []
@@ -65,9 +82,29 @@ def grad_accum_value_and_grad(loss_fn: Callable, accum: int = 1
                 grads.append(g)
         if accum > 1:
             total = total * (1.0 / accum)
-        return total, unflatten(params, grads)
+        grads = unflatten(params, grads)
+        if mesh is not None:
+            from ..launch.collectives import all_reduce_mean
+            from ..launch.mesh import dp_axes
+            with torch.no_grad():
+                grads = reduce_grads(grads, specs, mesh)
+                total = all_reduce_mean(total, mesh, dp_axes(mesh))
+        return total, grads
 
     return fn
+
+
+def reduce_grads(grads, specs, mesh):
+    """Each leaf's gradient summed over the mesh axes its spec (a
+    ``launch/sharding.P``) does not name."""
+    from ..launch.collectives import all_reduce_sum
+    from ..launch.sharding import replicated_axes
+
+    out = []
+    for (_, g), (_, spec) in zip(leaves(grads), leaves(specs)):
+        axes = replicated_axes(spec, mesh)
+        out.append(all_reduce_sum(g, mesh, axes) if axes else g)
+    return unflatten(grads, out)
 
 
 def grad_norm(grads) -> torch.Tensor:

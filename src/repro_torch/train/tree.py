@@ -36,6 +36,16 @@ def tree_map(fn: Callable, tree, *rest):
     return fn(tree, *rest)
 
 
+def tree_map_with_path(fn: Callable, tree, prefix: str = ""):
+    """``fn(path, leaf)`` over the leaves of ``tree``, each path the
+    string ``leaves`` names it by (``jax.tree_util.tree_map_with_path``);
+    anything not a dict is a leaf."""
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, f"{prefix}[{k!r}]")
+                for k, v in tree.items()}
+    return fn(prefix, tree)
+
+
 def unflatten(like, values: list):
     """A tree of ``like``'s structure whose leaves, in ``leaves`` order,
     are ``values``."""

@@ -1,0 +1,102 @@
+"""The port's sharded paths on the card over a real NCCL process group of
+one rank (``make_host_mesh(1, 1)``): every collective runs, over groups
+of one, and each result equals the no-mesh path's bit for bit (a sum or
+gather over one rank is a copy; the rank's body is the one-card code).
+Every test needs a CUDA device and skips without one; this file imports
+no JAX:
+
+    PYTHONPATH=src python -m pytest -m cuda tests/test_torch_distributed_cuda.py
+"""
+import dataclasses
+
+import pytest
+import torch
+
+from repro_torch.configs import get_arch
+from repro_torch.launch import collectives as col
+from repro_torch.launch.steps import build_cell, make_smoke_args
+from repro_torch.models import moe as pm
+from repro_torch.models.recsys import DLRMConfig, dlrm_forward, dlrm_init
+from repro_torch.train.tree import leaves
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture(scope="module")
+def mesh(tmp_path_factory):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_host_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.set_device(0)
+    store = dist.FileStore(str(tmp_path_factory.mktemp("nccl") / "store"), 1)
+    dist.init_process_group("nccl", store=store, rank=0, world_size=1)
+    try:
+        yield make_host_mesh(1, 1)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("dropless", [False, True],
+                         ids=["capacity", "dropless"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["fp32", "bf16"])
+def test_moe_block_on_one_rank_is_bit_for_bit(mesh, dtype, dropless):
+    cfg = pm.MoEConfig(n_experts=60, top_k=4, d_ff=128, n_shared=4)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    p = pm.moe_params(gen, 256, cfg, dtype, "cuda")
+    x = torch.randn((2, 192, 256), generator=gen, device="cuda").to(dtype)
+    col.take_records()
+    got, gaux = pm.moe_block_sharded(p, x, cfg, mesh, dropless=dropless)
+    stats = col.collective_stats(col.take_records())
+    want, waux = pm.moe_block(p, x, cfg, dropless=dropless)
+    assert torch.equal(got, want) and torch.equal(gaux, waux)
+    assert stats["all-gather"]["count"] == 2
+    assert stats["all-reduce"]["count"] == 2
+    assert stats["total_wire_bytes"] == 0.0       # groups of one rank
+
+
+def test_dlrm_forward_on_one_rank_is_bit_for_bit(mesh):
+    """The kernel bag through ``RowShardedBag`` on a 1 x 1 mesh, NaN bags
+    (an id at the padded size) and padding included."""
+    cfg = DLRMConfig(table_sizes=(5000, 40, 9000, 4096) + (300,) * 22)
+    params = dlrm_init(cfg, seed=0, device="cuda")
+    bundle = build_cell("dlrm-mlperf", "serve_p99", device="cuda",
+                        model_cfg=cfg, mesh=mesh)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    ids = torch.stack([torch.randint(0, v, (512, 1), generator=gen,
+                                     device="cuda")
+                       for v in cfg.table_sizes], 1).to(torch.int32)
+    ids[3, 0, 0] = 5120
+    ids[5, 1, 0] = 256
+    ids[9, 3, 0] = -1
+    dense = torch.rand((512, 13), generator=gen, device="cuda")
+    with torch.no_grad():
+        want = dlrm_forward(params, cfg, dense, ids)
+        got = bundle.fn(params, {"dense": dense, "sparse_ids": ids})
+    assert torch.isnan(want).sum() == 2
+    assert torch.equal(torch.nan_to_num(got, nan=7.0),
+                       torch.nan_to_num(want, nan=7.0))
+
+
+def test_qwen2_moe_train_step_on_one_rank_is_bit_for_bit(mesh):
+    cfg = get_arch("qwen2-moe-a2.7b").model_config(True)
+    # d_head 32: the card's attention kernels take 32, 64 and 128
+    cfg = dataclasses.replace(cfg, dtype=torch.float32, d_head=32)
+    one = build_cell("qwen2-moe-a2.7b", "train_4k", reduced=True,
+                     device="cuda", model_cfg=cfg)
+    rank = build_cell("qwen2-moe-a2.7b", "train_4k", reduced=True,
+                      device="cuda", model_cfg=cfg, mesh=mesh)
+    assert rank.model_cfg.moe_mesh is mesh
+    p1, o1, l1 = one.fn(*make_smoke_args(one, seed=0))
+    p2, o2, l2 = rank.fn(*make_smoke_args(rank, seed=0))
+    assert torch.equal(l1, l2)
+    for (n, a), (_, b) in zip(leaves(p1), leaves(p2)):
+        assert torch.equal(a, b), n
+    # AdamW's first step moves a param by about lr_t whatever its
+    # gradient; its first moment, (1 - b1) g, holds the gradients
+    for (n, a), (_, b) in zip(leaves(o1["m"]), leaves(o2["m"])):
+        assert torch.equal(a, b), n

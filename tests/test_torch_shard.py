@@ -450,6 +450,48 @@ class TestRebalance:
             check_parity(oracle, fab, queries, at=stream[-1][2] // 2)
 
 
+    @pytest.mark.parametrize("at_mid", [False, True],
+                             ids=["current", "historical"])
+    def test_gather_straddling_a_flip_matches_one_lake(self, at_mid):
+        """R = 1: a split runs to its end (flip and cleanup) after the
+        last shard of a gather has answered and before the merge. The
+        merge filters ownership by the ring the scatter read, so the old
+        owners' candidates of moved docs still count (repro's merge read
+        the ring again and dropped them: 3-7 of 8 answers wrong)."""
+        rng = np.random.default_rng(41)
+        stream = make_stream(rng, n_docs=16)
+        queries = make_queries(rng)
+        kw = {"at": stream[-1][2] // 2} if at_mid else {}
+        with tempfile.TemporaryDirectory() as r1, \
+                tempfile.TemporaryDirectory() as r2:
+            oracle = LiveVectorLake(r1, dim=DIM, hot_capacity=CAP,
+                                    device="cpu")
+            drive(oracle, stream)
+            fab = ShardFabric(r2, n_shards=3, dim=DIM, hot_capacity=CAP,
+                              device="cpu")
+            drive(fab, stream)
+            planner = fab.planner
+            ring = fab.ring
+            one_shard = planner._one_shard
+            report = {}
+
+            def split_after_last(s, *args, **kwargs):
+                out = one_shard(s, *args, **kwargs)
+                if s == ring.shards[-1] and not report:
+                    report.update(Rebalancer(fab).split("s04"))
+                return out
+
+            planner._one_shard = split_after_last
+            o = oracle.query_batch(queries, k=5, **kw)
+            oe = oracle.query_batch(queries, k=20, **kw)
+            f = fab.query_batch(queries, k=5, **kw)
+            planner._one_shard = one_shard
+            assert report["docs_copied"] > 0 and fab.ring is not ring
+            for qi in range(len(queries)):
+                assert_equivalent(o[qi], f[qi], oe[qi])
+            check_parity(oracle, fab, queries, **kw)
+
+
 # ---------------------------------------------------------------------------
 # device fan-out hook
 # ---------------------------------------------------------------------------
