@@ -23,7 +23,9 @@ hand-written backward kernels of attention and the embedding bag; and
 SchNet's train cells, message passing on the hand-written
 gather-segment-sum kernel; and the distribution layer: meshes, the
 expert-parallel MoE block, DLRM's published 91.1 GB of tables as row
-shards, and sharded retrieval.
+shards, and sharded retrieval; and the LM serving cells on a mesh:
+tensor-parallel prefill and decode, the KV cache split by heads or by
+sequence with the decode partials merged across ranks.
 
 Phases (any failure stops the script with a non-zero exit):
   1. setup: card name and power limit, kernel build time, and ptxas's
@@ -189,6 +191,33 @@ Phases (any failure stops the script with a non-zero exit):
      a merge, held to one topk_search by phase 2's rule. No interconnect
      is measured: (b)-(d) replay a mesh's ranks on one card. A
      ``{"phase12": ...}`` line gives every number and cut.
+  13. the LM family's serving cells on a mesh under repro's layouts
+     (Megatron tensor parallelism over "model", ``models/tp``; the KV
+     cache split by kv heads or by sequence), Mistral-NeMo-12B at full
+     width with seeded bf16 weights made on the card: (a) at world
+     ``torch.cuda.device_count()`` (NCCL; one process a card beyond one)
+     prefill_32k (1 x 32,768), decode_32k (4 x 32,768) and long_500k (1 x
+     524,288) at 2 layers, 3 decode steps each, through ``build_cell(...,
+     mesh=make_host_mesh(1, world))`` against the no-mesh cells: bit for
+     bit at world 1; (b) a mesh's ranks replayed one after another, layer
+     by layer, each collective done by hand (``ServeReplay``):
+     prefill_32k at batch 1 as the 4 ranks of 1 x 4, decode_32k at batch
+     4 as the 16 ranks of 1 x 16 (the sequence over "model", wk / wv cut
+     into half heads; 16 steps from cache_len 32,752 over a cache of
+     seeded noise), long_500k as the 4 ranks of 2 x 2 (kv heads over
+     "model", the sequence over "data"; 4 of 40 layers over the full
+     524,288-entry cache, 4 steps from 262,142, so that the writing rank
+     moves to the second block), each against the unsharded
+     ``prefill`` / ``decode_step`` on the same weights, in bf16
+     (``BF16_MOE``) and with the weights widened to fp32 (1e-4 of each
+     row's largest, argmax equal), two bf16 replays bit for bit, the
+     caches' unwritten rows untouched; with a rank's layer, its attention
+     kernel and the merge timed (CUDA events) and each run's peak; (c)
+     a rank's bytes and a token's bound for long_500k at all 40 layers
+     on 2 x 2, by arithmetic. A ``{"phase13": ...}`` line gives every
+     number and cut. ``--serve-long`` (a machine with 4 cards) runs only
+     (d): long_500k at all 40 layers on 2 x 2, one process a card, ms a
+     token, tokens/s, the peak and a profiled step.
 It prints a ``{"kernels": [...]}`` line, then, last, the one-line
 ``{"ok": true, "device": {...}}`` result. Without a CUDA device, or
 without the package beside it, it exits non-zero and prints no result.
@@ -4587,6 +4616,773 @@ def phase_distribution(torch, dev) -> dict:
     return main
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the LM family's serving cells on a mesh (tensor parallelism)
+# ---------------------------------------------------------------------------
+SERVE_LAYERS = dict(prefill_32k=2, decode_32k=2, long_500k=4)   # of 40
+SERVE_MESH = dict(prefill_32k=(1, 4), decode_32k=(1, 16),
+                  long_500k=(2, 2))      # 13(b): the (data, model) replayed
+SERVE_BATCH = dict(prefill_32k=1, decode_32k=4, long_500k=1)
+SERVE_STEPS = dict(decode_32k=16, long_500k=4)
+# 13(b): decode_32k starts 16 rows before the cache's end; long_500k two
+# rows before the edge of the first of its two 262,144-row blocks, so
+# that the rank that writes moves to the second block
+SERVE_START = dict(decode_32k=32_752, long_500k=262_142)
+SERVE_FP32 = dict(rel=0.0, slack=1e-4)     # of each row's largest
+SERVE_TIE = 1e-5                           # top-2 logit gap logged, not failed
+SERVE_DIST_STEPS = 3                       # 13(a): decode steps a cell
+
+
+def first_layers(tree: dict, n: int) -> dict:
+    """A train tree cut to its first ``n`` layers (views)."""
+    def cut(node):
+        if isinstance(node, dict):
+            return {k: cut(v) for k, v in node.items()}
+        return node[:n]
+    return dict(tree, layers=cut(tree["layers"]))
+
+
+def widened(torch, tree):
+    """The same weights in fp32 (the router and norms included)."""
+    if isinstance(tree, dict):
+        return {k: widened(torch, v) for k, v in tree.items()}
+    return tree.float()
+
+
+def logits_agree(torch, what: str, got, want, rule) -> tuple[float, list]:
+    """Hold ``got`` (B, V) to ``want`` by ``rule`` (``rounding_agree``);
+    with the fp32 rule also argmax equal, except where ``want``'s top two
+    are within ``SERVE_TIE`` (logged). Returns (ratio, near ties)."""
+    from repro_torch.testing import rounding_agree
+
+    ok, ratio = rounding_agree(got, want, **rule)
+    check(ok and bool(torch.isfinite(got).all()),
+          f"{what}: {ratio:.3g} x the limit")
+    ties = []
+    if rule is SERVE_FP32:
+        top = want.float().topk(2, -1).values
+        gap = top[:, 0] - top[:, 1]
+        same = got.argmax(-1) == want.argmax(-1)
+        for r in (~same).nonzero()[:, 0].tolist():
+            check(float(gap[r]) <= SERVE_TIE,
+                  f"{what}: row {r}'s argmax differs (gap {float(gap[r])})")
+        ties = [float(g) for g in gap[gap <= SERVE_TIE]]
+    return ratio, ties
+
+
+class ServeReplay:
+    """The ranks of a (data, model) mesh serving Mistral-NeMo-12B,
+    replayed one after another on one card, layer by layer, each
+    collective done by hand in rank order: the params cut by
+    ``models/tp.serving_blocks`` under ``lm_param_specs``, a decode
+    cache cut by ``lm_batch_specs`` into each rank's contiguous block;
+    each rank runs ``models/tp``'s bodies on its blocks: the embedding
+    rows summed over "model", the projection columns gathered where its
+    plan says so, attention on its heads (``flash_attention``) or its
+    cache block (``flash_decode_block``, the partials concatenated over
+    the ranks that split the sequence, in block order, and merged by
+    ``merge_partials``), the row-parallel partials summed over "model",
+    the logits' vocab blocks concatenated. ``count`` wraps the kernels'
+    calls (the main path's launches)."""
+
+    def __init__(self, torch, cfg, tree, shape: str, cache=None,
+                 count=None):
+        from repro_torch.launch import sharding as shd
+        from repro_torch.launch.mesh import MeshShape
+        from repro_torch.launch.steps import build_cell
+        from repro_torch.models import tp
+        from repro_torch.models.transformer import layer_list
+
+        self.torch, self.cfg, self.tp = torch, cfg, tp
+        self.count = count or (lambda fn, *a, **k: fn(*a, **k))
+        self.nd, self.nm = SERVE_MESH[shape]
+        mesh = MeshShape(SERVE_MESH[shape], ("data", "model"))
+        bundle = build_cell(NEMO, shape, device=tree["embed"].device,
+                            model_cfg=cfg)
+        bundle.mesh = mesh
+        pspec, bspec = bundle.executed_specs()
+        self.ranks = [{"data": d, "model": m} for d in range(self.nd)
+                      for m in range(self.nm)]
+        self.p = {m: tp.serving_blocks(tree, pspec, mesh, cfg.act,
+                                       {"data": 0, "model": m})
+                  for m in range(self.nm)}
+        self.layers = {m: layer_list(self.p[m]["layers"])
+                       for m in range(self.nm)}
+        self.cache, self.seq_axes = {}, ()
+        kv_loc = None
+        if cache is not None:
+            spec = bspec["cache_k"]
+            self.seq_axes = shd._axes(spec[3])
+            for c in self.ranks:
+                self.cache[self.key(c)] = {
+                    n: shd.distribute_tree(cache[n], spec, mesh, c,
+                                           copy=True) for n in ("k", "v")}
+            kv_loc = self.cache[self.key(self.ranks[0])]["k"].shape[2]
+        self.plans = {m: tp.head_plan(cfg, self.layers[m][0]["attn"], m,
+                                      self.nm, kv_loc,
+                                      "model" in self.seq_axes)
+                      for m in range(self.nm)}
+        sizes = {"data": self.nd, "model": self.nm}
+        self.n_blocks = 1
+        for a in self.seq_axes:
+            self.n_blocks *= sizes[a]
+        self.spec = bspec
+
+    @staticmethod
+    def key(c) -> tuple:
+        return c["data"], c["model"]
+
+    def block(self, c) -> int:
+        sizes = {"data": self.nd, "model": self.nm}
+        out = 0
+        for a in self.seq_axes:
+            out = out * sizes[a] + c[a]
+        return out
+
+    def embed(self, tokens):
+        x = None
+        for m in range(self.nm):
+            e = self.tp.embed_local(self.p[m]["embed"], tokens, m, self.nm,
+                                    self.cfg.vocab)
+            x = e if x is None else x + e
+        return x
+
+    def columns(self, i, h):
+        """Each model rank's q, k, v columns of layer i, and all of them
+        (the gather over "model", done once where a plan needs it)."""
+        cols = [self.tp.qkv_local(self.layers[m][i]["attn"], h)
+                for m in range(self.nm)]
+        whole = [self.torch.cat([c[j] for c in cols], -1) for j in range(3)]
+        return cols, whole
+
+    def heads(self, m, cols, whole, positions):
+        plan = self.plans[m]
+        q = whole[0] if plan.gather_q else cols[m][0]
+        k, v = (whole[1], whole[2]) if plan.gather_kv else cols[m][1:]
+        return self.tp.attention_heads(q, k, v, plan, self.cfg, positions)
+
+    def mlp_sum(self, i, x):
+        from repro_torch.models.layers import rmsnorm
+
+        h = rmsnorm(x, self.layers[0][i]["ln2"])
+        out = None
+        for m in range(self.nm):
+            part = self.tp.mlp_local(self.layers[m][i]["mlp"], h,
+                                     self.cfg.act)
+            out = part if out is None else out + part
+        return x + out
+
+    def logits(self, x):
+        from repro_torch.models.layers import rmsnorm
+
+        hidden = rmsnorm(x, self.p[0]["final_ln"])
+        return self.torch.cat([self.tp.logits_local(hidden,
+                                                    self.p[m]["lm_head"])
+                               for m in range(self.nm)], -1)[:, 0]
+
+    def prefill(self, tokens):
+        """The ranks' prefill of tokens (B, S): the logits (B, V)."""
+        from repro_torch.kernels.flash_attention.ops import flash_attention
+        from repro_torch.models.layers import rmsnorm
+
+        torch, cfg = self.torch, self.cfg
+        b, s = tokens.shape
+        x = self.embed(tokens)
+        positions = torch.arange(s, dtype=torch.int32,
+                                 device=x.device)[None, :]
+        for i in range(cfg.n_layers):
+            h = rmsnorm(x, self.layers[0][i]["ln1"])
+            cols, whole = self.columns(i, h)
+            out = None
+            for m in range(self.nm):
+                q, k, v = self.heads(m, cols, whole, positions)
+                o = self.count(flash_attention, q, k, v, causal=cfg.causal)
+                o = o.transpose(1, 2).reshape(b, s, -1)
+                part = self.tp.attn_out_local(o, self.layers[m][i]["attn"]
+                                              ["wo"], self.plans[m],
+                                              cfg.d_head)
+                out = part if out is None else out + part
+            x = self.mlp_sum(i, x + out)
+        return self.logits(x[:, -1:])
+
+    def decode(self, tokens, cache_len: int):
+        """One decode step of every rank: tokens (B, 1) on each data rank
+        (replicated, or their block), the new row written by the ranks
+        whose block holds ``cache_len``. Returns each data rank's logits."""
+        from repro_torch.kernels.flash_decode.ops import flash_decode_block
+        from repro_torch.kernels.flash_decode.plain import merge_partials
+        from repro_torch.models.layers import rmsnorm
+
+        torch, cfg = self.torch, self.cfg
+        b = tokens.shape[0]
+        xs = {d: self.embed(tokens) for d in range(self.nd)}
+        positions = torch.full((b, 1), cache_len, dtype=torch.int32,
+                               device=tokens.device)
+        for i in range(cfg.n_layers):
+            parts = {}
+            for d in range(self.nd):
+                h = rmsnorm(xs[d], self.layers[0][i]["ln1"])
+                cols, whole = self.columns(i, h)
+                for m in range(self.nm):
+                    c = {"data": d, "model": m}
+                    plan = self.plans[m]
+                    q, k_new, v_new = self.heads(m, cols, whole, positions)
+                    blk = self.block(c)
+                    ck = self.cache[self.key(c)]["k"][i]
+                    cv = self.cache[self.key(c)]["v"][i]
+                    s_loc = ck.shape[2]
+                    at = cache_len - blk * s_loc
+                    if 0 <= at < s_loc:
+                        ck[:, :, at:at + 1] = k_new
+                        cv[:, :, at:at + 1] = v_new
+                    r0, r1 = (x - plan.kv_heads[0] for x in plan.read_kv)
+                    if (r0, r1) != (0, ck.shape[1]):
+                        ck, cv = ck[:, r0:r1], cv[:, r0:r1]
+                    parts[self.key(c)] = self.count(
+                        flash_decode_block, q[:, :, 0], ck, cv,
+                        cache_len + 1, blk, self.n_blocks)
+            new, merges = {}, {}
+            for d in range(self.nd):
+                out = None
+                for m in range(self.nm):
+                    c = {"data": d, "model": m}
+                    # the ranks that split the sequence with this one, in
+                    # block order: the all-gather's; each merges alike
+                    group = tuple(self.key(r) for r in sorted(
+                        (r for r in self.ranks if all(
+                            r[a] == c[a] for a in ("data", "model")
+                            if a not in self.seq_axes)), key=self.block))
+                    if group not in merges:
+                        merges[group] = merge_partials(*(torch.cat(
+                            [parts[r][j] for r in group], 2)
+                            for j in range(3))).to(cfg.dtype)
+                    merged = merges[group]
+                    part = self.tp.attn_out_local(
+                        merged.reshape(b, 1, -1),
+                        self.layers[m][i]["attn"]["wo"], self.plans[m],
+                        cfg.d_head)
+                    out = part if out is None else out + part
+                new[d] = self.mlp_sum(i, xs[d] + out)
+            xs = new
+        return [self.logits(xs[d]) for d in range(self.nd)]
+
+    def time_rank(self, shape: str, cache_len: int, tokens):
+        """CUDA-event ms of model rank 0's layer-0 body (data rank 0) on
+        its blocks, of its attention kernel call alone, and of a merge."""
+        from repro_torch.kernels.flash_attention.ops import flash_attention
+        from repro_torch.kernels.flash_decode.ops import flash_decode_block
+        from repro_torch.kernels.flash_decode.plain import merge_partials
+        from repro_torch.models.layers import rmsnorm
+
+        torch, cfg = self.torch, self.cfg
+        lay = self.layers[0][0]
+        c = {"data": 0, "model": 0}
+        b = tokens.shape[0]
+        x = self.embed(tokens)
+        if shape == "prefill_32k":
+            s = tokens.shape[1]
+            positions = torch.arange(s, dtype=torch.int32,
+                                     device=x.device)[None, :]
+        else:
+            positions = torch.full((b, 1), cache_len, dtype=torch.int32,
+                                   device=x.device)
+        plan = self.plans[0]
+        h = rmsnorm(x, lay["ln1"])
+        cols, whole = self.columns(0, h)
+        q, k, v = self.heads(0, cols, whole, positions)
+        if shape == "prefill_32k":
+            def attn():
+                return flash_attention(q, k, v, causal=cfg.causal)
+            o = attn().transpose(1, 2).reshape(b, s, -1)
+            merge_ms = None
+        else:
+            blk = self.block(c)
+            ck = self.cache[self.key(c)]["k"][0]
+            cv = self.cache[self.key(c)]["v"][0]
+
+            def attn():
+                return flash_decode_block(q[:, :, 0], ck, cv, cache_len + 1,
+                                          blk, self.n_blocks)
+            part = attn()
+            # the merge at its size: the block's partials as every block's
+            gathered = [torch.cat([part[j]] * self.n_blocks, 2)
+                        for j in range(3)]
+            merge_ms = cuda_ms(torch, lambda: merge_partials(*gathered),
+                               20, 2)
+            o = merge_partials(*gathered).to(cfg.dtype).reshape(b, 1, -1)
+
+        def body():          # the rank's compute; a gather's result given
+            cc = self.tp.qkv_local(lay["attn"], rmsnorm(x, lay["ln1"]))
+            self.tp.attention_heads(whole[0] if plan.gather_q else cc[0],
+                                    *(whole[1:] if plan.gather_kv
+                                      else cc[1:]), plan, cfg, positions)
+            attn()
+            y = x + self.tp.attn_out_local(o, lay["attn"]["wo"], plan,
+                                           cfg.d_head)
+            return self.tp.mlp_local(lay["mlp"], rmsnorm(y, lay["ln2"]),
+                                     cfg.act)
+
+        iters = 3 if shape == "prefill_32k" else 20
+        return dict(rank_layer_ms=cuda_ms(torch, body, iters, 1),
+                    rank_attention_ms=cuda_ms(torch, attn, iters, 1),
+                    merge_ms=merge_ms)
+
+
+def serve_weights(torch, dev, n_layers: int) -> tuple:
+    """Mistral-NeMo-12B at full width, ``n_layers`` layers, seeded bf16
+    weights made on the card, as a train tree; and its config."""
+    from repro_torch.configs.mistral_nemo_12b import CONFIG
+    from repro_torch.models.bridge import train_tree
+    from repro_torch.models.transformer import init_params
+
+    cfg = dataclasses.replace(CONFIG, n_layers=n_layers)
+    tree = train_tree(init_params(cfg, seed=SEED + 13, device=dev))
+    torch.cuda.empty_cache()
+    return cfg, tree
+
+
+def noise_cache(torch, dev, cfg, b: int, s: int, seed: int) -> dict:
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    shape = (cfg.n_layers, b, cfg.n_kv, s, cfg.d_head)
+    return {n: torch.randn(shape, generator=gen, device=dev,
+                           dtype=cfg.dtype) for n in ("k", "v")}
+
+
+def phase_serve_replay(torch, dev, shape: str, cfg, tree, count) -> dict:
+    """13(b) for one cell: the mesh's ranks replayed (``ServeReplay``)
+    against the unsharded ``prefill`` / ``decode_step`` on the same
+    weights, in bf16 (``BF16_MOE``) and with the weights widened to fp32
+    (``SERVE_FP32``, argmax equal); the bf16 replay twice, bit for bit;
+    the ranks' times and the peak."""
+    from repro_torch.models import transformer as tfm
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import MeshShape
+    from repro_torch.launch.sharding import distribute_tree
+    from repro_torch.testing import rounding_agree
+
+    b, layers = SERVE_BATCH[shape], SERVE_LAYERS[shape]
+    specs = get_arch(NEMO).input_specs(shape)
+    seq = specs["tokens"].shape[1] if shape == "prefill_32k" else \
+        specs["cache_k"].shape[3]
+    cfg = dataclasses.replace(cfg, n_layers=layers)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 17)
+    if shape == "prefill_32k":
+        toks = [torch.randint(4, cfg.vocab, (b, seq), generator=gen,
+                              device=dev, dtype=torch.int32)]
+    else:
+        toks = [torch.randint(4, cfg.vocab, (b, 1), generator=gen,
+                              device=dev, dtype=torch.int32)
+                for _ in range(SERVE_STEPS[shape])]
+    out = {"mesh": "x".join(map(str, SERVE_MESH[shape])), "layers": layers,
+           "batch": b, "seq": seq}
+    for dtype, rule in ((torch.bfloat16, BF16_MOE),
+                        (torch.float32, SERVE_FP32)):
+        name = str(dtype).removeprefix("torch.")
+        c = dataclasses.replace(cfg, dtype=dtype)
+        t = first_layers(tree, layers)
+        if dtype == torch.float32:
+            t = widened(torch, t)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cache = None
+        if shape != "prefill_32k":
+            cache = noise_cache(torch, dev, c, b, seq, SEED + 19)
+        rep = ServeReplay(torch, c, t, shape, cache, count
+                          if dtype == torch.bfloat16 else None)
+        rec = {"plan_model_rank_0": str(rep.plans[0])}
+        with torch.no_grad():
+            if shape == "prefill_32k":
+                want, _, _ = tfm.prefill(t, toks[0], c, cache_size=seq)
+                got = rep.prefill(toks[0])
+                ratio, ties = logits_agree(torch, f"13(b) {shape} {name}",
+                                           got, want, rule)
+                rec.update(ratio=ratio, near_ties=ties)
+                if dtype == torch.bfloat16:
+                    rep.count = lambda fn, *a, **k: fn(*a, **k)
+                    check(torch.equal(rep.prefill(toks[0]), got),
+                          f"13(b) {shape}: two replays differ")
+                timing = rep.time_rank(shape, 0, toks[0])
+            else:
+                start = SERVE_START[shape]
+                ref = cache         # the replay's blocks are copies of it
+                ratios, ties = [], []
+                for step, tok in enumerate(toks):
+                    n = start + step
+                    want, _, _ = tfm.decode_step(t, tok, ref, n, c)
+                    got = rep.decode(tok, n)
+                    for d, g in enumerate(got[1:], 1):
+                        check(torch.equal(g, got[0]),
+                              f"13(b) {shape}: data rank {d} differs")
+                    r, tie = logits_agree(torch, f"13(b) {shape} {name} "
+                                          f"step {step}", got[0], want, rule)
+                    ratios.append(r)
+                    ties += tie
+                    if step == 0 and dtype == torch.bfloat16:
+                        count_fn, rep.count = rep.count, \
+                            (lambda fn, *a, **k: fn(*a, **k))
+                        # the replay again at the same cache_len: the row
+                        # it writes is the one it wrote
+                        check(torch.equal(rep.decode(tok, n)[0], got[0]),
+                              f"13(b) {shape}: two replays differ")
+                        rep.count = count_fn
+                # every rank's final block against the unsharded cache:
+                # the rows no step wrote bit for bit, the written rows by
+                # the rule (the hidden states' partial sums round apart)
+                mesh = MeshShape(SERVE_MESH[shape], ("data", "model"))
+                for cd in rep.ranks:
+                    lo = rep.block(cd) * rep.cache[rep.key(cd)]["k"].shape[3]
+                    for nm in ("k", "v"):
+                        got = rep.cache[rep.key(cd)][nm]
+                        blk = distribute_tree(ref[nm], rep.spec["cache_k"],
+                                              mesh, cd)
+                        rows = torch.arange(got.shape[3], device=dev) + lo
+                        new = (rows >= start) & (rows < start + len(toks))
+                        check(torch.equal(got[:, :, :, ~new],
+                                          blk[:, :, :, ~new]),
+                              f"13(b) {shape} {name}: rank {cd}'s {nm} "
+                              f"block changed outside the written rows")
+                        ok, r = rounding_agree(got[:, :, :, new],
+                                               blk[:, :, :, new], **rule)
+                        check(ok, f"13(b) {shape} {name}: rank {cd}'s "
+                                  f"written {nm} rows {r:.3g} x the limit")
+                rec.update(ratio=max(ratios), ratios=ratios, near_ties=ties,
+                           steps=len(toks), start=start)
+                rep.count = lambda fn, *a, **k: fn(*a, **k)
+                timing = rep.time_rank(shape, start + len(toks) - 1,
+                                       toks[-1])
+                del ref
+        torch.cuda.synchronize()
+        rec.update(timing, peak_gb=peak_gb(torch))
+        out[name] = rec
+        log(f"  13(b) {shape} as the {len(rep.ranks)} ranks of "
+            f"{out['mesh']}, {name}, {layers} layers, batch {b}: logits "
+            f"{rec['ratio']:.3g} x the limit against the unsharded run"
+            + (" (two replays bit for bit)" if dtype == torch.bfloat16
+               else f", argmax equal, {len(rec['near_ties'])} near ties")
+            + f"; a rank's layer {rec['rank_layer_ms']:.4f} ms, its "
+            f"attention kernel {rec['rank_attention_ms']:.4f} ms"
+            + ("" if rec["merge_ms"] is None else
+               f", the merge {rec['merge_ms']:.4f} ms")
+            + f"; peak {rec['peak_gb']:.2f} GB")
+        del rep, cache, t
+        torch.cuda.empty_cache()
+    return out
+
+
+def long_bound(cfg) -> dict:
+    """By arithmetic, not measured: a rank's bytes of long_500k at all
+    40 layers on 2 x 2 (its 4 kv heads of half the 524,288 rows; its
+    blocks of the weights: wq, wk, wv, win by columns, wo, wout by rows,
+    the embedding and head by vocab) and one token's least time, those
+    bytes at the data sheet's 3.35 TB/s."""
+    d, dh, f = cfg.d_model, cfg.d_head, cfg.d_ff
+    nd, nm = SERVE_MESH["long_500k"]
+    seq = 524_288
+    cache = cfg.n_layers * (cfg.n_kv // nm) * (seq // nd) * dh * 2 * 2
+    layer = (d * dh * (cfg.n_heads + 2 * cfg.n_kv) + cfg.n_heads * dh * d
+             + 3 * d * f) // nm * 2 + 2 * d * 2
+    weights = cfg.n_layers * layer + 2 * cfg.vocab * d * 2 // nm + d * 2
+    return dict(cache_gb=cache / 1e9, weights_gb=weights / 1e9,
+                rank_gb=(cache + weights) / 1e9,
+                token_bound_ms=(cache + weights) / HBM_BYTES_PER_S * 1e3,
+                by="arithmetic, not measured")
+
+
+def serve_dist_rank(torch, rank: int, world: int, store: str,
+                    dev_type: str = "cuda", count=None) -> dict:
+    """13(a) on one rank of a NCCL process group of ``world`` ranks:
+    Mistral-NeMo-12B at full width, 2 layers, prefill_32k (1 x 32,768),
+    decode_32k (4 x 32,768, ``SERVE_DIST_STEPS`` steps from the cache's
+    end) and long_500k (1 x 524,288, steps across the first block's
+    edge) through ``build_cell(..., mesh=make_host_mesh(1, world))``
+    against the no-mesh cells on the same weights and caches of seeded
+    noise: bit for bit at world 1, by ``BF16_MOE`` beyond. ``count`` (a
+    ``PathCounts``) wraps the mesh cells' calls."""
+    import torch.distributed as dist
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import build_cell, shard_args
+    from repro_torch.testing import rounding_agree
+
+    count = count or (lambda fn, *a, **k: fn(*a, **k))
+    if dev_type == "cuda":
+        torch.cuda.set_device(rank)
+    dev = torch.device(dev_type, rank if dev_type == "cuda" else None)
+    dist.init_process_group("nccl" if dev_type == "cuda" else "gloo",
+                            store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    out = {"world": world}
+    try:
+        mesh = make_host_mesh(1, world, device_type=dev_type)
+        cfg, tree = serve_weights(torch, dev, 2)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 23)
+        for shape in ("prefill_32k", "decode_32k", "long_500k"):
+            one = build_cell(NEMO, shape, device=dev, model_cfg=cfg)
+            sh = build_cell(NEMO, shape, device=dev, model_cfg=cfg,
+                            mesh=mesh)
+            local, _ = shard_args(sh, (tree, {}))
+            bspec = sh.executed_specs()[1]
+            specs = one.arg_specs[1]
+            if shape == "prefill_32k":
+                toks = torch.randint(4, cfg.vocab,
+                                     (1, specs["tokens"].shape[1]),
+                                     generator=gen, device=dev,
+                                     dtype=torch.int32)
+                with torch.no_grad():
+                    want = one.fn(tree, {"tokens": toks})[0]
+                    got = count(sh.fn, local, {"tokens": toks})[0]
+                outs = [(want, got)]
+            else:
+                b = 4 if shape == "decode_32k" else 1
+                s = specs["cache_k"].shape[3]
+                cache = noise_cache(torch, dev, cfg, b, s, SEED + 29)
+                blocks = {n: shd.distribute_tree(
+                    cache[n], bspec[f"cache_{n}"], mesh, copy=True)
+                    for n in ("k", "v")}
+                start = s - SERVE_DIST_STEPS if shape == "decode_32k" else \
+                    s // 2 - 1
+                outs = []
+                with torch.no_grad():
+                    for step in range(SERVE_DIST_STEPS):
+                        toks = torch.randint(4, cfg.vocab, (b, 1),
+                                             generator=gen, device=dev,
+                                             dtype=torch.int32)
+                        n = torch.tensor(start + step, dtype=torch.int32)
+                        want = one.fn(tree, {"tokens": toks,
+                                             "cache_k": cache["k"],
+                                             "cache_v": cache["v"],
+                                             "cache_len": n})[0]
+                        t_loc = shd.distribute_tree(toks, bspec["tokens"],
+                                                    mesh)
+                        got = count(sh.fn, local, {
+                            "tokens": t_loc, "cache_k": blocks["k"],
+                            "cache_v": blocks["v"], "cache_len": n})[0]
+                        outs.append((shd.distribute_tree(
+                            want, shd.P(bspec["tokens"][0], None), mesh),
+                            got))
+                del cache, blocks
+            worst = 0.0
+            for want, got in outs:
+                if world == 1:
+                    check(torch.equal(want, got),
+                          f"13(a) {shape}: the mesh's logits differ from "
+                          f"the no-mesh cell's")
+                else:
+                    ok, ratio = rounding_agree(got, want, **BF16_MOE)
+                    check(ok, f"13(a) {shape}: {ratio:.3g} x BF16_MOE")
+                    worst = max(worst, ratio)
+            out[shape] = dict(seq_axes=list(sh.model_cfg.tp_seq_axes),
+                              worst=worst)
+            del local
+            torch.cuda.empty_cache()
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def phase_serve_dist(torch, work: str, dev_type: str, count) -> dict:
+    """13(a) at world ``torch.cuda.device_count()``: in this process on
+    one card; with more, one ``--serve-rank`` process a card."""
+    world = torch.cuda.device_count()
+    store = str(Path(work) / "nccl-serve-store")
+    if world == 1:
+        return serve_dist_rank(torch, 0, 1, store, dev_type, count)
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--serve-rank",
+         str(r), "--dist-world", str(world), "--dist-store", store])
+        for r in range(1, world)]
+    try:
+        out = serve_dist_rank(torch, 0, world, store, dev_type, count)
+        for p in procs:
+            p.wait(timeout=DIST_TIMEOUT)
+            check(p.returncode == 0, f"13(a): a rank exited {p.returncode}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return out
+
+
+def phase_serving_mesh(torch, dev) -> dict:
+    """Phase 13. Returns the launches of the two attention kernels on its
+    sharded paths (13(a)'s mesh cells, 13(b)'s bf16 replays; each call's
+    count read from just before it to just after), not those of the runs
+    they are held to."""
+    from repro_torch.kernels.flash_attention import ops as fa
+    from repro_torch.kernels.flash_decode import ops as fd
+
+    t0 = time.perf_counter()
+    count = PathCounts({"flash_attention": (fa, "launches"),
+                        "flash_decode": (fd, "launches")})
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-serve-") as work:
+        a = phase_serve_dist(torch, work, dev.type, count)
+    log(f"  13(a) NCCL world {a['world']}: Mistral-NeMo-12B at full width, "
+        f"2 layers, prefill_32k (1 x 32768), decode_32k and long_500k "
+        f"({SERVE_DIST_STEPS} steps each) through build_cell(mesh=) "
+        + ("bit for bit with the no-mesh cells" if a["world"] == 1 else
+           "within BF16_MOE of the no-mesh cells")
+        + f"; the caches' sequence axes: "
+        f"{ {s: a[s]['seq_axes'] for s in SERVE_LAYERS} }")
+    after_a = dict(count.n)
+    cfg, tree = serve_weights(torch, dev, max(SERVE_LAYERS.values()))
+    b = {}
+    for shape in ("prefill_32k", "decode_32k", "long_500k"):
+        before = dict(count.n)
+        b[shape] = phase_serve_replay(torch, dev, shape, cfg, tree, count)
+        b[shape]["launches"] = {k: count.n[k] - before[k] for k in before}
+    del tree
+    torch.cuda.empty_cache()
+    bound = long_bound(dataclasses.replace(cfg, n_layers=40))
+    log(f"  13(c) long_500k at all 40 layers on 2 x 2, by arithmetic (not "
+        f"measured): a rank holds {bound['cache_gb']:.2f} GB of cache and "
+        f"{bound['weights_gb']:.2f} GB of weights, {bound['rank_gb']:.2f} "
+        f"GB; a token's bound {bound['token_bound_ms']:.2f} ms at 3.35 TB/s")
+    log(json.dumps({"phase13": dict(
+        collective=a, replays=b, long_500k_40_layers=bound,
+        launches_13a=after_a,
+        reduced=[f"13(a): 40 -> 2 layers; prefill_32k batch 32 -> 1, "
+                 f"decode_32k batch 128 -> 4, {SERVE_DIST_STEPS} decode "
+                 f"steps", "13(b): prefill_32k 40 -> 2 layers, batch 1 of "
+                 "32; decode_32k 40 -> 2 layers, batch 4 of 128; "
+                 "long_500k 40 -> 4 layers (the full 524,288-entry "
+                 "cache)", "13(b): the ranks run one after another on one "
+                 "card: no interconnect is measured"])}))
+    log(f"  launches on phase 13's paths: {count.n}; phase 13 took "
+        f"{time.perf_counter() - t0:.1f} s")
+    for name, n in count.n.items():
+        check(n > 0, f"{name} was never launched on phase 13's paths")
+    return count.n
+
+
+SERVE_LONG_STEPS = 8        # 13(d): decode steps timed
+
+
+def serve_long_rank(torch, rank: int, world: int, store: str) -> dict:
+    """13(d), outside the default run (``--serve-long``, on a machine
+    with 4 cards): long_500k at all 40 layers of Mistral-NeMo-12B on a
+    2 x 2 mesh, one NCCL process a card, through ``build_cell(...,
+    mesh=make_host_mesh(2, 2))``: each rank makes the seeded weights
+    whole on its card and keeps its blocks (``shard_args``), and a block
+    of seeded noise as its cache (4 kv heads of 262,144 rows, 21.47 GB);
+    ``SERVE_LONG_STEPS`` decode steps from cache_len 262,142 (the
+    writing rank moves to the second data block), each timed on the host
+    clock between synchronizes, then one more under ``torch.profiler``
+    (every rank runs it; rank 0 reads the device's busy time, the
+    collectives of the step and its busiest kernels). The logits must be
+    finite and equal on every rank. Returns ms a token, tokens/s, the
+    rank's peak GB and the profile."""
+    import torch.distributed as dist
+    from repro_torch.configs.mistral_nemo_12b import CONFIG
+    from repro_torch.launch import collectives as col
+    from repro_torch.launch import sharding as shd
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import build_cell, shard_args
+    from repro_torch.models.bridge import train_tree
+    from repro_torch.models.transformer import init_params
+
+    torch.cuda.set_device(rank)
+    dev = torch.device("cuda", rank)
+    dist.init_process_group("nccl", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    try:
+        mesh = make_host_mesh(2, 2)
+        cell = build_cell(NEMO, "long_500k", device=dev, mesh=mesh)
+        tree = train_tree(init_params(CONFIG, seed=SEED + 13, device=dev))
+        torch.cuda.empty_cache()
+        local, _ = shard_args(cell, (tree, {}))
+        del tree
+        torch.cuda.empty_cache()
+        spec = cell.executed_specs()[1]["cache_k"]
+        shape = shd.local_shape(tuple(cell.arg_specs[1]["cache_k"].shape),
+                                spec, mesh)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 31 + rank)
+        ck, cv = (torch.randn(shape, generator=gen, device=dev,
+                              dtype=CONFIG.dtype) for _ in range(2))
+        toks = torch.randint(4, CONFIG.vocab, (SERVE_LONG_STEPS + 1, 1, 1),
+                             generator=torch.Generator(device=dev)
+                             .manual_seed(SEED + 37), device=dev,
+                             dtype=torch.int32)
+        torch.cuda.reset_peak_memory_stats()
+        times, start = [], SERVE_START["long_500k"]
+
+        def step(i):
+            return cell.fn(local, {
+                "tokens": toks[i], "cache_k": ck, "cache_v": cv,
+                "cache_len": torch.tensor(start + i, dtype=torch.int32)})
+
+        with torch.no_grad():
+            for i in range(SERVE_LONG_STEPS):
+                dist.barrier()
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                logits = step(i)[0]
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t) * 1e3)
+                check(bool(torch.isfinite(logits.float()).all()),
+                      f"13(d) step {i}: logits not finite")
+                first = logits.clone()
+                dist.broadcast(first, 0)
+                check(torch.equal(first, logits),
+                      f"13(d) step {i}: rank {rank}'s logits differ "
+                      f"from rank 0's")
+            peak = peak_gb(torch)
+            dist.barrier()
+            col.take_records()
+            _, wall, kern = profiled(torch, lambda: step(SERVE_LONG_STEPS))
+            stats = col.collective_stats(col.take_records())
+        warm = sorted(times[1:])
+        out = dict(rank=rank, cache_block=list(shape),
+                   step_ms=times, median_ms=warm[len(warm) // 2],
+                   tokens_per_s=1e3 / warm[len(warm) // 2], peak_gb=peak,
+                   profiled_step_ms=wall * 1e3,
+                   collectives={op: stats[op]["count"] for op in
+                                ("all-gather", "all-reduce")})
+        if kern:
+            # the kernels; "nccl:*" are the profiler's annotations of the
+            # NCCL kernels, whose time also counts a wait for the peers
+            kern = [e for e in kern if not e.key.startswith("nccl:")]
+            kern.sort(key=lambda e: -e.self_device_time_total)
+            busy = sum(e.self_device_time_total for e in kern) / 1e3
+            nccl = sum(e.self_device_time_total for e in kern
+                       if e.key.startswith("ncclDevKernel")) / 1e3
+            out.update(device_busy_ms=busy, nccl_kernels_ms=nccl,
+                       other_kernels_ms=busy - nccl,
+                       idle_share=1 - busy / (wall * 1e3),
+                       kernels_run=sum(e.count for e in kern),
+                       busiest=[(e.key[:60], e.self_device_time_total / 1e3,
+                                 e.count) for e in kern[:6]])
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def phase_serve_long(torch, work: str) -> dict:
+    """13(d) on 4 cards: this process is rank 0, one ``--serve-long-rank``
+    process a further card."""
+    world = torch.cuda.device_count()
+    check(world == 4, f"13(d) needs 4 cards, the machine has {world}")
+    store = str(Path(work) / "nccl-long-store")
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()),
+         "--serve-long-rank", str(r), "--dist-world", str(world),
+         "--dist-store", store]) for r in range(1, world)]
+    try:
+        out = serve_long_rank(torch, 0, world, store)
+        for p in procs:
+            p.wait(timeout=DIST_TIMEOUT)
+            check(p.returncode == 0, f"13(d): a rank exited {p.returncode}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return out
+
+
 def main() -> int:
     import argparse
 
@@ -4600,6 +5396,14 @@ def main() -> int:
     ap.add_argument("--dist-world", type=int, default=None,
                     help=argparse.SUPPRESS)
     ap.add_argument("--dist-store", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--serve-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)      # phase 13(a)'s other ranks
+    ap.add_argument("--serve-long", action="store_true",
+                    help="on a machine with 4 cards, run only 13(d): "
+                         "long_500k at all 40 layers of Mistral-NeMo-12B "
+                         "on 2 x 2, one process a card")
+    ap.add_argument("--serve-long-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)      # 13(d)'s other ranks
     args = ap.parse_args()
     try:
         import torch
@@ -4616,11 +5420,25 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     from repro_torch.kernels import build
 
-    if args.dist_rank is not None:       # phase 12(a) on a card of its own
+    ranks = {"dist_rank": dist_rank, "serve_rank": serve_dist_rank,
+             "serve_long_rank": serve_long_rank}
+    for flag, fn in ranks.items():
+        if getattr(args, flag) is not None:  # 12(a), 13(a) or 13(d) on a card
+            torch.backends.cuda.matmul.allow_tf32 = False
+            for name in build.sources():
+                build.load(name)
+            fn(torch, getattr(args, flag), args.dist_world, args.dist_store)
+            return 0
+    if args.serve_long:
         torch.backends.cuda.matmul.allow_tf32 = False
+        log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                            "--format=csv,noheader"], capture_output=True,
+                           text=True, check=True).stdout.strip())
+        build.build()
         for name in build.sources():
             build.load(name)
-        dist_rank(torch, args.dist_rank, args.dist_world, args.dist_store)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke-long-") as work:
+            log(json.dumps({"phase13d": phase_serve_long(torch, work)}))
         return 0
     t0 = time.perf_counter()
     log("phase 1: setup")
@@ -4711,6 +5529,12 @@ def main() -> int:
     start_phase(torch, "phase 12: distribution on the card", t0)
     torch.cuda.empty_cache()
     for name, n in phase_distribution(torch, dev).items():
+        launches[name] = launches.get(name, 0) + n
+
+    start_phase(torch, "phase 13: the LM family's serving cells on a mesh",
+                t0)
+    torch.cuda.empty_cache()
+    for name, n in phase_serving_mesh(torch, dev).items():
         launches[name] = launches.get(name, 0) + n
 
     rows = []

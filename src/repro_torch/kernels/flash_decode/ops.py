@@ -1,7 +1,14 @@
 """Wrapper of the split-K decode attention kernel (csrc/flash_decode.cu):
 the generator's attention over its KV cache, one new token a step. On the
 card one library call computes the split partials and merges them; on
-the CPU the plain partials merge with ``merge_partials``."""
+the CPU the plain partials merge with ``merge_partials``.
+
+A cache whose sequence is split over ranks (``launch/sharding``'s decode
+layouts: over "model" where the kv heads do not divide it, over the data
+axes at long_500k) runs ``flash_decode_sharded``: each rank's partials
+over its block (``flash_decode_block``), all-gathered, then
+``merge_partials`` in rank order, as repro merges its kernel's partials
+outside the kernel."""
 from __future__ import annotations
 
 import ctypes
@@ -11,7 +18,8 @@ import torch
 from ... import obs
 from .. import build
 from ..build import check
-from .plain import flash_decode_partials_plain, flash_decode_plain
+from .plain import (flash_decode_partials_plain, flash_decode_plain,
+                    merge_partials)
 
 launches = 0          # library calls of ``flash_decode`` / its partials
 
@@ -166,24 +174,31 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
 
 def flash_decode_partials(q: torch.Tensor, k_cache: torch.Tensor,
                           v_cache: torch.Tensor, cache_len: int | None = None,
-                          bs: int = CPU_SPLIT
+                          bs: int = CPU_SPLIT, ns: int | None = None
                           ) -> tuple[torch.Tensor, torch.Tensor,
                                      torch.Tensor]:
     """The split partials of ``flash_decode`` at an explicit ``bs``:
-    fp32 m, l (B, H, ns) and acc (B, H, ns, D), ns = ceil(S / bs), the
-    splits past ``cache_len`` empty (m = -inf, l = 0, acc = 0). A CPU
-    tensor runs the plain PyTorch version; a CUDA tensor launches the
-    same partials kernel as ``flash_decode``, without the merge."""
+    fp32 m, l (B, H, ns) and acc (B, H, ns, D) of the splits [j * bs,
+    (j + 1) * bs), j < ns, the splits past ``cache_len`` empty (m = -inf,
+    l = 0, acc = 0). ``ns`` defaults to ceil(S / bs); fewer splits (at
+    least those with a valid column, and at least one) leave out empty
+    ones. A CPU tensor runs the plain PyTorch version; a CUDA tensor
+    launches the same partials kernel as ``flash_decode``, without the
+    merge."""
     global launches
     with obs.span("kernel:flash_decode") as sp:
         dims = _checked(q, k_cache, v_cache, cache_len)
         b, h, kv, s, d, cache_len = dims
         _span(sp, dims, q.element_size())
         bs = max(1, min(int(bs), s))
-        ns = -(-s // bs)
+        most = -(-s // bs)
+        ns = most if ns is None else int(ns)
+        if not max(1, -(-cache_len // bs)) <= ns <= most:
+            raise ValueError(f"flash_decode_partials: {ns} splits of {bs} "
+                             f"for cache_len {cache_len} of {s}")
         if q.device.type == "cpu":
             return flash_decode_partials_plain(q, k_cache, v_cache,
-                                               cache_len, bs)
+                                               cache_len, bs, ns=ns)
         q, k_cache, v_cache = _cuda_inputs(q, k_cache, v_cache)
         n = b * h * ns
         part = q.new_empty(n * (d + 2), dtype=torch.float32)
@@ -194,3 +209,64 @@ def flash_decode_partials(q: torch.Tensor, k_cache: torch.Tensor,
         if sp is not obs.NOOP_SPAN:            # traced: span = device time
             torch.cuda.current_stream(q.device).synchronize()
         return m, l, acc
+
+
+def block_splits(kv: int, cache_len: int, s_loc: int, n_blocks: int,
+                 q: torch.Tensor) -> list[tuple[int, int, int]]:
+    """(valid rows, bs, splits) of each block of a cache whose sequence
+    is cut into ``n_blocks`` blocks of ``s_loc`` rows, ``cache_len``
+    entries valid in all: a block's valid rows are clamp(cache_len -
+    start, 0, s_loc), its split ``flash_decode``'s (on the card
+    ``choose_split`` over the block's own valid rows, on the CPU repro's
+    512), its splits those with a valid row (one for an empty block).
+    Every rank computes the whole list, so each knows the others'."""
+    out = []
+    for blk in range(n_blocks):
+        valid = max(0, min(s_loc, int(cache_len) - blk * s_loc))
+        bs = min(CPU_SPLIT, s_loc) if q.device.type == "cpu" else \
+            choose_split(kv, valid, _sm_count(q))
+        bs = max(1, min(bs, s_loc))
+        out.append((valid, bs, max(1, -(-valid // bs))))
+    return out
+
+
+def flash_decode_block(q: torch.Tensor, k_block: torch.Tensor,
+                       v_block: torch.Tensor, cache_len: int, block: int,
+                       n_blocks: int) -> tuple[torch.Tensor, torch.Tensor,
+                                               torch.Tensor]:
+    """One rank's part of ``flash_decode_sharded``, no collective: the
+    partials (``flash_decode_partials``) of its block ``block`` of
+    ``n_blocks``, k_block / v_block (B, KV, S_loc, D) holding the rows
+    [block * S_loc, (block + 1) * S_loc) of a cache with ``cache_len``
+    valid entries, at the block's split (``block_splits``), padded with
+    empty splits (m = -inf, l = 0, acc = 0) to the largest split count
+    of the blocks, so that the blocks' partials concatenate. A block
+    with no valid row launches the kernel on 0 rows: all empty."""
+    kv, s_loc = k_block.shape[1], k_block.shape[2]
+    plan = block_splits(kv, cache_len, s_loc, n_blocks, q)
+    valid, bs, ns = plan[block]
+    m, l, acc = flash_decode_partials(q, k_block, v_block, valid, bs, ns)
+    pad = max(n for _, _, n in plan) - ns
+    if pad:
+        b, h = m.shape[:2]
+        m = torch.cat([m, m.new_full((b, h, pad), float("-inf"))], 2)
+        l = torch.cat([l, l.new_zeros((b, h, pad))], 2)
+        acc = torch.cat([acc, acc.new_zeros((b, h, pad, acc.shape[3]))], 2)
+    return m, l, acc
+
+
+def flash_decode_sharded(q: torch.Tensor, k_block: torch.Tensor,
+                         v_block: torch.Tensor, cache_len: int, block: int,
+                         n_blocks: int, gather) -> torch.Tensor:
+    """Decode attention over a cache whose sequence is split into
+    ``n_blocks`` blocks over ranks, this rank holding block ``block``
+    (k_block / v_block (B, KV, S_loc, D)): its partials
+    (``flash_decode_block``), ``gather(t)`` of each (m, l, acc) along
+    dimension 2 in block order (an all-gather over the axes that split
+    the sequence), then ``merge_partials``. Returns (B, H, D) in q's
+    dtype. One block calls ``flash_decode`` unchanged."""
+    if n_blocks == 1:
+        return flash_decode(q, k_block, v_block, cache_len=cache_len)
+    m, l, acc = flash_decode_block(q, k_block, v_block, cache_len, block,
+                                   n_blocks)
+    return merge_partials(gather(m), gather(l), gather(acc)).to(q.dtype)

@@ -8,22 +8,26 @@ import torch.nn.functional as F
 
 def flash_decode_partials_plain(q: torch.Tensor, k_cache: torch.Tensor,
                                 v_cache: torch.Tensor, cache_len: int,
-                                bs: int = 512, scale: float | None = None
+                                bs: int = 512, scale: float | None = None,
+                                ns: int | None = None
                                 ) -> tuple[torch.Tensor, torch.Tensor,
                                            torch.Tensor]:
     """The function of repro's Pallas ``flash_decode_partials``, for any
     S: q (B, H, D), caches (B, KV, S, D) -> fp32 partials m, l (B, H,
-    ns) and acc (B, H, ns, D), ns = ceil(S / bs). Columns at or past
-    ``cache_len`` (and past S, in a ragged last split) are masked; a
-    split with no valid column has m = -inf, l = 0, acc = 0."""
+    ns) and acc (B, H, ns, D) of the splits [j * bs, (j + 1) * bs), j <
+    ns (default ceil(S / bs); fewer leave out splits past
+    ``cache_len``). Columns at or past ``cache_len`` (and past S, in a
+    ragged last split) are masked; a split with no valid column has m =
+    -inf, l = 0, acc = 0."""
     b, h, d = q.shape
     kv, s = k_cache.shape[1], k_cache.shape[2]
     g = h // kv
-    ns = -(-s // bs)
+    ns = -(-s // bs) if ns is None else ns
     scale = scale if scale is not None else d ** -0.5
-    pad = (0, 0, 0, ns * bs - s)
-    kf = F.pad(k_cache.float(), pad).reshape(b, kv, ns, bs, d)
-    vf = F.pad(v_cache.float(), pad).reshape(b, kv, ns, bs, d)
+    rows = min(s, ns * bs)
+    pad = (0, 0, 0, ns * bs - rows)
+    kf = F.pad(k_cache[:, :, :rows].float(), pad).reshape(b, kv, ns, bs, d)
+    vf = F.pad(v_cache[:, :, :rows].float(), pad).reshape(b, kv, ns, bs, d)
     qg = (q.float() * scale).reshape(b, kv, g, d)
     logits = torch.einsum("bkgd,bknsd->bkgns", qg, kf)
     cols = torch.arange(ns * bs, device=q.device).reshape(ns, bs)

@@ -15,11 +15,15 @@ under repro's layout: its GSPMD tensor parallelism and ZeRO-1 included)
 and ``status``; it adds ``fits_80gb`` (``argument_bytes`` against one
 H100's 80 x 10^9 bytes), the largest leaves' placements, and
 ``executed_argument_bytes`` / ``executed_fits_80gb``, the same under
-the layout the port's steps run today (``executed_bytes``: what repro
-tensor-parallelises runs replicated, ROADMAP Queue 1 item 16), so the
-gap between the two layouts shows cell by cell. repro's
-temp bytes and FLOPs come from XLA's compiled module; nothing here
-measures them, so the record has none.
+the layout the port's steps run (``executed_bytes``), so the gap between
+the two layouts shows cell by cell. A prefill or decode cell executes
+repro's layout whole, so its two counts are equal and every one fits.
+A train cell still runs what repro tensor-parallelises (and ZeRO-1's
+optimizer state) replicated (ROADMAP Queue 1 item 16): under that
+layout the train_4k cells of Mistral-NeMo-12B, Nemotron-4-15B and
+Qwen1.5-32B exceed 80 GB a rank on both meshes. repro's temp bytes and
+FLOPs come from XLA's compiled module; nothing here measures them, so
+the record has none.
 
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch \\
@@ -97,10 +101,11 @@ def place(mesh, leaf: torch.Tensor, spec):
 
 def executed_bytes(bundle, args, trees, mesh) -> int:
     """A rank's bytes of the arguments under the layout the port's steps
-    run on ``mesh`` (``CellBundle.executed_specs``: the MoE experts,
+    run on ``mesh`` for the bundle's kind (``CellBundle.executed_specs``:
+    a prefill or decode cell at repro's specs; any other the MoE experts,
     DLRM's tables, the batch over the data-parallel axes and the
-    retrieval candidates sharded, the rest replicated), the optimizer
-    state made over the rank's params (no ZeRO-1)."""
+    retrieval candidates sharded, the rest replicated), a train cell's
+    optimizer state made over the rank's params (no ZeRO-1)."""
     from ..train.tree import tensors, tree_map
     from .sharding import executed, executed_batch, local_shape
     from .steps import _optimizer
@@ -111,9 +116,9 @@ def executed_bytes(bundle, args, trees, mesh) -> int:
             device="meta"), tree, specs)
 
     i = bundle.batch_index
-    out = [local(args[i], executed_batch(trees[i], mesh))]
+    out = [local(args[i], executed_batch(trees[i], mesh, bundle.kind))]
     if bundle.kind != "retrieval":
-        params = local(args[0], executed(trees[0]))
+        params = local(args[0], executed(trees[0], bundle.kind))
         out.append(params)
         if bundle.kind == "train":
             out += [_optimizer(bundle.optimizer).init(params), args[3]]

@@ -28,7 +28,11 @@ a mesh's ``mesh_dim_names`` and ``shape`` (a ``DeviceMesh`` or a
 ``placements`` turns a spec into DTensor placements on a
 ``DeviceMesh``; ``local_slice`` and ``distribute_tree`` give one rank its
 blocks. Which leaves a step actually executes sharded is ``executed``'s
-choice (the rest run replicated for now; ROADMAP Queue 1 item 16).
+and ``executed_batch``'s choice, by the cell's kind: a ``prefill`` or
+``decode`` cell executes every leaf and the KV cache at repro's spec
+(Megatron tensor parallelism, ``models/tp``; the cache split by kv heads
+or by sequence); a ``train`` cell still runs what repro
+tensor-parallelises replicated (ROADMAP Queue 1 item 16).
 """
 from __future__ import annotations
 
@@ -313,13 +317,22 @@ def recsys_batch_specs(input_specs: dict, mesh) -> dict:
 # ---------------------------------------------------------------------------
 # what a step executes sharded, placements and local blocks
 # ---------------------------------------------------------------------------
-def executed(spec_tree) -> Any:
+SERVING_KINDS = ("prefill", "decode")
+
+
+def executed(spec_tree, kind: str = "train") -> Any:
     """The part of a param spec tree that the port's steps execute
-    sharded: the MoE experts (``['moe']['w_in']`` / ``['w_out']``, by
+    sharded for a cell of ``kind``. ``prefill`` and ``decode``: all of
+    it (``models/tp``'s rank bodies: attention, the dense MLP, the
+    shared experts, the embedding and the head over "model"; the experts
+    over "model" and "data"). Any other kind: the MoE experts
+    (``['moe']['w_in']`` / ``['w_out']``, by
     ``models/moe.moe_block_sharded``) and the recsys tables that the
-    rule row-shards (DLRM's by ``models/recsys.RowShardedBag``). Every
+    rule row-shards (DLRM's by ``models/recsys.RowShardedBag``); every
     other leaf, which repro tensor-parallelises through GSPMD, runs
     replicated: its spec here is all None."""
+    if kind in SERVING_KINDS:
+        return spec_tree
 
     def keep(path: str, spec: P) -> P:
         if path.endswith("['moe']['w_in']") or \
@@ -332,12 +345,16 @@ def executed(spec_tree) -> Any:
     return tree_map_with_path(keep, spec_tree)
 
 
-def executed_batch(specs: dict, mesh) -> dict:
+def executed_batch(specs: dict, mesh, kind: str = "train") -> dict:
     """The part of a batch spec dict that the port's steps execute
-    sharded: the batch split over the data-parallel axes (dimension 0 of
-    a batch-leading array, dimension 1 of a KV cache) and the retrieval
-    candidates over every axis. A cache's head or sequence split over
-    "model" or "data" (repro's decode layouts) runs replicated."""
+    sharded for a cell of ``kind``. ``prefill`` and ``decode``: all of
+    it, a KV cache's split of its kv heads over "model" or of its
+    sequence over "model" or the data axes (long_500k) included. Any
+    other kind: the batch split over the data-parallel axes (dimension 0
+    of a batch-leading array, dimension 1 of a KV cache) and the
+    retrieval candidates over every axis."""
+    if kind in SERVING_KINDS:
+        return dict(specs)
     dp = set(dp_axes(mesh))
     out = {}
     for name, spec in specs.items():

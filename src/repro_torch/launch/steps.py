@@ -17,7 +17,7 @@ A ``CellBundle`` packages:
     optimizer's name and gradient-accumulation factor.
 
 Ported: every kind of the LM family (``train``, ``prefill``, ``decode``;
-``long_500k`` is a decode cell, on one card), the embedder's ``encode``
+``long_500k`` is a decode cell), the embedder's ``encode``
 the recsys family's ``train``, ``serve`` and ``retrieval``, and SchNet's
 ``train`` cells (the GNN family: molecule, full_graph_sm, minibatch_lg,
 ogb_products). A train cell's params are repro's tree (layers stacked
@@ -31,9 +31,16 @@ them): the batch is split over the data-parallel axes, an LM's MoE
 layers run expert-parallel (``moe_mesh``), DLRM's tables are row-sharded
 over "model" (``recsys.RowShardedBag``), the retrieval cell scores each
 rank's candidate rows and merges the all-gathered blocks (repro's
-shard_map). What repro tensor-parallelises through GSPMD runs replicated
-(``launch/sharding.executed``); a train step reduces each gradient by
-its leaf's spec (``train/train_loop``). SchNet on a mesh is not ported.
+shard_map). An LM's prefill and decode cells (long_500k included) run
+every leaf and the KV cache at repro's specs (``launch/sharding.
+executed``): Megatron tensor parallelism over "model"
+(``transformer.TPConfig``, ``models/tp``), the cache's kv heads over
+"model" or its sequence over "model" or the data axes, the sequence's
+partials
+merged across ranks. A train cell still runs what repro
+tensor-parallelises through GSPMD replicated, and reduces each gradient
+by its leaf's spec (``train/train_loop``). SchNet on a mesh is not
+ported.
 """
 from __future__ import annotations
 
@@ -50,6 +57,7 @@ from ..kernels.common import merge_candidates, resolve_device
 from ..kernels.topk_search.ops import topk_search
 from ..models import recsys as recsys_m
 from ..models import schnet as schnet_m
+from ..models import tp
 from ..models import transformer as tfm
 from ..models.bridge import train_tree
 from ..models.moe import sharded_moe_applicable
@@ -118,13 +126,13 @@ class CellBundle:
 
     def executed_specs(self) -> tuple:
         """(params spec tree or None, batch specs) that this rank's ``fn``
-        executes sharded on ``mesh`` (``sharding.executed``; the batch
-        split over the data-parallel axes only, the retrieval candidates
-        over every axis)."""
+        executes sharded on ``mesh`` for its kind (``sharding.executed``,
+        ``executed_batch``)."""
         trees = self.sharding_fn(self.mesh)
         pspec = None if self.kind == "retrieval" else \
-            shd.executed(trees[0])
-        return pspec, shd.executed_batch(trees[self.batch_index], self.mesh)
+            shd.executed(trees[0], self.kind)
+        return pspec, shd.executed_batch(trees[self.batch_index], self.mesh,
+                                         self.kind)
 
 
 def _optimizer(name: str) -> Optimizer:
@@ -188,15 +196,21 @@ def _lm_bundle(arch_name: str, shape: str, reduced: bool, cfg,
     batch_specs = spec.input_specs(shape, reduced)
     global_batch = batch_specs["tokens"].shape[0]
     opt_name = _lm_optimizer(cfg) if cell.kind == "train" else None
-    sharding_fn = _sharding_fn(
-        arch_name, cell.kind, cfg, batch_specs, shd.lm_param_specs,
-        lambda b, m: shd.lm_batch_specs(
-            b, m, cfg, cell.kind, long_context=shape.startswith("long")),
-        opt_name)
+
+    def batch_rule(b, m):
+        return shd.lm_batch_specs(b, m, cfg, cell.kind,
+                                  long_context=shape.startswith("long"))
+
+    sharding_fn = _sharding_fn(arch_name, cell.kind, cfg, batch_specs,
+                               shd.lm_param_specs, batch_rule, opt_name)
     if mesh is not None and cfg.moe is not None and \
             sharded_moe_applicable(cfg.moe, mesh, cfg.d_model,
                                    batch=global_batch):
         cfg = dataclasses.replace(cfg, moe_mesh=mesh)
+    if mesh is not None and cell.kind in shd.SERVING_KINDS:
+        cache = batch_rule(batch_specs, mesh).get("cache_k")
+        cfg = tfm.TPConfig.of(
+            cfg, mesh, () if cache is None else shd._axes(cache[3]))
 
     if cell.kind == "train":
         return _train_bundle(arch_name, shape, reduced,
@@ -493,8 +507,9 @@ def make_smoke_args(bundle: CellBundle, seed: int = 0,
 def shard_args(bundle: CellBundle, args: tuple) -> tuple:
     """The blocks of the whole arguments ``args`` (``make_smoke_args``
     without a mesh: a train tree of params) that this rank of
-    ``bundle.mesh`` holds, as copies; a train cell's optimizer state is
-    made fresh over the rank's params."""
+    ``bundle.mesh`` holds, as copies (an LM serving cell's gated leaves
+    as ``models/tp.serving_blocks`` cuts them); a train cell's optimizer
+    state is made fresh over the rank's params."""
     pspec, bspec = bundle.executed_specs()
 
     def cut(tree, specs):
@@ -503,7 +518,11 @@ def shard_args(bundle: CellBundle, args: tuple) -> tuple:
     batch = cut(args[bundle.batch_index], bspec)
     if bundle.kind == "retrieval":
         return (batch,)
-    params = cut(args[0], pspec)
+    if bundle.kind in shd.SERVING_KINDS:         # the LM family's
+        params = tp.serving_blocks(args[0], pspec, bundle.mesh,
+                                   bundle.model_cfg.act)
+    else:
+        params = cut(args[0], pspec)
     if bundle.kind != "train":
         return params, batch
     return (params, _optimizer(bundle.optimizer).init(params), batch,

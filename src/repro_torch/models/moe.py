@@ -41,7 +41,11 @@ Expert parallelism over a mesh (``moe_block_sharded``): each rank runs
 own tokens; the collectives sit at the block's boundary
 (``launch/collectives``): the experts' d_model blocks are all-gathered
 over "data", the partial outputs summed over "model", the aux loss
-averaged over the data-parallel axes.
+averaged over the data-parallel axes. In a serving cell the shared
+experts are column- and row-parallel over "model" too (``models/tp``):
+each rank adds its shared partial to its routed one before the sum.
+Where the data axes do not divide the batch (long_500k's one sequence),
+``moe_block_tp`` runs every rank's experts on the replicated tokens.
 """
 from __future__ import annotations
 
@@ -308,26 +312,76 @@ def moe_block_sharded(p, x: torch.Tensor, cfg: MoEConfig, mesh,
     S, D) is this rank's tokens (its data-parallel block), p["w_in"] /
     p["w_out"] its (E_pad / model, D / data, ...) blocks of the experts
     (``launch/sharding.distribute_tree`` under ``lm_param_specs``), the
-    router and shared experts whole. The experts' d_model blocks are
-    all-gathered over "data", ``moe_local`` runs this rank's experts on
-    its tokens, the partials are summed over "model" and the aux loss
-    averaged over the data-parallel axes; the shared experts are added
-    as repro adds them. Returns (out (B, S, D), aux)."""
+    router whole, the shared experts whole (a train cell) or a "model"
+    block (a serving cell, ``models/tp``). The experts' d_model blocks
+    are all-gathered over "data", ``moe_local`` runs this rank's experts
+    on its tokens, the partials are summed over "model" and the aux loss
+    averaged over the data-parallel axes; whole shared experts are added
+    after the sum as repro adds them, a block's partial before it
+    (``_sum_with_shared``). Returns (out (B, S, D), aux)."""
     from ..launch import collectives as col
     from ..launch.mesh import coordinate, dp_axes
 
-    b, s, d = x.shape
     e_loc = p["w_in"].shape[0]
     w_in = col.all_gather(p["w_in"], mesh, "data", dim=1)
     w_out = col.all_gather(p["w_out"], mesh, "data", dim=1)
     partial, aux = moe_local(x, p["router"], w_in, w_out,
                              coordinate(mesh)["model"], e_loc, cfg, dropless)
-    out = col.all_reduce_sum(partial, mesh, "model")
-    aux = col.all_reduce_mean(aux, mesh, dp_axes(mesh))
-    if cfg.n_shared:
-        out = out + _shared_ffn(p, x.reshape(b * s, d),
-                                cfg.act).reshape(b, s, d)
-    return out, aux
+    out = _sum_with_shared(p, x, partial, cfg, mesh)
+    return out, col.all_reduce_mean(aux, mesh, dp_axes(mesh))
+
+
+def _shared_is_block(p, cfg: MoEConfig) -> bool:
+    """Whether p holds a model rank's block of the shared experts (a
+    serving cell's layout) rather than the whole of them."""
+    return bool(cfg.n_shared) and \
+        p["shared_w_out"].shape[0] < cfg.n_shared * cfg.d_ff
+
+
+def _sum_with_shared(p, x: torch.Tensor, partial: torch.Tensor,
+                     cfg: MoEConfig, mesh) -> torch.Tensor:
+    """The routed partial summed over "model", plus the shared experts:
+    a rank's block of them (``shared_w_in``'s columns as
+    ``models/tp.gated_block`` cuts them, ``shared_w_out``'s matching
+    rows) adds its partial before the sum; whole ones add after it."""
+    from ..launch import collectives as col
+
+    b, s, d = x.shape
+    if not cfg.n_shared:
+        return col.all_reduce_sum(partial, mesh, "model")
+    shared = _shared_ffn(p, x.reshape(b * s, d), cfg.act).reshape(b, s, d)
+    if _shared_is_block(p, cfg):
+        return col.all_reduce_sum(partial + shared, mesh, "model")
+    return col.all_reduce_sum(partial, mesh, "model") + shared
+
+
+def moe_block_tp(p, x: torch.Tensor, cfg: MoEConfig, mesh,
+                 dropless: bool = False
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The MoE block of a serving cell whose data axes do not divide the
+    batch (long_500k's one sequence, where ``sharded_moe_applicable``
+    says no), on one rank of ``mesh``: x (B, S, D) is every token
+    (replicated), the experts at their spec (this rank's E_pad / model
+    experts, their d_model blocks over "data", all-gathered here), the
+    shared experts a "model" block. ``moe_local`` runs the rank's
+    experts on all the tokens, routed and sized as ``moe_block`` does
+    on them, and the partials (shared included) are summed over
+    "model". Returns (out, aux), aux that of all the tokens."""
+    from ..launch import collectives as col
+    from ..launch.mesh import axis_size, coordinate
+
+    e_loc, e_pad = p["w_in"].shape[0], padded_experts(cfg.n_experts)
+    if e_loc * axis_size(mesh, "model") != e_pad:
+        raise ValueError(f"moe_block_tp: {e_loc} experts a rank are not a "
+                         f"block of {e_pad} over "
+                         f"{axis_size(mesh, 'model')} model ranks")
+    w_in, w_out = p["w_in"], p["w_out"]
+    if w_in.shape[1] < x.shape[-1]:
+        w_in = col.all_gather(w_in, mesh, "data", dim=1)
+        w_out = col.all_gather(w_out, mesh, "data", dim=1)
+    partial, aux = moe_local(x, p["router"], w_in, w_out,
+                             coordinate(mesh)["model"], e_loc, cfg, dropless)
+    return _sum_with_shared(p, x, partial, cfg, mesh), aux
 
 
 def sharded_moe_applicable(cfg: MoEConfig, mesh, d_model: int,

@@ -29,7 +29,14 @@ models/moe.py's ``moe_block``: the capacity path in ``forward`` and
 ``prefill``, the dropless path in ``decode_step``, as in repro. With
 ``moe_mesh`` set (``launch/steps.build_cell(..., mesh=)``), each rank's
 MoE layers run ``moe_block_sharded`` on its tokens and its experts
-(``_moe_dispatch``).
+(``_moe_dispatch``). With a ``TPConfig`` (a prefill or decode cell on a
+mesh), ``prefill`` and ``decode_step`` run one rank of Megatron tensor
+parallelism over "model" on the rank's blocks (``models/tp``'s bodies,
+each collective a ``launch/collectives`` call): the embedding summed,
+the attention's and the MLP's row-parallel partials summed, the logits
+gathered; the decode cache split by kv heads or by sequence
+(``tp_seq_axes``), the latter merged across ranks by
+``flash_decode_sharded``.
 
 Not ported: repro's ``unroll_layers`` (XLA cost-analysis probes) and
 ``attn_impl`` (its choice among JAX attention paths) options, which have
@@ -45,13 +52,14 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..kernels.common import resolve_device, seeded_generator
-from ..kernels.flash_decode.ops import flash_decode
+from ..kernels.flash_decode.ops import flash_decode, flash_decode_sharded
+from . import tp
 from .layers import (AttentionConfig, attention_block, attention_impl,
                      attention_params, attention_qkv, dense_init,
                      cross_entropy_loss, embed_init, mlp_block, mlp_params,
                      rmsnorm)
-from .moe import (MoEConfig, moe_block, moe_block_sharded, moe_params,
-                  sharded_moe_applicable)
+from .moe import (MoEConfig, moe_block, moe_block_sharded, moe_block_tp,
+                  moe_params, sharded_moe_applicable)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -114,6 +122,28 @@ class TransformerConfig:
         attn = d * dh * (self.n_heads + 2 * self.n_kv) + self.n_heads * dh * d
         return self.n_layers * (attn + per_tok_ffn + 2 * d) \
             + 2 * self.vocab * d + d
+
+
+@dataclasses.dataclass(frozen=True)
+class TPConfig(TransformerConfig):
+    """A ``TransformerConfig`` on one rank of a serving cell's mesh
+    (``launch/steps.build_cell`` makes it for a prefill or decode cell;
+    the arch configs stay repro's fields): ``tp_mesh``, the mesh of its
+    tensor parallelism, and ``tp_seq_axes``, the mesh axes that split a
+    decode cache's sequence, in order (``launch/sharding.lm_batch_specs``)."""
+    tp_mesh: Any = None
+    tp_seq_axes: tuple = ()
+
+    @classmethod
+    def of(cls, cfg: TransformerConfig, mesh, seq_axes: tuple = ()
+           ) -> "TPConfig":
+        return cls(**{f.name: getattr(cfg, f.name)
+                      for f in dataclasses.fields(TransformerConfig)},
+                   tp_mesh=mesh, tp_seq_axes=tuple(seq_axes))
+
+
+def _tp_mesh(cfg):
+    return getattr(cfg, "tp_mesh", None)
 
 
 class ParamModule(nn.Module):
@@ -197,6 +227,9 @@ def _moe_dispatch(lp, h, cfg: TransformerConfig, dropless: bool = False):
     if sharded_moe_applicable(cfg.moe, cfg.moe_mesh, cfg.d_model):
         return moe_block_sharded(lp["moe"], h, cfg.moe, cfg.moe_mesh,
                                  dropless=dropless)
+    if _tp_mesh(cfg) is not None:    # a serving cell whose batch is not split
+        return moe_block_tp(lp["moe"], h, cfg.moe, cfg.tp_mesh,
+                            dropless=dropless)
     return moe_block(lp["moe"], h, cfg.moe, dropless=dropless)
 
 
@@ -204,8 +237,13 @@ def _ffn(lp, h, cfg: TransformerConfig, dropless: bool = False):
     """The layer's feed-forward block of h: (out, aux_loss)."""
     if cfg.moe:
         return _moe_dispatch(lp, h, cfg, dropless=dropless)
-    return (mlp_block(lp["mlp"], h, cfg.act),
-            torch.zeros((), dtype=torch.float32, device=h.device))
+    if _tp_mesh(cfg) is not None:
+        from ..launch.collectives import all_reduce_sum
+        out = all_reduce_sum(tp.mlp_local(lp["mlp"], h, cfg.act),
+                             cfg.tp_mesh, "model")
+    else:
+        out = mlp_block(lp["mlp"], h, cfg.act)
+    return out, torch.zeros((), dtype=torch.float32, device=h.device)
 
 
 def _layer_fn(lp, x, cfg: TransformerConfig, positions):
@@ -323,6 +361,8 @@ def prefill(params, tokens: torch.Tensor, cfg: TransformerConfig,
     if s > cache_size:
         raise ValueError(f"prefill: {s} tokens exceed cache_size "
                          f"{cache_size}")
+    if _tp_mesh(cfg) is not None:
+        return _prefill_tp(params, tokens, cfg, cache_size)
     x = params["embed"][tokens]
     positions = torch.arange(s, dtype=torch.int32, device=x.device)[None, :]
     shape = (cfg.n_layers, b, cfg.n_kv, cache_size, cfg.d_head)
@@ -349,6 +389,8 @@ def decode_step(params, tokens: torch.Tensor, cache: dict, cache_len: int,
     cache, cache_len + 1). MoE layers route dropless: exact routing for
     serving (t is tiny at decode)."""
     cache_len = int(cache_len)
+    if _tp_mesh(cfg) is not None:
+        return _decode_tp(params, tokens, cache, cache_len, cfg)
     size = cache["k"].shape[3]
     if not 0 <= cache_len < size:
         raise ValueError(f"decode_step: cache_len {cache_len} outside the "
@@ -369,3 +411,127 @@ def decode_step(params, tokens: torch.Tensor, cache: dict, cache_len: int,
         x = x + _ffn(lp, rmsnorm(x, lp["ln2"]), cfg, dropless=True)[0]
     hidden = rmsnorm(x, params["final_ln"])
     return logits_fn(params, hidden)[:, 0], cache, cache_len + 1
+
+
+# ---------------------------------------------------------------------------
+# serving on a mesh: one rank of tensor parallelism (models/tp)
+# ---------------------------------------------------------------------------
+class _Rank:
+    """This rank's place on ``cfg.tp_mesh``: its model index and count,
+    and its block of a decode cache's sequence (``cfg.tp_seq_axes``)."""
+
+    def __init__(self, cfg: TransformerConfig):
+        from ..launch.mesh import coordinate
+
+        mesh = self.mesh = cfg.tp_mesh
+        coord = coordinate(mesh)
+        sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+        self.m, self.n = coord["model"], sizes["model"]
+        self.axes = tuple(cfg.tp_seq_axes)
+        self.block, self.n_blocks = 0, 1
+        for a in self.axes:
+            self.block = self.block * sizes[a] + coord[a]
+            self.n_blocks *= sizes[a]
+
+    def sum(self, t: torch.Tensor) -> torch.Tensor:
+        from ..launch.collectives import all_reduce_sum
+        return all_reduce_sum(t, self.mesh, "model")
+
+    def gather(self, t: torch.Tensor, axes="model", dim: int = -1):
+        from ..launch.collectives import all_gather
+        return all_gather(t, self.mesh, axes, dim=dim)
+
+    def embed(self, params, tokens, cfg: TransformerConfig):
+        return self.sum(tp.embed_local(params["embed"], tokens, self.m,
+                                       self.n, cfg.vocab))
+
+    def attention_inputs(self, attn, h, cfg: TransformerConfig,
+                         plan: tp.HeadPlan, positions):
+        q, k, v = tp.qkv_local(attn, h)
+        if plan.gather_q:
+            q = self.gather(q)
+        if plan.gather_kv:
+            k, v = self.gather(k), self.gather(v)
+        return tp.attention_heads(q, k, v, plan, cfg, positions)
+
+    def logits(self, params, hidden, cfg: TransformerConfig):
+        out = tp.logits_local(hidden, params["lm_head"])
+        return self.gather(out) if out.shape[-1] < cfg.vocab else out
+
+
+def _prefill_tp(params, tokens: torch.Tensor, cfg: TransformerConfig,
+                cache_size: int) -> tuple[torch.Tensor, dict, int]:
+    """``prefill`` on this rank of ``cfg.tp_mesh``: tokens (B, S) the
+    rank's data-parallel block, params its blocks. Returns the logits
+    (B, V), gathered over "model", and the cache of the kv heads its
+    attention read (``HeadPlan.kv_heads``)."""
+    rank = _Rank(cfg)
+    b, s = tokens.shape
+    x = rank.embed(params, tokens, cfg)
+    positions = torch.arange(s, dtype=torch.int32, device=x.device)[None, :]
+    layers = layer_list(params["layers"])
+    plan = tp.head_plan(cfg, layers[0]["attn"], rank.m, rank.n)
+    kvn = plan.kv_heads[1] - plan.kv_heads[0]
+    shape = (cfg.n_layers, b, kvn, cache_size, cfg.d_head)
+    ck = torch.zeros(shape, dtype=x.dtype, device=x.device)
+    cv = torch.zeros(shape, dtype=x.dtype, device=x.device)
+    for i, lp in enumerate(layers):
+        q, k, v = rank.attention_inputs(lp["attn"], rmsnorm(x, lp["ln1"]),
+                                        cfg, plan, positions)
+        ck[i, :, :, :s] = k
+        cv[i, :, :, :s] = v
+        o = attention_impl(q, k, v, cfg.causal)
+        o = o.transpose(1, 2).reshape(b, s, -1)
+        x = x + rank.sum(tp.attn_out_local(o, lp["attn"]["wo"], plan,
+                                           cfg.d_head))
+        x = x + _ffn(lp, rmsnorm(x, lp["ln2"]), cfg)[0]
+    hidden = rmsnorm(x[:, -1:], params["final_ln"])
+    return rank.logits(params, hidden, cfg)[:, 0], {"k": ck, "v": cv}, s
+
+
+def _decode_tp(params, tokens: torch.Tensor, cache: dict, cache_len: int,
+               cfg: TransformerConfig) -> tuple[torch.Tensor, dict, int]:
+    """``decode_step`` on this rank of ``cfg.tp_mesh``: tokens (B, 1) and
+    the cache k/v (L, B, KV_loc, S_loc, Dh) the rank's blocks
+    (``launch/sharding.lm_batch_specs``: kv heads over "model", or the
+    sequence over ``cfg.tp_seq_axes``). Only the ranks whose block holds
+    position ``cache_len`` write the new token's keys and values; each
+    rank attends over its block's valid rows and the partials merge
+    across the blocks (``flash_decode_sharded``). Returns the logits (B,
+    V), gathered over "model", the same cache, cache_len + 1."""
+    rank = _Rank(cfg)
+    s_loc = cache["k"].shape[3]
+    start = rank.block * s_loc
+    if not 0 <= cache_len < s_loc * rank.n_blocks:
+        raise ValueError(f"decode_step: cache_len {cache_len} outside the "
+                         f"cache's {s_loc * rank.n_blocks} entries")
+    b = tokens.shape[0]
+    x = rank.embed(params, tokens, cfg)                         # (B, 1, D)
+    positions = torch.full((b, 1), cache_len, dtype=torch.int32,
+                           device=x.device)
+    layers = layer_list(params["layers"])
+    plan = tp.head_plan(cfg, layers[0]["attn"], rank.m, rank.n,
+                        cache["k"].shape[2], "model" in rank.axes)
+    r0, r1 = (h - plan.kv_heads[0] for h in plan.read_kv)
+    at = cache_len - start                  # the new row, in this block
+
+    def gather(t):
+        return rank.gather(t, rank.axes, dim=2)
+
+    for i, lp in enumerate(layers):
+        q, k_new, v_new = rank.attention_inputs(
+            lp["attn"], rmsnorm(x, lp["ln1"]), cfg, plan, positions)
+        ck, cv = cache["k"][i], cache["v"][i]                  # views
+        if 0 <= at < s_loc:
+            ck[:, :, at:at + 1] = k_new
+            cv[:, :, at:at + 1] = v_new
+        if (r0, r1) != (0, ck.shape[1]):
+            ck, cv = ck[:, r0:r1], cv[:, r0:r1]
+        o = flash_decode_sharded(q[:, :, 0], ck, cv, cache_len + 1,
+                                 rank.block, rank.n_blocks, gather)
+        o = o.reshape(b, 1, -1).to(x.dtype)
+        x = x + rank.sum(tp.attn_out_local(o, lp["attn"]["wo"], plan,
+                                           cfg.d_head))
+        x = x + _ffn(lp, rmsnorm(x, lp["ln2"]), cfg, dropless=True)[0]
+    hidden = rmsnorm(x, params["final_ln"])
+    return rank.logits(params, hidden, cfg)[:, 0], cache, cache_len + 1

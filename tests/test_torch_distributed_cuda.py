@@ -13,10 +13,13 @@ import pytest
 import torch
 
 from repro_torch.configs import get_arch
+from repro_torch.configs.mistral_nemo_12b import CONFIG as NEMO
 from repro_torch.launch import collectives as col
-from repro_torch.launch.steps import build_cell, make_smoke_args
+from repro_torch.launch.steps import build_cell, make_smoke_args, shard_args
 from repro_torch.models import moe as pm
+from repro_torch.models.bridge import train_tree
 from repro_torch.models.recsys import DLRMConfig, dlrm_forward, dlrm_init
+from repro_torch.models.transformer import init_params
 from repro_torch.train.tree import leaves
 
 pytestmark = pytest.mark.cuda
@@ -100,3 +103,52 @@ def test_qwen2_moe_train_step_on_one_rank_is_bit_for_bit(mesh):
     # gradient; its first moment, (1 - b1) g, holds the gradients
     for (n, a), (_, b) in zip(leaves(o1["m"]), leaves(o2["m"])):
         assert torch.equal(a, b), n
+
+
+@pytest.mark.parametrize("shape,b,s,start", [("prefill_32k", 1, 512, 0),
+                                             ("decode_32k", 2, 1024, 1020),
+                                             ("long_500k", 1, 4096, 2046)])
+def test_mistral_nemo_serving_on_one_rank_is_bit_for_bit(mesh, shape, b, s,
+                                                         start):
+    """Mistral-NeMo-12B at full width, 2 layers, through ``build_cell(...,
+    mesh=)`` on a 1 x 1 mesh (the tensor-parallel bodies, every
+    collective over one rank, long_500k's sequence over "data" of one):
+    prefill's logits and cache, and 3 decode steps' logits and cache,
+    equal the no-mesh cell's bit for bit (at shorter sequences than the
+    cells')."""
+    cfg = dataclasses.replace(NEMO, n_layers=2)
+    one = build_cell("mistral-nemo-12b", shape, device="cuda", model_cfg=cfg)
+    rank = build_cell("mistral-nemo-12b", shape, device="cuda",
+                      model_cfg=cfg, mesh=mesh)
+    assert rank.model_cfg.tp_mesh is mesh
+    params = init_params(cfg, seed=0, device="cuda")
+    local, _ = shard_args(rank, (train_tree(params), {}))
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    with torch.no_grad():
+        if shape == "prefill_32k":
+            toks = torch.randint(4, cfg.vocab, (b, s), generator=gen,
+                                 device="cuda", dtype=torch.int32)
+            l1, c1, _ = one.fn(params, {"tokens": toks})
+            l2, c2, _ = rank.fn(local, {"tokens": toks})
+            assert torch.equal(l1, l2)
+            assert torch.equal(c1["k"], c2["k"])
+            assert torch.equal(c1["v"], c2["v"])
+            return
+        cache = (cfg.n_layers, b, cfg.n_kv, s, cfg.d_head)
+        caches = [torch.randn(cache, generator=gen, device="cuda").to(
+            cfg.dtype) for _ in range(2)]
+        runs = []
+        for cell, p in ((one, params), (rank, local)):
+            ck, cv = (c.clone() for c in caches)
+            n, outs = torch.tensor(start, dtype=torch.int32), []
+            for i in range(3):
+                toks = torch.full((b, 1), 7 + i, dtype=torch.int32,
+                                  device="cuda")
+                logits, ck, cv, n = cell.fn(p, {
+                    "tokens": toks, "cache_k": ck, "cache_v": cv,
+                    "cache_len": torch.tensor(int(n), dtype=torch.int32)})
+                outs.append(logits)
+            runs.append((outs, ck, cv))
+    (o1, k1, v1), (o2, k2, v2) = runs
+    assert all(torch.equal(x, y) for x, y in zip(o1, o2))
+    assert torch.equal(k1, k2) and torch.equal(v1, v2)

@@ -13,8 +13,10 @@ PyTorch's fake process group, as meta tensors with the placements of
     (none: a rule that stopped sharding a large leaf, say Kimi-K2's
     experts over "data", would add cells to the list);
   - so are those that exceed it under the layout the port's steps run
-    today (``executed_argument_bytes``: repro's GSPMD tensor parallelism
-    and ZeRO-1 replicated), and one cell's count is made by hand.
+    (``executed_argument_bytes``): a prefill or decode cell executes
+    repro's layout whole, so its count equals ``argument_bytes``; a train
+    cell still runs repro's GSPMD tensor parallelism and ZeRO-1
+    replicated, and one cell's count is made by hand.
 """
 import time
 
@@ -27,20 +29,13 @@ from repro.launch import steps as rsteps
 from repro_torch.launch import dryrun
 
 DOES_NOT_FIT = set()           # (arch, shape, mesh) over 80 GB a rank
-# the same under the port's executed layout: every LM that is not
-# expert-parallel holds its whole params (and a train cell its whole
-# AdamW state) on a rank, and a long_500k cache is split over the
-# data-parallel axes only where repro splits its sequence
+# the same under the port's executed layout: a train cell of an LM that
+# is not expert-parallel holds its whole params and AdamW state on a rank
+# (the serving cells execute repro's layout, which fits)
 EXECUTED_DOES_NOT_FIT = {
-    (arch, shape, mesh)
-    for arch, shapes in (
-        ("mistral-nemo-12b", ("train_4k", "long_500k")),
-        ("nemotron-4-15b", ("train_4k", "long_500k")),
-        ("qwen1.5-32b", ("train_4k", "decode_32k", "long_500k")),
-        ("qwen2-moe-a2.7b", ("long_500k",)),
-        ("kimi-k2-1t-a32b", ("long_500k",)))
-    for shape in shapes for mesh in ("16x16", "2x16x16")} | {
-    ("kimi-k2-1t-a32b", "decode_32k", "16x16")}
+    (arch, "train_4k", mesh)
+    for arch in ("mistral-nemo-12b", "nemotron-4-15b", "qwen1.5-32b")
+    for mesh in ("16x16", "2x16x16")}
 MESHES = {False: ((16, 16), ("data", "model")),
           True: ((2, 16, 16), ("pod", "data", "model"))}
 
@@ -154,3 +149,23 @@ def test_executed_layout_bytes(records):
     want = sum(t.numel() * (t.element_size() + 8) for t in params) + \
         2 * 256 * 4096 * 4 // 16 + 4
     assert nemo["executed_argument_bytes"] == want
+
+
+def test_serving_records_execute_repros_layout(records):
+    """Every prefill and decode record, long_500k included, on both
+    meshes: the rank's executed bytes are repro's argument bytes (the
+    params at lm_param_specs, the KV cache at lm_batch_specs), under 80
+    GB; the train records keep the layout of the cells before it."""
+    recs, _ = records
+    serving = [r for r in recs if r["kind"] in ("prefill", "decode")]
+    assert len(serving) == 2 * 5 * 3
+    for r in serving:
+        assert r["executed_argument_bytes"] == r["argument_bytes"], \
+            (r["arch"], r["shape"], r["mesh"])
+        assert r["executed_fits_80gb"]
+    trains = [r for r in recs if r["kind"] == "train"
+              and r["arch"] in ("mistral-nemo-12b", "nemotron-4-15b",
+                                "qwen1.5-32b")]
+    assert trains and all(
+        r["executed_argument_bytes"] > 20 * r["argument_bytes"]
+        for r in trains)

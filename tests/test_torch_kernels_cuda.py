@@ -726,6 +726,73 @@ def test_flash_decode_batch_invariant_bitwise(dev, monkeypatch, dtype,
         assert torch.equal(alone[i][0], batch[i])
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,h,kv,s,d", [(1, 32, 4, 4096, 128),
+                                        (2, 8, 2, 300, 64)])
+def test_flash_decode_partials_of_an_empty_block(dev, dtype, b, h, kv, s,
+                                                 d):
+    """A rank's cache block with no valid row: ``choose_split`` over 0
+    rows gives one 16-row split, and the kernel's partials there are m =
+    -inf, l = 0, acc = 0, as the plain ones."""
+    q = _randn((b, h, d), 80, dev, dtype)
+    kc = _randn((b, kv, s, d), 81, dev, dtype)
+    vc = _randn((b, kv, s, d), 82, dev, dtype)
+    bs = fd_ops.choose_split(kv, 0, _sms(dev))
+    assert bs == fd_ops.SPLIT_TILE
+    before = fd_ops.launches
+    m, l, acc = fd_ops.flash_decode_partials(q, kc, vc, 0, bs, ns=1)
+    torch.cuda.synchronize()
+    assert fd_ops.launches == before + 1 and m.shape == (b, h, 1)
+    assert bool(torch.isneginf(m).all()) and not bool(l.any()) and \
+        not bool(acc.any())
+    ok, _, why = partials_agree(
+        (m, l, acc), flash_decode_partials_plain(q, kc, vc, 0, bs, ns=1))
+    assert ok, why
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_blocks,s_loc,kv", [(2, 4096, 8), (4, 1024, 8),
+                                               (16, 256, 2)])
+def test_flash_decode_sharded_matches_flash_decode_on_the_card(
+        dev, dtype, n_blocks, s_loc, kv):
+    """The sequence-split decode: each block's partials at its own split
+    (the kernel against the plain partials), gathered in block order by
+    hand and merged (``merge_partials``), against ``flash_decode`` over
+    the whole cache, at valid lengths that leave blocks empty, end on a
+    block's edge and cross it; fp32 within 1e-5 of each value plus 1e-5
+    of its row's largest, bf16 one rounding step."""
+    b, h, d = 4, 32, 128
+    s = n_blocks * s_loc
+    q = _randn((b, h, d), 83, dev, dtype)
+    kc = _randn((b, kv, s, d), 84, dev, dtype)
+    vc = _randn((b, kv, s, d), 85, dev, dtype)
+    blocks = [(kc[:, :, i * s_loc:(i + 1) * s_loc].contiguous(),
+               vc[:, :, i * s_loc:(i + 1) * s_loc].contiguous())
+              for i in range(n_blocks)]
+    for cache_len in (1, s_loc, s_loc + 1, s - 17, s):
+        before = fd_ops.launches
+        parts = [fd_ops.flash_decode_block(q, k, v, cache_len, i, n_blocks)
+                 for i, (k, v) in enumerate(blocks)]
+        assert fd_ops.launches == before + n_blocks
+        for i, (k, v) in enumerate(blocks):
+            valid, bs, ns = fd_ops.block_splits(kv, cache_len, s_loc,
+                                                n_blocks, q)[i]
+            want = flash_decode_partials_plain(q, k, v, valid, bs, ns=ns)
+            ok, _, why = partials_agree(tuple(t[..., :ns] if t.dim() == 3
+                                              else t[:, :, :ns]
+                                              for t in parts[i]), want)
+            assert ok, (cache_len, i, why)
+        got = merge_partials(*(torch.cat([p[j] for p in parts], 2)
+                               for j in range(3))).to(dtype)
+        want = fd_ops.flash_decode(q, kc, vc, cache_len=cache_len)
+        if dtype == torch.float32:
+            ok, ratio = rounding_agree(got, want, 1e-5, 1e-5)
+        else:
+            ok, ratio = rounding_agree(got, want, 2 ** -7)
+        assert ok, f"cache_len {cache_len}: {ratio:.3g} x its limit"
+        assert not bool(torch.isnan(got).any())
+
+
 def test_attention_kernels_reject_bad_input(dev):
     q = _randn((1, 4, 16, 48), 66, dev, torch.float32)        # D = 48
     with pytest.raises(ValueError, match="head dim"):
