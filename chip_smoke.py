@@ -25,7 +25,9 @@ gather-segment-sum kernel; and the distribution layer: meshes, the
 expert-parallel MoE block, DLRM's published 91.1 GB of tables as row
 shards, and sharded retrieval; and the LM serving cells on a mesh:
 tensor-parallel prefill and decode, the KV cache split by heads or by
-sequence with the decode partials merged across ranks.
+sequence with the decode partials merged across ranks; and the LM and
+recsys train cells on a mesh: tensor parallelism with its backward, a
+vocab-parallel loss and ZeRO-1.
 
 Phases (any failure stops the script with a non-zero exit):
   1. setup: card name and power limit, kernel build time, and ptxas's
@@ -218,6 +220,26 @@ Phases (any failure stops the script with a non-zero exit):
      number and cut. ``--serve-long`` (a machine with 4 cards) runs only
      (d): long_500k at all 40 layers on 2 x 2, one process a card, ms a
      token, tokens/s, the peak and a profiled step.
+  14. the LM and recsys train cells on a mesh under repro's layouts
+     (Megatron tensor parallelism with its backward, the vocab-parallel
+     loss, ZeRO-1's optimizer state, the recsys rule's row-sharded tables
+     and column-parallel MLPs): (a) at world ``torch.cuda.device_count()``
+     (NCCL; one ``--train-rank`` process a card beyond one) Mistral-NeMo-12B
+     train_4k at full width (2 of 40 layers, 2 x 4096 in 2 microbatches,
+     bf16) and DLRM train_batch (tables capped at 4M rows as in phase 10,
+     4,096 samples) through ``build_cell(..., mesh=make_host_mesh(1,
+     world))`` against the no-mesh steps: loss, params and AdamW m bit
+     for bit at world 1, fp32 by ``DIST_FP32`` beyond; (b) a 2 x 2 mesh
+     of 4 processes that share the card over gloo (NCCL takes one rank a
+     card): Mistral-NeMo-12B at full width, 2 layers, fp32, 2 x 4096,
+     each rank held to the no-mesh step made here (saved for them) by
+     ``DIST_FP32``. Its mesh steps (a) are the forward and backward
+     kernels' "launches" below; a ``{"phase14": ...}`` line gives every
+     number and cut. ``--train-mesh`` (a machine with 4 cards) runs only
+     (d): Mistral-NeMo-12B train_4k at all 40 layers on 2 x 2 (16 of 256
+     sequences, accum 8, AdamW with ZeRO-1), one process a card: s a
+     step, tokens/s, the peak a rank, the collectives of a step and a
+     profiled step split into GEMMs, attention, NCCL and idle.
 It prints a ``{"kernels": [...]}`` line, then, last, the one-line
 ``{"ok": true, "device": {...}}`` result. Without a CUDA device, or
 without the package beside it, it exits non-zero and prints no result.
@@ -4191,10 +4213,10 @@ def dist_rank(torch, rank: int, world: int, store: str,
         out["qwen_step_ms"] = (time.perf_counter() - t) * 1e3
         out["qwen_collectives"] = col.collective_stats(col.take_records())
         out["qwen_peak_gb"] = peak_gb(torch)
-        specs = sharded.executed_specs()[0]
-        worst = {what: held_step_leaves(torch, what, distribute_tree(
-            want, specs, mesh), got, world) for what, want, got in
-            (("param", p1, p2), ("m", m1, o2["m"]))}
+        worst = {what: mesh_step_leaves(
+            torch, f"12(a) Qwen2-MoE {what}", rank_blocks(
+                sharded, want, opt=what == "m"), got, world == 1)
+            for what, want, got in (("param", p1, p2), ("m", m1, o2["m"]))}
         if world == 1:
             check(torch.equal(l1, l2), f"12(a) Qwen2-MoE: loss {float(l2)} "
                                        f"on the mesh, {float(l1)} without")
@@ -4239,31 +4261,6 @@ def dist_rank(torch, rank: int, world: int, store: str,
     finally:
         dist.destroy_process_group()
     return out
-
-
-def held_step_leaves(torch, what: str, want, got, world: int) -> float:
-    """12(a): each leaf of ``got`` (the mesh step's params, or its AdamW
-    first moments ``what`` = "m") against this rank's block of ``want``
-    (the no-mesh step's): bit for bit at world 1, else by ``DIST_FP32``.
-    Returns the largest ratio of an error to its limit."""
-    from repro_torch.train.tree import leaves
-
-    lr_t = 1e-4 / 100                          # AdamW's warmup at step 0
-    worst = 0.0
-    for (name, a), (_, b) in zip(leaves(want), leaves(got)):
-        a, b = a.detach().float(), b.detach().float()
-        if world == 1:
-            check(torch.equal(a, b), f"12(a) Qwen2-MoE: {what} {name} "
-                                     f"differs")
-            continue
-        err = (a - b).abs()
-        lim = DIST_FP32["param"] + 2 * lr_t if what == "param" \
-            else DIST_FP32["grad"] * a.abs().max()
-        ratio = float(torch.where(err == 0, 0.0, err / lim).max())
-        worst = max(worst, ratio)
-        check(ratio <= 1.0, f"12(a) Qwen2-MoE: {what} {name} at "
-                            f"{ratio:.3g} x its limit")
-    return worst
 
 
 def phase_dist_collective(torch, work: str, dev_type: str,
@@ -5383,6 +5380,662 @@ def phase_serve_long(torch, work: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the LM and recsys train cells on a mesh (TP, ZeRO-1)
+# ---------------------------------------------------------------------------
+TRAIN_MESH_NEMO = dict(layers=2, batch=2, accum=2)  # 14(a): of 40, 256 rows
+TRAIN_MESH_DLRM_BATCH = 4096    # 14(a): DLRM rows of train_batch's 65,536
+TRAIN_REPLAY = (2, 2)           # 14(b): (data, model), processes on one card
+TRAIN_REPLAY_BATCH = 2          # 14(b): sequences of 4096, one a data rank
+TRAIN_LONG = dict(batch=16, accum=8, steps=3)   # 14(d): of 256 sequences
+# 14(b): a norm gain's gradient is one sum over every token (2 x 4096
+# here) of terms of either sign, each itself a sum over the hidden units
+# or heads (K up to 14,336) that the mesh cuts over "model" and adds in
+# another order: against DIST_FP32's 1e-5 of the leaf's largest, the
+# gains read 1.00-1.02 x in the first chip runs. So each leaf's m is also
+# allowed this many times its distance between two orders of the same
+# no-mesh step (``flipped``: the heads and hidden units in reverse), where
+# that is the larger
+FLOOR_TIMES = 2.0
+
+
+def mesh_step_leaves(torch, what: str, want, got, exact: bool,
+                     floor: dict = None, plain: dict = None) -> float:
+    """Each leaf of ``got`` (a rank's mesh step, 12(a) or 14: its param
+    blocks, or its AdamW m at its ZeRO blocks; ``what`` names which)
+    against ``want`` (the same blocks of the no-mesh step's, on the host
+    or the card): bit for bit when ``exact``, else by ``DIST_FP32``
+    (params within 1e-5 + 2 lr_t, m within 1e-5 of the leaf's largest),
+    or within ``FLOOR_TIMES`` x ``floor[leaf]`` where that is larger
+    (14(b): the distance between two orders of the same no-mesh sums,
+    ``replay_reference``). Returns the largest ratio of an error to its
+    limit; ``plain`` gets each leaf's ratio to ``DIST_FP32`` alone."""
+    from repro_torch.train.tree import leaves
+
+    lr_t = 1e-4 / 100                          # AdamW's warmup at step 0
+    worst = 0.0
+    for (name, a), (_, b) in zip(leaves(want), leaves(got)):
+        b = b.detach()
+        a = a.detach().to(b.device)
+        if exact:
+            check(torch.equal(a, b), f"{what}: {name} differs")
+            continue
+        a, b = a.float(), b.float()
+        err = (a - b).abs()
+        rule = DIST_FP32["param"] + 2 * lr_t if "param" in what \
+            else DIST_FP32["grad"] * float(a.abs().max())
+        lim = max(rule, FLOOR_TIMES * (floor or {}).get(name, 0.0))
+        ratio = float(torch.where(err == 0, 0.0, err / lim).max())
+        if plain is not None:
+            plain[name] = float(err.max()) / rule
+        worst = max(worst, ratio)
+        check(ratio <= 1.0, f"{what}: {name} at {ratio:.3g} x its limit")
+    return worst
+
+
+def rank_blocks(cell, tree, opt: bool = False):
+    """The rank of ``cell.mesh``'s blocks of a whole tree (views): its
+    param blocks (a gated leaf's as ``[gate_r | up_r]``), or with ``opt``
+    their ZeRO-1 blocks (where its optimizer state lies)."""
+    from repro_torch.launch.steps import zero_layout
+    from repro_torch.models.tp import serving_blocks
+    from repro_torch.train.tree import tree_map_with_path
+
+    out = serving_blocks(tree, cell.executed_specs()[0], cell.mesh,
+                         getattr(cell.model_cfg, "act", ""), copy=False)
+    if not opt:
+        return out
+    lay = zero_layout(cell)
+    return tree_map_with_path(lambda p, t: lay.leaf(p).zero_block(t), out)
+
+
+def flipped(tree, cfg) -> dict:
+    """A transformer train tree (params, or a state of their shape) with
+    its heads and hidden units in reverse order: the q heads, the kv
+    heads (q head h reads kv head h // G, so reversing both keeps the
+    groups), ``wo``'s rows with them, the MLP's hidden units (``win``'s
+    gate and up halves each, ``wout``'s rows). The same function, its
+    sums over heads and units in another order; applied twice, the tree
+    itself."""
+    out = dict(tree, layers=dict(tree["layers"]))
+    attn = dict(tree["layers"]["attn"])
+    mlp = dict(tree["layers"]["mlp"])
+    dh = cfg.d_head
+
+    def heads(t, dim):                    # reverse blocks of dh along dim
+        n = t.shape[dim] // dh
+        shape = t.shape[:dim] + (n, dh) + t.shape[dim + 1:]
+        return t.reshape(shape).flip(dim).reshape(t.shape)
+
+    for k in ("wq", "wk", "wv"):
+        attn[k] = heads(attn[k], 2)
+    attn["wo"] = heads(attn["wo"], 1)
+    f = mlp["wout"].shape[1]
+    mlp["win"] = _flip_halves(mlp["win"], f)
+    mlp["wout"] = mlp["wout"].flip(1)
+    out["layers"]["attn"], out["layers"]["mlp"] = attn, mlp
+    return out
+
+
+def _flip_halves(win, f: int):
+    """``win`` (L, D, 2F) with its gate and up halves each reversed."""
+    import torch
+    return torch.cat([win[..., :f].flip(-1), win[..., f:].flip(-1)], -1)
+
+
+def _host(tree):
+    from repro_torch.train.tree import tree_map
+    return tree_map(lambda t: t.detach().cpu(), tree)
+
+
+def mesh_nemo(torch, dev, mesh, world: int, count) -> dict:
+    """14(a) Mistral-NeMo-12B: train_4k at full width, ``TRAIN_MESH_NEMO``'s
+    cut, through ``build_cell(..., mesh=)`` (the tensor-parallel bodies,
+    the loss, ZeRO-1) against the no-mesh step on the same card."""
+    from repro_torch.configs.mistral_nemo_12b import CONFIG
+    from repro_torch.launch import collectives as col
+    from repro_torch.launch.steps import build_cell, shard_args, smoke_batch
+    from repro_torch.models.bridge import train_tree
+    from repro_torch.models.transformer import init_params
+
+    cfg = dataclasses.replace(CONFIG, n_layers=TRAIN_MESH_NEMO["layers"])
+    if world > 1:
+        cfg = dataclasses.replace(cfg, dtype=torch.float32)
+    acc = TRAIN_MESH_NEMO["accum"]
+    one = build_cell(NEMO, "train_4k", device=dev, model_cfg=cfg, accum=acc)
+    cell = build_cell(NEMO, "train_4k", device=dev, model_cfg=cfg,
+                      accum=acc, mesh=mesh)
+    check(cell.model_cfg.tp_mesh is mesh, "14(a): Mistral-NeMo did not take "
+                                          "the tensor-parallel path")
+    tree = train_tree(init_params(cfg, seed=SEED + 51, device=dev))
+    batch = {k: v[:TRAIN_MESH_NEMO["batch"]]
+             for k, v in smoke_batch(one, SEED + 51).items()}
+    step0 = torch.tensor(0, dtype=torch.int32, device=dev)
+    args = shard_args(cell, (tree, None, batch, step0))
+    torch.cuda.reset_peak_memory_stats()
+    col.take_records()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    p2, o2, l2 = count(cell.fn, *args)
+    torch.cuda.synchronize()
+    out = dict(step_ms=(time.perf_counter() - t) * 1e3, loss=float(l2),
+               collectives=col.collective_stats(col.take_records()),
+               peak_gb=peak_gb(torch))
+    m2 = o2["m"]
+    del o2, args
+    torch.cuda.empty_cache()
+    p1, o1, l1 = one.fn(tree, one.opt.init(tree), batch, step0)
+    m1 = o1["m"]
+    del o1
+    exact = world == 1
+    out["worst"] = {
+        "param": mesh_step_leaves(torch, "14(a) Mistral-NeMo param",
+                                  rank_blocks(cell, p1), p2, exact),
+        "m": mesh_step_leaves(torch, "14(a) Mistral-NeMo m",
+                              rank_blocks(cell, m1, opt=True), m2, exact)}
+    if exact:
+        check(torch.equal(l1, l2), f"14(a) Mistral-NeMo: loss {float(l2)} "
+                                   f"on the mesh, {float(l1)} without")
+    else:
+        rel = abs(float(l1) - float(l2)) / abs(float(l1))
+        out["worst"]["loss"] = rel / DIST_FP32["loss"]
+        check(rel <= DIST_FP32["loss"], f"14(a) Mistral-NeMo: loss "
+                                        f"{float(l2)} vs {float(l1)}")
+    del p1, p2, m1, m2, tree
+    torch.cuda.empty_cache()
+    return out
+
+
+def mesh_dlrm(torch, dev, mesh, world: int, count) -> dict:
+    """14(a) DLRM: train_batch at MLPerf widths over phase 10's tables
+    (capped at 4M rows), ``TRAIN_MESH_DLRM_BATCH`` samples, through
+    ``build_cell(..., mesh=)`` (row-sharded tables, column-parallel
+    MLPs, ZeRO-1) against the no-mesh step on the same card; the no-mesh
+    step's params and m wait on the host (two copies of 11.5 GB of
+    tables and their state would not fit beside the second step)."""
+    from repro_torch.launch import collectives as col
+    from repro_torch.launch.steps import build_cell, shard_args
+    from repro_torch.models import recsys as rm
+    from repro_torch.models.bridge import train_tree
+
+    cfg = dlrm_train_config()
+    one = build_cell("dlrm-mlperf", "train_batch", device=dev, model_cfg=cfg)
+    cell = build_cell("dlrm-mlperf", "train_batch", device=dev,
+                      model_cfg=cfg, mesh=mesh)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 53)
+    b = TRAIN_MESH_DLRM_BATCH
+    batch = {"dense": torch.rand((b, cfg.n_dense), generator=gen,
+                                 device=dev),
+             "sparse_ids": torch.stack([torch.randint(
+                 0, v, (b, 1), generator=gen, device=dev,
+                 dtype=torch.int32) for v in cfg.table_sizes], 1),
+             "labels": torch.randint(0, 2, (b,), generator=gen,
+                                     device=dev).float()}
+    step0 = torch.tensor(0, dtype=torch.int32, device=dev)
+    tree = train_tree(rm.dlrm_init(cfg, seed=SEED + 53, device=dev))
+    p1, o1, l1 = one.fn(tree, one.opt.init(tree), batch, step0)
+    want_p, want_m = _host(p1), _host(o1["m"])
+    del tree, p1, o1
+    torch.cuda.empty_cache()
+    tree = train_tree(rm.dlrm_init(cfg, seed=SEED + 53, device=dev))
+    args = shard_args(cell, (tree, None, batch, step0))
+    del tree
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    col.take_records()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    p2, o2, l2 = count(cell.fn, *args)
+    torch.cuda.synchronize()
+    out = dict(step_ms=(time.perf_counter() - t) * 1e3, loss=float(l2),
+               collectives=col.collective_stats(col.take_records()),
+               peak_gb=peak_gb(torch))
+    exact = world == 1
+    out["worst"] = {                 # a leaf at a time to the card
+        "param": mesh_step_leaves(torch, "14(a) DLRM param",
+                                  rank_blocks(cell, want_p), p2, exact),
+        "m": mesh_step_leaves(torch, "14(a) DLRM m",
+                              rank_blocks(cell, want_m, opt=True),
+                              o2["m"], exact)}
+    check(torch.equal(l1, l2) if exact else
+          abs(float(l1) - float(l2)) <= DIST_FP32["loss"] * abs(float(l1)),
+          f"14(a) DLRM: loss {float(l2)} on the mesh, {float(l1)} without")
+    del p2, o2, args, want_p, want_m
+    torch.cuda.empty_cache()
+    return out
+
+
+def train_mesh_rank(torch, rank: int, world: int, store: str,
+                    dev_type: str = "cuda", count=None) -> dict:
+    """14(a) on one rank of a NCCL process group of ``world`` ranks, one a
+    card, met through a ``FileStore`` at ``store``: ``mesh_nemo`` and
+    ``mesh_dlrm`` on ``make_host_mesh(1, world)``, bf16 and bit for bit
+    at world 1 (every collective a copy, the loss the one-card loss, no
+    ZeRO split), fp32 by ``DIST_FP32`` beyond. ``count`` (a
+    ``PathCounts``) wraps the mesh steps."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+
+    count = count or (lambda fn, *a, **k: fn(*a, **k))
+    if dev_type == "cuda":
+        torch.cuda.set_device(rank)
+    dev = torch.device(dev_type, rank if dev_type == "cuda" else None)
+    dist.init_process_group("nccl" if dev_type == "cuda" else "gloo",
+                            store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    try:
+        mesh = make_host_mesh(1, world, device_type=dev_type)
+        out = {"world": world, "nemo": mesh_nemo(torch, dev, mesh, world,
+                                                 count)}
+        out["dlrm"] = mesh_dlrm(torch, dev, mesh, world, count)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def phase_train_mesh_collective(torch, work: str, dev_type: str,
+                                count) -> dict:
+    """14(a) at world ``torch.cuda.device_count()``: in this process on
+    one card; with more, one ``--train-rank`` process a card."""
+    world = torch.cuda.device_count()
+    store = str(Path(work) / "nccl-train-store")
+    if world == 1:
+        return train_mesh_rank(torch, 0, 1, store, dev_type, count)
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--train-rank",
+         str(r), "--dist-world", str(world), "--dist-store", store])
+        for r in range(1, world)]
+    try:
+        out = train_mesh_rank(torch, 0, world, store, dev_type, count)
+        for p in procs:
+            p.wait(timeout=DIST_TIMEOUT)
+            check(p.returncode == 0, f"14(a): a rank exited {p.returncode}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return out
+
+
+def replay_config(torch):
+    """14(b)'s Mistral-NeMo-12B: full width, 2 layers, fp32."""
+    from repro_torch.configs.mistral_nemo_12b import CONFIG
+    return dataclasses.replace(CONFIG, n_layers=TRAIN_MESH_NEMO["layers"],
+                               dtype=torch.float32)
+
+
+def replay_reference(torch, dev, ref: str) -> dict:
+    """14(b)'s no-mesh step on the card (fp32, ``TRAIN_REPLAY_BATCH``
+    sequences of 4096, one microbatch), saved to ``ref`` for the ranks:
+    its loss, params and AdamW m; and each m leaf's largest distance
+    from the same step on ``flipped`` params, flipped back (the same
+    function, its sums over heads and hidden units in another order: the
+    floor of ``FLOOR_TIMES``)."""
+    from repro_torch.launch.steps import build_cell, smoke_batch
+    from repro_torch.models.bridge import train_tree
+    from repro_torch.models.transformer import init_params
+    from repro_torch.train.tree import leaves
+
+    cfg = replay_config(torch)
+    one = build_cell(NEMO, "train_4k", device=dev, model_cfg=cfg, accum=1)
+    tree = train_tree(init_params(cfg, seed=SEED + 55, device=dev))
+    batch = {k: v[:TRAIN_REPLAY_BATCH]
+             for k, v in smoke_batch(one, SEED + 55).items()}
+    step0 = torch.tensor(0, dtype=torch.int32, device=dev)
+    t = time.perf_counter()
+    p, o, loss = one.fn(tree, one.opt.init(tree), batch, step0)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t) * 1e3
+    want = {"loss": loss.cpu(), "param": _host(p), "m": _host(o["m"]),
+            "batch": _host(batch)}
+    del tree, p, o
+    torch.cuda.empty_cache()
+    tree = flipped(train_tree(init_params(cfg, seed=SEED + 55,
+                                          device=dev)), cfg)
+    _, o, flip_loss = one.fn(tree, one.opt.init(tree), batch, step0)
+    check(abs(float(flip_loss) - float(loss)) <= DIST_FP32["loss"] * abs(
+        float(loss)), f"14(b): the flipped step's loss {float(flip_loss)} "
+                      f"is not the step's {float(loss)}")
+    ref_m = dict(leaves(want["m"]))
+    floor = {name: float((ref_m[name].to(dev) - t).abs().max())
+             for name, t in leaves(flipped(o["m"], cfg))}
+    del tree, o
+    torch.cuda.empty_cache()
+    torch.save(dict(want, floor=floor), ref)
+    return dict(step_ms=ms, loss=float(loss), floor=floor)
+
+
+def train_replay_rank(torch, rank: int, world: int, store: str,
+                      ref: str, dev_type: str = "cuda") -> dict:
+    """14(b) on one of ``world`` processes that share the one card, a
+    gloo process group (NCCL takes one rank a card) on a
+    ``TRAIN_REPLAY`` mesh: Mistral-NeMo's fp32 step at full width
+    through ``build_cell(..., mesh=)`` (the ranks make the seeded weights
+    one at a time and keep their blocks), held to ``replay_reference``'s
+    step by ``DIST_FP32``. Returns the rank's loss, step ms, peak,
+    worst ratios and collective tally."""
+    import torch.distributed as dist
+    from repro_torch.launch import collectives as col
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import build_cell, shard_args
+    from repro_torch.models.bridge import train_tree
+    from repro_torch.models.transformer import init_params
+
+    if dev_type == "cuda":
+        torch.cuda.set_device(0)
+    dev = torch.device(dev_type, 0 if dev_type == "cuda" else None)
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    try:
+        mesh = make_host_mesh(*TRAIN_REPLAY, device_type=dev_type)
+        cfg = replay_config(torch)
+        cell = build_cell(NEMO, "train_4k", device=dev, model_cfg=cfg,
+                          accum=1, mesh=mesh)
+        want = torch.load(ref, mmap=True)
+        batch = {k: v.to(dev) for k, v in want["batch"].items()}
+        step0 = torch.tensor(0, dtype=torch.int32, device=dev)
+        args = None
+        for r in range(world):              # one whole tree at a time
+            if r == rank:
+                tree = train_tree(init_params(cfg, seed=SEED + 55,
+                                              device=dev))
+                args = shard_args(cell, (tree, None, batch, step0))
+                del tree
+                torch.cuda.empty_cache()
+            dist.barrier()
+        torch.cuda.reset_peak_memory_stats()
+        col.take_records()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        p, o, loss = cell.fn(*args)
+        torch.cuda.synchronize()
+        out = dict(rank=rank, step_ms=(time.perf_counter() - t) * 1e3,
+                   loss=float(loss), peak_gb=peak_gb(torch),
+                   collectives=col.collective_stats(col.take_records()))
+        rel = abs(float(loss) - float(want["loss"])) / abs(
+            float(want["loss"]))
+        check(rel <= DIST_FP32["loss"], f"14(b) rank {rank}: loss "
+                                        f"{float(loss)} vs "
+                                        f"{float(want['loss'])}")
+        plain = {}
+        out["worst"] = {
+            "loss": rel / DIST_FP32["loss"],
+            "param": mesh_step_leaves(torch, f"14(b) rank {rank} param",
+                                      rank_blocks(cell, want["param"]), p,
+                                      False),
+            "m": mesh_step_leaves(torch, f"14(b) rank {rank} m",
+                                  rank_blocks(cell, want["m"], opt=True),
+                                  o["m"], False, want["floor"], plain)}
+        out["m_vs_dist_fp32"] = plain
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def phase_train_replay(torch, dev, work: str) -> dict:
+    """14(b): the reference step here, then ``TRAIN_REPLAY``'s ranks as
+    ``--train-replay-rank`` processes on this card (killed after
+    ``DIST_TIMEOUT`` s), each printing its result as one JSON line."""
+    ref = str(Path(work) / "train-replay-ref.pt")
+    out = {"reference": replay_reference(torch, dev, ref)}
+    world = TRAIN_REPLAY[0] * TRAIN_REPLAY[1]
+    store = str(Path(work) / "gloo-train-store")
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()),
+         "--train-replay-rank", str(r), "--dist-world", str(world),
+         "--dist-store", store, "--replay-ref", ref],
+        stdout=subprocess.PIPE, text=True) for r in range(world)]
+    ranks = []
+    try:
+        for p in procs:
+            text, _ = p.communicate(timeout=DIST_TIMEOUT)
+            check(p.returncode == 0, f"14(b): a rank exited {p.returncode}")
+            ranks.append(json.loads(text.strip().splitlines()[-1]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    out["ranks"] = ranks
+    return out
+
+
+def phase_train_mesh(torch, dev) -> dict:
+    """Phase 14. Returns the launches of the forward and backward kernels
+    on its mesh steps (14(a): each mesh step's counts read from just
+    before it to just after), not those of the runs they are held to."""
+    from repro_torch.kernels.embedding_bag import ops as eb
+    from repro_torch.kernels.flash_attention import ops as fa
+
+    t0 = time.perf_counter()
+    count = PathCounts({"flash_attention": (fa, "launches"),
+                        "flash_attention_bwd": (fa, "bwd_launches"),
+                        "embedding_bag": (eb, "launches"),
+                        "embedding_bag_bwd": (eb, "bwd_launches")})
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-train-") as work:
+        a = phase_train_mesh_collective(torch, work, dev.type, count)
+        held = "bf16, bit for bit (loss, params, AdamW m)" \
+            if a["world"] == 1 else \
+            f"fp32 by DIST_FP32 {json.dumps(a['nemo']['worst'])}"
+        log(f"  14(a) NCCL world {a['world']}: Mistral-NeMo-12B train_4k at "
+            f"full width ({TRAIN_MESH_NEMO['layers']} layers, "
+            f"{TRAIN_MESH_NEMO['batch']} x 4096 in "
+            f"{TRAIN_MESH_NEMO['accum']} microbatches, "
+            f"{a['nemo']['step_ms']:.1f} ms, peak "
+            f"{a['nemo']['peak_gb']:.2f} GB) and DLRM train_batch "
+            f"({TRAIN_MESH_DLRM_BATCH} samples, tables capped at "
+            f"{TRAIN_DLRM_ROWS} rows, {a['dlrm']['step_ms']:.1f} ms, peak "
+            f"{a['dlrm']['peak_gb']:.2f} GB) through build_cell(mesh=) "
+            f"equal to the no-mesh steps: {held}")
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        b = phase_train_replay(torch, dev, work)
+        b["seconds"] = time.perf_counter() - t
+    worst = {k: max(r["worst"][k] for r in b["ranks"])
+             for k in ("loss", "param", "m")}
+    over = {}                # m leaves past DIST_FP32 alone, and by how far
+    for r in b["ranks"]:
+        for name, x in r["m_vs_dist_fp32"].items():
+            if x > 1.0:
+                over[name] = max(over.get(name, 0.0), x)
+    log(f"  14(b) {TRAIN_REPLAY[0]} x {TRAIN_REPLAY[1]} (gloo, "
+        f"{len(b['ranks'])} processes on the card): Mistral-NeMo-12B fp32 "
+        f"at full width, {TRAIN_MESH_NEMO['layers']} layers, "
+        f"{TRAIN_REPLAY_BATCH} x 4096, against the no-mesh step "
+        f"({b['reference']['step_ms']:.1f} ms) by DIST_FP32 or "
+        f"{FLOOR_TIMES} x the no-mesh step's own order floor: worst "
+        f"{json.dumps(worst)}; m leaves past DIST_FP32 alone: "
+        f"{json.dumps(over)}; rank steps "
+        f"{[round(r['step_ms'], 1) for r in b['ranks']]} ms, peaks "
+        f"{[round(r['peak_gb'], 2) for r in b['ranks']]} GB "
+        f"({b['seconds']:.1f} s)")
+    log(json.dumps({"phase14": dict(
+        collective=a, replay=b, launches_14a=count.n,
+        reduced=[f"14(a): Mistral-NeMo train_4k 40 -> "
+                 f"{TRAIN_MESH_NEMO['layers']} layers; global batch 256 -> "
+                 f"{TRAIN_MESH_NEMO['batch']} (accum "
+                 f"{TRAIN_MESH_NEMO['accum']}: microbatch 1 x 4096)",
+                 f"14(a): DLRM tables capped at {TRAIN_DLRM_ROWS} rows "
+                 f"(as phase 10), batch 65,536 -> {TRAIN_MESH_DLRM_BATCH}",
+                 f"14(b): Mistral-NeMo 40 -> {TRAIN_MESH_NEMO['layers']} "
+                 f"layers, fp32, batch {TRAIN_REPLAY_BATCH} x 4096 in one "
+                 f"microbatch; the ranks share one card over gloo: no "
+                 f"interconnect is measured"])}))
+    log(f"  launches on phase 14's mesh steps: {count.n}; phase 14 took "
+        f"{time.perf_counter() - t0:.1f} s")
+    for name, n in count.n.items():
+        check(n > 0, f"{name} was never launched on phase 14's mesh steps")
+    return count.n
+
+
+def train_long_rank(torch, rank: int, world: int, store: str,
+                    dev_type: str = "cuda") -> dict:
+    """14(d), outside the default run (``--train-mesh``, on a machine with
+    4 cards): Mistral-NeMo-12B train_4k at all 40 layers on a 2 x 2 mesh,
+    one NCCL process a card, bf16, AdamW with ZeRO-1, through
+    ``build_cell(..., mesh=make_host_mesh(2, 2), accum=8)``: each rank
+    makes the seeded weights whole on its card and keeps its blocks
+    (``shard_args``: its optimizer state made at its ZeRO-1 blocks),
+    ``TRAIN_LONG``'s batch (16 of 256 sequences: 8 a data rank in 8
+    microbatches) and steps, each timed on the host clock between
+    synchronizes, then one more under ``torch.profiler`` (rank 0 splits
+    its device time into GEMMs, the attention kernels, NCCL and the
+    rest). The loss must be finite and equal on the model ranks of each
+    data group. Returns s a step, tokens/s, the peak, the collectives of
+    a step and the profile."""
+    import torch.distributed as dist
+    from repro_torch.configs.mistral_nemo_12b import CONFIG
+    from repro_torch.launch import collectives as col
+    from repro_torch.launch.mesh import coordinate, make_host_mesh
+    from repro_torch.launch.steps import build_cell, shard_args, smoke_batch
+    from repro_torch.models.bridge import train_tree
+    from repro_torch.models.transformer import init_params
+
+    if dev_type == "cuda":
+        torch.cuda.set_device(rank)
+    dev = torch.device(dev_type, rank if dev_type == "cuda" else None)
+    dist.init_process_group("nccl" if dev_type == "cuda" else "gloo",
+                            store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    try:
+        mesh = make_host_mesh(2, 2, device_type=dev_type)
+        cell = build_cell(NEMO, "train_4k", device=dev, mesh=mesh,
+                          accum=TRAIN_LONG["accum"])
+        check(cell.optimizer == "adamw" and cell.model_cfg.remat,
+              f"14(d): {cell.optimizer}, remat {cell.model_cfg.remat}")
+        batch = {k: v[:TRAIN_LONG["batch"]]
+                 for k, v in smoke_batch(cell, SEED + 57).items()}
+        tree = train_tree(init_params(CONFIG, seed=SEED + 57, device=dev))
+        torch.cuda.empty_cache()
+        params, opt, local, _ = shard_args(cell, (tree, None, batch, None))
+        del tree
+        torch.cuda.empty_cache()
+        held = dict(
+            params_gb=sum(t.numel() * t.element_size()
+                          for t in _leaves(params)) / 1e9,
+            opt_gb=sum(t.numel() * t.element_size()
+                       for t in _leaves(opt)) / 1e9)
+        coord = coordinate(mesh)
+        torch.cuda.reset_peak_memory_stats()
+        times, losses = [], []
+
+        def step(i):
+            return cell.fn(params, opt, local, torch.tensor(
+                i, dtype=torch.int32, device=dev))
+
+        for i in range(TRAIN_LONG["steps"]):
+            dist.barrier()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            if i == TRAIN_LONG["steps"] - 1:
+                col.take_records()
+            loss = step(i)[2]
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+            losses.append(float(loss))
+            check(math.isfinite(losses[-1]), f"14(d) step {i}: loss "
+                                             f"{losses[-1]}")
+            first = loss.clone()
+            dist.broadcast(first, coord["data"] * 2,
+                           group=mesh.get_group("model"))
+            check(torch.equal(first, loss), f"14(d) step {i}: rank {rank}'s "
+                                            f"loss differs from its data "
+                                            f"group's")
+        stats = col.collective_stats(col.take_records())
+        peak = peak_gb(torch)
+        dist.barrier()
+        _, wall, kern = profiled(torch, lambda: step(TRAIN_LONG["steps"]))
+        tokens = TRAIN_LONG["batch"] * 4096
+        out = dict(rank=rank, coord=coord, step_s=times, losses=losses,
+                   tokens_per_s=tokens / times[-1], peak_gb=peak,
+                   profiled_step_s=wall, **held,
+                   collectives={op: {k: stats[op][k] for k in
+                                     ("count", "bytes", "wire_bytes")}
+                                for op in ("all-gather", "all-reduce")})
+        if kern:
+            kern = [e for e in kern if not e.key.startswith("nccl:")]
+            groups = {"gemm": 0.0, "flash_attention": 0.0,
+                      "flash_attention_bwd": 0.0, "nccl": 0.0, "other": 0.0}
+            for e in kern:
+                k, ms = e.key, e.self_device_time_total / 1e3
+                if "nccl" in k.lower():
+                    groups["nccl"] += ms
+                elif "bwd_tc::" in k or "bwd::" in k:  # csrc/flash_attention.cu
+                    groups["flash_attention_bwd"] += ms
+                elif "fa_wgmma_kernel" in k or "flash_attention_kernel" in k:
+                    groups["flash_attention"] += ms
+                elif any(s in k.lower() for s in ("gemm", "xmma", "nvjet",
+                                                  "cutlass", "cublas")):
+                    groups["gemm"] += ms
+                else:
+                    groups["other"] += ms
+            busy = sum(groups.values())
+            kern.sort(key=lambda e: -e.self_device_time_total)
+            out.update(device_ms=groups, device_busy_ms=busy,
+                       idle_ms=wall * 1e3 - busy,
+                       idle_share=1 - busy / (wall * 1e3),
+                       kernels_run=sum(e.count for e in kern),
+                       busiest=[(e.key[:60], e.self_device_time_total / 1e3,
+                                 e.count) for e in kern[:8]])
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def train_long_bound(cfg, tokens: int) -> dict:
+    """14(d)'s step bound: the FLOPs of a step (6 N a token, the causal
+    attention forward and backward, and the layers' forward once more
+    for remat) over 989 TFLOP/s x 4 cards."""
+    seq = 4096
+    pairs = cfg.n_heads * visible_pairs(seq, seq, True) * (tokens // seq)
+    dense = 6 * cfg.n_params() * tokens + 14 * pairs * cfg.d_head \
+        * cfg.n_layers
+    layers = cfg.n_params() - 2 * cfg.vocab * cfg.d_model
+    remat = 2 * layers * tokens + 4 * pairs * cfg.d_head * cfg.n_layers
+    flops = dense + remat
+    return dict(flops=flops, bound_s=flops / (BF16_FLOPS * 4),
+                flops_without_remat=dense)
+
+
+def phase_train_long(torch, work: str) -> dict:
+    """14(d) on 4 cards: this process is rank 0, one ``--train-long-rank``
+    process a further card; each rank prints its result as a JSON line
+    (stdout), rank 0's is returned with the others'."""
+    from repro_torch.configs.mistral_nemo_12b import CONFIG
+
+    world = torch.cuda.device_count()
+    check(world == 4, f"14(d) needs 4 cards, the machine has {world}")
+    store = str(Path(work) / "nccl-train-long-store")
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()),
+         "--train-long-rank", str(r), "--dist-world", str(world),
+         "--dist-store", store], stdout=subprocess.PIPE, text=True)
+        for r in range(1, world)]
+    try:
+        out = train_long_rank(torch, 0, world, store)
+        others = []
+        for p in procs:
+            text, _ = p.communicate(timeout=DIST_TIMEOUT + 600)
+            check(p.returncode == 0, f"14(d): a rank exited {p.returncode}")
+            others.append(json.loads(text.strip().splitlines()[-1]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    bound = train_long_bound(CONFIG, TRAIN_LONG["batch"] * 4096)
+    return dict(rank0=out, others=others, bound=bound,
+                reduced=[f"14(d): global batch 256 -> {TRAIN_LONG['batch']} "
+                         f"sequences of 4096 (8 a data rank, accum "
+                         f"{TRAIN_LONG['accum']}: microbatch 1 x 4096); "
+                         f"{TRAIN_LONG['steps']} timed steps and one "
+                         f"profiled"])
+
+
 def main() -> int:
     import argparse
 
@@ -5404,6 +6057,17 @@ def main() -> int:
                          "on 2 x 2, one process a card")
     ap.add_argument("--serve-long-rank", type=int, default=None,
                     help=argparse.SUPPRESS)      # 13(d)'s other ranks
+    ap.add_argument("--train-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)      # 14(a)'s other ranks
+    ap.add_argument("--train-replay-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)      # 14(b)'s ranks
+    ap.add_argument("--replay-ref", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--train-mesh", action="store_true",
+                    help="on a machine with 4 cards, run only 14(d): "
+                         "Mistral-NeMo-12B train_4k at all 40 layers on "
+                         "2 x 2 (TP, ZeRO-1), one process a card")
+    ap.add_argument("--train-long-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)      # 14(d)'s other ranks
     args = ap.parse_args()
     try:
         import torch
@@ -5421,15 +6085,26 @@ def main() -> int:
     from repro_torch.kernels import build
 
     ranks = {"dist_rank": dist_rank, "serve_rank": serve_dist_rank,
-             "serve_long_rank": serve_long_rank}
+             "serve_long_rank": serve_long_rank,
+             "train_rank": train_mesh_rank,
+             "train_long_rank": train_long_rank,
+             "train_replay_rank": lambda torch, r, w, store: train_replay_rank(
+                 torch, r, w, store, args.replay_ref)}
     for flag, fn in ranks.items():
-        if getattr(args, flag) is not None:  # 12(a), 13(a) or 13(d) on a card
+        if getattr(args, flag) is not None:  # a rank of 12-14 on a card
             torch.backends.cuda.matmul.allow_tf32 = False
             for name in build.sources():
                 build.load(name)
-            fn(torch, getattr(args, flag), args.dist_world, args.dist_store)
+            res = fn(torch, getattr(args, flag), args.dist_world,
+                     args.dist_store)
+            if flag in ("train_long_rank", "train_replay_rank"):
+                print(json.dumps(res))
             return 0
-    if args.serve_long:
+    for flag, title, phase in (
+            ("serve_long", "phase13d", phase_serve_long),
+            ("train_mesh", "phase14d", phase_train_long)):
+        if not getattr(args, flag):
+            continue
         torch.backends.cuda.matmul.allow_tf32 = False
         log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                             "--format=csv,noheader"], capture_output=True,
@@ -5438,7 +6113,7 @@ def main() -> int:
         for name in build.sources():
             build.load(name)
         with tempfile.TemporaryDirectory(prefix="chip_smoke-long-") as work:
-            log(json.dumps({"phase13d": phase_serve_long(torch, work)}))
+            log(json.dumps({title: phase(torch, work)}))
         return 0
     t0 = time.perf_counter()
     log("phase 1: setup")
@@ -5535,6 +6210,12 @@ def main() -> int:
                 t0)
     torch.cuda.empty_cache()
     for name, n in phase_serving_mesh(torch, dev).items():
+        launches[name] = launches.get(name, 0) + n
+
+    start_phase(torch, "phase 14: the LM and recsys train cells on a mesh",
+                t0)
+    torch.cuda.empty_cache()
+    for name, n in phase_train_mesh(torch, dev).items():
         launches[name] = launches.get(name, 0) + n
 
     rows = []

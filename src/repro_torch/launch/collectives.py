@@ -8,12 +8,16 @@ HLO: each sharded path (``models/moe.moe_block_sharded``,
 tensors whose collectives are these explicit calls at its boundary, and
 each call records itself where it is made: (op, result bytes, group
 size), forward and backward alike, in the record of the thread that ran
-the forward. ``collective_stats`` tallies a record as repro's
+the forward. A layer recomputed by ``torch.utils.checkpoint`` in the
+backward replays its forward's collectives into the record of the
+thread that recomputes it: the caller's on the CPU (they count twice
+there), autograd's device thread on the card (not in the caller's). ``collective_stats`` tallies a record as repro's
 ``collective_stats`` tallies an HLO module.
 
 Each call reduces over one mesh axis or a group of them (one call a
 process group, ``mesh.get_group(axis)``, inner axis first for a gather),
-with only ``all_reduce`` and ``all_gather`` (gloo on the CPU and NCCL on
+with only ``all_reduce`` (a sum, or a max: ``all_reduce_max``) and
+``all_gather`` (gloo on the CPU and NCCL on
 the card both have them). Autograd takes the SPMD view: each rank
 differentiates its own share of the global loss (``train/train_loop``),
 so the backward of a sum over a group is the sum of the group's
@@ -157,6 +161,31 @@ def all_reduce_sum(t: torch.Tensor, mesh, axes) -> torch.Tensor:
     """Sum of ``t`` over the ranks of the mesh axes ``axes`` (a name or a
     tuple); differentiable. On one rank, a copy."""
     return _AllReduceSum.apply(t, _groups(mesh, axes))
+
+
+def all_reduce_sum_(t: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """Sum ``t`` (contiguous) over the ranks of ``axes`` in place, with no
+    autograd rule (a step's gradients, ``train_loop.reduce_grads``: no
+    copy of a leaf beside it). Returns ``t``."""
+    import torch.distributed as dist
+
+    log = records()
+    for group, n in _groups(mesh, axes):
+        dist.all_reduce(t, group=group)
+        log.append(("all-reduce", _nbytes(t), n))
+    return t
+
+
+def all_reduce_max(t: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """Elementwise max of ``t`` over the ranks of ``axes``; no gradient
+    (the caller passes a detached tensor: a softmax's shift)."""
+    import torch.distributed as dist
+
+    t, log = t.detach().contiguous().clone(), records()
+    for group, n in _groups(mesh, axes):
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
+        log.append(("all-reduce", _nbytes(t), n))
+    return t
 
 
 def all_reduce_mean(t: torch.Tensor, mesh, axes) -> torch.Tensor:

@@ -15,13 +15,11 @@ under repro's layout: its GSPMD tensor parallelism and ZeRO-1 included)
 and ``status``; it adds ``fits_80gb`` (``argument_bytes`` against one
 H100's 80 x 10^9 bytes), the largest leaves' placements, and
 ``executed_argument_bytes`` / ``executed_fits_80gb``, the same under
-the layout the port's steps run (``executed_bytes``), so the gap between
-the two layouts shows cell by cell. A prefill or decode cell executes
-repro's layout whole, so its two counts are equal and every one fits.
-A train cell still runs what repro tensor-parallelises (and ZeRO-1's
-optimizer state) replicated (ROADMAP Queue 1 item 16): under that
-layout the train_4k cells of Mistral-NeMo-12B, Nemotron-4-15B and
-Qwen1.5-32B exceed 80 GB a rank on both meshes. repro's temp bytes and
+the layout the port's steps run (``executed_bytes``: the optimizer state
+as ``train/zero`` makes it). The port's steps execute repro's layout
+whole, tensor parallelism and ZeRO-1 included, so the two counts are
+equal in every LM and recsys record, and every cell fits; a GNN's train
+cell keeps its edges whole (SchNet on a mesh is not ported). repro's temp bytes and
 FLOPs come from XLA's compiled module; nothing here measures them, so
 the record has none.
 
@@ -101,14 +99,16 @@ def place(mesh, leaf: torch.Tensor, spec):
 
 def executed_bytes(bundle, args, trees, mesh) -> int:
     """A rank's bytes of the arguments under the layout the port's steps
-    run on ``mesh`` for the bundle's kind (``CellBundle.executed_specs``:
-    a prefill or decode cell at repro's specs; any other the MoE experts,
-    DLRM's tables, the batch over the data-parallel axes and the
-    retrieval candidates sharded, the rest replicated), a train cell's
-    optimizer state made over the rank's params (no ZeRO-1)."""
+    run on ``mesh`` (``CellBundle.executed_specs``: every leaf at repro's
+    spec; a graph batch's edges whole), rank 0's: its param and batch
+    blocks, and a train cell's optimizer state as ``train/zero`` makes it
+    at the rank's ZeRO-1 blocks (``steps.zero_layout(...).state_blocks``:
+    the code the step's ``init`` runs, on meta tensors); a GNN's
+    replicated, as ``gnn_param_specs`` leaves its params."""
+    from ..configs import get_arch
     from ..train.tree import tensors, tree_map
     from .sharding import executed, executed_batch, local_shape
-    from .steps import _optimizer
+    from .steps import _optimizer, zero_layout
 
     def local(tree, specs):
         return tree_map(lambda leaf, spec: torch.empty(
@@ -120,8 +120,13 @@ def executed_bytes(bundle, args, trees, mesh) -> int:
     if bundle.kind != "retrieval":
         params = local(args[0], executed(trees[0], bundle.kind))
         out.append(params)
-        if bundle.kind == "train":
+        if bundle.kind == "train" and \
+                get_arch(bundle.arch).family == "gnn":
             out += [_optimizer(bundle.optimizer).init(params), args[3]]
+        elif bundle.kind == "train":
+            coord = {a: 0 for a in mesh.mesh_dim_names}
+            out += [zero_layout(bundle, mesh=mesh, coord=coord)
+                    .state_blocks("meta"), args[3]]
     return sum(t.numel() * t.element_size() for tree in out
                for t in tensors(tree))
 

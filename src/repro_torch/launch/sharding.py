@@ -27,12 +27,13 @@ a mesh's ``mesh_dim_names`` and ``shape`` (a ``DeviceMesh`` or a
 
 ``placements`` turns a spec into DTensor placements on a
 ``DeviceMesh``; ``local_slice`` and ``distribute_tree`` give one rank its
-blocks. Which leaves a step actually executes sharded is ``executed``'s
-and ``executed_batch``'s choice, by the cell's kind: a ``prefill`` or
-``decode`` cell executes every leaf and the KV cache at repro's spec
-(Megatron tensor parallelism, ``models/tp``; the cache split by kv heads
-or by sequence); a ``train`` cell still runs what repro
-tensor-parallelises replicated (ROADMAP Queue 1 item 16).
+blocks. ``executed`` and ``executed_batch`` say which leaves a step
+actually executes sharded: every leaf of every kind at repro's spec
+(Megatron tensor parallelism, ``models/tp``; the KV cache split by kv
+heads or by sequence; the optimizer state at ``zero1_opt_specs``,
+``train/optimizer``'s ZeRO-1 layout), except a graph batch, whose edges
+the port does not split (SchNet on a mesh is not ported): only its batch
+rows go over the data-parallel axes.
 """
 from __future__ import annotations
 
@@ -318,53 +319,36 @@ def recsys_batch_specs(input_specs: dict, mesh) -> dict:
 # what a step executes sharded, placements and local blocks
 # ---------------------------------------------------------------------------
 SERVING_KINDS = ("prefill", "decode")
+GRAPH_INPUTS = ("edge_index", "edge_dist")     # a GNN batch's edge arrays
 
 
 def executed(spec_tree, kind: str = "train") -> Any:
-    """The part of a param spec tree that the port's steps execute
-    sharded for a cell of ``kind``. ``prefill`` and ``decode``: all of
-    it (``models/tp``'s rank bodies: attention, the dense MLP, the
-    shared experts, the embedding and the head over "model"; the experts
-    over "model" and "data"). Any other kind: the MoE experts
-    (``['moe']['w_in']`` / ``['w_out']``, by
-    ``models/moe.moe_block_sharded``) and the recsys tables that the
-    rule row-shards (DLRM's by ``models/recsys.RowShardedBag``); every
-    other leaf, which repro tensor-parallelises through GSPMD, runs
-    replicated: its spec here is all None."""
-    if kind in SERVING_KINDS:
-        return spec_tree
-
-    def keep(path: str, spec: P) -> P:
-        if path.endswith("['moe']['w_in']") or \
-                path.endswith("['moe']['w_out']"):
-            return spec
-        if "['tables']" in path:
-            return spec
-        return P(*([None] * len(spec)))
-
-    return tree_map_with_path(keep, spec_tree)
+    """The part of a param (or optimizer state) spec tree that the port's
+    steps execute sharded for a cell of ``kind``: all of it, for every
+    kind. An LM's prefill, decode, encode and train cells run Megatron
+    tensor parallelism over "model" (``models/tp``'s rank bodies: the
+    attention, the dense MLP, the shared experts, the embedding and the
+    head, with a vocab-parallel loss) and the experts over "model" and
+    "data"; the recsys rule's row-sharded tables and column-parallel
+    MLPs run as ``models/recsys`` cuts them; a train cell's optimizer
+    state lies at ``zero1_opt_specs`` (``train/optimizer``'s ZeRO-1)."""
+    return spec_tree
 
 
 def executed_batch(specs: dict, mesh, kind: str = "train") -> dict:
     """The part of a batch spec dict that the port's steps execute
-    sharded for a cell of ``kind``. ``prefill`` and ``decode``: all of
-    it, a KV cache's split of its kv heads over "model" or of its
-    sequence over "model" or the data axes (long_500k) included. Any
-    other kind: the batch split over the data-parallel axes (dimension 0
-    of a batch-leading array, dimension 1 of a KV cache) and the
-    retrieval candidates over every axis."""
-    if kind in SERVING_KINDS:
+    sharded for a cell of ``kind``: all of it (the batch over the
+    data-parallel axes, a KV cache's kv heads over "model" or its
+    sequence over "model" or the data axes, the retrieval candidates over
+    every axis), except a graph batch (``GRAPH_INPUTS``), whose edge
+    arrays stay whole: only dimension 0 of its other arrays is split
+    over the data-parallel axes."""
+    if kind in SERVING_KINDS or not any(k in specs for k in GRAPH_INPUTS):
         return dict(specs)
     dp = set(dp_axes(mesh))
-    out = {}
-    for name, spec in specs.items():
-        if name in ("candidates", "candidate_mask"):
-            out[name] = spec
-            continue
-        at = 1 if name in ("cache_k", "cache_v") else 0
-        out[name] = P(*[e if i == at and set(_axes(e)) <= dp else None
-                        for i, e in enumerate(spec)])
-    return out
+    return {name: P(*[e if i == 0 and set(_axes(e)) <= dp else None
+                      for i, e in enumerate(spec)])
+            for name, spec in specs.items()}
 
 
 def replicated_axes(spec: P, mesh) -> tuple:

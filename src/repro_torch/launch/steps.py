@@ -27,20 +27,21 @@ leaves.
 
 On a mesh (``build_cell(..., mesh=)``, one rank of a ``DeviceMesh``)
 ``fn`` is that rank's step on its blocks (``make_smoke_args`` cuts
-them): the batch is split over the data-parallel axes, an LM's MoE
-layers run expert-parallel (``moe_mesh``), DLRM's tables are row-sharded
-over "model" (``recsys.RowShardedBag``), the retrieval cell scores each
+them), every leaf at repro's spec (``launch/sharding.executed``): the
+batch split over the data-parallel axes; an LM runs Megatron tensor
+parallelism over "model" (``transformer.TPConfig``, ``models/tp``), its
+MoE layers expert-parallel (``moe_mesh``), a prefill or decode cell's
+cache split by kv heads over "model" or by sequence over "model" or the
+data axes, the sequence's partials merged across ranks, a train cell's
+loss vocab-parallel; the recsys rule's large tables are row-sharded
+over "model" (DLRM's by ``recsys.RowShardedBag``, the others'
+lookups by ``recsys.lookup_rows``) and its large MLP weights
+column-parallel (``recsys.mlp_apply``); the retrieval cell scores each
 rank's candidate rows and merges the all-gathered blocks (repro's
-shard_map). An LM's prefill and decode cells (long_500k included) run
-every leaf and the KV cache at repro's specs (``launch/sharding.
-executed``): Megatron tensor parallelism over "model"
-(``transformer.TPConfig``, ``models/tp``), the cache's kv heads over
-"model" or its sequence over "model" or the data axes, the sequence's
-partials
-merged across ranks. A train cell still runs what repro
-tensor-parallelises through GSPMD replicated, and reduces each gradient
-by its leaf's spec (``train/train_loop``). SchNet on a mesh is not
-ported.
+shard_map). A train cell reduces each gradient by its leaf's spec
+(``train/train_loop``) and updates its ZeRO-1 blocks
+(``train/zero``): its optimizer state is made at those blocks. SchNet
+on a mesh is not ported.
 """
 from __future__ import annotations
 
@@ -63,6 +64,7 @@ from ..models.bridge import train_tree
 from ..models.moe import sharded_moe_applicable
 from ..train.optimizer import Optimizer, adafactor, adamw
 from ..train.train_loop import grad_accum_value_and_grad
+from ..train.zero import ZeroLayout
 from . import sharding as shd
 from .collectives import all_gather
 from .mesh import axis_size, coordinate, dp_axes
@@ -119,6 +121,8 @@ class CellBundle:
     loss: Optional[Callable] = None     # train cells: loss(params, batch)
     sharding_fn: Optional[Callable] = None   # mesh -> spec trees (repro's)
     mesh: Any = None                    # the rank's mesh (None: one card)
+    opt: Optional[Optimizer] = None     # train cells: the optimizer ``fn``
+    #                                     runs (ZeRO-1 on a mesh)
 
     @property
     def batch_index(self) -> int:
@@ -135,8 +139,30 @@ class CellBundle:
                                          self.kind)
 
 
-def _optimizer(name: str) -> Optimizer:
-    return adafactor() if name == "adafactor" else adamw()
+def _optimizer(name: str, layout=None) -> Optimizer:
+    return adafactor(layout=layout) if name == "adafactor" else \
+        adamw(layout=layout)
+
+
+def base_config(cfg):
+    """The arch's config of a bundle's ``model_cfg`` (a ``TPConfig``'s
+    without the meshes): the config its param shapes and specs are made
+    from."""
+    return cfg.base() if isinstance(cfg, tfm.TPConfig) else cfg
+
+
+def zero_layout(bundle: CellBundle, opt_name: Optional[str] = None,
+                mesh=None, coord=None) -> ZeroLayout:
+    """This rank's ZeRO-1 layout (``train/zero``) of the bundle's params
+    under repro's specs on ``mesh`` (default ``bundle.mesh``), for the
+    optimizer ``opt_name`` (default the cell's); ``coord`` places a rank
+    of a ``launch/mesh.MeshShape`` (the dry run)."""
+    mesh = mesh if mesh is not None else bundle.mesh
+    cfg = bundle.model_cfg
+    return ZeroLayout(param_shapes(bundle.arch, base_config(cfg)),
+                      bundle.sharding_fn(mesh)[0],
+                      opt_name or bundle.optimizer, mesh, coord,
+                      getattr(cfg, "act", None))
 
 
 def _sharding_fn(arch_name: str, kind: str, cfg, batch_specs,
@@ -173,7 +199,8 @@ def _train_bundle(arch_name: str, shape: str, reduced: bool, loss,
                         opt_name, accum, loss, sharding_fn, mesh)
     specs = None if mesh is None else bundle.executed_specs()[0]
     vg = grad_accum_value_and_grad(loss, accum, mesh, specs)
-    opt = _optimizer(opt_name)
+    opt = bundle.opt = _optimizer(
+        opt_name, None if mesh is None else zero_layout(bundle))
 
     def fn(params, opt_state, batch, step):
         l, grads = vg(params, batch)
@@ -207,7 +234,7 @@ def _lm_bundle(arch_name: str, shape: str, reduced: bool, cfg,
             sharded_moe_applicable(cfg.moe, mesh, cfg.d_model,
                                    batch=global_batch):
         cfg = dataclasses.replace(cfg, moe_mesh=mesh)
-    if mesh is not None and cell.kind in shd.SERVING_KINDS:
+    if mesh is not None:
         cache = batch_rule(batch_specs, mesh).get("cache_k")
         cfg = tfm.TPConfig.of(
             cfg, mesh, () if cache is None else shd._axes(cache[3]))
@@ -299,8 +326,12 @@ def _recsys_bundle(arch_name: str, shape: str, reduced: bool, cfg,
                           _retrieval_fn(batch_specs, mesh), (batch_specs,),
                           cfg, device, sharding_fn=sharding_fn, mesh=mesh)
     bag = {}
-    if arch_name == "dlrm-mlperf" and mesh is not None:
-        bag = {"bag": recsys_m.RowShardedBag(cfg, mesh)}
+    if mesh is not None and arch_name == "bert4rec":
+        cfg = tfm.TPConfig.of(cfg, mesh)
+    elif mesh is not None:
+        bag = {"mesh": mesh}
+        if arch_name == "dlrm-mlperf":
+            bag["bag"] = recsys_m.RowShardedBag(cfg, mesh)
     if cell.kind == "train":
         loss = _RECSYS_LOSSES[arch_name]
         return _train_bundle(arch_name, shape, reduced,
@@ -321,7 +352,7 @@ def _recsys_bundle(arch_name: str, shape: str, reduced: bool, cfg,
                "wide-deep": recsys_m.widedeep_forward}[arch_name]
 
         def fn(params, batch):
-            return fwd(params, cfg, batch["ids"])
+            return fwd(params, cfg, batch["ids"], **bag)
 
     return CellBundle(arch_name, shape, cell.kind, fn, (None, batch_specs),
                       cfg, device, sharding_fn=sharding_fn, mesh=mesh)
@@ -482,7 +513,8 @@ def make_smoke_args(bundle: CellBundle, seed: int = 0,
     ``models/bridge``; a train cell takes a train tree,
     ``bridge.train_tree`` or ``tree_from_numpy``); None makes the port's
     own seeded init. A train cell returns (params, opt_state, batch,
-    step 0): the optimizer's fresh state and a 0-d int32 step. A decode
+    step 0): the optimizer's fresh state (on a mesh made at the rank's
+    ZeRO-1 blocks, never whole) and a 0-d int32 step. A decode
     cell's ``cache_len`` stays on the host, a 0-d int32 tensor: the
     port's ``decode_step`` reads it there (it picks flash_decode's
     split), so reading it costs no device sync. On a mesh, the rank's
@@ -496,8 +528,8 @@ def make_smoke_args(bundle: CellBundle, seed: int = 0,
     if bundle.kind == "train" or bundle.mesh is not None:
         params = train_tree(params)
     if bundle.kind == "train":
-        args = (params, _optimizer(bundle.optimizer).init(params),
-                smoke_batch(bundle, seed),
+        args = (params, None if bundle.mesh is not None else
+                bundle.opt.init(params), smoke_batch(bundle, seed),
                 torch.tensor(0, dtype=torch.int32, device=bundle.device))
     else:
         args = (params, smoke_batch(bundle, seed))
@@ -506,24 +538,19 @@ def make_smoke_args(bundle: CellBundle, seed: int = 0,
 
 def shard_args(bundle: CellBundle, args: tuple) -> tuple:
     """The blocks of the whole arguments ``args`` (``make_smoke_args``
-    without a mesh: a train tree of params) that this rank of
-    ``bundle.mesh`` holds, as copies (an LM serving cell's gated leaves
-    as ``models/tp.serving_blocks`` cuts them); a train cell's optimizer
-    state is made fresh over the rank's params."""
+    without a mesh: a train tree of params; a train cell's optimizer
+    state is not read and may be None) that this rank of
+    ``bundle.mesh`` holds, as copies (a gated leaf as
+    ``models/tp.serving_blocks`` cuts it); a train cell's optimizer
+    state is made at the rank's ZeRO-1 blocks of those params
+    (``bundle.opt.init``)."""
     pspec, bspec = bundle.executed_specs()
-
-    def cut(tree, specs):
-        return shd.distribute_tree(tree, specs, bundle.mesh, copy=True)
-
-    batch = cut(args[bundle.batch_index], bspec)
+    batch = shd.distribute_tree(args[bundle.batch_index], bspec,
+                                bundle.mesh, copy=True)
     if bundle.kind == "retrieval":
         return (batch,)
-    if bundle.kind in shd.SERVING_KINDS:         # the LM family's
-        params = tp.serving_blocks(args[0], pspec, bundle.mesh,
-                                   bundle.model_cfg.act)
-    else:
-        params = cut(args[0], pspec)
+    params = tp.serving_blocks(args[0], pspec, bundle.mesh,
+                               getattr(bundle.model_cfg, "act", ""))
     if bundle.kind != "train":
         return params, batch
-    return (params, _optimizer(bundle.optimizer).init(params), batch,
-            args[3])
+    return params, bundle.opt.init(params), batch, args[3]

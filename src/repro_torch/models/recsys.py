@@ -29,6 +29,16 @@ backward kernel).
 
 The losses (``bce_loss``, ``fm_loss``, ``dlrm_loss``, ``widedeep_loss``,
 ``bert4rec_loss``) are repro's: ``launch/steps`` trains them.
+
+On a mesh (``mesh=``, one rank's blocks under repro's
+``recsys_param_specs``): a table the rule row-shards over "model" is
+read by ``lookup_rows`` (the rank's rows, zeros for the others, summed
+over "model"; the NaN rule on the rank of the last rows), DLRM's bags by
+``RowShardedBag``; an MLP weight the rule splits by columns runs
+column-parallel in ``mlp_apply`` (the rank's columns and its slice of the
+bias, the activation, then an all-gather of the features over "model").
+BERT4Rec's transformer runs ``models/transformer``'s tensor parallelism
+(a ``TPConfig``).
 """
 from __future__ import annotations
 
@@ -40,23 +50,36 @@ import torch
 from ..kernels.common import resolve_device, seeded_generator
 from ..kernels.embedding_bag.ops import embedding_bag_grouped
 from ..kernels.topk_search.ops import topk_search
-from .layers import cross_entropy_loss, dense_init
+from .layers import dense_init
 from .transformer import (ParamModule, TransformerConfig, forward,
-                          forward_pooled, logits_fn)
+                          forward_pooled, head_logits, lm_loss)
 
 
 # ---------------------------------------------------------------------------
 # shared pieces
 # ---------------------------------------------------------------------------
-def mlp_apply(p, x: torch.Tensor, final_act: bool = False) -> torch.Tensor:
+def mlp_apply(p, x: torch.Tensor, final_act: bool = False,
+              mesh=None) -> torch.Tensor:
     """Dense layers ``x @ w{i} + b{i}`` of ``p`` (an ``MLP`` or a dict),
     ReLU after every layer but the last (and after the last too with
-    ``final_act``)."""
+    ``final_act``). On a ``mesh``, a weight narrower than its bias (the
+    rank's column block, ``P(None, "model")``) takes the rank's slice of
+    the (whole) bias, and its output is all-gathered over "model" after
+    the activation."""
     n = p.n if isinstance(p, MLP) else len(p) // 2
     for i in range(n):
-        x = x @ p[f"w{i}"] + p[f"b{i}"]
+        w, b = p[f"w{i}"], p[f"b{i}"]
+        split = mesh is not None and w.shape[-1] < b.shape[-1]
+        if split:
+            from ..launch.mesh import coordinate
+            lo = coordinate(mesh)["model"] * w.shape[-1]
+            b = b[lo:lo + w.shape[-1]]
+        x = x @ w + b
         if i < n - 1 or final_act:
             x = torch.relu(x)
+        if split:
+            from ..launch.collectives import all_gather
+            x = all_gather(x, mesh, "model", dim=-1)
     return x
 
 
@@ -116,6 +139,24 @@ def lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     return rows.reshape(*ids.shape, *table.shape[1:])
 
 
+def lookup_rows(table: torch.Tensor, ids: torch.Tensor, vocab: int,
+                mesh=None) -> torch.Tensor:
+    """``lookup`` of a table of ``vocab`` rows of which this rank of
+    ``mesh`` holds ``table``: its row block over "model" (the others'
+    rows zeros, the sum over "model" the one-card rows bit for bit, NaN
+    included: ``models/tp.embed_local``), or the whole table (no mesh,
+    or a vocab the axis does not divide)."""
+    if mesh is None or table.shape[0] == vocab:
+        return lookup(table, ids)
+    from ..launch.collectives import all_reduce_sum
+    from ..launch.mesh import axis_size, coordinate
+    from .tp import embed_local
+
+    return all_reduce_sum(embed_local(table, ids, coordinate(mesh)["model"],
+                                      axis_size(mesh, "model"), vocab),
+                          mesh, "model")
+
+
 def _unit(x: torch.Tensor) -> torch.Tensor:
     x = x.float()
     return x / torch.clamp(torch.linalg.vector_norm(x, dim=-1, keepdim=True),
@@ -162,18 +203,21 @@ def fm_init(cfg: FMConfig, seed: int = 0, device=None) -> ParamModule:
     })
 
 
-def fm_forward(params, cfg: FMConfig, ids: torch.Tensor) -> torch.Tensor:
+def fm_forward(params, cfg: FMConfig, ids: torch.Tensor,
+               mesh=None) -> torch.Tensor:
     """ids: (B, F) global ids (field f offset f*vocab). The O(nk)
     sum-square trick: pairwise = 0.5 * ((sum v)^2 - sum v^2)."""
-    linear = lookup(params["w"], ids).sum(-1)                 # (B,)
-    v = lookup(params["v"], ids)                              # (B, F, k)
+    v_all = cfg.total_vocab
+    linear = lookup_rows(params["w"], ids, v_all, mesh).sum(-1)   # (B,)
+    v = lookup_rows(params["v"], ids, v_all, mesh)            # (B, F, k)
     sum_v = v.sum(1)
     pairwise = 0.5 * (sum_v.square() - v.square().sum(1)).sum(-1)
     return params["w0"] + linear + pairwise
 
 
-def fm_loss(params, cfg: FMConfig, batch: dict) -> torch.Tensor:
-    return bce_loss(fm_forward(params, cfg, batch["ids"]), batch["labels"])
+def fm_loss(params, cfg: FMConfig, batch: dict, mesh=None) -> torch.Tensor:
+    return bce_loss(fm_forward(params, cfg, batch["ids"], mesh),
+                    batch["labels"])
 
 
 def fm_user_embedding(params, cfg: FMConfig, ids: torch.Tensor
@@ -251,14 +295,16 @@ def dlrm_init(cfg: DLRMConfig, seed: int = 0, device=None) -> ParamModule:
 def dlrm_forward(params, cfg: DLRMConfig, dense: torch.Tensor,
                  sparse_ids: torch.Tensor,
                  weights: Optional[torch.Tensor] = None,
-                 bag: Callable = embedding_bag_grouped) -> torch.Tensor:
+                 bag: Callable = embedding_bag_grouped,
+                 mesh=None) -> torch.Tensor:
     """dense: (B, 13); sparse_ids: (B, 26, L) multi-hot (L = 1 one-hot);
     weights: (B, 26, L) or None. One ``bag`` call over the 26 tables
-    (the kernel's grouped wrapper; a check may pass its plain version)
-    writes the bags into the feature stack after x_bot, with no copy of
-    the ids or the features. Returns (B,) logits."""
+    (the kernel's grouped wrapper; a check may pass its plain version;
+    ``RowShardedBag`` on a mesh) writes the bags into the feature stack
+    after x_bot, with no copy of the ids or the features; ``mesh`` runs
+    the MLPs' column blocks (``mlp_apply``). Returns (B,) logits."""
     x_bot = mlp_apply(params["bot"], dense.to(cfg.dtype),
-                      final_act=True)                           # (B, 128)
+                      final_act=True, mesh=mesh)                # (B, 128)
     feats = x_bot.new_empty((x_bot.shape[0], cfg.n_sparse + 1,
                              cfg.embed_dim))                     # (B, 27, k)
     feats[:, 0] = x_bot
@@ -271,13 +317,14 @@ def dlrm_forward(params, cfg: DLRMConfig, dense: torch.Tensor,
     n_f = feats.shape[1]
     iu, ju = torch.triu_indices(n_f, n_f, offset=1, device=feats.device)
     top_in = torch.cat([x_bot, inter[:, iu, ju]], dim=-1)       # (B, 479)
-    return mlp_apply(params["top"], top_in)[:, 0]
+    return mlp_apply(params["top"], top_in, mesh=mesh)[:, 0]
 
 
 def dlrm_loss(params, cfg: DLRMConfig, batch: dict,
-              bag: Callable = embedding_bag_grouped) -> torch.Tensor:
+              bag: Callable = embedding_bag_grouped,
+              mesh=None) -> torch.Tensor:
     logits = dlrm_forward(params, cfg, batch["dense"], batch["sparse_ids"],
-                          batch.get("weights"), bag=bag)
+                          batch.get("weights"), bag=bag, mesh=mesh)
     return bce_loss(logits, batch["labels"])
 
 
@@ -449,17 +496,21 @@ def widedeep_init(cfg: WideDeepConfig, seed: int = 0,
     })
 
 
-def widedeep_forward(params, cfg: WideDeepConfig, ids: torch.Tensor
-                     ) -> torch.Tensor:
+def widedeep_forward(params, cfg: WideDeepConfig, ids: torch.Tensor,
+                     mesh=None) -> torch.Tensor:
     """ids: (B, F) global ids. wide linear + deep MLP over concat embeds."""
-    wide = lookup(params["wide_w"], ids).sum(-1) + params["wide_b"]
-    emb = lookup(params["embed"], ids)                        # (B, F, k)
-    deep = mlp_apply(params["deep"], emb.reshape(ids.shape[0], -1))[:, 0]
+    v_all = cfg.total_vocab
+    wide = lookup_rows(params["wide_w"], ids, v_all, mesh).sum(-1) + \
+        params["wide_b"]
+    emb = lookup_rows(params["embed"], ids, v_all, mesh)      # (B, F, k)
+    deep = mlp_apply(params["deep"], emb.reshape(ids.shape[0], -1),
+                     mesh=mesh)[:, 0]
     return wide + deep
 
 
-def widedeep_loss(params, cfg: WideDeepConfig, batch: dict) -> torch.Tensor:
-    return bce_loss(widedeep_forward(params, cfg, batch["ids"]),
+def widedeep_loss(params, cfg: WideDeepConfig, batch: dict,
+                  mesh=None) -> torch.Tensor:
+    return bce_loss(widedeep_forward(params, cfg, batch["ids"], mesh),
                     batch["labels"])
 
 
@@ -487,7 +538,7 @@ def bert4rec_forward(params, cfg: TransformerConfig, tokens: torch.Tensor
                      ) -> torch.Tensor:
     """Serve: the item logits of the last position, (B, vocab)."""
     hidden, _ = forward(params, tokens, cfg)
-    return logits_fn(params, hidden[:, -1:])[:, 0]
+    return head_logits(params, hidden[:, -1:], cfg)[:, 0]
 
 
 def bert4rec_loss(params, cfg: TransformerConfig, batch: dict
@@ -495,7 +546,7 @@ def bert4rec_loss(params, cfg: TransformerConfig, batch: dict
     """Cloze loss: batch {tokens (B, S) with MASK ids, labels (B, S) = the
     item id at masked positions, -1 elsewhere}."""
     hidden, _ = forward(params, batch["tokens"], cfg)
-    return cross_entropy_loss(logits_fn(params, hidden), batch["labels"])
+    return lm_loss(params, hidden, batch["labels"], cfg)
 
 
 def bert4rec_user_embedding(params, cfg: TransformerConfig,

@@ -1,5 +1,5 @@
-"""Megatron tensor parallelism of the LM family's serving path: one
-rank's bodies, with no communication.
+"""Megatron tensor parallelism of the LM family (serving and training):
+one rank's bodies, with no communication.
 
 Under repro's ``launch/sharding.lm_param_specs`` a model rank (index m
 of n on "model") holds column blocks of ``wq`` / ``wk`` / ``wv`` (and
@@ -8,8 +8,8 @@ their biases), of the MLP's ``win``, of the shared experts'
 ``shared_w_out`` and of the embedding. Each function here computes one
 rank's value before its collective, in the style of
 ``models/moe.moe_local``, so that the same function runs under a process
-group (``models/transformer``'s prefill and decode on a ``tp_mesh``, each
-collective a ``launch/collectives`` call) and in a replay of a mesh's
+group (``models/transformer``'s forward, prefill and decode on a
+``tp_mesh``, each collective a ``launch/collectives`` call) and in a replay of a mesh's
 ranks one after another on one card (``chip_smoke.py`` phase 13, each
 collective done by hand):
 
@@ -24,7 +24,10 @@ collective done by hand):
   - ``mlp_local``: ``win`` column-parallel, the activation, ``wout``
     row-parallel: a partial;
   - ``logits_local``: its vocab columns of the head (gathered over
-    "model").
+    "model" to serve);
+  - ``vocab_parallel_cross_entropy``: a train cell's loss on those
+    columns, never gathered: three reductions over "model" (the row max,
+    the sum of exponentials, the gold logit), passed in as callables.
 
 Heads cut in the middle. ``sanitize`` keeps a split of a fused head
 dimension that cuts a head in two (Mistral-NeMo's and Nemotron-4's
@@ -42,7 +45,8 @@ A gated ``win`` is ``[gate | up]`` (repro's ``mlp_block`` splits it in
 two halves). Cut contiguously over "model", rank 0 of 4 would hold only
 gate columns. ``serving_blocks`` therefore gives each rank the gate and
 up columns that match its ``wout`` rows, ``[gate_r | up_r]``
-(``gated_block``), when it cuts the params; ``mlp_local`` is then
+(``gated_block``), when it cuts the params (a serving or a train cell's;
+a train cell's optimizer state lies in that layout too); ``mlp_local`` is then
 repro's ``mlp_block`` on the rank's blocks. A rank's bytes are those of
 the contiguous cut. The shared experts' ``shared_w_in`` is cut the same
 way.
@@ -153,8 +157,9 @@ def head_plan(cfg, attn, m_idx: int, n_model: int,
 def embed_local(table: torch.Tensor, tokens: torch.Tensor, m_idx: int,
                 n_model: int, vocab: int) -> torch.Tensor:
     """The rank's part of the embedding of ``tokens`` (B, S): the rows
-    of the ids in its vocab block ``table`` (V_loc, D), zeros for the
-    others, so that the sum over "model" is the whole table's rows. An
+    of the ids in its vocab block ``table`` (V_loc, D), or (V_loc,) for a
+    table of scalars (the FM's and Wide&Deep's linear weights), zeros for
+    the others, so that the sum over "model" is the whole table's rows. An
     id in [-V, -1] reads row id + V and any other id outside [0, V) gives
     a row of NaN on the rank that holds the last rows (repro's
     ``jnp.take``; ``recsys.lookup``'s rule), zeros on the others. A table
@@ -169,10 +174,12 @@ def embed_local(table: torch.Tensor, tokens: torch.Tensor, m_idx: int,
     local = ids - lo
     mine = (local >= 0) & (local < hi - lo)
     rows = table[local.clamp(0, v_loc - 1)]
-    rows = rows.masked_fill(~mine[..., None], 0.0)
+    trail = [1] * (table.dim() - 1)          # a 1-d table's rows are scalars
+    rows = rows.masked_fill(~mine.reshape(*mine.shape, *trail), 0.0)
     if hi == vocab and lo < hi:
         bad = (ids < 0) | (ids >= vocab)
-        rows = rows.masked_fill(bad[..., None], float("nan"))
+        rows = rows.masked_fill(bad.reshape(*bad.shape, *trail),
+                                float("nan"))
     return rows
 
 
@@ -232,6 +239,30 @@ def logits_local(hidden: torch.Tensor, lm_head: torch.Tensor
     return torch.matmul(hidden, lm_head)
 
 
+def vocab_parallel_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                                 lo: int, reduce_sum, reduce_max,
+                                 ignore_id: int = -1) -> torch.Tensor:
+    """``layers.cross_entropy_loss`` of the whole logits from one rank's
+    vocab columns [lo, lo + V_loc): ``logits`` (B, S, V_loc) as the head
+    gives them (the model dtype), taken to fp32 as the unsharded loss
+    takes them; labels (B, S), ``ignore_id`` ignored. ``reduce_max`` /
+    ``reduce_sum`` reduce a tensor over "model" (the max gets no
+    gradient; the sum's backward sums the ranks' cotangents,
+    ``launch/collectives``): the row max, then the sum of exp(logit -
+    max), then the gold logit, which only the rank whose block holds the
+    label contributes. The (B, S, V) logits are never gathered."""
+    x = logits.float()
+    m = reduce_max(x.detach().amax(-1))
+    sumexp = reduce_sum(torch.exp(x - m[..., None]).sum(-1))
+    local = labels.long() - lo
+    mine = (local >= 0) & (local < x.shape[-1])
+    gold = torch.gather(x, -1, local.clamp(0, x.shape[-1] - 1)[..., None])
+    gold = reduce_sum(torch.where(mine, gold[..., 0], 0.0))
+    mask = (labels != ignore_id).float()
+    return ((torch.log(sumexp) + m - gold) * mask).sum() / \
+        torch.clamp(mask.sum(), min=1.0)
+
+
 # ---------------------------------------------------------------------------
 # cutting the params
 # ---------------------------------------------------------------------------
@@ -259,7 +290,8 @@ def gated_block(leaf: torch.Tensor, idx: int, n: int) -> torch.Tensor:
 def serving_blocks(tree, spec_tree, mesh, act: str, coord=None,
                    copy: bool = True):
     """The rank at ``coord`` (default: this rank of ``mesh``)'s blocks
-    of a serving cell's params ``tree`` (a train tree) under
+    of a cell's params ``tree`` (a train tree; a serving or a train
+    cell's) under
     ``spec_tree`` (``launch/sharding.distribute_tree``'s), each gated
     leaf's block as ``gated_block`` cuts it."""
     from ..launch.sharding import _axes, distribute_tree, local_slice

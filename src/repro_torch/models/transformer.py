@@ -29,14 +29,16 @@ models/moe.py's ``moe_block``: the capacity path in ``forward`` and
 ``prefill``, the dropless path in ``decode_step``, as in repro. With
 ``moe_mesh`` set (``launch/steps.build_cell(..., mesh=)``), each rank's
 MoE layers run ``moe_block_sharded`` on its tokens and its experts
-(``_moe_dispatch``). With a ``TPConfig`` (a prefill or decode cell on a
-mesh), ``prefill`` and ``decode_step`` run one rank of Megatron tensor
-parallelism over "model" on the rank's blocks (``models/tp``'s bodies,
-each collective a ``launch/collectives`` call): the embedding summed,
-the attention's and the MLP's row-parallel partials summed, the logits
-gathered; the decode cache split by kv heads or by sequence
-(``tp_seq_axes``), the latter merged across ranks by
-``flash_decode_sharded``.
+(``_moe_dispatch``). With a ``TPConfig`` (any cell on a mesh),
+``forward``, ``prefill`` and ``decode_step`` run one rank of Megatron
+tensor parallelism over "model" on the rank's blocks (``models/tp``'s
+bodies, each collective a ``launch/collectives`` call): the embedding
+summed, the attention's and the MLP's row-parallel partials summed; the
+logits gathered to serve, and a train cell's loss vocab-parallel
+(``lm_loss``: never gathered); the decode cache split by kv heads or by
+sequence (``tp_seq_axes``), the latter merged across ranks by
+``flash_decode_sharded``. Under ``cfg.remat`` a layer's recompute in the
+backward replays its collectives, in the same order on every rank.
 
 Not ported: repro's ``unroll_layers`` (XLA cost-analysis probes) and
 ``attn_impl`` (its choice among JAX attention paths) options, which have
@@ -126,10 +128,9 @@ class TransformerConfig:
 
 @dataclasses.dataclass(frozen=True)
 class TPConfig(TransformerConfig):
-    """A ``TransformerConfig`` on one rank of a serving cell's mesh
-    (``launch/steps.build_cell`` makes it for a prefill or decode cell;
-    the arch configs stay repro's fields): ``tp_mesh``, the mesh of its
-    tensor parallelism, and ``tp_seq_axes``, the mesh axes that split a
+    """A ``TransformerConfig`` on one rank of a cell's mesh
+    (``launch/steps.build_cell`` makes it; the arch configs stay repro's
+    fields): ``tp_mesh``, the mesh of its tensor parallelism, and ``tp_seq_axes``, the mesh axes that split a
     decode cache's sequence, in order (``launch/sharding.lm_batch_specs``)."""
     tp_mesh: Any = None
     tp_seq_axes: tuple = ()
@@ -140,6 +141,14 @@ class TPConfig(TransformerConfig):
         return cls(**{f.name: getattr(cfg, f.name)
                       for f in dataclasses.fields(TransformerConfig)},
                    tp_mesh=mesh, tp_seq_axes=tuple(seq_axes))
+
+
+    def base(self) -> TransformerConfig:
+        """The arch's config: without the meshes."""
+        return TransformerConfig(**{
+            f.name: getattr(self, f.name)
+            for f in dataclasses.fields(TransformerConfig)
+            if f.name != "moe_mesh"})
 
 
 def _tp_mesh(cfg):
@@ -304,7 +313,10 @@ def forward(params, tokens: torch.Tensor, cfg: TransformerConfig,
             ) -> tuple[torch.Tensor, torch.Tensor]:
     """tokens (B, S) int -> (hidden (B, S, D), aux_loss). aux_loss sums
     the MoE layers' load-balance losses (0 for a dense model). With
-    ``cfg.remat`` and autograd recording, each layer is checkpointed."""
+    ``cfg.remat`` and autograd recording, each layer is checkpointed. On
+    a ``TPConfig``'s mesh, this rank's forward (``_forward_tp``)."""
+    if _tp_mesh(cfg) is not None:
+        return _forward_tp(params, tokens, cfg, positions)
     x = params["embed"][tokens]
     if positions is None:
         positions = torch.arange(tokens.shape[1], dtype=torch.int32,
@@ -325,14 +337,41 @@ def logits_fn(params, hidden: torch.Tensor) -> torch.Tensor:
     return torch.matmul(hidden, params["lm_head"])
 
 
+def head_logits(params, hidden: torch.Tensor, cfg: TransformerConfig
+                ) -> torch.Tensor:
+    """The head's logits of ``hidden``: on a ``TPConfig``'s mesh the
+    rank's vocab columns gathered over "model"."""
+    if _tp_mesh(cfg) is not None:
+        return _Rank(cfg).logits(params, hidden, cfg)
+    return logits_fn(params, hidden)
+
+
+def lm_loss(params, hidden: torch.Tensor, labels: torch.Tensor,
+            cfg: TransformerConfig) -> torch.Tensor:
+    """``cross_entropy_loss`` of the head's logits of ``hidden`` against
+    ``labels`` (-1 ignored). The logits come out of the head in the
+    model's dtype (bf16 for the LM archs, as repro's bf16 einsum rounds
+    them) before the fp32 loss. On a ``TPConfig``'s mesh whose "model"
+    axis splits ``lm_head``'s vocab, the rank's columns go into
+    ``tp.vocab_parallel_cross_entropy`` (a max and two sums over
+    "model"); a whole head is the one-card loss, bit for bit."""
+    if _tp_mesh(cfg) is None or params["lm_head"].shape[-1] == cfg.vocab:
+        return cross_entropy_loss(logits_fn(params, hidden), labels)
+    from ..launch.collectives import all_reduce_max
+    rank = _Rank(cfg)
+    local = tp.logits_local(hidden, params["lm_head"])
+    lo = rank.m * local.shape[-1]
+    return tp.vocab_parallel_cross_entropy(
+        local, labels, lo, rank.sum,
+        lambda t: all_reduce_max(t, rank.mesh, "model"))
+
+
 def loss_fn(params, batch: dict, cfg: TransformerConfig) -> torch.Tensor:
     """Next-token cross entropy of ``batch["tokens"]`` against
-    ``batch["labels"]`` (-1 ignored) plus the MoE aux loss. The logits
-    come out of the head in the model's dtype (bf16 for the LM archs, as
-    repro's bf16 einsum rounds them) before the fp32 loss."""
+    ``batch["labels"]`` (-1 ignored, ``lm_loss``) plus the MoE aux
+    loss."""
     hidden, aux = forward(params, batch["tokens"], cfg)
-    return cross_entropy_loss(logits_fn(params, hidden),
-                              batch["labels"]) + aux
+    return lm_loss(params, hidden, batch["labels"], cfg) + aux
 
 
 def forward_pooled(params, tokens: torch.Tensor, cfg: TransformerConfig,
@@ -457,6 +496,49 @@ class _Rank:
     def logits(self, params, hidden, cfg: TransformerConfig):
         out = tp.logits_local(hidden, params["lm_head"])
         return self.gather(out) if out.shape[-1] < cfg.vocab else out
+
+
+def _layer_tp(lp, x, cfg: TransformerConfig, positions, rank: _Rank,
+              plan: tp.HeadPlan):
+    """``_layer_fn`` on this rank of ``cfg.tp_mesh``: the attention of
+    ``plan.heads`` on the rank's projection columns (gathered where the
+    plan says), its ``wo`` partial summed over "model", then the
+    feed-forward block (its partials summed in ``_ffn``)."""
+    b, s, _ = x.shape
+    q, k, v = rank.attention_inputs(lp["attn"], rmsnorm(x, lp["ln1"]), cfg,
+                                    plan, positions)
+    o = attention_impl(q, k, v, cfg.causal)
+    o = o.transpose(1, 2).reshape(b, s, -1)
+    x = x + rank.sum(tp.attn_out_local(o, lp["attn"]["wo"], plan,
+                                       cfg.d_head))
+    f, aux = _ffn(lp, rmsnorm(x, lp["ln2"]), cfg)
+    return x + f, aux
+
+
+def _forward_tp(params, tokens: torch.Tensor, cfg: TransformerConfig,
+                positions: Optional[torch.Tensor] = None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
+    """``forward`` on this rank of ``cfg.tp_mesh``: tokens (B, S) the
+    rank's data-parallel block, params its blocks; the hidden states
+    come out whole (replicated over "model"). Each layer is checkpointed
+    as ``forward`` does it."""
+    rank = _Rank(cfg)
+    x = rank.embed(params, tokens, cfg)
+    if positions is None:
+        positions = torch.arange(tokens.shape[1], dtype=torch.int32,
+                                 device=x.device)[None, :]
+    layers = layer_list(params["layers"])
+    plan = tp.head_plan(cfg, layers[0]["attn"], rank.m, rank.n)
+    remat = cfg.remat and torch.is_grad_enabled()
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for lp in layers:
+        if remat:
+            x, aux = checkpoint(_layer_tp, lp, x, cfg, positions, rank,
+                                plan, use_reentrant=False)
+        else:
+            x, aux = _layer_tp(lp, x, cfg, positions, rank, plan)
+        aux_total = aux_total + aux
+    return rmsnorm(x, params["final_ln"]), aux_total
 
 
 def _prefill_tp(params, tokens: torch.Tensor, cfg: TransformerConfig,

@@ -26,6 +26,18 @@ Granularity is repro's: a param tree keeps each layer's params stacked
 The schedule terms (warmup, bias corrections, Adafactor's decay) are
 fp32 scalars computed on the param's device, as repro's traced step
 computes them, so no step reads back to the host.
+
+On a mesh (``layout``, a ``train/zero.ZeroLayout``: ``launch/steps``
+passes one to a train cell's optimizer), ``init`` makes the state at the
+rank's ZeRO-1 blocks and ``update`` takes the rank's param blocks and
+their gradients (summed over the axes their spec does not name): each
+leaf's ZeRO block is updated, then all-gathered over the ZeRO axes into
+the param block in place. AdamW's update is then the replicated one bit
+for bit. Adafactor's factored statistics (the row and column means of a
+layer's matrix, the RMS of its update) are summed over the axes that
+split the block, so they are those of the whole matrix; its accumulators
+lie at repro's ``zero1_opt_specs`` and are all-gathered whole for the
+step (they are a matrix's row and column vectors).
 """
 from __future__ import annotations
 
@@ -95,8 +107,10 @@ def _zeros(shape, like: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 def adamw(lr: float = 1e-4, b1: float = 0.9, b2: float = 0.95,
           eps: float = 1e-8, weight_decay: float = 0.01,
-          warmup_steps: int = 100) -> Optimizer:
+          warmup_steps: int = 100, layout=None) -> Optimizer:
     def init(params):
+        if layout is not None:
+            return layout.state_blocks(_first(params).device)
         return {"m": tree_map(lambda p: _zeros(p.shape, p), params),
                 "v": tree_map(lambda p: _zeros(p.shape, p), params)}
 
@@ -117,10 +131,15 @@ def adamw(lr: float = 1e-4, b1: float = 0.9, b2: float = 0.95,
                 + weight_decay * p.float()
             p.copy_(p.float() - lr_t * delta)
 
-        for (_, g), (_, m), (_, v), (_, p) in zip(
+        for (path, g), (_, m), (_, v), (_, p) in zip(
                 leaves(grads), leaves(state["m"]), leaves(state["v"]),
                 leaves(params)):
+            lf = None if layout is None else layout.leaf(path)
+            if lf is not None:
+                g, p_all, p = lf.zero_block(g), p, lf.zero_block(p)
             _layer_mapped(lambda *a: _row_chunks(upd, *a), g, m, v, p)
+            if lf is not None:
+                layout.gather_back(p_all, lf)
         return params, state
 
     return Optimizer(init, update)
@@ -131,7 +150,7 @@ def adamw(lr: float = 1e-4, b1: float = 0.9, b2: float = 0.95,
 # ---------------------------------------------------------------------------
 def adafactor(lr: float = 1e-3, decay: float = 0.8, eps: float = 1e-30,
               clip_threshold: float = 1.0,
-              warmup_steps: int = 100) -> Optimizer:
+              warmup_steps: int = 100, layout=None) -> Optimizer:
     """Factored state for >= 2-d params (row/col accumulators over the two
     trailing dims); full state for 0/1-d. No fp32 master copy, no
     momentum."""
@@ -140,6 +159,9 @@ def adafactor(lr: float = 1e-3, decay: float = 0.8, eps: float = 1e-30,
         return p.dim() >= 2
 
     def init(params):
+        if layout is not None:
+            return layout.state_blocks(_first(params).device)
+
         def per_leaf(p):
             if factored(p):
                 return {"r": _zeros(p.shape[:-1], p),
@@ -176,10 +198,16 @@ def adafactor(lr: float = 1e-3, decay: float = 0.8, eps: float = 1e-30,
             v.copy_(beta * v + (1 - beta) * (g.square() + eps))
             clip_apply(g * torch.rsqrt(torch.clamp(v, min=eps)), p)
 
-        def visit(g, st, p):
+        def visit(g, st, p, path=""):
             if isinstance(p, dict):
                 for k in p:
-                    visit(g[k], st[k], p[k])
+                    visit(g[k], st[k], p[k], f"{path}[{k!r}]")
+            elif layout is not None and _cut(layout.leaf(path), st):
+                lf = layout.leaf(path)
+                _adafactor_block(layout, lf, path, lf.zero_block(g), st,
+                                 lf.zero_block(p), beta, lr_t, eps,
+                                 clip_threshold)
+                layout.gather_back(p, lf)
             elif factored(p):
                 _layer_mapped(upd_factored, g, st["r"], st["c"], p)
             else:
@@ -189,6 +217,78 @@ def adafactor(lr: float = 1e-3, decay: float = 0.8, eps: float = 1e-30,
         return params, state
 
     return Optimizer(init, update)
+
+
+def _cut(lf, st: dict) -> bool:
+    """Whether a leaf's ZeRO block or its Adafactor state is a part of
+    the whole (else the one-card update runs on it as it is)."""
+    whole = {"v": lf.shape, "r": lf.shape[:-1],
+             "c": lf.shape[:-2] + lf.shape[-1:]}
+    return bool(lf.split_axes) or any(tuple(t.shape) != whole[k]
+                                      for k, t in st.items())
+
+
+def _adafactor_block(layout, lf, path: str, g: torch.Tensor, st: dict,
+                     p: torch.Tensor, beta, lr_t, eps: float,
+                     clip_threshold: float) -> None:
+    """Adafactor's update of the ZeRO block ``p`` (gradient block ``g``)
+    of a leaf that the mesh splits (``lf.split_axes``). The sums behind
+    the row and column means and the RMS are taken over the block and
+    summed over the axes that split it, each written at the block's
+    global positions in a tensor of the whole matrix's statistics (zeros
+    elsewhere), so that the sum is theirs; the accumulators (at their
+    own spec) are gathered whole, updated, and cut back."""
+    shape, nd = lf.shape, len(lf.shape)
+    axes, dev = lf.split_axes, g.device
+    g = g.float()
+    mapped = nd >= 3 and shape[0] > 1        # a layer's matrix at a time
+
+    def placed(full_shape, part, dims):
+        out = part.new_zeros(full_shape)
+        out[lf.index(dims, dev)] = part
+        return layout.reduce(out, axes)
+
+    def accumulate(name, full_shape, new):
+        spec = layout.state_spec(f"{path}['{name}']")
+        whole = layout.gather_state(st[name], full_shape, spec)
+        whole = beta * whole + (1 - beta) * new
+        st[name].copy_(whole[layout.local_slice(full_shape, spec)])
+        return whole
+
+    if nd >= 2:
+        g2 = g.square() + eps
+        r_dims = list(range(nd - 1))
+        c_dims = list(range(nd - 2)) + [nd - 1]
+        r_shape = shape[:-1]
+        c_shape = shape[:-2] + shape[-1:]
+        r = accumulate("r", r_shape,
+                       placed(r_shape, g2.sum(-1), r_dims) / shape[-1])
+        c = accumulate("c", c_shape,
+                       placed(c_shape, g2.sum(-2), c_dims) / shape[-2])
+        r_norm = r / torch.clamp(r.mean(-1, keepdim=True), min=eps)
+        v_inv = torch.rsqrt(torch.clamp(
+            r_norm[lf.index(r_dims, dev)][..., None]
+            * c[lf.index(c_dims, dev)][..., None, :], min=eps))
+        u = g * v_inv
+    else:
+        v = st["v"]
+        v.copy_(beta * v + (1 - beta) * (g.square() + eps))
+        u = g * torch.rsqrt(torch.clamp(v, min=eps))
+    if mapped:
+        unit = 1
+        for n in shape[1:]:
+            unit *= n
+        sq = placed((shape[0],), u.square().sum(tuple(range(1, nd))), [0])
+        rms = torch.sqrt(sq / unit + 1e-12)[lf.index([0], dev)[0]]
+        rms = rms.reshape(-1, *[1] * (nd - 1))
+    else:
+        unit = 1
+        for n in shape:
+            unit *= n
+        rms = torch.sqrt(layout.reduce(u.square().sum(), axes) / unit
+                         + 1e-12)
+    u = u / torch.clamp(rms / clip_threshold, min=1.0)
+    p.copy_(p.float() - lr_t * u)
 
 
 def sgd(lr: float = 1e-2) -> Optimizer:
@@ -205,6 +305,9 @@ def sgd(lr: float = 1e-2) -> Optimizer:
 
 
 def get_optimizer(name: str, **kw) -> Optimizer:
+    """The optimizer ``name`` ("adamw", "adafactor" or "sgd"); ``kw`` its
+    settings, ``layout=`` a ``train/zero.ZeroLayout`` for a rank of a
+    mesh."""
     if name == "adamw":
         return adamw(**kw)
     if name == "adafactor":

@@ -96,14 +96,16 @@ def grad_accum_value_and_grad(loss_fn: Callable, accum: int = 1,
 
 def reduce_grads(grads, specs, mesh):
     """Each leaf's gradient summed over the mesh axes its spec (a
-    ``launch/sharding.P``) does not name."""
-    from ..launch.collectives import all_reduce_sum
+    ``launch/sharding.P``) does not name, in place (an all-reduce; the
+    ZeRO-1 optimizer then reads its block of it, ``train/zero``)."""
+    from ..launch.collectives import all_reduce_sum_
     from ..launch.sharding import replicated_axes
 
     out = []
     for (_, g), (_, spec) in zip(leaves(grads), leaves(specs)):
         axes = replicated_axes(spec, mesh)
-        out.append(all_reduce_sum(g, mesh, axes) if axes else g)
+        out.append(all_reduce_sum_(g.contiguous(), mesh, axes) if axes
+                   else g)
     return unflatten(grads, out)
 
 

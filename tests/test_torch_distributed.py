@@ -531,8 +531,8 @@ def test_moe_block_sharded_matches_unsharded_with_grads(tmp_path):
 def test_qwen2_moe_train_step_on_2x4_matches_unsharded(tmp_path):
     from repro.launch.steps import effective_accum as repro_accum
     from repro_torch.launch.mesh import MeshShape
-    from repro_torch.launch.sharding import distribute_tree
     from repro_torch.launch.steps import build_cell, make_smoke_args
+    from repro_torch.models.tp import serving_blocks
     from repro_torch.train.train_loop import grad_accum_value_and_grad
     from repro_torch.train.tree import leaves
 
@@ -558,7 +558,8 @@ def test_qwen2_moe_train_step_on_2x4_matches_unsharded(tmp_path):
         np.testing.assert_allclose(r["loss"], loss.item(), rtol=1e-5)
         assert int(r["gathers"]) > 0 and int(r["reduces"]) > 0
         coord = {"data": int(r["data"]), "model": int(r["model"])}
-        mine = distribute_tree(params, specs, mesh, coord)
+        # the rank's blocks: a gated leaf's as [gate_r | up_r]
+        mine = serving_blocks(params, specs, mesh, "swiglu", coord)
         for path, want in leaves(mine):
             got = r[f"p{path}"]
             assert got.shape == tuple(want.shape), path
@@ -566,8 +567,8 @@ def test_qwen2_moe_train_step_on_2x4_matches_unsharded(tmp_path):
                                        atol=1e-5 + 2 * lr_t, err_msg=path)
         # AdamW's first step hides a gradient's scale: the gradients too,
         # each leaf within 1e-5 of its largest
-        for path, want in leaves(distribute_tree(grads, specs, mesh,
-                                                 coord)):
+        for path, want in leaves(serving_blocks(grads, specs, mesh,
+                                                "swiglu", coord)):
             assert leaf_close(r[f"g{path}"], want.numpy(), 1e-5), path
 
 

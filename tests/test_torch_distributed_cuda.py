@@ -152,3 +152,59 @@ def test_mistral_nemo_serving_on_one_rank_is_bit_for_bit(mesh, shape, b, s,
     (o1, k1, v1), (o2, k2, v2) = runs
     assert all(torch.equal(x, y) for x, y in zip(o1, o2))
     assert torch.equal(k1, k2) and torch.equal(v1, v2)
+
+
+def _step_bits(one, rank, params, batch):
+    """(loss, params, AdamW m) of ``one`` (no mesh) and ``rank`` (its
+    ``shard_args`` blocks of the same whole args), bit for bit."""
+    step0 = torch.tensor(0, dtype=torch.int32, device="cuda")
+    local = shard_args(rank, (params, None, batch, step0))
+    p2, o2, l2 = rank.fn(*local)
+    p1, o1, l1 = one.fn(params, one.opt.init(params), batch, step0)
+    assert torch.equal(l1, l2)
+    for (n, a), (_, b) in zip(leaves(p1), leaves(p2)):
+        assert torch.equal(a, b), n
+    for (n, a), (_, b) in zip(leaves(o1["m"]), leaves(o2["m"])):
+        assert torch.equal(a, b), n
+
+
+def test_mistral_nemo_train_step_on_one_rank_is_bit_for_bit(mesh):
+    """Mistral-NeMo-12B train_4k at full width, 2 layers, bf16, 1 x 4096,
+    through ``build_cell(..., mesh=)`` on a 1 x 1 mesh (the
+    tensor-parallel bodies and their backward, ZeRO-1's layout): loss,
+    params and AdamW m equal the no-mesh step's."""
+    cfg = dataclasses.replace(NEMO, n_layers=2)
+    one = build_cell("mistral-nemo-12b", "train_4k", device="cuda",
+                     model_cfg=cfg, accum=1)
+    rank = build_cell("mistral-nemo-12b", "train_4k", device="cuda",
+                      model_cfg=cfg, accum=1, mesh=mesh)
+    assert rank.model_cfg.tp_mesh is mesh
+    params = train_tree(init_params(cfg, seed=3, device="cuda"))
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    batch = {k: torch.randint(0, cfg.vocab, (1, 4096), generator=gen,
+                              device="cuda", dtype=torch.int32)
+             for k in ("tokens", "labels")}
+    _step_bits(one, rank, params, batch)
+
+
+@pytest.mark.parametrize("arch", ["fm", "wide-deep", "dlrm-mlperf",
+                                  "bert4rec"])
+def test_recsys_train_step_on_one_rank_is_bit_for_bit(mesh, arch):
+    """The reduced recsys train cells on the card through
+    ``build_cell(..., mesh=)`` on a 1 x 1 mesh (row-sharded lookups,
+    column-parallel MLPs, BERT4Rec's tensor parallelism, ZeRO-1's
+    layout) equal the no-mesh step bit for bit. Deterministic algorithms
+    on: FM's and Wide&Deep's ``lookup`` is an ``index_select``, whose
+    backward adds rows with atomics on the card (with or without a
+    mesh), and BERT4Rec's embedding an index."""
+    from repro_torch.launch.steps import smoke_batch
+
+    one = build_cell(arch, "train_batch", reduced=True, device="cuda")
+    rank = build_cell(arch, "train_batch", reduced=True, device="cuda",
+                      mesh=mesh)
+    params = make_smoke_args(one, seed=1)[0]
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        _step_bits(one, rank, params, smoke_batch(one, 1))
+    finally:
+        torch.use_deterministic_algorithms(False)

@@ -13,10 +13,10 @@ PyTorch's fake process group, as meta tensors with the placements of
     (none: a rule that stopped sharding a large leaf, say Kimi-K2's
     experts over "data", would add cells to the list);
   - so are those that exceed it under the layout the port's steps run
-    (``executed_argument_bytes``): a prefill or decode cell executes
-    repro's layout whole, so its count equals ``argument_bytes``; a train
-    cell still runs repro's GSPMD tensor parallelism and ZeRO-1
-    replicated, and one cell's count is made by hand.
+    (``executed_argument_bytes``, none): every LM and recsys cell, train
+    cells included, executes repro's layout whole (tensor parallelism,
+    ZeRO-1's optimizer state at ``train/zero``'s blocks), so its count
+    equals ``argument_bytes``; one cell's count is made by hand.
 """
 import time
 
@@ -29,13 +29,8 @@ from repro.launch import steps as rsteps
 from repro_torch.launch import dryrun
 
 DOES_NOT_FIT = set()           # (arch, shape, mesh) over 80 GB a rank
-# the same under the port's executed layout: a train cell of an LM that
-# is not expert-parallel holds its whole params and AdamW state on a rank
-# (the serving cells execute repro's layout, which fits)
-EXECUTED_DOES_NOT_FIT = {
-    (arch, "train_4k", mesh)
-    for arch in ("mistral-nemo-12b", "nemotron-4-15b", "qwen1.5-32b")
-    for mesh in ("16x16", "2x16x16")}
+# the same under the port's executed layout: repro's layout, whole
+EXECUTED_DOES_NOT_FIT = set()
 MESHES = {False: ((16, 16), ("data", "model")),
           True: ((2, 16, 16), ("pod", "data", "model"))}
 
@@ -140,22 +135,36 @@ def test_executed_layout_bytes(records):
             (r["executed_argument_bytes"] <= 80e9)
         # the executed layout shards a subset of what repro's shards
         assert r["executed_argument_bytes"] >= r["argument_bytes"]
-    # by hand: Mistral-NeMo's train_4k on a data rank of 16 x 16 holds
-    # its params whole, AdamW's fp32 m and v over them, 1/16 of the
-    # (256, 4096) int32 tokens and labels, and the int32 step
-    nemo = next(r for r in recs if (r["arch"], r["shape"], r["mesh"]) ==
-                ("mistral-nemo-12b", "train_4k", "16x16"))
-    params = list(tensors(param_shapes("mistral-nemo-12b", CONFIG)))
-    want = sum(t.numel() * (t.element_size() + 8) for t in params) + \
+    # by hand: Mistral-NeMo's train_4k on rank 0 of 16 x 16 holds 1/16 of
+    # each tensor-parallel leaf in bf16 (the embedding's vocab rows, the
+    # head's vocab columns, wq / wk / wv / win's columns, wo / wout's
+    # rows) and the norms whole; AdamW's fp32 m and v over 1/16 of that
+    # again (ZeRO-1 over "data" on d_model, free in every leaf); 1/16 of
+    # the (256, 4096) int32 tokens and labels; the int32 step
+    c = CONFIG
+    d, layers, v = c.d_model, c.n_layers, c.vocab
+    q, kv = c.n_heads * c.d_head, c.n_kv * c.d_head
+    tp = 2 * v * d + layers * d * (2 * q + 2 * kv + 3 * c.d_ff)
+    norms = d + 2 * layers * d
+    assert tp + norms == c.n_params()
+    want = 2 * (tp // 16 + norms) + 8 * (tp // 256 + norms // 16) + \
         2 * 256 * 4096 * 4 // 16 + 4
-    assert nemo["executed_argument_bytes"] == want
+    assert want == 1_915_212_292
+    for r in recs:
+        if (r["arch"], r["shape"]) == ("mistral-nemo-12b", "train_4k") \
+                and r["mesh"] == "16x16":
+            assert r["executed_argument_bytes"] == r["argument_bytes"] == \
+                want
+    assert len(list(tensors(param_shapes("mistral-nemo-12b", CONFIG)))) \
+        == 11
 
 
 def test_serving_records_execute_repros_layout(records):
-    """Every prefill and decode record, long_500k included, on both
-    meshes: the rank's executed bytes are repro's argument bytes (the
-    params at lm_param_specs, the KV cache at lm_batch_specs), under 80
-    GB; the train records keep the layout of the cells before it."""
+    """Every prefill and decode record, long_500k included, and every LM
+    and recsys train record, on both meshes: the rank's executed bytes
+    are repro's argument bytes (the params at lm_param_specs or
+    recsys_param_specs, the KV cache at lm_batch_specs, the optimizer
+    state at zero1_opt_specs), under 80 GB."""
     recs, _ = records
     serving = [r for r in recs if r["kind"] in ("prefill", "decode")]
     assert len(serving) == 2 * 5 * 3
@@ -164,8 +173,9 @@ def test_serving_records_execute_repros_layout(records):
             (r["arch"], r["shape"], r["mesh"])
         assert r["executed_fits_80gb"]
     trains = [r for r in recs if r["kind"] == "train"
-              and r["arch"] in ("mistral-nemo-12b", "nemotron-4-15b",
-                                "qwen1.5-32b")]
-    assert trains and all(
-        r["executed_argument_bytes"] > 20 * r["argument_bytes"]
-        for r in trains)
+              and r["arch"] != "schnet"]
+    assert len(trains) == 2 * 9
+    for r in trains:
+        assert r["executed_argument_bytes"] == r["argument_bytes"], \
+            (r["arch"], r["shape"], r["mesh"])
+        assert r["executed_fits_80gb"]

@@ -181,18 +181,35 @@ def test_placements_give_dtensor_the_same_blocks():
 
 
 def test_executed_keeps_experts_and_tables_only():
+    """Every kind executes repro's spec trees whole (the experts and the
+    tables among them, and everything repro tensor-parallelises); only a
+    graph batch keeps its edges whole, its rows over the data axes."""
     m = MeshShape((2, 4), ("data", "model"))
     bundle = steps.build_cell("qwen2-moe-a2.7b", "train_4k", reduced=True,
                               device="meta")
-    full = port_flat(bundle.sharding_fn(m)[0])
+    for tree in bundle.sharding_fn(m)[:2]:
+        assert port_flat(shd.executed(tree)) == port_flat(tree)
     kept = port_flat(shd.executed(bundle.sharding_fn(m)[0]))
     for path, spec in kept.items():
         if path.endswith(("['moe']['w_in']", "['moe']['w_out']")):
-            assert spec == full[path] == (None, "model", "data", None)
-        else:
-            assert all(e is None for e in spec), path
+            assert spec == (None, "model", "data", None)
+    assert kept["['embed']"] == ("model", None)
+    assert kept["['lm_head']"] == (None, "model")
     dlrm = steps.build_cell("dlrm-mlperf", "serve_p99", device="meta")
     kept = port_flat(shd.executed(dlrm.sharding_fn(m)[0]))
     assert kept["['tables']['table_0']"] == ("model", None)
     assert kept["['tables']['table_5']"] == (None, None)      # 3 rows
-    assert kept["['top']['w0']"] == (None, None)     # TP in repro, not here
+    assert kept["['top']['w0']"] == (None, "model")   # repro's TP, run here
+    for arch, shape in (("dlrm-mlperf", "train_batch"),
+                        ("mistral-nemo-12b", "train_4k"),
+                        ("fm", "retrieval_cand")):
+        b = steps.build_cell(arch, shape, reduced=True, device="meta")
+        specs = b.sharding_fn(m)[b.batch_index]
+        assert shd.executed_batch(specs, m, b.kind) == specs
+    gnn = steps.build_cell("schnet", "full_graph_sm", reduced=True,
+                           device="meta")
+    specs = gnn.sharding_fn(m)[2]
+    got = shd.executed_batch(specs, m, "train")
+    assert specs["edge_index"] == (None, ("data", "model"))
+    assert got["edge_index"] == (None, None)
+    assert got["node_feat"] == ("data", None)
