@@ -27,7 +27,9 @@ shards, and sharded retrieval; and the LM serving cells on a mesh:
 tensor-parallel prefill and decode, the KV cache split by heads or by
 sequence with the decode partials merged across ranks; and the LM and
 recsys train cells on a mesh: tensor parallelism with its backward, a
-vocab-parallel loss and ZeRO-1.
+vocab-parallel loss and ZeRO-1; and SchNet's train cells on a mesh with
+edge-sharded message passing, and an elastic checkpoint of a sharded
+train state.
 
 Phases (any failure stops the script with a non-zero exit):
   1. setup: card name and power limit, kernel build time, and ptxas's
@@ -147,7 +149,10 @@ Phases (any failure stops the script with a non-zero exit):
      1 on the smoke batch (every id below 3), and one step card vs CPU
      on compact tables; BERT4Rec train_batch in 256 microbatches of 256
      x 200, then a resume check (a Trainer with checkpoints: 2 steps,
-     save, restore, 2 more, equal to 4 straight bit for bit). The cells'
+     save, restore, 2 more, equal to 4 straight bit for bit), and the
+     same resume check of FM and Wide&Deep at full width (4 batches of
+     4,096; their lookups' gradients on ``gather_segment_sum``), all with
+     PyTorch's default nondeterministic algorithms. The cells'
      steps are the backward kernels' "launches" below, and add to the
      forward kernels'; a ``{"phase10": ...}`` line gives each cell's
      losses, step times, peak memory and cuts (``reduced``);
@@ -240,6 +245,29 @@ Phases (any failure stops the script with a non-zero exit):
      sequences, accum 8, AdamW with ZeRO-1), one process a card: s a
      step, tokens/s, the peak a rank, the collectives of a step and a
      profiled step split into GEMMs, attention, NCCL and idle.
+  15. SchNet's train cells on a mesh (the edges over every axis, the
+     node rows over the data axes, an all-reduce of the aggregate a
+     layer) and the elastic checkpoint of a sharded train state: (a) at
+     world ``torch.cuda.device_count()`` (NCCL; one ``--gnn-rank``
+     process a card beyond one) the four cells at their published sizes
+     through ``build_cell(..., mesh=make_host_mesh(1, world))`` against
+     the no-mesh steps: loss, params and AdamW m bit for bit at world 1,
+     ``DIST_FP32`` beyond, with each step's ms, peak and collective
+     record; (b) molecule and full_graph_sm on 2 x 2 as 4 gloo processes
+     on the card, held to the no-mesh steps by ``DIST_FP32``; (c) the
+     checkpoint round trip: 14(b)'s ranks save their 2 x 2 state
+     (``CheckpointManager.save(mesh=, specs=, layout=)``) and take the
+     run's step 2; this process restores it on one card (each rank's
+     blocks cut from it against the rank's bit fingerprints; held to the
+     no-mesh step it came from) and takes step 2, which the ranks' step
+     2 must meet (``DIST_FP32`` or the order floor); (a) then restores
+     it onto its world, every block bit for bit its cut of the whole
+     arrays. A ``{"phase15": ...}``
+     line gives every number and cut. ``--gnn-mesh`` (a machine with 4
+     cards) runs only (d): ogb_products at its published size on 2 x 2,
+     one NCCL process a card: the losses equal on the ranks and within
+     ``DIST_FP32`` of one card's, s a step, the peak a rank and the
+     collectives of a step.
 It prints a ``{"kernels": [...]}`` line, then, last, the one-line
 ``{"ok": true, "device": {...}}`` result. Without a CUDA device, or
 without the package beside it, it exits non-zero and prints no result.
@@ -251,6 +279,7 @@ import ctypes
 import dataclasses
 import json
 import math
+import os
 import subprocess
 import sys
 import tempfile
@@ -3038,6 +3067,7 @@ BERT4REC_BATCH = 32_768         # of 65,536, to keep phase 10 short
 BERT4REC_ACCUM = 128            # microbatches of 256 x 200 (repro: 16)
 DLRM_KINK_SHARE = 0.05          # card vs CPU: at most this share dropped
 TC_BWD_DIMS = (64, 128)         # bf16 head dims whose backward is on wgmma
+LOOKUP_VOCAB = 65_536           # FM / Wide&Deep resume: rows a field
 
 
 def peak_gb(torch) -> float:
@@ -3623,9 +3653,7 @@ def phase_train_bert4rec(torch, dev, reduced: list, counters: dict,
     checkpoint, a fresh Trainer restored from it and 2 more, bit for
     bit."""
     from repro_torch.launch.steps import build_cell, make_smoke_args
-    from repro_torch.train.optimizer import adamw
-    from repro_torch.train.train_loop import Trainer
-    from repro_torch.train.tree import leaves, tree_map
+    from repro_torch.train.tree import tree_map
 
     cell = build_cell("bert4rec", "train_batch", device=dev,
                       accum=BERT4REC_ACCUM)
@@ -3646,31 +3674,73 @@ def phase_train_bert4rec(torch, dev, reduced: list, counters: dict,
 
     small = [{k: v[i * 128:(i + 1) * 128] for k, v in batch.items()}
              for i in range(4)]
-
-    def fresh():
-        return tree_map(lambda t: t.clone(), p0)
-
-    one = Trainer(cell.loss, adamw(), fresh())
-    one.run(small, n_steps=4)
-    with tempfile.TemporaryDirectory(prefix="chip_smoke-ck-") as d:
-        two = Trainer(cell.loss, adamw(), fresh(), d, checkpoint_every=2)
-        two.run(small[:2], n_steps=2)              # an async save at 2
-        three = Trainer(cell.loss, adamw(), fresh(), d)
-        check(three.try_restore() and three.state.step == 2,
-              "resume: no checkpoint at step 2")
-        three.run(small[2:], n_steps=2)
-    for a, b_ in ((one.state.params, three.state.params),
-                  (one.state.opt_state, three.state.opt_state)):
-        for (name, x), (_, y) in zip(leaves(a), leaves(b_)):
-            check(torch.equal(x, y), f"resume: {name} differs from the "
-                                     f"run without a restart")
-    log(f"  resume (bert4rec, 4 steps of 128 x 200, AdamW): params and "
-        f"state after 2 + checkpoint + restore + 2 equal those of 4 "
-        f"straight, bit for bit; losses "
-        f"{[round(h['loss'], 6) for h in one.history]}")
-    del one, two, three, batch, small, p0
+    resume_check(torch, "bert4rec, 4 steps of 128 x 200", cell.loss, p0,
+                 small)
+    del batch, small, p0
     torch.cuda.empty_cache()
     return out
+
+
+def resume_check(torch, what: str, loss, p0, batches: list) -> None:
+    """The resume check: a Trainer with a CheckpointManager, 4 AdamW steps
+    on ``batches`` straight against 2, a checkpoint, a fresh Trainer
+    restored from it and 2 more, bit for bit (params and state), with
+    PyTorch's default (nondeterministic) algorithms: no step adds with
+    atomics."""
+    from repro_torch.train.optimizer import adamw
+    from repro_torch.train.train_loop import Trainer
+    from repro_torch.train.tree import leaves
+
+    check(not torch.are_deterministic_algorithms_enabled(),
+          "resume: deterministic algorithms are on")
+    one = Trainer(loss, adamw(), _clone(p0))
+    one.run(batches, n_steps=4)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-ck-") as d:
+        two = Trainer(loss, adamw(), _clone(p0), d, checkpoint_every=2)
+        two.run(batches[:2], n_steps=2)            # an async save at 2
+        three = Trainer(loss, adamw(), _clone(p0), d)
+        check(three.try_restore() and three.state.step == 2,
+              f"resume ({what}): no checkpoint at step 2")
+        three.run(batches[2:], n_steps=2)
+    for a, b in ((one.state.params, three.state.params),
+                 (one.state.opt_state, three.state.opt_state)):
+        for (name, x), (_, y) in zip(leaves(a), leaves(b)):
+            check(torch.equal(x, y), f"resume ({what}): {name} differs from "
+                                     f"the run without a restart")
+    log(f"  resume ({what}, AdamW): params and state after 2 + checkpoint "
+        f"+ restore + 2 equal those of 4 straight, bit for bit; losses "
+        f"{[round(h['loss'], 6) for h in one.history]}")
+    del one, two, three
+    torch.cuda.empty_cache()
+
+
+def phase_train_lookups(torch, dev, reduced: list) -> None:
+    """FM and Wide&Deep train_batch at their published widths, each
+    field's vocabulary cut to ``LOOKUP_VOCAB`` rows (a checkpoint of the
+    full tables' state, 5–16 GB, would take the check most of a minute to
+    write and read): the resume check on 4 batches of 4,096 of the smoke
+    batch; their ``lookup`` gradients run ``gather_segment_sum``, in a
+    fixed order."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels.segment_sum import ops as ss
+    from repro_torch.launch.steps import build_cell, make_smoke_args
+
+    for arch in ("fm", "wide-deep"):
+        cfg = dataclasses.replace(get_arch(arch).model_config(False),
+                                  vocab_per_field=LOOKUP_VOCAB)
+        cell = build_cell(arch, "train_batch", device=dev, model_cfg=cfg)
+        params, _, batch, _ = make_smoke_args(cell, seed=SEED + 26)
+        small = [{k: v[i * 4096:(i + 1) * 4096] for k, v in batch.items()}
+                 for i in range(4)]
+        before = ss.launches
+        resume_check(torch, f"{arch}, 4 steps of 4096", cell.loss, params,
+                     small)
+        check(ss.launches > before, f"{arch}: lookup's gradient launched no "
+                                    f"gather_segment_sum")
+        reduced.append(f"{arch} resume: vocabulary 1,000,000 -> "
+                       f"{LOOKUP_VOCAB} rows a field, batches of 4096")
+        del params, batch, small
+        torch.cuda.empty_cache()
 
 
 def phase_train(torch, dev, kern: dict) -> dict:
@@ -3694,6 +3764,7 @@ def phase_train(torch, dev, kern: dict) -> dict:
              "dlrm": phase_train_dlrm(torch, dev, reduced, counters, main),
              "bert4rec": phase_train_bert4rec(torch, dev, reduced, counters,
                                               main)}
+    phase_train_lookups(torch, dev, reduced)
     log(json.dumps({"phase10": dict(cells, reduced=reduced)}))
     log(f"  launches on the train path (phase 10's steps): {main}; phase "
         f"10 took {time.perf_counter() - t0:.1f} s")
@@ -3898,8 +3969,7 @@ def phase_schnet(torch, dev, kern: dict) -> dict:
     from repro_torch.models import schnet as sm
     from repro_torch.testing import accumulating_ops
     from repro_torch.train.optimizer import adamw
-    from repro_torch.train.train_loop import (Trainer,
-                                              grad_accum_value_and_grad)
+    from repro_torch.train.train_loop import grad_accum_value_and_grad
     from repro_torch.train.tree import leaves, tree_map
 
     t0 = time.perf_counter()
@@ -4024,26 +4094,10 @@ def phase_schnet(torch, dev, kern: dict) -> dict:
 
     # resume at molecule: 2 steps + checkpoint + restore + 2 = 4 straight
     cell = cells["molecule"]
-    p0 = fresh(cell, SEED + 36)[0]
-    four = [smoke_batch(cell, seed=SEED + 40 + i) for i in range(4)]
-    one = Trainer(cell.loss, adamw(), clone(p0))
-    one.run(four, n_steps=4)
-    with tempfile.TemporaryDirectory(prefix="chip_smoke-ck-") as d:
-        two = Trainer(cell.loss, adamw(), clone(p0), d, checkpoint_every=2)
-        two.run(four[:2], n_steps=2)
-        three = Trainer(cell.loss, adamw(), clone(p0), d)
-        check(three.try_restore() and three.state.step == 2,
-              "schnet resume: no checkpoint at step 2")
-        three.run(four[2:], n_steps=2)
-    for a, b in ((one.state.params, three.state.params),
-                 (one.state.opt_state, three.state.opt_state)):
-        for (name, x), (_, y) in zip(leaves(a), leaves(b)):
-            check(torch.equal(x, y), f"schnet resume: {name} differs from "
-                                     f"the run without a restart")
-    log(f"  resume ({SCHNET} molecule, 4 steps, AdamW): params and state "
-        f"after 2 + checkpoint + restore + 2 equal those of 4 straight, bit "
-        f"for bit; losses {[round(h['loss'], 6) for h in one.history]}")
-    del one, two, three, batches, sampled, mb, mol
+    resume_check(torch, f"{SCHNET} molecule, 4 steps", cell.loss,
+                 fresh(cell, SEED + 36)[0],
+                 [smoke_batch(cell, seed=SEED + 40 + i) for i in range(4)])
+    del batches, sampled, mb, mol
     torch.cuda.empty_cache()
 
     # ogb_products at its published size
@@ -5694,7 +5748,7 @@ def replay_reference(torch, dev, ref: str) -> dict:
     torch.cuda.empty_cache()
     tree = flipped(train_tree(init_params(cfg, seed=SEED + 55,
                                           device=dev)), cfg)
-    _, o, flip_loss = one.fn(tree, one.opt.init(tree), batch, step0)
+    o, flip_loss = one.fn(tree, one.opt.init(tree), batch, step0)[1:]
     check(abs(float(flip_loss) - float(loss)) <= DIST_FP32["loss"] * abs(
         float(loss)), f"14(b): the flipped step's loss {float(flip_loss)} "
                       f"is not the step's {float(loss)}")
@@ -5708,14 +5762,16 @@ def replay_reference(torch, dev, ref: str) -> dict:
 
 
 def train_replay_rank(torch, rank: int, world: int, store: str,
-                      ref: str, dev_type: str = "cuda") -> dict:
+                      ref: str, dev_type: str = "cuda",
+                      ckpt: str = None) -> dict:
     """14(b) on one of ``world`` processes that share the one card, a
     gloo process group (NCCL takes one rank a card) on a
     ``TRAIN_REPLAY`` mesh: Mistral-NeMo's fp32 step at full width
     through ``build_cell(..., mesh=)`` (the ranks make the seeded weights
     one at a time and keep their blocks), held to ``replay_reference``'s
-    step by ``DIST_FP32``. Returns the rank's loss, step ms, peak,
-    worst ratios and collective tally."""
+    step by ``DIST_FP32``; then, given ``ckpt``, 15(c)'s part
+    (``ckpt_save_rank``). Returns the rank's loss, step ms, peak, worst
+    ratios and collective tally."""
     import torch.distributed as dist
     from repro_torch.launch import collectives as col
     from repro_torch.launch.mesh import make_host_mesh
@@ -5769,25 +5825,35 @@ def train_replay_rank(torch, rank: int, world: int, store: str,
                                   rank_blocks(cell, want["m"], opt=True),
                                   o["m"], False, want["floor"], plain)}
         out["m_vs_dist_fp32"] = plain
+        if ckpt:
+            out["checkpoint"] = ckpt_save_rank(
+                torch, rank, cell, mesh, {"params": p, "opt_state": o},
+                batch, ckpt)
         dist.barrier()
     finally:
         dist.destroy_process_group()
     return out
 
 
-def phase_train_replay(torch, dev, work: str) -> dict:
+def phase_train_replay(torch, dev, work: str, ckpt: str) -> dict:
     """14(b): the reference step here, then ``TRAIN_REPLAY``'s ranks as
     ``--train-replay-rank`` processes on this card (killed after
-    ``DIST_TIMEOUT`` s), each printing its result as one JSON line."""
+    ``DIST_TIMEOUT`` s), each printing its result as one JSON line; with
+    15(c): the ranks save their state to ``ckpt`` and take step 2 before
+    exiting (``ckpt_save_rank``), then this process restores it on one
+    card and holds its step 2 to theirs (``ckpt_one_card``)."""
     ref = str(Path(work) / "train-replay-ref.pt")
     out = {"reference": replay_reference(torch, dev, ref)}
     world = TRAIN_REPLAY[0] * TRAIN_REPLAY[1]
     store = str(Path(work) / "gloo-train-store")
+    # the 4 ranks' steps fill the card: segments that grow in place keep
+    # their cached blocks from fragmenting it
+    env = dict(os.environ, PYTORCH_CUDA_ALLOC_CONF="expandable_segments:True")
     procs = [subprocess.Popen(
         [sys.executable, str(Path(__file__).resolve()),
          "--train-replay-rank", str(r), "--dist-world", str(world),
-         "--dist-store", store, "--replay-ref", ref],
-        stdout=subprocess.PIPE, text=True) for r in range(world)]
+         "--dist-store", store, "--replay-ref", ref, "--replay-ckpt", ckpt],
+        stdout=subprocess.PIPE, text=True, env=env) for r in range(world)]
     ranks = []
     try:
         for p in procs:
@@ -5800,13 +5866,17 @@ def phase_train_replay(torch, dev, work: str) -> dict:
                 p.kill()
                 p.wait()
     out["ranks"] = ranks
+    out["checkpoint"] = ckpt_one_card(torch, dev, ckpt,
+                                      torch.load(ref, mmap=True))
     return out
 
 
-def phase_train_mesh(torch, dev) -> dict:
-    """Phase 14. Returns the launches of the forward and backward kernels
+def phase_train_mesh(torch, dev, ckpt: str) -> tuple[dict, dict]:
+    """Phase 14, with 15(c)'s checkpoint of 14(b)'s state written to
+    ``ckpt``. Returns the launches of the forward and backward kernels
     on its mesh steps (14(a): each mesh step's counts read from just
-    before it to just after), not those of the runs they are held to."""
+    before it to just after), not those of the runs they are held to,
+    and 14(b)'s results (15(c)'s among them)."""
     from repro_torch.kernels.embedding_bag import ops as eb
     from repro_torch.kernels.flash_attention import ops as fa
 
@@ -5832,7 +5902,7 @@ def phase_train_mesh(torch, dev) -> dict:
             f"equal to the no-mesh steps: {held}")
         torch.cuda.empty_cache()
         t = time.perf_counter()
-        b = phase_train_replay(torch, dev, work)
+        b = phase_train_replay(torch, dev, work, ckpt)
         b["seconds"] = time.perf_counter() - t
     worst = {k: max(r["worst"][k] for r in b["ranks"])
              for k in ("loss", "param", "m")}
@@ -5851,7 +5921,7 @@ def phase_train_mesh(torch, dev) -> dict:
         f"{json.dumps(over)}; rank steps "
         f"{[round(r['step_ms'], 1) for r in b['ranks']]} ms, peaks "
         f"{[round(r['peak_gb'], 2) for r in b['ranks']]} GB "
-        f"({b['seconds']:.1f} s)")
+        f"({b['seconds']:.1f} s, 15(c)'s checkpoint work included)")
     log(json.dumps({"phase14": dict(
         collective=a, replay=b, launches_14a=count.n,
         reduced=[f"14(a): Mistral-NeMo train_4k 40 -> "
@@ -5868,7 +5938,7 @@ def phase_train_mesh(torch, dev) -> dict:
         f"{time.perf_counter() - t0:.1f} s")
     for name, n in count.n.items():
         check(n > 0, f"{name} was never launched on phase 14's mesh steps")
-    return count.n
+    return count.n, b
 
 
 def train_long_rank(torch, rank: int, world: int, store: str,
@@ -6036,6 +6106,724 @@ def phase_train_long(torch, work: str) -> dict:
                          f"profiled"])
 
 
+# ---------------------------------------------------------------------------
+# phase 15: SchNet's train cells on a mesh, and the elastic checkpoint
+# ---------------------------------------------------------------------------
+GNN_SHAPES = ("molecule", "full_graph_sm", "minibatch_lg", "ogb_products")
+GNN_REPLAY = (2, 2)             # 15(b): (data, model), processes on one card
+GNN_REPLAY_SHAPES = ("molecule", "full_graph_sm")
+GNN_LONG = dict(mesh=(2, 2), steps=3)   # 15(d): ogb_products on 4 cards
+
+
+def gnn_batch(torch, cell, dev, seed: int) -> dict:
+    """A seeded batch of SchNet ``cell``'s shape made on the card with
+    ``steps.smoke_batch``'s distributions (edges uniform over the nodes,
+    distances in [0, 9), features N(0, 1), labels uniform over the
+    classes; molecules: atom numbers in [1, 50), each graph a block of
+    nodes, energies N(0, 1)), drawn by torch: ogb_products' 61.9M edges
+    in milliseconds, not seconds on the host. The same seed gives the
+    same batch on every card."""
+    specs = cell.arg_specs[2]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    node = next(k for k in ("node_feat", "atom_z") if k in specs)
+    n, e = specs[node].shape[0], specs["edge_dist"].shape[0]
+
+    def ints(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=gen, device=dev,
+                             dtype=torch.int32)
+
+    out = {"edge_index": ints(0, n, (2, e)),
+           "edge_dist": torch.rand((e,), generator=gen, device=dev) * 9}
+    if node == "atom_z":
+        g = specs["energy"].shape[0]
+        out.update(atom_z=ints(1, 50, (n,)),
+                   graph_ids=torch.arange(g, device=dev, dtype=torch.int32)
+                   .repeat_interleave(n // g),
+                   energy=torch.randn((g,), generator=gen, device=dev))
+    else:
+        out.update(node_feat=torch.randn(specs[node].shape, generator=gen,
+                                         device=dev),
+                   labels=ints(0, cell.model_cfg.n_classes, (n,)))
+    return out
+
+
+def _clone(tree):
+    from repro_torch.train.tree import tree_map
+    return tree_map(lambda t: t.detach().clone(), tree)
+
+
+def _meta(tree):
+    from repro_torch.train.tree import tree_map
+    return tree_map(lambda t: t.new_empty(t.shape, device="meta"), tree)
+
+
+def edge_order_floor(torch, one, params, batch, loss1, m1,
+                     world: int) -> dict:
+    """Each AdamW m leaf's largest distance between the no-mesh step
+    (``loss1``, ``m1``: SchNet cell ``one``'s from ``params``, which stay
+    unchanged) and the same step with the batch's edges in another order
+    (a seeded permutation) and cut into chunks of E / ``world`` edges: the
+    filter products at a rank's shapes, each node's sum over its edges in
+    another order and its chunks' sums added, as a mesh's ranks sum their
+    own blocks of the edges and add the partial aggregates; the function
+    is the same, and its loss must be within ``DIST_FP32``. The order
+    floor of ``mesh_step_leaves`` for a SchNet mesh step."""
+    from repro_torch.models import schnet as sm
+    from repro_torch.train.optimizer import adamw
+    from repro_torch.train.train_loop import grad_accum_value_and_grad
+    from repro_torch.train.tree import leaves
+
+    dev = batch["edge_dist"].device
+    e = batch["edge_dist"].shape[0]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 66)
+    perm = torch.randperm(e, generator=gen, device=dev)
+    permuted = dict(batch, edge_index=batch["edge_index"][:, perm],
+                    edge_dist=batch["edge_dist"][perm])
+    chunk, cfg = -(-e // world), one.model_cfg
+    if "energy" in batch:
+        permuted["n_graphs"] = batch["energy"].shape[0]
+
+        def loss_fn(p, b):
+            return sm.energy_loss(p, cfg, b, edge_chunk=chunk)
+    else:
+        def loss_fn(p, b):
+            return sm.node_class_loss(p, cfg, b, edge_chunk=chunk)
+    p = _clone(params)
+    loss, grads = grad_accum_value_and_grad(loss_fn)(p, permuted)
+    check(abs(float(loss) - float(loss1)) <= DIST_FP32["loss"] * abs(
+        float(loss1)), f"the step on reordered edges: loss {float(loss)}, "
+                       f"not the step's {float(loss1)}")
+    opt = adamw()
+    st = opt.init(p)
+    opt.update(grads, st, p, torch.tensor(0, dtype=torch.int32, device=dev))
+    want = dict(leaves(m1))
+    return {name: float((want[name].to(dev) - t).abs().max())
+            for name, t in leaves(st["m"])}
+
+
+def gnn_mesh_cell(torch, dev, shape: str, mesh, world: int, count) -> dict:
+    """15(a), one SchNet cell at its published size: phase 11's no-mesh
+    step and ``build_cell(..., mesh=)``'s step (through ``shard_args``:
+    the rank's blocks of the edges and node rows) from the same seeded
+    params and batch on this card, bit for bit at world 1 (loss, params,
+    AdamW m), by ``DIST_FP32`` beyond (each m leaf, or ``FLOOR_TIMES`` x
+    its ``edge_order_floor`` where that is larger). Returns the mesh
+    step's ms, peak and collective tally."""
+    from repro_torch.launch import collectives as col
+    from repro_torch.launch.steps import build_cell, shard_args
+    from repro_torch.models import schnet as sm
+
+    one = build_cell(SCHNET, shape, device=dev)
+    cell = build_cell(SCHNET, shape, device=dev, mesh=mesh)
+    params = sm.init_params(one.model_cfg, seed=SEED + 60, device=dev)
+    batch = gnn_batch(torch, one, dev, SEED + 61)
+    step0 = torch.tensor(0, dtype=torch.int32, device=dev)
+    p = _clone(params)
+    p1, o1, l1 = one.fn(p, one.opt.init(p), batch, step0)
+    m1 = o1["m"]
+    exact = world == 1
+    floor = None if exact else edge_order_floor(torch, one, params, batch,
+                                                l1, m1, world)
+    args = shard_args(cell, (params, None, batch, step0))
+    del o1, params, batch
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    col.take_records()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    p2, o2, l2 = count(cell.fn, *args)
+    torch.cuda.synchronize()
+    out = dict(step_ms=(time.perf_counter() - t) * 1e3,
+               peak_gb=peak_gb(torch), loss=float(l2),
+               collectives=col.collective_stats(col.take_records()))
+    out["worst"] = {
+        "param": mesh_step_leaves(torch, f"15(a) {shape} param", p1, p2,
+                                  exact),
+        "m": mesh_step_leaves(torch, f"15(a) {shape} m", m1, o2["m"], exact,
+                              floor)}
+    if exact:
+        check(torch.equal(l1, l2), f"15(a) {shape}: loss {float(l2)} on "
+                                   f"the mesh, {float(l1)} without")
+    else:
+        rel = abs(float(l1) - float(l2)) / abs(float(l1))
+        out["worst"]["loss"] = rel / DIST_FP32["loss"]
+        check(rel <= DIST_FP32["loss"],
+              f"15(a) {shape}: loss {float(l2)} vs {float(l1)}")
+    del p1, m1, p2, o2, args
+    torch.cuda.empty_cache()
+    return out
+
+
+def replay_specs(cell, mesh) -> tuple:
+    """The spec tree of 14(b)'s train state ({"params", "opt_state"}:
+    the cell's repro specs) and the rank's ZeRO layout."""
+    from repro_torch.launch.steps import zero_layout
+    return (dict(zip(("params", "opt_state"), cell.sharding_fn(mesh)[:2])),
+            zero_layout(cell))
+
+
+def ckpt_onto_world(torch, dev, mesh, ckpt: str) -> dict:
+    """15(c), last: 14(b)'s checkpoint restored onto 14(a)'s world
+    (``make_host_mesh(1, world)``) as the blocks of the same fp32 replay
+    cell there, each equal bit for bit to its cut of the whole arrays
+    (restored on the card without a mesh, cut as the step cuts them:
+    ``rank_blocks``, m and v at the ZeRO blocks)."""
+    from repro_torch.launch.sharding import local_shape
+    from repro_torch.launch.steps import build_cell, param_shapes
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.optimizer import adamw
+    from repro_torch.train.tree import leaves, tree_map_with_path
+
+    cfg = replay_config(torch)
+    cell = build_cell(NEMO, "train_4k", device=dev, model_cfg=cfg, accum=1,
+                      mesh=mesh)
+    specs, layout = replay_specs(cell, mesh)
+    flat = dict(leaves(specs["params"]))
+    shapes = param_shapes(NEMO, cfg)
+    target = {"params": tree_map_with_path(lambda path, t: t.new_empty(
+        local_shape(tuple(t.shape), flat[path], mesh), device="meta"),
+        shapes), "opt_state": layout.state_blocks("meta")}
+    mgr = CheckpointManager(ckpt)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    got, step, _ = mgr.restore(target, device=dev, mesh=mesh, specs=specs,
+                               layout=layout, verify=False)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    check(step == 1, f"15(c): the checkpoint holds step {step}")
+    whole, _, _ = mgr.restore({"params": shapes,
+                               "opt_state": adamw().init(shapes)},
+                              device=dev, verify=False)
+    want = {"params": rank_blocks(cell, whole["params"]),
+            "opt_state": {k: rank_blocks(cell, whole["opt_state"][k],
+                                         opt=True) for k in ("m", "v")}}
+    n = 0
+    for (name, a), (_, b) in zip(leaves(want), leaves(got)):
+        check(torch.equal(a, b), f"15(c): {name} restored onto the world's "
+                                 f"mesh is not its block")
+        n += 1
+    del got, whole, want
+    torch.cuda.empty_cache()
+    return dict(restore_s=secs, leaves=n)
+
+
+def gnn_mesh_rank(torch, rank: int, world: int, store: str,
+                  dev_type: str = "cuda", count=None,
+                  ckpt: str = None) -> dict:
+    """15(a) on one rank of a NCCL process group of ``world`` ranks, one a
+    card, met through a ``FileStore`` at ``store``: SchNet's four cells
+    (``gnn_mesh_cell``) on ``make_host_mesh(1, world)``, then, given
+    14(b)'s checkpoint ``ckpt``, ``ckpt_onto_world``. ``count`` (a
+    ``PathCounts``) wraps the mesh steps."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+
+    count = count or (lambda fn, *a, **k: fn(*a, **k))
+    if dev_type == "cuda":
+        torch.cuda.set_device(rank)
+    dev = torch.device(dev_type, rank if dev_type == "cuda" else None)
+    dist.init_process_group("nccl" if dev_type == "cuda" else "gloo",
+                            store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    try:
+        mesh = make_host_mesh(1, world, device_type=dev_type)
+        out = {"world": world,
+               "cells": {s: gnn_mesh_cell(torch, dev, s, mesh, world, count)
+                         for s in GNN_SHAPES}}
+        if ckpt:
+            out["restore"] = ckpt_onto_world(torch, dev, mesh, ckpt)
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def phase_gnn_mesh_collective(torch, work: str, dev_type: str, count,
+                              ckpt: str) -> dict:
+    """15(a) at world ``torch.cuda.device_count()``: in this process on
+    one card; with more, one ``--gnn-rank`` process a card."""
+    world = torch.cuda.device_count()
+    store = str(Path(work) / "nccl-gnn-store")
+    if world == 1:
+        return gnn_mesh_rank(torch, 0, 1, store, dev_type, count, ckpt)
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--gnn-rank",
+         str(r), "--dist-world", str(world), "--dist-store", store,
+         "--replay-ckpt", ckpt]) for r in range(1, world)]
+    try:
+        out = gnn_mesh_rank(torch, 0, world, store, dev_type, count, ckpt)
+        for p in procs:
+            p.wait(timeout=DIST_TIMEOUT)
+            check(p.returncode == 0, f"15(a): a rank exited {p.returncode}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return out
+
+
+def gnn_replay_reference(torch, dev, ref: str) -> dict:
+    """15(b)'s no-mesh steps on the card: molecule and full_graph_sm at
+    their published sizes from seeded params and batches, saved to
+    ``ref`` (loss, params, AdamW m, the batch, m's ``edge_order_floor``)
+    for the ranks."""
+    from repro_torch.launch.steps import build_cell
+    from repro_torch.models import schnet as sm
+
+    out = {}
+    step0 = torch.tensor(0, dtype=torch.int32, device=dev)
+    for shape in GNN_REPLAY_SHAPES:
+        one = build_cell(SCHNET, shape, device=dev)
+        params = sm.init_params(one.model_cfg, seed=SEED + 62, device=dev)
+        batch = gnn_batch(torch, one, dev, SEED + 63)
+        p = _clone(params)
+        p, o, loss = one.fn(p, one.opt.init(p), batch, step0)
+        out[shape] = {"loss": loss.cpu(), "param": _host(p),
+                      "m": _host(o["m"]), "batch": _host(batch),
+                      "floor": edge_order_floor(
+                          torch, one, params, batch, loss, o["m"],
+                          GNN_REPLAY[0] * GNN_REPLAY[1])}
+    torch.save(out, ref)
+    return {s: float(out[s]["loss"]) for s in out}
+
+
+def gnn_replay_rank(torch, rank: int, world: int, store: str, ref: str,
+                    dev_type: str = "cuda") -> dict:
+    """15(b) on one of ``world`` processes that share the one card, a
+    gloo process group on a ``GNN_REPLAY`` mesh: each of
+    ``GNN_REPLAY_SHAPES`` through ``build_cell(..., mesh=)`` (the rank's
+    edges and node rows), held to ``gnn_replay_reference``'s step by
+    ``DIST_FP32`` (each m leaf, or ``FLOOR_TIMES`` x its
+    ``edge_order_floor`` where that is larger). Returns the rank's losses, step ms, peaks, worst
+    ratios, collective tallies and ``gather_segment_sum`` launches."""
+    import torch.distributed as dist
+    from repro_torch.kernels.segment_sum import ops as ss
+    from repro_torch.launch import collectives as col
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.steps import build_cell, shard_args
+    from repro_torch.models import schnet as sm
+
+    if dev_type == "cuda":
+        torch.cuda.set_device(0)
+    dev = torch.device(dev_type, 0 if dev_type == "cuda" else None)
+    dist.init_process_group("gloo", store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    out = {"rank": rank, "cells": {}, "launches": 0}
+    try:
+        mesh = make_host_mesh(*GNN_REPLAY, device_type=dev_type)
+        want_all = torch.load(ref)
+        step0 = torch.tensor(0, dtype=torch.int32, device=dev)
+        for shape in GNN_REPLAY_SHAPES:
+            want = want_all[shape]
+            cell = build_cell(SCHNET, shape, device=dev, mesh=mesh)
+            params = sm.init_params(cell.model_cfg, seed=SEED + 62,
+                                    device=dev)
+            batch = {k: v.to(dev) for k, v in want["batch"].items()}
+            args = shard_args(cell, (params, None, batch, step0))
+            torch.cuda.reset_peak_memory_stats()
+            col.take_records()
+            before = ss.launches
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            p, o, loss = cell.fn(*args)
+            torch.cuda.synchronize()
+            res = dict(step_ms=(time.perf_counter() - t) * 1e3,
+                       loss=float(loss), peak_gb=peak_gb(torch),
+                       collectives=col.collective_stats(col.take_records()))
+            out["launches"] += ss.launches - before
+            rel = abs(float(loss) - float(want["loss"])) / abs(
+                float(want["loss"]))
+            check(rel <= DIST_FP32["loss"], f"15(b) rank {rank} {shape}: "
+                                            f"loss {float(loss)} vs "
+                                            f"{float(want['loss'])}")
+            plain = {}
+            res["worst"] = {
+                "loss": rel / DIST_FP32["loss"],
+                "param": mesh_step_leaves(torch, f"15(b) rank {rank} {shape} "
+                                          f"param", want["param"], p, False),
+                "m": mesh_step_leaves(torch, f"15(b) rank {rank} {shape} m",
+                                      want["m"], o["m"], False,
+                                      want["floor"], plain)}
+            res["m_vs_dist_fp32"] = max(plain.values())
+            out["cells"][shape] = res
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def phase_gnn_replay(torch, dev, work: str) -> dict:
+    """15(b): the reference steps here, then ``GNN_REPLAY``'s ranks as
+    ``--gnn-replay-rank`` processes on this card (killed after
+    ``DIST_TIMEOUT`` s), each printing its result as one JSON line."""
+    ref = str(Path(work) / "gnn-replay-ref.pt")
+    out = {"reference": gnn_replay_reference(torch, dev, ref)}
+    world = GNN_REPLAY[0] * GNN_REPLAY[1]
+    store = str(Path(work) / "gloo-gnn-store")
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()),
+         "--gnn-replay-rank", str(r), "--dist-world", str(world),
+         "--dist-store", store, "--replay-ref", ref],
+        stdout=subprocess.PIPE, text=True) for r in range(world)]
+    ranks = []
+    try:
+        for p in procs:
+            text, _ = p.communicate(timeout=DIST_TIMEOUT)
+            check(p.returncode == 0, f"15(b): a rank exited {p.returncode}")
+            ranks.append(json.loads(text.strip().splitlines()[-1]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    out["ranks"] = ranks
+    return out
+
+
+FINGERPRINT_CHUNK = 1 << 26     # elements of one fingerprint pass
+
+
+def bits_fingerprint(torch, t) -> int:
+    """A 64-bit fingerprint of a tensor's bits: each element's bits read
+    as an integer times a weight of its position, summed with 64-bit
+    wraparound. Integer sums are exact in any order, so equal tensors give
+    equal fingerprints, and a block and the same bits cut from another
+    copy compare without moving either."""
+    flat = t.detach().contiguous().reshape(-1)
+    bits = flat.view(torch.int32 if flat.element_size() == 4
+                     else torch.int16)
+    total = torch.zeros((), dtype=torch.int64, device=flat.device)
+    for lo in range(0, bits.numel(), FINGERPRINT_CHUNK):
+        v = bits[lo:lo + FINGERPRINT_CHUNK].to(torch.int64)
+        w = torch.arange(lo, lo + v.numel(), device=v.device,
+                         dtype=torch.int64) * 40503 % 2147483629 + 1
+        total += (v * w).sum()
+    return int(total)
+
+
+def ckpt_save_rank(torch, rank: int, cell, mesh, state: dict, batch,
+                   ckpt: str) -> dict:
+    """15(c) on a 14(b) rank, after its step: save the train state
+    ({"params", "opt_state"}: the rank's blocks) with the mesh, then the
+    run's next step, step 2. The blocks' ``bits_fingerprint``s (taken
+    before step 2 updates them in place), step 2's loss and its AdamW m
+    blocks go to ``ckpt/step2_rank<r>.pt`` for ``ckpt_one_card``."""
+    from repro_torch.launch.mesh import coordinate
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.tree import leaves
+
+    specs, layout = replay_specs(cell, mesh)
+    torch.cuda.empty_cache()      # step 1's cached blocks: 4 ranks share
+    torch.cuda.synchronize()      # the card, and step 2 needs them back
+    t = time.perf_counter()
+    CheckpointManager(ckpt).save(1, state, mesh=mesh, specs=specs,
+                                 layout=layout)
+    out = {"save_s": time.perf_counter() - t}
+    prints = {name: bits_fingerprint(torch, a) for name, a in leaves(state)}
+    step1 = torch.tensor(1, dtype=torch.int32, device=batch["tokens"].device)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    o, loss = cell.fn(state["params"], state["opt_state"], batch,
+                      step1)[1:]
+    torch.cuda.synchronize()
+    out.update(step2_ms=(time.perf_counter() - t) * 1e3,
+               step2_peak_gb=peak_gb(torch))
+    torch.save({"loss": loss.cpu(), "m": _host(o["m"]),
+                "coord": coordinate(mesh), "fingerprints": prints},
+               Path(ckpt) / f"step2_rank{rank}.pt")
+    return out
+
+
+def ckpt_one_card(torch, dev, ckpt: str, ref: dict) -> dict:
+    """15(c) on the card once 14(b)'s ranks have saved, taken step 2 and
+    exited: the checkpoint restored without a mesh (checksums verified);
+    each rank's blocks cut from it as the step cuts them (the params by
+    ``tp.serving_blocks``, m and v at the ZeRO blocks of those) with
+    the ``bits_fingerprint`` the rank took of its own blocks (the
+    restored state is the ranks' blocks laid back whole, bit for bit);
+    the state held to the no-mesh step 1 it came from (``DIST_FP32`` or
+    the order floor); then step 2 on one card, and the same step on a
+    copy of the state, ``flipped``, for step 2's order floor; each
+    rank's step 2 (``step2_rank<r>.pt``) held to it by ``DIST_FP32``
+    (loss) and ``DIST_FP32`` or ``FLOOR_TIMES`` x that floor (each m
+    block)."""
+    from repro_torch.launch.mesh import MeshShape
+    from repro_torch.launch.steps import build_cell, param_shapes, zero_layout
+    from repro_torch.models.tp import serving_blocks
+    from repro_torch.train.checkpoint import CheckpointManager
+    from repro_torch.train.optimizer import adamw
+    from repro_torch.train.tree import leaves, tree_map, tree_map_with_path
+
+    cfg = replay_config(torch)
+    one = build_cell(NEMO, "train_4k", device=dev, model_cfg=cfg, accum=1)
+    shapes = param_shapes(NEMO, cfg)
+    target = {"params": shapes, "opt_state": adamw().init(shapes)}
+    mgr = CheckpointManager(ckpt)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    state, step, _ = mgr.restore(target, device=dev)
+    torch.cuda.synchronize()
+    out = {"restore_s": time.perf_counter() - t,
+           "bytes": sum(x.numel() * x.element_size()
+                        for x in _leaves(state))}
+    check(step == 1, f"15(c): the checkpoint holds step {step}")
+    mesh = MeshShape(TRAIN_REPLAY, ("data", "model"))
+    meta = build_cell(NEMO, "train_4k", device="meta", model_cfg=cfg,
+                      accum=1)
+    pspec = meta.sharding_fn(mesh)[0]
+    ranks = [torch.load(Path(ckpt) / f"step2_rank{r}.pt", mmap=True)
+             for r in range(TRAIN_REPLAY[0] * TRAIN_REPLAY[1])]
+
+    def blocks(tree, coord, zero: bool):
+        """The rank at ``coord``'s blocks of a whole tree shaped as the
+        params (views)."""
+        cut = serving_blocks(tree, pspec, mesh, cfg.act, coord, copy=False)
+        if not zero:
+            return cut
+        lay = zero_layout(meta, "adamw", mesh, coord)
+        return tree_map_with_path(lambda p, x: lay.leaf(p).zero_block(x),
+                                  cut)
+
+    for r, got in enumerate(ranks):
+        cut = {"params": blocks(state["params"], got["coord"], False),
+               "opt_state": {k: blocks(v, got["coord"], True)
+                             for k, v in state["opt_state"].items()}}
+        for name, x in leaves(cut):
+            check(bits_fingerprint(torch, x) == got["fingerprints"][name],
+                  f"15(c): rank {r}'s {name} is not its block of the "
+                  f"restored state")
+    out["worst_restored"] = {
+        "param": mesh_step_leaves(torch, "15(c) restored param",
+                                  ref["param"], state["params"], False),
+        "m": mesh_step_leaves(torch, "15(c) restored m", ref["m"],
+                              state["opt_state"]["m"], False, ref["floor"])}
+    batch = {k: v.to(dev) for k, v in ref["batch"].items()}
+    step1 = torch.tensor(1, dtype=torch.int32, device=dev)
+    flip = {"params": flipped(state["params"], cfg),
+            "opt_state": {k: flipped(v, cfg)
+                          for k, v in state["opt_state"].items()}}
+    flip = _clone(flip)                  # a copy: the step runs in place
+    t2 = time.perf_counter()
+    o, loss = one.fn(state["params"], state["opt_state"], batch, step1)[1:]
+    m2 = _host(o["m"])
+    out["step2_s"] = time.perf_counter() - t2
+    del state, o
+    torch.cuda.empty_cache()
+    o, flip_loss = one.fn(flip["params"], flip["opt_state"], batch,
+                          step1)[1:]
+    check(abs(float(flip_loss) - float(loss)) <= DIST_FP32["loss"] * abs(
+        float(loss)), f"15(c): the flipped step 2's loss {float(flip_loss)} "
+                      f"is not step 2's {float(loss)}")
+    ref_m = dict(leaves(m2))
+    floor = {name: float((ref_m[name].to(dev) - x).abs().max())
+             for name, x in leaves(flipped(o["m"], cfg))}
+    del flip, o, batch
+    torch.cuda.empty_cache()
+    m2 = tree_map(lambda x: x.to(dev), m2)
+    out["worst_step2"] = {"loss": 0.0, "m": 0.0}
+    for r, got in enumerate(ranks):       # each rank's step 2, on the card
+        rel = abs(float(got["loss"]) - float(loss)) / abs(float(loss))
+        check(rel <= DIST_FP32["loss"], f"15(c) rank {r}: step 2's loss "
+                                        f"{float(got['loss'])} vs "
+                                        f"{float(loss)} on one card")
+        out["worst_step2"] = {
+            "loss": max(out["worst_step2"]["loss"], rel / DIST_FP32["loss"]),
+            "m": max(out["worst_step2"]["m"], mesh_step_leaves(
+                torch, f"15(c) rank {r} step 2 m",
+                blocks(m2, got["coord"], True),
+                tree_map(lambda x: x.to(dev), got["m"]), False, floor))}
+    del m2
+    torch.cuda.empty_cache()
+    out.update(step2_loss=float(loss), seconds=time.perf_counter() - t)
+    return out
+
+
+def gnn_long_rank(torch, rank: int, world: int, store: str,
+                  dev_type: str = "cuda") -> dict:
+    """15(d), outside the default run (``--gnn-mesh``, on a machine with 4
+    cards): SchNet ogb_products at its published size on a 2 x 2 mesh,
+    one NCCL process a card, through ``build_cell(..., mesh=)``: each
+    rank makes the same seeded params and batch on its card and keeps
+    its blocks (a quarter of the edges, half the node rows); rank 0
+    first takes the no-mesh step on its card (the others wait). Then
+    ``GNN_LONG``'s steps, each timed on the host clock between
+    synchronizes; the losses must be equal on the 4 ranks and the first
+    within ``DIST_FP32`` of the one-card step's. Returns s a step, the
+    peak, the collectives of a step."""
+    import torch.distributed as dist
+    from repro_torch.launch import collectives as col
+    from repro_torch.launch.mesh import coordinate, make_host_mesh
+    from repro_torch.launch.steps import build_cell, shard_args
+    from repro_torch.models import schnet as sm
+
+    if dev_type == "cuda":
+        torch.cuda.set_device(rank)
+    dev = torch.device(dev_type, rank if dev_type == "cuda" else None)
+    dist.init_process_group("nccl" if dev_type == "cuda" else "gloo",
+                            store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    try:
+        mesh = make_host_mesh(*GNN_LONG["mesh"], device_type=dev_type)
+        one = build_cell(SCHNET, "ogb_products", device=dev)
+        cell = build_cell(SCHNET, "ogb_products", device=dev, mesh=mesh)
+        params = sm.init_params(one.model_cfg, seed=SEED + 64, device=dev)
+        batch = gnn_batch(torch, one, dev, SEED + 65)
+        step0 = torch.tensor(0, dtype=torch.int32, device=dev)
+        one_loss = torch.zeros((), device=dev)
+        if rank == 0:
+            p = _clone(params)
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            _, _, one_loss = one.fn(p, one.opt.init(p), batch, step0)
+            torch.cuda.synchronize()
+            one_s, one_peak = time.perf_counter() - t, peak_gb(torch)
+            del p
+            torch.cuda.empty_cache()
+        dist.barrier()
+        args = list(shard_args(cell, (params, None, batch, step0)))
+        del params, batch
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        times, losses, stats = [], [], None
+        for i in range(GNN_LONG["steps"]):
+            args[3] = torch.tensor(i, dtype=torch.int32, device=dev)
+            dist.barrier()
+            torch.cuda.synchronize()
+            col.take_records()
+            t = time.perf_counter()
+            args[0], args[1], loss = cell.fn(*args)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+            stats = col.collective_stats(col.take_records())
+            every = [torch.empty_like(loss) for _ in range(world)]
+            dist.all_gather(every, loss.detach().clone())
+            check(all(torch.equal(x, loss) for x in every),
+                  f"15(d) step {i}: the ranks' losses differ: "
+                  f"{[float(x) for x in every]}")
+            losses.append(float(loss))
+            if i == 0:
+                first = loss.detach().clone()
+        dist.broadcast(one_loss, 0)
+        rel = abs(float(first) - float(one_loss)) / abs(float(one_loss))
+        check(rel <= DIST_FP32["loss"], f"15(d): loss {float(first)} on 2 x 2,"
+                                        f" {float(one_loss)} on one card")
+        out = dict(rank=rank, coord=coordinate(mesh), step_s=times,
+                   losses=losses, peak_gb=peak_gb(torch),
+                   loss_vs_one_card=rel / DIST_FP32["loss"],
+                   collectives={op: {k: stats[op][k] for k in
+                                     ("count", "bytes", "wire_bytes")}
+                                for op in ("all-gather", "all-reduce")})
+        if rank == 0:
+            out.update(one_card_s=one_s, one_card_peak_gb=one_peak,
+                       one_card_loss=float(one_loss))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def phase_gnn_long(torch, work: str) -> dict:
+    """15(d) on 4 cards: this process is rank 0, one ``--gnn-long-rank``
+    process a further card; each prints its result as a JSON line."""
+    world = torch.cuda.device_count()
+    check(world == 4, f"15(d) needs 4 cards, the machine has {world}")
+    store = str(Path(work) / "nccl-gnn-long-store")
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()),
+         "--gnn-long-rank", str(r), "--dist-world", str(world),
+         "--dist-store", store], stdout=subprocess.PIPE, text=True)
+        for r in range(1, world)]
+    try:
+        out = gnn_long_rank(torch, 0, world, store)
+        others = []
+        for p in procs:
+            text, _ = p.communicate(timeout=DIST_TIMEOUT)
+            check(p.returncode == 0, f"15(d): a rank exited {p.returncode}")
+            others.append(json.loads(text.strip().splitlines()[-1]))
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return dict(rank0=out, others=others,
+                reduced=[f"15(d): {GNN_LONG['steps']} timed steps; seeded "
+                         f"edges, features and labels at the published "
+                         f"graph's sizes (as phase 11)"])
+
+
+def phase_gnn_mesh(torch, dev, ckpt: str, replay: dict) -> dict:
+    """Phase 15. (a) SchNet's four cells at world ``device_count()``,
+    then 14(b)'s checkpoint onto that world; (b) molecule and
+    full_graph_sm on 2 x 2 as 4 gloo processes on the card; (c) the
+    checkpoint round trip run beside 14(b) (``replay``: its results).
+    Returns the launches of ``gather_segment_sum`` on the mesh steps."""
+    from repro_torch.kernels.segment_sum import ops as ss
+
+    t0 = time.perf_counter()
+    count = PathCounts({"gather_segment_sum": (ss, "launches")})
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-gnn-") as work:
+        a = phase_gnn_mesh_collective(torch, work, dev.type, count, ckpt)
+        held = "bit for bit (loss, params, AdamW m)" if a["world"] == 1 \
+            else "fp32 by DIST_FP32"
+        log(f"  15(a) NCCL world {a['world']}: SchNet's four cells at their "
+            f"published sizes through build_cell(mesh=make_host_mesh(1, "
+            f"{a['world']})) equal to the no-mesh steps, {held}; mesh steps "
+            + ", ".join(f"{s} {c['step_ms']:.1f} ms ({c['peak_gb']:.2f} GB, "
+                        f"{c['collectives']['all-reduce']['count']} "
+                        f"all-reduces, {c['collectives']['all-gather']['count']}"
+                        f" all-gathers)" for s, c in a["cells"].items()))
+        log(f"  15(c) 14(b)'s checkpoint restored onto 14(a)'s world: "
+            f"{a['restore']['leaves']} leaves, each its block of the whole "
+            f"arrays bit for bit ({a['restore']['restore_s']:.1f} s)")
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        b = phase_gnn_replay(torch, dev, work)
+        b["seconds"] = time.perf_counter() - t
+    worst = {k: max(r["cells"][s]["worst"][k] for r in b["ranks"]
+                    for s in GNN_REPLAY_SHAPES) for k in ("loss", "param", "m")}
+    log(f"  15(b) {GNN_REPLAY[0]} x {GNN_REPLAY[1]} (gloo, {len(b['ranks'])} "
+        f"processes on the card): SchNet {', '.join(GNN_REPLAY_SHAPES)} at "
+        f"their published sizes against the no-mesh steps by DIST_FP32 or "
+        f"{FLOOR_TIMES} x the edge-order floor: worst {json.dumps(worst)}; "
+        f"m against DIST_FP32 alone "
+        + json.dumps({s: max(r["cells"][s]["m_vs_dist_fp32"]
+                             for r in b["ranks"]) for s in GNN_REPLAY_SHAPES})
+        + "; rank steps "
+        + json.dumps({s: [round(r["cells"][s]["step_ms"], 1)
+                          for r in b["ranks"]] for s in GNN_REPLAY_SHAPES})
+        + f" ms ({b['seconds']:.1f} s)")
+    c = replay["checkpoint"]
+    saved = [r["checkpoint"] for r in replay["ranks"]]
+    log(f"  15(c) 14(b)'s 2 x 2 state ({c['bytes'] / 1e9:.2f} GB) saved from "
+        f"the ranks' blocks in {max(r['save_s'] for r in saved):.1f} s; "
+        f"restored on one card in {c['restore_s']:.1f} s (checksums "
+        f"verified), each rank's blocks cut from it with the rank's own "
+        f"bit fingerprints, within DIST_FP32 or the floor of the no-mesh "
+        f"step it came from "
+        f"{json.dumps(c['worst_restored'])}; step 2 on one card "
+        f"({c['step2_s']:.1f} s) against the 2 x 2 run's step 2 "
+        f"({[round(r['step2_ms'], 1) for r in saved]} ms): worst "
+        f"{json.dumps(c['worst_step2'])} ({c['seconds']:.1f} s on one card)")
+    launches = count.n["gather_segment_sum"] + sum(r["launches"]
+                                                   for r in b["ranks"])
+    log(json.dumps({"phase15": dict(collective=a, replay=b, checkpoint=dict(
+        c, ranks=[r["checkpoint"] for r in replay["ranks"]]),
+        launches=launches, reduced=[
+            "15(a), 15(b): seeded edges, features and labels at the "
+            "published graphs' sizes; one step each",
+            "15(c): 14(b)'s cut (Mistral-NeMo 2 of 40 layers, fp32, 2 x "
+            "4096); the ranks share one card over gloo"])}))
+    log(f"  launches on phase 15's mesh steps: gather_segment_sum "
+        f"{launches}; phase 15 took {time.perf_counter() - t0:.1f} s")
+    check(launches > 0, "gather_segment_sum was never launched on phase "
+                        "15's mesh steps")
+    return {"gather_segment_sum": launches}
+
+
 def main() -> int:
     import argparse
 
@@ -6068,6 +6856,17 @@ def main() -> int:
                          "2 x 2 (TP, ZeRO-1), one process a card")
     ap.add_argument("--train-long-rank", type=int, default=None,
                     help=argparse.SUPPRESS)      # 14(d)'s other ranks
+    ap.add_argument("--replay-ckpt", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--gnn-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)      # 15(a)'s other ranks
+    ap.add_argument("--gnn-replay-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)      # 15(b)'s ranks
+    ap.add_argument("--gnn-mesh", action="store_true",
+                    help="on a machine with 4 cards, run only 15(d): "
+                         "SchNet ogb_products at its published size on "
+                         "2 x 2, one process a card")
+    ap.add_argument("--gnn-long-rank", type=int, default=None,
+                    help=argparse.SUPPRESS)      # 15(d)'s other ranks
     args = ap.parse_args()
     try:
         import torch
@@ -6089,7 +6888,12 @@ def main() -> int:
              "train_rank": train_mesh_rank,
              "train_long_rank": train_long_rank,
              "train_replay_rank": lambda torch, r, w, store: train_replay_rank(
-                 torch, r, w, store, args.replay_ref)}
+                 torch, r, w, store, args.replay_ref, ckpt=args.replay_ckpt),
+             "gnn_rank": lambda torch, r, w, store: gnn_mesh_rank(
+                 torch, r, w, store, ckpt=args.replay_ckpt),
+             "gnn_replay_rank": lambda torch, r, w, store: gnn_replay_rank(
+                 torch, r, w, store, args.replay_ref),
+             "gnn_long_rank": gnn_long_rank}
     for flag, fn in ranks.items():
         if getattr(args, flag) is not None:  # a rank of 12-14 on a card
             torch.backends.cuda.matmul.allow_tf32 = False
@@ -6097,12 +6901,14 @@ def main() -> int:
                 build.load(name)
             res = fn(torch, getattr(args, flag), args.dist_world,
                      args.dist_store)
-            if flag in ("train_long_rank", "train_replay_rank"):
+            if flag in ("train_long_rank", "train_replay_rank",
+                        "gnn_replay_rank", "gnn_long_rank"):
                 print(json.dumps(res))
             return 0
     for flag, title, phase in (
             ("serve_long", "phase13d", phase_serve_long),
-            ("train_mesh", "phase14d", phase_train_long)):
+            ("train_mesh", "phase14d", phase_train_long),
+            ("gnn_mesh", "phase15d", phase_gnn_long)):
         if not getattr(args, flag):
             continue
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -6212,11 +7018,19 @@ def main() -> int:
     for name, n in phase_serving_mesh(torch, dev).items():
         launches[name] = launches.get(name, 0) + n
 
-    start_phase(torch, "phase 14: the LM and recsys train cells on a mesh",
-                t0)
-    torch.cuda.empty_cache()
-    for name, n in phase_train_mesh(torch, dev).items():
-        launches[name] = launches.get(name, 0) + n
+    with tempfile.TemporaryDirectory(prefix="chip_smoke-ckpt-") as ckpt:
+        start_phase(torch, "phase 14: the LM and recsys train cells on a "
+                           "mesh", t0)
+        torch.cuda.empty_cache()
+        train_launches, replay = phase_train_mesh(torch, dev, ckpt)
+        for name, n in train_launches.items():
+            launches[name] = launches.get(name, 0) + n
+
+        start_phase(torch, "phase 15: SchNet's train cells on a mesh, the "
+                           "elastic checkpoint", t0)
+        torch.cuda.empty_cache()
+        for name, n in phase_gnn_mesh(torch, dev, ckpt, replay).items():
+            launches[name] = launches.get(name, 0) + n
 
     rows = []
     main_shape = {"flash_attention": "nemo prefill 256",

@@ -4,7 +4,12 @@ embedding, summed in a fixed order with no atomics.
 
 ``gather_segment_sum(x, src, dst, n_out, w)`` is differentiable: the
 gradient of x is the same kernel over the plan's src order, the gradient
-of w two forward gathers and a product (``plain.weight_grad``). A CPU
+of w two forward gathers and a product (``plain.weight_grad``).
+``take(table, ids)`` is a row gather (``jnp.take``) whose gradient is
+this kernel over the ids: SchNet's atom embedding and the recsys
+lookups (``models/recsys.lookup``) add their rows' gradients with it, in
+a fixed order, where ``index_select``'s backward adds them with atomics
+on the card. A CPU
 tensor runs the plain version (``plain.segment_sum_plain``), a CUDA
 tensor launches the kernel or raises; both sum the same terms in the same
 order, so they agree bit for bit."""
@@ -17,7 +22,7 @@ import torch
 from ... import obs
 from .. import build
 from ..build import check
-from .plain import EdgePlan, segment_sum_plain, weight_grad
+from .plain import EdgePlan, segment_sum_plain, take_rows, weight_grad
 
 launches = 0          # calls of the CUDA entry (two launches each)
 
@@ -155,3 +160,38 @@ def gather_segment_sum(x: torch.Tensor, src: torch.Tensor | None,
                          f"{plan.n_out} rows, called for {x.shape[0]} -> "
                          f"{n_out}")
     return _GatherSegmentSum.apply(x, w, plan)
+
+
+class _Take(torch.autograd.Function):
+    """``jnp.take(table, ids, axis=0)`` of a (V, D) fp32 table and flat
+    ids (already wrapped: -1 marks a NaN row); its gradient adds each
+    id's cotangent into its row through the kernel (an id out of range
+    adds to no row), summed in the plan's fixed order."""
+
+    @staticmethod
+    def forward(ctx, table, z):
+        ctx.save_for_backward(z)
+        ctx.v = table.shape[0]
+        return take_rows(table, z)
+
+    @staticmethod
+    def backward(ctx, g):
+        (z,) = ctx.saved_tensors
+        src = torch.arange(z.shape[0], device=z.device)
+        return gather_segment_sum(g.contiguous(), src, z, ctx.v), None
+
+
+def take(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """``jnp.take(table, ids, axis=0)``: rows of a (V,) or (V, D) fp32
+    ``table`` for ``ids`` of any shape, (*ids.shape, *table.shape[1:]).
+    An id in [-V, -1] reads row id + V, any other id outside [0, V) a row
+    of NaN. Differentiable in ``table``: its gradient is
+    ``gather_segment_sum`` of the cotangent's rows into the ids' rows,
+    with no atomics (a CUDA table launches the kernel, a CPU one its
+    plain version)."""
+    v = table.shape[0]
+    z = ids.reshape(-1).long()
+    z = torch.where(z < 0, z + v, z)
+    z = torch.where((z >= 0) & (z < v), z, -1)
+    rows = _Take.apply(table.reshape(v, -1), z)
+    return rows.reshape(*ids.shape, *table.shape[1:])

@@ -7,11 +7,14 @@ HLO: each sharded path (``models/moe.moe_block_sharded``,
 ``shard/planner.device_fanout_topk``) is a per-rank function on local
 tensors whose collectives are these explicit calls at its boundary, and
 each call records itself where it is made: (op, result bytes, group
-size), forward and backward alike, in the record of the thread that ran
-the forward. A layer recomputed by ``torch.utils.checkpoint`` in the
-backward replays its forward's collectives into the record of the
-thread that recomputes it: the caller's on the CPU (they count twice
-there), autograd's device thread on the card (not in the caller's). ``collective_stats`` tallies a record as repro's
+size), forward and backward alike, in one record of the process (under
+a lock: autograd's device thread runs the backward on the card, the
+caller's thread on the CPU, and both land in the same record). A layer
+recomputed by ``torch.utils.checkpoint`` in the backward replays its
+forward's collectives: they are counted once more, as calls of their
+own, as repro's HLO holds a rematerialized layer's collectives a second
+time; the same step counts the same on the CPU and on the card.
+``collective_stats`` tallies a record as repro's
 ``collective_stats`` tallies an HLO module.
 
 Each call reduces over one mesh axis or a group of them (one call a
@@ -53,7 +56,8 @@ _HLO_NAMES = {torch.float64: "f64", torch.float32: "f32",
               torch.int64: "s64", torch.int32: "s32", torch.int16: "s16",
               torch.int8: "s8", torch.uint8: "u8", torch.bool: "pred"}
 
-_local = threading.local()
+_log: list = []              # the process's record
+_lock = threading.Lock()
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -61,17 +65,17 @@ def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * _DTYPE_BYTES[_HLO_NAMES[t.dtype]]
 
 
-def records() -> list:
-    """This thread's record: (op, result bytes, group size) a call."""
-    if not hasattr(_local, "log"):
-        _local.log = []
-    return _local.log
+def _record(op: str, t: torch.Tensor, n: int) -> None:
+    with _lock:
+        _log.append((op, _nbytes(t), n))
 
 
 def take_records() -> list:
-    """This thread's record, emptied."""
-    out = list(records())
-    records().clear()
+    """The process's record, (op, result bytes, group size) a call in the
+    order the calls were made, emptied."""
+    with _lock:
+        out = list(_log)
+        _log.clear()
     return out
 
 
@@ -111,25 +115,25 @@ def _groups(mesh, axes) -> list:
     return [(mesh.get_group(a), sizes[a]) for a in _axes(axes)]
 
 
-def _reduce(t: torch.Tensor, groups, log: list) -> torch.Tensor:
+def _reduce(t: torch.Tensor, groups) -> torch.Tensor:
     import torch.distributed as dist
 
     t = t.contiguous().clone()
     for group, n in groups:
         dist.all_reduce(t, group=group)
-        log.append(("all-reduce", _nbytes(t), n))
+        _record("all-reduce", t, n)
     return t
 
 
 class _AllReduceSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, t, groups):
-        ctx.groups, ctx.log = groups, records()
-        return _reduce(t, groups, ctx.log)
+        ctx.groups = groups
+        return _reduce(t, groups)
 
     @staticmethod
     def backward(ctx, g):
-        return _reduce(g, ctx.groups, ctx.log), None
+        return _reduce(g, ctx.groups), None
 
 
 class _AllGather(torch.autograd.Function):
@@ -137,8 +141,7 @@ class _AllGather(torch.autograd.Function):
     def forward(ctx, t, groups, dim):
         import torch.distributed as dist
 
-        ctx.dim, ctx.width, ctx.groups, ctx.log = dim, t.shape[dim], \
-            groups, records()
+        ctx.dim, ctx.width, ctx.groups = dim, t.shape[dim], groups
         block = 0                            # own block's index, mixed radix
         for group, n in groups:
             block = block * n + dist.get_rank(group)
@@ -147,12 +150,12 @@ class _AllGather(torch.autograd.Function):
             parts = [torch.empty_like(t) for _ in range(n)]
             dist.all_gather(parts, t.contiguous(), group=group)
             t = torch.cat(parts, dim)
-            ctx.log.append(("all-gather", _nbytes(t), n))
+            _record("all-gather", t, n)
         return t
 
     @staticmethod
     def backward(ctx, g):
-        g = _reduce(g, ctx.groups, ctx.log)
+        g = _reduce(g, ctx.groups)
         return (g.narrow(ctx.dim, ctx.block * ctx.width, ctx.width)
                 .contiguous(), None, None)
 
@@ -169,10 +172,9 @@ def all_reduce_sum_(t: torch.Tensor, mesh, axes) -> torch.Tensor:
     copy of a leaf beside it). Returns ``t``."""
     import torch.distributed as dist
 
-    log = records()
     for group, n in _groups(mesh, axes):
         dist.all_reduce(t, group=group)
-        log.append(("all-reduce", _nbytes(t), n))
+        _record("all-reduce", t, n)
     return t
 
 
@@ -181,10 +183,10 @@ def all_reduce_max(t: torch.Tensor, mesh, axes) -> torch.Tensor:
     (the caller passes a detached tensor: a softmax's shift)."""
     import torch.distributed as dist
 
-    t, log = t.detach().contiguous().clone(), records()
+    t = t.detach().contiguous().clone()
     for group, n in _groups(mesh, axes):
         dist.all_reduce(t, op=dist.ReduceOp.MAX, group=group)
-        log.append(("all-reduce", _nbytes(t), n))
+        _record("all-reduce", t, n)
     return t
 
 

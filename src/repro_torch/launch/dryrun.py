@@ -17,9 +17,9 @@ H100's 80 x 10^9 bytes), the largest leaves' placements, and
 ``executed_argument_bytes`` / ``executed_fits_80gb``, the same under
 the layout the port's steps run (``executed_bytes``: the optimizer state
 as ``train/zero`` makes it). The port's steps execute repro's layout
-whole, tensor parallelism and ZeRO-1 included, so the two counts are
-equal in every LM and recsys record, and every cell fits; a GNN's train
-cell keeps its edges whole (SchNet on a mesh is not ported). repro's temp bytes and
+whole, tensor parallelism, ZeRO-1 and SchNet's edge-sharded batch
+included, so the two counts are equal in every record, and every cell
+fits. repro's temp bytes and
 FLOPs come from XLA's compiled module; nothing here measures them, so
 the record has none.
 
@@ -100,11 +100,11 @@ def place(mesh, leaf: torch.Tensor, spec):
 def executed_bytes(bundle, args, trees, mesh) -> int:
     """A rank's bytes of the arguments under the layout the port's steps
     run on ``mesh`` (``CellBundle.executed_specs``: every leaf at repro's
-    spec; a graph batch's edges whole), rank 0's: its param and batch
-    blocks, and a train cell's optimizer state as ``train/zero`` makes it
-    at the rank's ZeRO-1 blocks (``steps.zero_layout(...).state_blocks``:
-    the code the step's ``init`` runs, on meta tensors); a GNN's
-    replicated, as ``gnn_param_specs`` leaves its params."""
+    spec), rank 0's: its param and batch blocks, and a train cell's
+    optimizer state as ``train/zero`` makes it at the rank's ZeRO-1
+    blocks (``steps.zero_layout(...).state_blocks``: the code the step's
+    ``init`` runs, on meta tensors); a GNN's replicated, as
+    ``gnn_param_specs`` leaves its params."""
     from ..configs import get_arch
     from ..train.tree import tensors, tree_map
     from .sharding import executed, executed_batch, local_shape

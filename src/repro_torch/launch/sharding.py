@@ -31,9 +31,8 @@ blocks. ``executed`` and ``executed_batch`` say which leaves a step
 actually executes sharded: every leaf of every kind at repro's spec
 (Megatron tensor parallelism, ``models/tp``; the KV cache split by kv
 heads or by sequence; the optimizer state at ``zero1_opt_specs``,
-``train/optimizer``'s ZeRO-1 layout), except a graph batch, whose edges
-the port does not split (SchNet on a mesh is not ported): only its batch
-rows go over the data-parallel axes.
+``train/optimizer``'s ZeRO-1 layout; a graph batch's edges over every
+axis and its node rows over the data-parallel axes, ``models/schnet``).
 """
 from __future__ import annotations
 
@@ -318,10 +317,6 @@ def recsys_batch_specs(input_specs: dict, mesh) -> dict:
 # ---------------------------------------------------------------------------
 # what a step executes sharded, placements and local blocks
 # ---------------------------------------------------------------------------
-SERVING_KINDS = ("prefill", "decode")
-GRAPH_INPUTS = ("edge_index", "edge_dist")     # a GNN batch's edge arrays
-
-
 def executed(spec_tree, kind: str = "train") -> Any:
     """The part of a param (or optimizer state) spec tree that the port's
     steps execute sharded for a cell of ``kind``: all of it, for every
@@ -331,24 +326,19 @@ def executed(spec_tree, kind: str = "train") -> Any:
     head, with a vocab-parallel loss) and the experts over "model" and
     "data"; the recsys rule's row-sharded tables and column-parallel
     MLPs run as ``models/recsys`` cuts them; a train cell's optimizer
-    state lies at ``zero1_opt_specs`` (``train/optimizer``'s ZeRO-1)."""
+    state lies at ``zero1_opt_specs`` (``train/optimizer``'s ZeRO-1),
+    SchNet's params and state replicated (``gnn_param_specs``)."""
     return spec_tree
 
 
-def executed_batch(specs: dict, mesh, kind: str = "train") -> dict:
+def executed_batch(specs: dict, mesh=None, kind: str = "train") -> dict:
     """The part of a batch spec dict that the port's steps execute
-    sharded for a cell of ``kind``: all of it (the batch over the
-    data-parallel axes, a KV cache's kv heads over "model" or its
-    sequence over "model" or the data axes, the retrieval candidates over
-    every axis), except a graph batch (``GRAPH_INPUTS``), whose edge
-    arrays stay whole: only dimension 0 of its other arrays is split
-    over the data-parallel axes."""
-    if kind in SERVING_KINDS or not any(k in specs for k in GRAPH_INPUTS):
-        return dict(specs)
-    dp = set(dp_axes(mesh))
-    return {name: P(*[e if i == 0 and set(_axes(e)) <= dp else None
-                      for i, e in enumerate(spec)])
-            for name, spec in specs.items()}
+    sharded for a cell of ``kind`` on ``mesh``: all of it, for every
+    kind (the batch over the data-parallel axes, a KV cache's kv heads
+    over "model" or its sequence over "model" or the data axes, the
+    retrieval candidates over every axis, a graph batch's edges over
+    every axis and its node rows over the data axes)."""
+    return dict(specs)
 
 
 def replicated_axes(spec: P, mesh) -> tuple:

@@ -38,10 +38,13 @@ over "model" (DLRM's by ``recsys.RowShardedBag``, the others'
 lookups by ``recsys.lookup_rows``) and its large MLP weights
 column-parallel (``recsys.mlp_apply``); the retrieval cell scores each
 rank's candidate rows and merges the all-gathered blocks (repro's
-shard_map). A train cell reduces each gradient by its leaf's spec
+shard_map); SchNet's edges are split over every axis and its node
+rows over the data-parallel axes (``models/schnet``: each rank sums its
+edges, an all-reduce a layer), its params and AdamW state replicated. A
+train cell reduces each gradient by its leaf's spec
 (``train/train_loop``) and updates its ZeRO-1 blocks
-(``train/zero``): its optimizer state is made at those blocks. SchNet
-on a mesh is not ported.
+(``train/zero``): its optimizer state is made at those blocks (SchNet's
+whole, as repro's).
 """
 from __future__ import annotations
 
@@ -188,7 +191,8 @@ def _sharding_fn(arch_name: str, kind: str, cfg, batch_specs,
 
 def _train_bundle(arch_name: str, shape: str, reduced: bool, loss,
                   opt_name: str, accum: Optional[int], batch_specs, cfg,
-                  device, sharding_fn, mesh) -> CellBundle:
+                  device, sharding_fn, mesh, zero: bool = True
+                  ) -> CellBundle:
     if accum is None:
         global_batch = next(iter(batch_specs.values())).shape[0]
         accum = effective_accum(
@@ -200,7 +204,7 @@ def _train_bundle(arch_name: str, shape: str, reduced: bool, loss,
     specs = None if mesh is None else bundle.executed_specs()[0]
     vg = grad_accum_value_and_grad(loss, accum, mesh, specs)
     opt = bundle.opt = _optimizer(
-        opt_name, None if mesh is None else zero_layout(bundle))
+        opt_name, zero_layout(bundle) if mesh is not None and zero else None)
 
     def fn(params, opt_state, batch, step):
         l, grads = vg(params, batch)
@@ -363,33 +367,37 @@ def _gnn_bundle(arch_name: str, shape: str, reduced: bool, cfg,
                 mesh) -> CellBundle:
     """SchNet's train cell: AdamW on ``energy_loss`` (molecules, with
     ``n_graphs`` from the shape) or ``node_class_loss``; one microbatch,
-    as repro (``TRAIN_ACCUM_STEPS`` has no schnet)."""
+    as repro (``TRAIN_ACCUM_STEPS`` has no schnet). On a mesh the rank's
+    step on its blocks of the batch at repro's ``gnn_batch_specs`` (the
+    edges over every axis, the node rows over the data axes), its params
+    and AdamW state whole (``gnn_param_specs``, repro's replicated
+    state)."""
     if accum not in (None, 1):
         raise ValueError(f"{arch_name}: accum {accum}: a graph batch's rows "
                          f"are nodes and edges of one graph, not samples, "
                          f"so it is not cut into microbatches")
-    if mesh is not None:
-        raise NotImplementedError(
-            f"{arch_name}: the edge-sharded segment sum over a mesh is not "
-            f"ported; its placements are the dry run's (launch/dryrun)")
     spec = get_arch(arch_name)
     batch_specs = spec.input_specs(shape, reduced)
     info = (schnet_cfg.SHAPES_REDUCED if reduced
             else schnet_cfg.SHAPES)[shape]
+    sharding_fn = _sharding_fn(arch_name, "train", cfg, batch_specs,
+                               shd.gnn_param_specs, shd.gnn_batch_specs,
+                               "adamw")
+    place = {} if mesh is None else dict(
+        mesh=mesh, specs=shd.executed_batch(sharding_fn(mesh)[2], mesh))
     if info.get("molecular"):
         n_graphs = info["graphs"]
 
         def loss(params, batch):
             return schnet_m.energy_loss(params, cfg,
-                                        dict(batch, n_graphs=n_graphs))
+                                        dict(batch, n_graphs=n_graphs),
+                                        **place)
     else:
         def loss(params, batch):
-            return schnet_m.node_class_loss(params, cfg, batch)
-    sharding_fn = _sharding_fn(arch_name, "train", cfg, batch_specs,
-                               shd.gnn_param_specs, shd.gnn_batch_specs,
-                               "adamw")
+            return schnet_m.node_class_loss(params, cfg, batch, **place)
     return _train_bundle(arch_name, shape, reduced, loss, "adamw", 1,
-                         batch_specs, cfg, device, sharding_fn, None)
+                         batch_specs, cfg, device, sharding_fn, mesh,
+                         zero=False)
 
 
 def build_cell(arch_name: str, shape: str, reduced: bool = False,

@@ -253,6 +253,31 @@ def grad_cast(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
+class _Pick(torch.autograd.Function):
+    """``x.gather(dim, idx)`` for an ``idx`` that names each position of
+    ``dim`` at most once a row; its gradient stores each cotangent at its
+    position in zeros (``scatter_``, no atomics: ``gather``'s own
+    backward is a ``scatter_add_``, atomic adds on the card)."""
+
+    @staticmethod
+    def forward(ctx, x, dim, idx):
+        ctx.save_for_backward(idx)
+        ctx.dim, ctx.shape = dim, x.shape
+        return x.gather(dim, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        (idx,) = ctx.saved_tensors
+        return g.new_zeros(ctx.shape).scatter_(ctx.dim, idx, g), None, None
+
+
+def pick(x: torch.Tensor, dim: int, idx: torch.Tensor) -> torch.Tensor:
+    """``torch.gather(x, dim, idx)``, each position of ``dim`` picked at
+    most once a row (a gold logit, a token's k router weights): the same
+    values, a gradient with no atomics."""
+    return _Pick.apply(x, dim, idx)
+
+
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
                        ignore_id: int = -1) -> torch.Tensor:
     """logits (B, S, V) fp32/bf16; labels (B, S) int. Mean of
@@ -260,7 +285,7 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
     ``ignore_id``, over max(count, 1)."""
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1,
-                        torch.clamp(labels, min=0).long()[..., None])[..., 0]
+    gold = pick(logits, -1, torch.clamp(labels, min=0).long()[..., None]
+                )[..., 0]
     mask = (labels != ignore_id).float()
     return ((logz - gold) * mask).sum() / torch.clamp(mask.sum(), min=1.0)

@@ -55,7 +55,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from .layers import activation, dense_init
+from .layers import activation, dense_init, pick
 
 
 @dataclasses.dataclass(frozen=True)
@@ -245,7 +245,7 @@ def _dispatch(xf: torch.Tensor, top_w, top_e, w_in, w_out, act: str,
     at = inv.view(t, k).gather(1, by_id).reshape(-1)   # sorted positions
     kept = keep[at]
     gathered = y[torch.where(kept, slot[at], 0)] * kept[:, None]
-    w = top_w.gather(1, by_id).reshape(-1, 1)
+    w = pick(top_w, 1, by_id).reshape(-1, 1)
     contrib = (gathered.float() * w).to(dtype).view(t, k, d)
     out = torch.zeros((t, d), dtype=dtype, device=xf.device)
     for j in range(k):

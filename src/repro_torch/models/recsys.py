@@ -49,6 +49,7 @@ import torch
 
 from ..kernels.common import resolve_device, seeded_generator
 from ..kernels.embedding_bag.ops import embedding_bag_grouped
+from ..kernels.segment_sum import take
 from ..kernels.topk_search.ops import topk_search
 from .layers import dense_init
 from .transformer import (ParamModule, TransformerConfig, forward,
@@ -127,16 +128,12 @@ def lookup(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
     """Single-id-per-field lookup (multi-hot goes via kernels/embedding_bag).
 
     As ``jnp.take``: an id in [-V, -1] reads row id + V, and any other id
-    outside [0, V) gives a row of NaN. The gather reads clamped ids and
-    the NaN rows are written after it, so no id is checked on the host."""
-    v = table.shape[0]
-    flat = ids.reshape(-1).long()
-    flat = torch.where(flat < 0, flat + v, flat)
-    bad = (flat < 0) | (flat >= v)
-    rows = torch.index_select(table, 0, flat.clamp(0, v - 1))
-    rows = rows.masked_fill(bad.reshape(-1, *[1] * (table.dim() - 1)),
-                            float("nan"))
-    return rows.reshape(*ids.shape, *table.shape[1:])
+    outside [0, V) gives a row of NaN. ``kernels/segment_sum.take``: the
+    gather reads clamped ids and the NaN rows are written after it, so no
+    id is checked on the host, and the gradient adds each id's rows with
+    ``gather_segment_sum`` in a fixed order (no atomics: a step repeats
+    bit for bit on the card)."""
+    return take(table, ids)
 
 
 def lookup_rows(table: torch.Tensor, ids: torch.Tensor, vocab: int,

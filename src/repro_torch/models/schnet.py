@@ -28,6 +28,24 @@ Params are repro's tree: ``interactions`` holds each leaf stacked on a
 leading (n_interactions, ...) axis (repro's ``jax.vmap(inter)``), and the
 interactions run as a loop over its ``unbind(0)`` (repro's ``lax.scan``,
 and its unrolled branch alike).
+
+On a mesh (``mesh=``, with the batch's executed ``specs``: repro's
+``gnn_batch_specs``) a rank holds a block of the edges (split over every
+axis) and a block of the node rows (``node_feat`` or ``atom_z``,
+``labels``, ``graph_ids``, split over the data-parallel axes); params
+are replicated. The rank projects or embeds its node rows and
+all-gathers them over the data axes, so the node state is whole on every
+rank; each interaction sums the rank's edges (sorted and chunked as on
+one card) into a whole (N, d) partial aggregate, and one all-reduce over
+every axis makes it the aggregate. The readouts take the rank's node
+rows: the per-graph energies and the masked cross-entropy's sums are
+all-reduced over the data axes, so every rank returns the whole loss.
+Each rank differentiates its share of it (``train/train_loop``: the loss
+over the world size): the collectives' backwards sum the ranks'
+cotangents, so that each rank's gradient of a leaf is its part of the
+one-card gradient, and ``train_loop.reduce_grads`` sums the parts. On
+one rank every collective is a copy: the step is the no-mesh step bit
+for bit.
 """
 from __future__ import annotations
 
@@ -39,7 +57,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..kernels.common import resolve_device, seeded_generator
-from ..kernels.segment_sum import EdgePlan, gather_segment_sum, take_rows
+from ..kernels.segment_sum import EdgePlan, gather_segment_sum, take
 from .layers import activation, dense_init
 
 _ssp = activation("ssp")
@@ -170,9 +188,10 @@ class _AddRows(torch.autograd.Function):
         return g, g[lo:lo + n], None
 
 
-def _interaction(lp, x, chunks, dists, cfg: SchNetConfig):
+def _interaction(lp, x, chunks, dists, cfg: SchNetConfig, place):
     """One cfconv + atomwise update. x: (N, d). The chunks add into their
-    rows of the aggregate in chunk order."""
+    rows of the aggregate in chunk order; on a mesh the ranks' partial
+    aggregates are then summed over the axes that split the edges."""
     h = x @ lp["in2f"]                                       # (N, d)
     agg = torch.zeros_like(h)
     for (_, lo, plan), dist in zip(chunks, dists):
@@ -180,48 +199,84 @@ def _interaction(lp, x, chunks, dists, cfg: SchNetConfig):
                           plan, cfg, use_reentrant=False,
                           preserve_rng_state=False)
         agg = _AddRows.apply(agg, part, lo)
+    agg = place.sum(agg, place.edges)
     agg = agg @ lp["f2out"]
     v = _ssp(agg @ lp["atom_w"] + lp["atom_b"])
     return x + v
 
 
-class _Embed(torch.autograd.Function):
-    """``jnp.take(table, ids, axis=0)``: an id in [-V, -1] reads row id +
-    V, any other id outside [0, V) a row of NaN. Its gradient adds each
-    node's cotangent into its row through ``gather_segment_sum`` (an id
-    out of range adds to no row), not an atomic scatter."""
-
-    @staticmethod
-    def forward(ctx, table, ids):
-        v = table.shape[0]
-        z = ids.long()
-        z = torch.where(z < 0, z + v, z)
-        z = torch.where((z >= 0) & (z < v), z, -1)
-        ctx.save_for_backward(z)
-        ctx.v = v
-        return take_rows(table, z)
-
-    @staticmethod
-    def backward(ctx, g):
-        (z,) = ctx.saved_tensors
-        src = torch.arange(z.shape[0], device=z.device)
-        return gather_segment_sum(g.contiguous(), src, z, ctx.v), None
-
-
 def embed(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    return _Embed.apply(table, ids)
+    """The atom embedding: ``jnp.take(table, ids, axis=0)``, its gradient
+    through ``gather_segment_sum`` (``kernels/segment_sum.take``)."""
+    return take(table, ids)
+
+
+@dataclasses.dataclass(frozen=True)
+class Placement:
+    """Where one rank's graph batch lies: the mesh (None: one card), the
+    axes its edges are split over and those its node rows are split over
+    (each () where the batch spec leaves them whole)."""
+    mesh: object = None
+    edges: tuple = ()
+    nodes: tuple = ()
+
+    @classmethod
+    def of(cls, mesh, specs: Optional[dict]) -> "Placement":
+        """The placement of a batch under its executed ``specs``
+        (``launch/sharding.gnn_batch_specs``) on ``mesh``."""
+        if mesh is None:
+            return cls()
+        from ..launch.sharding import _axes
+
+        node = next(k for k in ("node_feat", "atom_z") if k in specs)
+        return cls(mesh, _axes(specs["edge_dist"][0]),
+                   _axes(specs[node][0]))
+
+    def sum(self, t: torch.Tensor, axes: tuple) -> torch.Tensor:
+        """``t`` summed over the ranks of ``axes`` (none: ``t``)."""
+        if not axes:
+            return t
+        from ..launch.collectives import all_reduce_sum
+        return all_reduce_sum(t, self.mesh, axes)
+
+    def gather_nodes(self, t: torch.Tensor) -> torch.Tensor:
+        """The whole node rows from each rank's block of them."""
+        if not self.nodes:
+            return t
+        from ..launch.collectives import all_gather
+        return all_gather(t, self.mesh, self.nodes, dim=0)
+
+    def own_nodes(self, t: torch.Tensor, n_local: int) -> torch.Tensor:
+        """This rank's block of ``n_local`` rows of the whole node rows
+        ``t``."""
+        if not self.nodes:
+            return t
+        from ..launch.mesh import coordinate
+
+        sizes = dict(zip(self.mesh.mesh_dim_names, self.mesh.shape))
+        coord, block = coordinate(self.mesh), 0
+        for a in self.nodes:
+            block = block * sizes[a] + coord[a]
+        return t.narrow(0, block * n_local, n_local)
 
 
 def forward(params, cfg: SchNetConfig, *, edge_index, edge_dist,
-            node_feat=None, atom_z=None, edge_chunk: int = EDGE_CHUNK):
+            node_feat=None, atom_z=None, edge_chunk: int = EDGE_CHUNK,
+            mesh=None, specs: Optional[dict] = None):
     """edge_index: (2, E) int32 [src, dst]; edge_dist: (E,) f32.
-    Returns per-node hidden (N, d). ``edge_chunk``: edges a chunk of the
-    filter network (the sums differ from one chunk's only at rows whose
-    edges straddle a chunk boundary, by rounding)."""
+    Returns per-node hidden (N, d), whole: on a ``mesh`` on every rank,
+    from the rank's blocks of the edges and node rows (where ``specs``,
+    the batch's executed specs, put them: ``Placement.of``).
+    ``edge_chunk``: edges a chunk of the filter network (the sums differ
+    from one chunk's only at rows whose edges straddle a chunk boundary,
+    by rounding). An atom number reads its embedding row as
+    ``jnp.take`` (``kernels/segment_sum.take``)."""
+    place = Placement.of(mesh, specs)
     if cfg.d_feat:
         x = node_feat @ params["input_proj"]
     else:
         x = embed(params["atom_embed"], atom_z)
+    x = place.gather_nodes(x)
     n_nodes = x.shape[0]
     chunks = edge_chunks(edge_index, n_nodes, edge_chunk)
     dists = [edge_dist if p is None else edge_dist[p]
@@ -229,38 +284,56 @@ def forward(params, cfg: SchNetConfig, *, edge_index, edge_dist,
     inter = params["interactions"]
     for vals in zip(*[inter[k].unbind(0) for k in _LAYER_KEYS]):
         x = _interaction(dict(zip(_LAYER_KEYS, vals)), x, chunks, dists,
-                         cfg)
+                         cfg, place)
     return x
 
 
-def readout_energy(params, hidden, graph_ids, n_graphs: int):
+def readout_energy(params, hidden, graph_ids, n_graphs: int,
+                   place: Placement = Placement()):
     """Per-graph energy: atomwise MLP -> per-graph sum (a graph id outside
-    [0, n_graphs) is dropped, as repro's ``segment_sum`` drops it)."""
+    [0, n_graphs) is dropped, as repro's ``segment_sum`` drops it). On a
+    mesh, of the rank's node rows (``graph_ids`` its block), summed over
+    the data axes."""
+    hidden = place.own_nodes(hidden, graph_ids.shape[0])
     e = _ssp(hidden @ params["head_w1"]) @ params["head_w2"]     # (N, 1)
     src = torch.arange(e.shape[0], device=e.device)
-    return gather_segment_sum(e[:, :1].contiguous(), src, graph_ids,
-                              n_graphs)[:, 0]
+    out = gather_segment_sum(e[:, :1].contiguous(), src, graph_ids,
+                             n_graphs)[:, 0]
+    return place.sum(out, place.nodes)
 
 
 def readout_node_logits(params, hidden):
     return _ssp(hidden @ params["head_w1"]) @ params["head_w2"]  # (N, C)
 
 
-def energy_loss(params, cfg, batch, edge_chunk: int = EDGE_CHUNK):
+def energy_loss(params, cfg, batch, edge_chunk: int = EDGE_CHUNK,
+                mesh=None, specs: Optional[dict] = None):
+    """The mean squared error of the per-graph energies. On ``mesh`` (the
+    batch this rank's blocks under its executed ``specs``) the whole
+    loss, on every rank."""
+    place = Placement.of(mesh, specs)
     h = forward(params, cfg, edge_index=batch["edge_index"],
                 edge_dist=batch["edge_dist"], atom_z=batch.get("atom_z"),
-                node_feat=batch.get("node_feat"), edge_chunk=edge_chunk)
-    pred = readout_energy(params, h, batch["graph_ids"], batch["n_graphs"])
+                node_feat=batch.get("node_feat"), edge_chunk=edge_chunk,
+                mesh=mesh, specs=specs)
+    pred = readout_energy(params, h, batch["graph_ids"], batch["n_graphs"],
+                          place)
     return torch.mean(torch.square(pred - batch["energy"]))
 
 
-def node_class_loss(params, cfg, batch, edge_chunk: int = EDGE_CHUNK):
+def node_class_loss(params, cfg, batch, edge_chunk: int = EDGE_CHUNK,
+                    mesh=None, specs: Optional[dict] = None):
     """Masked cross-entropy of the node logits: labels of -1 (off the
     seeds of a sampled batch) count for nothing. The gold logit is picked
-    by a comparison, not a gather, so its gradient scatters nothing."""
+    by a comparison, not a gather, so its gradient scatters nothing. On
+    ``mesh`` (``specs`` as ``energy_loss``'s) the rank's label rows give
+    the masked sums, summed over the data axes: the whole loss, on every
+    rank."""
+    place = Placement.of(mesh, specs)
     h = forward(params, cfg, edge_index=batch["edge_index"],
                 edge_dist=batch["edge_dist"], node_feat=batch["node_feat"],
-                edge_chunk=edge_chunk)
+                edge_chunk=edge_chunk, mesh=mesh, specs=specs)
+    h = place.own_nodes(h, batch["labels"].shape[0])
     logits = readout_node_logits(params, h).float()
     labels = batch["labels"]
     logz = torch.logsumexp(logits, dim=-1)
@@ -268,4 +341,5 @@ def node_class_loss(params, cfg, batch, edge_chunk: int = EDGE_CHUNK):
     pick = classes[None, :] == torch.clamp(labels, min=0)[:, None].long()
     gold = torch.where(pick, logits, 0.0).sum(-1)
     mask = (labels >= 0).float()
-    return ((logz - gold) * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+    return place.sum(((logz - gold) * mask).sum(), place.nodes) / \
+        torch.clamp(place.sum(mask.sum(), place.nodes), min=1.0)

@@ -57,7 +57,7 @@ import dataclasses
 
 import torch
 
-from .layers import apply_rope, mlp_block
+from .layers import apply_rope, mlp_block, pick
 
 GATED = ("swiglu", "geglu")
 
@@ -256,7 +256,7 @@ def vocab_parallel_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     sumexp = reduce_sum(torch.exp(x - m[..., None]).sum(-1))
     local = labels.long() - lo
     mine = (local >= 0) & (local < x.shape[-1])
-    gold = torch.gather(x, -1, local.clamp(0, x.shape[-1] - 1)[..., None])
+    gold = pick(x, -1, local.clamp(0, x.shape[-1] - 1)[..., None])
     gold = reduce_sum(torch.where(mine, gold[..., 0], 0.0))
     mask = (labels != ignore_id).float()
     return ((torch.log(sumexp) + m - gold) * mask).sum() / \

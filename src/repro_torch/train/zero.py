@@ -80,6 +80,27 @@ class LeafLayout:
         return tuple(out)
 
 
+def block_runs(shape: tuple, spec, mesh, coord: dict,
+               gated: bool = False) -> tuple:
+    """The global positions of the block that the rank at ``coord``
+    holds of a ``shape`` leaf under ``spec`` (``launch/sharding.P``): per
+    dimension, ((lo, hi), ...), one run along ``local_slice``'s block, or
+    two along the last dimension of a ``gated`` leaf (``[gate | up]``)
+    that the spec splits, whose block is ``[gate_r | up_r]``
+    (``models/tp.gated_block``)."""
+    from ..launch.sharding import local_slice
+
+    runs = []
+    for d, sl in enumerate(local_slice(shape, spec, mesh, coord)):
+        start, stop = sl.start, sl.stop
+        if d == len(shape) - 1 and gated and stop - start < shape[d]:
+            f, w, g0 = shape[d] // 2, (stop - start) // 2, start // 2
+            runs.append(((g0, g0 + w), (f + g0, f + g0 + w)))
+        else:
+            runs.append(((start, stop),))
+    return tuple(runs)
+
+
 class ZeroLayout:
     """One rank's ZeRO-1 layout of a param tree: a ``LeafLayout`` a leaf
     (``leaf(path)``), the mesh and the rank's coordinate, and the state's
@@ -101,6 +122,7 @@ class ZeroLayout:
             from ..launch.mesh import coordinate
             coord = coordinate(mesh)
         self.mesh, self.coord, self.opt_name = mesh, dict(coord), opt_name
+        self.act = act or ""
         self.shapes = shapes
         sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
         zspecs = dict(leaves(shd.zero1_opt_specs(pspecs, shapes, mesh)))
@@ -127,19 +149,8 @@ class ZeroLayout:
                 lo = idx * width
             split = [a for e in pspec for a in shd._axes(e)
                      if sizes[a] > 1] + list(axes)
-            runs = []
-            sl = shd.local_slice(shape, pspec, mesh, coord)
-            for d in range(len(shape)):
-                start, stop = sl[d].start, sl[d].stop
-                if d == dim:
-                    start, stop = start + lo, start + lo + width
-                if d == len(shape) - 1 and gated_leaf(path, act or "") \
-                        and stop - start < shape[d]:
-                    f, w = shape[d] // 2, (stop - start) // 2
-                    g0 = start // 2
-                    runs.append(((g0, g0 + w), (f + g0, f + g0 + w)))
-                else:
-                    runs.append(((start, stop),))
+            runs = block_runs(shape, zspec, mesh, coord,
+                              gated_leaf(path, act or ""))
             self._leaves[path] = LeafLayout(shape, block, dim, axes, lo,
                                             width, tuple(split),
                                             tuple(runs))

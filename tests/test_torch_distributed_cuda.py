@@ -193,18 +193,49 @@ def test_recsys_train_step_on_one_rank_is_bit_for_bit(mesh, arch):
     """The reduced recsys train cells on the card through
     ``build_cell(..., mesh=)`` on a 1 x 1 mesh (row-sharded lookups,
     column-parallel MLPs, BERT4Rec's tensor parallelism, ZeRO-1's
-    layout) equal the no-mesh step bit for bit. Deterministic algorithms
-    on: FM's and Wide&Deep's ``lookup`` is an ``index_select``, whose
-    backward adds rows with atomics on the card (with or without a
-    mesh), and BERT4Rec's embedding an index."""
+    layout) equal the no-mesh step bit for bit, with PyTorch's default
+    (nondeterministic) algorithms: FM's and Wide&Deep's ``lookup`` adds
+    its rows' gradients with ``gather_segment_sum``
+    (``kernels/segment_sum.take``), BERT4Rec's embedding is an index
+    whose backward sorts (``index_put_`` accumulate: no atomics)."""
     from repro_torch.launch.steps import smoke_batch
 
+    assert not torch.are_deterministic_algorithms_enabled()
     one = build_cell(arch, "train_batch", reduced=True, device="cuda")
     rank = build_cell(arch, "train_batch", reduced=True, device="cuda",
                       mesh=mesh)
     params = make_smoke_args(one, seed=1)[0]
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    try:
-        _step_bits(one, rank, params, smoke_batch(one, 1))
-    finally:
-        torch.use_deterministic_algorithms(False)
+    _step_bits(one, rank, params, smoke_batch(one, 1))
+
+
+@pytest.mark.parametrize("arch", ["fm", "wide-deep"])
+def test_lookup_train_steps_repeat_bit_for_bit(arch):
+    """Two FM and two Wide&Deep steps (the full cells' widths, a batch
+    of 8,192) from the same state on the card, deterministic algorithms
+    off: the same loss, params and AdamW m, bit for bit, and no aten op
+    that adds at indices in the step (``lookup``'s gradient is
+    ``gather_segment_sum``, which launches)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from repro_torch.kernels.segment_sum import ops as ss
+    from repro_torch.testing import accumulating_ops
+    from repro_torch.train.train_loop import grad_accum_value_and_grad
+    from repro_torch.train.tree import tree_map
+
+    assert not torch.are_deterministic_algorithms_enabled()
+    cell = build_cell(arch, "train_batch", device="cuda")
+    params, _, batch, step0 = make_smoke_args(cell, seed=2)
+    batch = {k: v[:8192] for k, v in batch.items()}
+    runs = []
+    for _ in range(2):
+        p = tree_map(lambda t: t.detach().clone(), params)
+        before = ss.launches
+        runs.append(cell.fn(p, cell.opt.init(p), batch, step0))
+        assert ss.launches > before
+    (p1, o1, l1), (p2, o2, l2) = runs
+    assert torch.equal(l1, l2)
+    for a, b in ((p1, p2), (o1["m"], o2["m"])):
+        for (n, x), (_, y) in zip(leaves(a), leaves(b)):
+            assert torch.equal(x, y), n
+    assert accumulating_ops(lambda: grad_accum_value_and_grad(cell.loss)(
+        params, batch)) == []

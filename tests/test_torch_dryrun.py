@@ -160,11 +160,12 @@ def test_executed_layout_bytes(records):
 
 
 def test_serving_records_execute_repros_layout(records):
-    """Every prefill and decode record, long_500k included, and every LM
-    and recsys train record, on both meshes: the rank's executed bytes
-    are repro's argument bytes (the params at lm_param_specs or
+    """Every prefill and decode record, long_500k included, and every LM,
+    recsys and SchNet train record, on both meshes: the rank's executed
+    bytes are repro's argument bytes (the params at lm_param_specs or
     recsys_param_specs, the KV cache at lm_batch_specs, the optimizer
-    state at zero1_opt_specs), under 80 GB."""
+    state at zero1_opt_specs, SchNet's batch at gnn_batch_specs), under
+    80 GB."""
     recs, _ = records
     serving = [r for r in recs if r["kind"] in ("prefill", "decode")]
     assert len(serving) == 2 * 5 * 3
@@ -172,9 +173,9 @@ def test_serving_records_execute_repros_layout(records):
         assert r["executed_argument_bytes"] == r["argument_bytes"], \
             (r["arch"], r["shape"], r["mesh"])
         assert r["executed_fits_80gb"]
-    trains = [r for r in recs if r["kind"] == "train"
-              and r["arch"] != "schnet"]
-    assert len(trains) == 2 * 9
+    trains = [r for r in recs if r["kind"] == "train"]
+    assert len(trains) == 2 * (9 + 4)
+    assert sum(r["arch"] == "schnet" for r in trains) == 2 * 4
     for r in trains:
         assert r["executed_argument_bytes"] == r["argument_bytes"], \
             (r["arch"], r["shape"], r["mesh"])

@@ -182,8 +182,9 @@ def test_placements_give_dtensor_the_same_blocks():
 
 def test_executed_keeps_experts_and_tables_only():
     """Every kind executes repro's spec trees whole (the experts and the
-    tables among them, and everything repro tensor-parallelises); only a
-    graph batch keeps its edges whole, its rows over the data axes."""
+    tables among them, and everything repro tensor-parallelises), a
+    graph batch too: its edges over every axis, its rows over the data
+    axes."""
     m = MeshShape((2, 4), ("data", "model"))
     bundle = steps.build_cell("qwen2-moe-a2.7b", "train_4k", reduced=True,
                               device="meta")
@@ -211,5 +212,7 @@ def test_executed_keeps_experts_and_tables_only():
     specs = gnn.sharding_fn(m)[2]
     got = shd.executed_batch(specs, m, "train")
     assert specs["edge_index"] == (None, ("data", "model"))
-    assert got["edge_index"] == (None, None)
+    assert got == specs
+    assert got["edge_index"] == (None, ("data", "model"))
+    assert got["edge_dist"] == (("data", "model"),)
     assert got["node_feat"] == ("data", None)
