@@ -43,8 +43,11 @@ Phases (any failure stops the script with a non-zero exit):
      time into score, select, gather and order by CUDA events; with
      ``--parent``, every scan call is also held bit for bit against an
      earlier checkout's kernels, which are timed beside), flash
-     attention (the MiniLM encoder, Mistral-NeMo prefill at 256 and
-     4096 tokens), split-K decode (the engine's
+     attention (the MiniLM encoder and BERT4Rec serve_p99 in fp32 on the
+     3xTF32 body, each row's ``body=`` by the library's counts and its
+     bound the 3xTF32 route, 3 x the FLOPs at 495 TFLOP/s, its FMA bound
+     beside; Mistral-NeMo prefill at 256 and 4096 tokens in bf16),
+     split-K decode (the engine's
      cache; decode_32k, 16 x 32768, at full and partial length; its
      partials at bs 512 against the plain partials, its in-library merge
      against merge_partials of the partials at the split it chose) and the
@@ -68,7 +71,8 @@ Phases (any failure stops the script with a non-zero exit):
      CURRENT / HISTORICAL / COMPARATIVE ``query_batch`` at batch 1, 8,
      32 and k 10, 50 (a quantized pool of 200: the select path), batch ==
      sequential bit for bit, no out-of-window id, CPU reopen (CPU
-     embedder, same weights) equivalent;
+     embedder, same weights) equivalent; every attention launch of the
+     store phase on the 3xTF32 body, by the library's counts;
   6. RAG generation: Mistral-NeMo-12B at full width (40L, d 5120, bf16,
      ~24.5 GB made on the card) behind ``RAGEngine`` over the phase-5
      fp32 store answers 8 requests (4 current, 4 as-of), 16 new tokens
@@ -90,8 +94,9 @@ Phases (any failure stops the script with a non-zero exit):
      shapes: logits with the kernel bags equal those with the plain
      bags bit for bit, and the CPU forward over the batch's rows within
      1e-4 of their max; FM and Wide&Deep (39M and 40M ids) at both
-     shapes and BERT4Rec at serve_p99 (flash_attention, D = 32), card vs
-     CPU; retrieval_cand (1 x 1,000,448, k = 100) for the four through
+     shapes and BERT4Rec at serve_p99 (flash_attention, D = 32, every
+     launch on the 3xTF32 body), card vs CPU; retrieval_cand (1 x
+     1,000,448, k = 100) for the four through
      topk_search, held to the plain masked top-k. Its DLRM forwards are
      the embedding bag's "launches" below (one a forward);
   8. the shard fabric on the card, against phase 4's fp32 store (the
@@ -136,8 +141,10 @@ Phases (any failure stops the script with a non-zero exit):
      versions at the shapes of the three train cells, small fp32 cases
      at D 64 and 128 and rows that see no key (two runs of each bit for
      bit; the forward's output with its lse equal to the serving output;
-     bf16 at D 64 and 128 on the tensor-core body, by its own launch
-     count, with its TFLOP/s), timed against the plain versions and the
+     bf16 at D 64 and 128 on the tensor-core body and fp32 at D 32 on
+     the 3xTF32 body, each by its own launch count, with its TFLOP/s;
+     the fp32 rows' bound the 3xTF32 route), timed against the plain
+     versions and the
      library's backward (SDPA, 26 ``F.embedding_bag``); then the train
      cells through ``build_cell``: Mistral-NeMo-12B train_4k at full
      width, 8 of 40 layers, 3 AdamW steps of 8 x 4096 tokens in 8
@@ -148,7 +155,8 @@ Phases (any failure stops the script with a non-zero exit):
      (65,536) over tables capped at 4M rows, 3 steps on uniform ids and
      1 on the smoke batch (every id below 3), and one step card vs CPU
      on compact tables; BERT4Rec train_batch in 256 microbatches of 256
-     x 200, then a resume check (a Trainer with checkpoints: 2 steps,
+     x 200 (every attention launch, forward and backward, on the 3xTF32
+     bodies), then a resume check (a Trainer with checkpoints: 2 steps,
      save, restore, 2 more, equal to 4 straight bit for bit), and the
      same resume check of FM and Wide&Deep at full width (4 batches of
      4,096; their lookups' gradients on ``gather_segment_sum``), all with
@@ -291,6 +299,8 @@ D = 384                    # all-MiniLM-L6-v2 width, the paper's embedder
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3, data sheet
 FP32_FLOPS = 67e12         # H100 SXM fp32 outside the tensor cores
 BF16_FLOPS = 989e12        # H100 SXM bf16 dense on the tensor cores
+TF32_FLOPS = 495e12        # H100 SXM tf32 dense on the tensor cores: an
+                           # fp32-accurate product there is three (3xTF32)
 BIG_K = (129, 500, 4096)   # k above the register lists: the select path
 # a Mistral-NeMo-12B decode step on the CUDA-core attention kernels with
 # the split merge in torch (H100 80GB HBM3, 700 W), for comparison
@@ -317,10 +327,19 @@ KERNELS = {
                      "src/repro/kernels/flash_decode/flash_decode.py:25"),
     "embedding_bag": ("src/repro_torch/csrc/embedding_bag.cu",
                       "src/repro/kernels/embedding_bag/embedding_bag.py:20"),
+    # the fp32 forward's own body (3xTF32 on the tensor cores): MiniLM's
+    # and BERT4Rec's attention
+    "flash_attention_tf32": (
+        "src/repro_torch/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention/flash_attention.py:27 (fp32)"),
     # backward kernels: repro differentiates its references with XLA
     "flash_attention_bwd": (
         "src/repro_torch/csrc/flash_attention.cu",
         "src/repro/kernels/flash_attention/flash_attention.py:27 (its "
+        "backward; no Pallas counterpart)"),
+    "flash_attention_bwd_tf32": (
+        "src/repro_torch/csrc/flash_attention.cu",
+        "src/repro/kernels/flash_attention/flash_attention.py:27 (its fp32 "
         "backward; no Pallas counterpart)"),
     "embedding_bag_bwd": (
         "src/repro_torch/csrc/embedding_bag.cu",
@@ -334,10 +353,15 @@ KERNELS = {
 }
 TILE_KERNELS = ("topk_search", "temporal_window_topk", "topk_search_q8",
                 "temporal_window_topk_q8")
+# the fp32 attention body's launches on the serving paths that run it, the
+# MiniLM embedder (phase 5) and BERT4Rec (7), as the library counts them;
+# phase 10 returns BERT4Rec training's with its other counts
+TF32_PATH = {"flash_attention_tf32": 0, "flash_attention_bwd_tf32": 0}
 
 
 # (source, kernel) whose registers, shared memory and spills phase 1 logs
 PTXAS_REPORT = (("flash_attention", "fa_wgmma_kernel"),
+                ("flash_attention", "fa_tf32_kernel"),
                 ("flash_decode", "decode_partials_kernel"),
                 ("flash_decode", "decode_merge_kernel"),
                 ("topk_search", "topk_list_kernel"),
@@ -356,6 +380,8 @@ PTXAS_REPORT = (("flash_attention", "fa_wgmma_kernel"),
                 ("flash_attention", "bwd_prep_kernel"),
                 ("flash_attention", "bwd_dkdv_wgmma_kernel"),
                 ("flash_attention", "bwd_dq_wgmma_kernel"),
+                ("flash_attention", "bwd_dkdv_tf32_kernel"),
+                ("flash_attention", "bwd_dq_tf32_kernel"),
                 ("embedding_bag", "bag_bwd_chunks"),
                 ("embedding_bag", "bag_bwd_rows"),
                 ("segment_sum", "gss_chunks"),
@@ -1145,7 +1171,11 @@ class AttentionCheck:
                                 device=self.dev).to(dtype)
 
     def record(self, name, what, got, want, dtype, fn, plain, library,
-               in_bytes, out_bytes, flops, iters, plain_iters):
+               in_bytes, out_bytes, flops, iters, plain_iters, body=None):
+        """``body``: the attention body that ran, by the library's counts;
+        the fp32 tensor-core body's bound is the 3xTF32 route (3 x the
+        FLOPs at 495 TFLOP/s: no fp32-accurate product is faster on the
+        card), its FMA bound kept beside it."""
         from repro_torch.testing import rounding_agree
 
         torch = self.torch
@@ -1161,12 +1191,22 @@ class AttentionCheck:
         t = cuda_ms(torch, fn, iters)
         tp = cuda_ms(torch, plain, plain_iters, 1)
         tl = cuda_ms(torch, library, iters, 1)
-        b, by = bound_ms(in_bytes, out_bytes, flops, self.peak[dtype])
+        extra = {}
+        if body == "tf32":
+            b, by = bound_ms(in_bytes, out_bytes, 3 * flops, TF32_FLOPS)
+            extra["fma_bound_ms"] = bound_ms(in_bytes, out_bytes, flops,
+                                             FP32_FLOPS)[0]
+            extra["bound_share"] = b / t
+        else:
+            b, by = bound_ms(in_bytes, out_bytes, flops, self.peak[dtype])
+        if body is not None:
+            extra["body"] = body
         self.out[name]["times"].append(dict(
             what=what, dtype=str(dtype).removeprefix("torch."), ms=t,
             plain_ms=tp, library_ms=tl, bound_ms=b, bound_by=by,
             max_abs_err=err, median_abs_value=float(
-                want.float().abs().median()), err_over_limit=ratio))
+                want.float().abs().median()), err_over_limit=ratio,
+            **extra))
 
     def attention(self, what, shape, dtype, causal, iters, rows=None):
         """Shape (B, H, KV, Sq, Skv, D). With ``rows``, the plain version
@@ -1184,7 +1224,17 @@ class AttentionCheck:
         k = self.randn((b, kv, skv, d), dtype)
         v = self.randn((b, kv, skv, d), dtype)
         qp = q if rows is None else q[:, :, -rows:]
+        torch = self.torch
+        before = {n: getattr(fa, n) for n in ("launches", "tf32_launches")}
         got = fa.flash_attention(q, k, v, causal=causal)
+        made = {n: getattr(fa, n) - before[n] for n in before}
+        check(made["launches"] == 1, f"flash_attention {what}: "
+                                     f"{made['launches']} launches")
+        body = ("tf32" if made["tf32_launches"] else
+                "wgmma" if dtype == torch.bfloat16 and d in (64, 128)
+                else "cuda cores")
+        check((body == "tf32") == (dtype == torch.float32 and d in (32, 64)),
+              f"flash_attention {what}: the {body} body ran")
         want = flash_attention_plain(qp, k, v, causal)
         es = q.element_size()
         self.record("flash_attention", what, got[:, :, -qp.shape[2]:], want,
@@ -1194,7 +1244,8 @@ class AttentionCheck:
                         q, k, v, is_causal=causal, enable_gqa=True),
                     (b * h * sq + 2 * b * kv * skv) * d * es,
                     b * h * sq * d * es,
-                    4 * b * h * visible_pairs(sq, skv, causal) * d, iters, 2)
+                    4 * b * h * visible_pairs(sq, skv, causal) * d, iters, 2,
+                    body=body)
 
     def decode(self, what, shape, cache_lens, dtype, iters):
         """Shape (B, H, KV, S, D), one cache of S entries, at each of
@@ -2138,7 +2189,7 @@ def phase_recsys(torch, dev, parent=None) -> tuple[int, list]:
     batches = [{"tokens": torch.randint(4, B4R.vocab, (b, s), generator=gen,
                                         device=dev, dtype=torch.int32)}
                for _ in range(2)]
-    fa_before = fa.launches
+    fa_before, tf_before = fa.launches, fa.tf32_launches
     torch.cuda.reset_peak_memory_stats()
     with torch.no_grad():
         got = bundle.fn(params, batches[0])
@@ -2149,8 +2200,13 @@ def phase_recsys(torch, dev, parent=None) -> tuple[int, list]:
         cpu, B4R, batches[0]["tokens"].cpu()))
     serve_times(torch, "bert4rec serve_p99", lambda x: bundle.fn(params, x),
                 batches, 10)
+    tf32 = fa.tf32_launches - tf_before
+    check(tf32 == fa.launches - fa_before,
+          f"BERT4Rec: {tf32} of {fa.launches - fa_before} flash_attention "
+          f"launches ran the 3xTF32 body")
+    TF32_PATH["flash_attention_tf32"] += tf32
     log(f"  bert4rec: flash_attention launched {fa.launches - fa_before} "
-        f"times ({B4R.n_layers} a forward)")
+        f"times ({B4R.n_layers} a forward), {tf32} on the 3xTF32 body")
     del params, batches, got
     torch.cuda.empty_cache()
 
@@ -3067,6 +3123,7 @@ BERT4REC_BATCH = 32_768         # of 65,536, to keep phase 10 short
 BERT4REC_ACCUM = 128            # microbatches of 256 x 200 (repro: 16)
 DLRM_KINK_SHARE = 0.05          # card vs CPU: at most this share dropped
 TC_BWD_DIMS = (64, 128)         # bf16 head dims whose backward is on wgmma
+TF32_BWD_DIMS = (32,)           # fp32 head dims whose backward is 3xTF32
 LOOKUP_VOCAB = 65_536           # FM / Wide&Deep resume: rows a field
 
 
@@ -3136,11 +3193,14 @@ class BackwardCheck:
         ok, lse_ratio = lse_agree(lse, lse_p)
         check(ok, f"flash_attention {what}: lse is {lse_ratio:.3g} x its "
                   f"limit from plain")
-        tc0 = fa.bwd_tc_launches
+        tc0, tf0 = fa.bwd_tc_launches, fa.bwd_tf32_launches
         got = fa.flash_attention_bwd(q, k, v, o, do, lse, causal)
         tc = fa.bwd_tc_launches - tc0
+        tf32 = fa.bwd_tf32_launches - tf0
         check(tc == (bf16 and d in TC_BWD_DIMS),
               f"flash_attention_bwd {what}: {tc} tensor-core launches")
+        check(tf32 == (not bf16 and d in TF32_BWD_DIMS),
+              f"flash_attention_bwd {what}: {tf32} 3xTF32 launches")
         again = fa.flash_attention_bwd(q, k, v, o, do, lse, causal)
         check(all(torch.equal(x, y) for x, y in zip(got, again)),
               f"flash_attention_bwd {what}: two runs differ")
@@ -3184,9 +3244,18 @@ class BackwardCheck:
             out = F.scaled_dot_product_attention(*rep, is_causal=causal)
         es = q.element_size()
         pairs = b * h * visible_pairs(sq, skv, causal)
-        # what the body executes: 20 pairs x D on the tensor cores (P and
-        # dS split in two), 14 on the CUDA cores (S and dP recomputed)
-        executed = (20 if tc else 14) * pairs * d
+        # what the body executes: 20 pairs x D on the bf16 tensor cores (P
+        # and dS split in two), 3 x 14 in 3xTF32 and 14 on the CUDA cores
+        # (S and dP recomputed)
+        executed = (20 if tc else 42 if tf32 else 14) * pairs * d
+        # the least work: 10 pairs x D, in fp32 on the 3xTF32 route
+        least, peak = 10 * pairs * d, (BF16_FLOPS if bf16 else FP32_FLOPS)
+        extra = {}
+        if tf32:
+            extra["fma_bound_ms"] = bound_ms(
+                (3 * b * h * sq + 2 * b * kv * skv) * d * es + b * h * sq * 4,
+                (b * h * sq + 2 * b * kv * skv) * d * es, least, peak)[0]
+            least, peak = 3 * least, TF32_FLOPS
         self.row("flash_attention_bwd", what, err,
                  lambda: fa.flash_attention_bwd(q, k, v, o, do, lse, causal),
                  lambda: flash_attention_bwd_plain(q, k, v, o, do, lse,
@@ -3194,15 +3263,15 @@ class BackwardCheck:
                  lambda: torch.autograd.grad(out, leaves, do,
                                              retain_graph=True),
                  (3 * b * h * sq + 2 * b * kv * skv) * d * es + b * h * sq * 4,
-                 (b * h * sq + 2 * b * kv * skv) * d * es, 10 * pairs * d,
-                 BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS,
+                 (b * h * sq + 2 * b * kv * skv) * d * es, least, peak,
                  iters, 1, dtype=str(dtype).removeprefix("torch."),
-                 body="wgmma" if tc else "cuda cores",
+                 body="wgmma" if tc else "tf32" if tf32 else "cuda cores",
                  executed_flops=executed, err_over_limit=worst,
                  chain_over_limit=chain, chain_without_bound=unbound,
-                 lse_over_limit=lse_ratio)
+                 lse_over_limit=lse_ratio, **extra)
         row = self.out["flash_attention_bwd"]["times"][-1]
         row["tflops"] = executed / row["ms"] / 1e9
+        row["bound_share"] = row["bound_ms"] / row["ms"]
         del out, leaves
         torch.cuda.empty_cache()
 
@@ -3661,9 +3730,18 @@ def phase_train_bert4rec(torch, dev, reduced: list, counters: dict,
     batch = {k: v[:BERT4REC_BATCH] for k, v in batch.items()}
     b, s = batch["tokens"].shape
     p0 = tree_map(lambda t: t.detach().clone(), params)
+    names = ("flash_attention", "flash_attention_tf32",
+             "flash_attention_bwd", "flash_attention_bwd_tf32")
+    before = {n: main[n] for n in names}
     losses, hosts = train_steps(torch, "bert4rec train_batch", cell, params,
                                 opt_state, [batch] * 2, b * s, counters,
                                 main)
+    made = {n: main[n] - before[n] for n in names}
+    check(made["flash_attention"] > 0 and made["flash_attention_bwd"] > 0
+          and made["flash_attention_tf32"] == made["flash_attention"]
+          and made["flash_attention_bwd_tf32"] == made["flash_attention_bwd"],
+          f"bert4rec train_batch: not every attention launch ran the 3xTF32 "
+          f"bodies: {made}")
     reduced.append(f"bert4rec train_batch: global batch 65536 -> {b}, "
                    f"accum 16 -> {BERT4REC_ACCUM} (microbatch 4096 x 200 -> "
                    f"{b // BERT4REC_ACCUM} x 200: 6.2 GB of fp32 logits, not "
@@ -3755,8 +3833,10 @@ def phase_train(torch, dev, kern: dict) -> dict:
     kern.update(phase_train_kernels(torch, dev))
     torch.cuda.empty_cache()
     counters = {"flash_attention": (fa, "launches"),
+                "flash_attention_tf32": (fa, "tf32_launches"),
                 "flash_attention_bwd": (fa, "bwd_launches"),
                 "flash_attention_bwd_wgmma": (fa, "bwd_tc_launches"),
+                "flash_attention_bwd_tf32": (fa, "bwd_tf32_launches"),
                 "embedding_bag": (eb, "launches"),
                 "embedding_bag_bwd": (eb, "bwd_launches")}
     main = {k: 0 for k in counters}
@@ -3805,7 +3885,10 @@ class SegmentCheck:
     (``out.index_add_(0, dst, x[src] * w)``: float atomics), and the
     bound (the bytes of w, of the gathered rows of x, of the indices and
     of out over 3.35 TB/s, an x of at most 50 MB counted at most its size
-    once, as it stays in L2; 2 FLOPs an element, 1 without w)."""
+    once, as it stays in L2; 2 FLOPs an element, 1 without w). The
+    gradient of x the same way (``bwd_dx_*``: the cotangent's rows
+    gathered by dst, summed into the src rows; the library
+    ``dx.index_add_(0, src, g[dst] * w)``)."""
 
     def __init__(self, torch, dev, seed: int):
         self.torch, self.dev = torch, dev
@@ -3871,10 +3954,21 @@ class SegmentCheck:
         def bwd():
             return segment_sum(g, w, plan.bwd)
 
+        def bwd_library():
+            rows = g[dst]
+            return torch.zeros((n, d), device=self.dev).index_add_(
+                0, src, rows if w is None else rows * w)
+
         rows = e * d * 4
         x_bytes = min(n * d * 4, rows) if n * d * 4 <= L2_BYTES else rows
         in_bytes = x_bytes + (rows if weighted else 0) + e * 8
+        g_bytes = min(n_out * d * 4, rows) if n_out * d * 4 <= L2_BYTES \
+            else rows
         tb = cuda_ms(torch, bwd, iters)
+        tbp = cuda_ms(torch, lambda: segment_sum_plain(g, w, plan.bwd), 3, 1)
+        tbl = cuda_ms(torch, bwd_library, iters, 1)
+        bb, bby = bound_ms(g_bytes + (rows if weighted else 0) + e * 8,
+                           n * d * 4, (2 if weighted else 1) * e * d)
         tk = cuda_ms(torch, lambda: segment_sum(x, w, plan.fwd), iters)
         tp = cuda_ms(torch, lambda: segment_sum_plain(x, w, plan.fwd), 3,
                      1)
@@ -3884,7 +3978,9 @@ class SegmentCheck:
         self.out["times"].append(dict(
             what=what, E=e, n_src=n, n_out=n_out, D=d, ms=tk, plain_ms=tp,
             library_ms=tl, bound_ms=b, bound_by=by, bwd_dx_ms=tb,
-            plan_ms=plan_ms, most_edges_a_row=top, longest_chunk=hot,
+            bwd_dx_plain_ms=tbp, bwd_dx_library_ms=tbl, bwd_dx_bound_ms=bb,
+            bwd_dx_bound_by=bby, plan_ms=plan_ms, most_edges_a_row=top,
+            longest_chunk=hot,
             chunked_rows=parts, max_abs_err=err))
         del plan, x, w, g
         torch.cuda.empty_cache()
@@ -6958,8 +7054,14 @@ def main() -> int:
         emb, cpu_emb = phase_embedder(torch, dev)
         from repro_torch.kernels.flash_attention import ops as fa
         from repro_torch.kernels.flash_decode import ops as fd
-        fa.launches = fd.launches = 0
+        fa.launches = fd.launches = fa.tf32_launches = 0
         roots = phase_rag_store(torch, work, emb, cpu_emb)
+        check(fa.launches > 0 and fa.tf32_launches == fa.launches,
+              f"MiniLM: {fa.tf32_launches} of {fa.launches} fp32 attention "
+              f"launches ran the 3xTF32 body")
+        TF32_PATH["flash_attention_tf32"] += fa.tf32_launches
+        log(f"  launches of the MiniLM embedder (phase 5): flash_attention "
+            f"{fa.launches}, on the 3xTF32 body {fa.tf32_launches}")
         start_phase(torch, "phase 6: RAG generation, Mistral-NeMo-12B at "
                            "full width", t0)
         phase_rag_generate(torch, roots[False], emb)
@@ -7032,11 +7134,26 @@ def main() -> int:
         for name, n in phase_gnn_mesh(torch, dev, ckpt, replay).items():
             launches[name] = launches.get(name, 0) + n
 
+    # the fp32 bodies' own rows: their launches by the library's counts on
+    # phases 5, 7 and 10, their times from phases 2 and 10
+    for name, whole in (("flash_attention_tf32", "flash_attention"),
+                        ("flash_attention_bwd_tf32", "flash_attention_bwd")):
+        launches[name] = launches.get(name, 0) + TF32_PATH[name]
+        times = [r for r in kern[whole]["times"] if r.get("body") == "tf32"]
+        kern[name] = {"err": max(r["max_abs_err"] for r in times),
+                      "times": times}
+    log(f"  launches of the 3xTF32 bodies on the main paths (phases 5, 7, "
+        f"10): { {n: launches[n] for n in TF32_PATH} }")
+    for name in TF32_PATH:
+        check(launches[name] > 0, f"{name} was never launched on the main "
+                                  f"paths")
     rows = []
     main_shape = {"flash_attention": "nemo prefill 256",
+                  "flash_attention_tf32": "minilm encode 256x128",
                   "flash_decode": "engine cache 320",
                   "embedding_bag": "grouped serve_p99",
                   "flash_attention_bwd": "nemo train_4k",
+                  "flash_attention_bwd_tf32": "bert4rec train 256x200",
                   "embedding_bag_bwd": "dlrm train_batch",
                   "gather_segment_sum": OGB_CHUNK}
     for name, (source, tpu) in KERNELS.items():

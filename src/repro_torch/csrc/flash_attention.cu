@@ -17,9 +17,12 @@
 //   bytes:      B*H*Sq*D (q) + 2*B*KV*Skv*D (k, v) + B*H*Sq*D (out), in
 //               the input type, over 3.35 TB/s;
 //   operations: 4*B*H*Sq*Skv*D FLOPs (about half of that under the
-//               causal mask), over 67 TFLOP/s in fp32 or 989 TFLOP/s in
-//               bf16 on the tensor cores.
-// Attention at these shapes is operation-bound. Two bodies:
+//               causal mask), over 989 TFLOP/s in bf16 on the tensor
+//               cores; in fp32, 3 x those FLOPs over 495 TFLOP/s of TF32
+//               (the 3xTF32 route below: the card's fastest way to
+//               fp32-accurate products; its 67 TFLOP/s of fp32 FMA is
+//               2.5x slower).
+// Three bodies:
 //
 // bf16, D in {64, 128}: tensor cores (`fa_wgmma_kernel`). A block owns
 // BM = 128 query rows of one (b, h) and has three warpgroups:
@@ -45,22 +48,60 @@
 // sees; blocks are numbered heaviest (last query rows) first, so the
 // longest blocks start first and the short ones fill the tail.
 //
-// fp32 (any D) and bf16 at D = 32 (a 64-byte row is below the 128-byte
-// swizzle the tensor-core path is laid out for): the CUDA-core body
-// (`flash_attention_kernel`). Grid (ceil(Sq / BQ), H, B), THREADS
-// threads. A block owns BQ query rows of one (b, h): their scaled q in
-// shared memory (scale folded into q in fp32, as the Pallas kernel
-// does), the running max m and sum l of each row and its D-wide
-// accumulator in registers. It streams the key/value rows in BK-row tiles
-// through shared memory (widened to fp32 as staged) and, per tile,
+// fp32, D in {32, 64}: tensor cores in 3xTF32 (`fa_tf32_kernel`; MiniLM's
+// and BERT4Rec's D 32). One TF32 product keeps 10 mantissa bits (~2^-11
+// a term) and does not hold the fp32 checks. Each operand x is split as
+// x_hi = tf32(x) and x_lo = tf32(x - x_hi) (round to nearest, in integer
+// operations: hopper.cuh), and each product a b is a_lo b_hi + a_hi b_lo
+// + a_hi b_hi on `wgmma` .tf32 (m64nNk8, fp32 accumulate): within ~2^-20
+// of |a b|. Bound: 3 x the FLOPs at 495 TFLOP/s, or the bytes. Design:
+//   - wgmma reads .tf32 operands K-major only (the transpose bit is for
+//     16-bit types), and O += P V needs V with its keys contiguous. So a
+//     producer warpgroup splits every operand and lays it out: q's 128
+//     rows (hi, lo) into one of QSLOTS slots, each (K, V) tile of BN rows
+//     (64 at D 32, 32 at D 64) as K_hi, K_lo (K-major along D) and
+//     V^T_hi, V^T_lo (K-major along the keys) into a ring of STAGES
+//     stages, all in the 128-byte swizzle, each handed over by
+//     fence.proxy.async and an arrive on an mbarrier. An fp32 row at D 32
+//     is 128 bytes: one swizzle row. Its input comes through a ring of RAW
+//     16 KB units copied by cp.async (rows past Sq or Skv as zeros),
+//     RAW units ahead: a thread reads back only its own copies, so
+//     cp.async.wait_group is all the synchronisation it needs, and the
+//     64 KB in flight hide the memory's latency (a TMA copy would land the
+//     raw tile for the same threads to read back). Its lanes walk rows, so
+//     the swizzled 16-byte stores and the transposed 4-byte ones hit 32
+//     banks a phase.
+//   - two consumer warpgroups of 64 query rows: S = q k^T from shared
+//     memory, the bf16 body's online softmax (base 2, scale * log2(e) on
+//     the fp32 logits), then P enters O += P V from the S accumulator
+//     fragment as register A operands (hi and lo), whose k order within
+//     each 8 keys is 0, 2, 4, 6, 1, 3, 5, 7 (hopper.cuh): the producer
+//     writes V^T's columns in that order, so no shuffle is needed.
+//   - persistent: one block a streaming multiprocessor walks the query
+//     blocks (heaviest first, strided by the grid), so the producer fills
+//     the next block's q slot and tiles while the consumers finish the
+//     last one. A row's output is the same whichever block computes it.
+//
+// bf16 at D = 32 (a 64-byte row is below the 128-byte swizzle the bf16
+// tensor-core path is laid out for) and fp32 at D = 128 (two slots of
+// q's halves would not fit the shared memory beside the ring): the
+// CUDA-core body (`flash_attention_kernel`, the port's first design).
+// Grid (ceil(Sq / BQ), H, B), THREADS threads. A block owns BQ query rows
+// of one (b, h): their scaled q in shared memory (scale folded into q in
+// fp32, as the Pallas kernel does), the running max m and sum l of each
+// row and its D-wide accumulator in registers. It streams the key/value
+// rows in BK-row tiles through shared memory (widened to fp32 as staged)
+// and, per tile,
 //   1. scores: thread (ty, tx) owns rows ty*RPT.. and columns tx + 16*j,
 //      each score one ascending-d fmaf chain;
 //   2. masks, and updates (m, l, acc) with the tile's row max (a 16-lane
 //      butterfly; every lane of a row gets the same bits);
 //   3. writes p = exp(s - m) to shared memory and adds p . v to its acc
 //      columns tx + 16*dd.
-// Every product there is exact fp32: at MiniLM's and BERT4Rec's shapes it
-// beats the library call, and TF32 would not hold the fp32 checks.
+//
+// Any batch: the entry launches batches in slices of at most 65,535 (the
+// CUDA-core body's grid z), offsetting each tensor; a row's output does
+// not depend on its slice or on the other rows.
 #include <cuda.h>  // CUtensorMap and its enums; cuTensorMapEncodeTiled is
                    // looked up at run time, so no -lcuda
 #include <math_constants.h>
@@ -239,25 +280,6 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
       static_cast<const T*>(v), static_cast<T*>(o), lse, (int)H, (int)KV,
       (int)Sq, (int)Skv, causal, scale);
   return (int)cudaGetLastError();
-}
-
-int launch_fp32(const void* q, const void* k, const void* v, void* o,
-                float* lse, long long B, long long H, long long KV,
-                long long Sq, long long Skv, long long D, bool causal,
-                float scale, cudaStream_t st) {
-  switch (D) {
-    case 32:
-      return launch<float, 32>(q, k, v, o, lse, B, H, KV, Sq, Skv, causal,
-                               scale, st);
-    case 64:
-      return launch<float, 64>(q, k, v, o, lse, B, H, KV, Sq, Skv, causal,
-                               scale, st);
-    case 128:
-      return launch<float, 128>(q, k, v, o, lse, B, H, KV, Sq, Skv, causal,
-                                scale, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -600,15 +622,618 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse,
 }
 
 }  // namespace tc
+
+// ---------------------------------------------------------------------------
+// fp32 on the tensor cores: 3xTF32
+// ---------------------------------------------------------------------------
+namespace tf32 {
+
+using namespace hopper;
+
+constexpr int BM = 128;                 // query rows a block (2 x 64)
+constexpr int THREADS = 384;            // producer + 2 consumer warpgroups
+constexpr int QSLOTS = 2;               // q blocks in flight
+constexpr int PRODUCER_REGS = 104;      // 128 x 104 + 256 x 192 <= 65,536
+constexpr int CONSUMER_REGS = 192;
+constexpr float LOG2E = 1.4426950408889634f;
+
+// The slot of a tile's row i (a key, or a query in the backward) in a
+// K-major operand that a register A operand taken from an accumulator
+// fragment multiplies: within each 8, k order 0, 2, 4, 6, 1, 3, 5, 7
+// (hopper.cuh, wgmma_tf32_rs_*).
+__device__ __forceinline__ int k_slot(int i) {
+  return (i & ~7) | ((i & 1) << 2) | ((i >> 1) & 3);
+}
+
+__device__ __forceinline__ uint64_t kdesc(uint32_t addr) {
+  return desc_sw128(addr, 16, 1024);
+}
+
+// R rows of a row-major (rows, D) fp32 matrix as the 128 threads of a
+// producer warpgroup hold them: float4 f = p + 128 j of thread p is row
+// f % R, columns 4 (f / R) on (a warp's lanes on 32 rows); rows past the
+// matrix are 0. `store` writes them as the hi and lo tf32 halves of a
+// K-major operand along D (rows of 128 bytes, boxes of 32 columns `box`
+// bytes apart, the 128-byte swizzle); `store_t` transposed, K-major along
+// the R rows (D rows of R / 32 boxes D * 128 bytes apart, row i at column
+// k_slot(i)). Either way the 8 lanes of a 16-byte store phase, and the 32
+// of a 4-byte one, hit distinct banks.
+template <int D, int R>
+struct Rows {
+  static constexpr int C4 = D / 4;      // float4 a row
+  static constexpr int NF = R * C4 / 128;
+  static_assert(NF * 128 == R * C4 && R % 32 == 0, "whole warps a row");
+  float4 x[NF];
+
+  __device__ __forceinline__ void load(const float* src, int r0, int rows,
+                                       int p) {
+#pragma unroll
+    for (int j = 0; j < NF; ++j) {
+      const int f = p + 128 * j, r = r0 + f % R;
+      x[j] = r < rows ? __ldg(reinterpret_cast<const float4*>(
+                                  src + (size_t)r * D) + f / R)
+                      : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    }
+  }
+
+  // The same rows copied to shared memory by cp.async instead (zeros past
+  // the matrix), float4 f of thread p at `dst` + 16 (128 j + p); `read`
+  // takes them back into this thread's registers once its copies landed.
+  __device__ __forceinline__ static void copy(uint32_t dst, const float* src,
+                                              int r0, int rows, int p) {
+#pragma unroll
+    for (int j = 0; j < NF; ++j) {
+      const int f = p + 128 * j, r = r0 + f % R;
+      const bool in = r < rows;
+      cp_async16(dst + (128 * j + p) * 16,
+                 src + (in ? (size_t)r * D + 4 * (f / R) : 0), in ? 16 : 0);
+    }
+  }
+
+  __device__ __forceinline__ void read(uint32_t src, int p) {
+#pragma unroll
+    for (int j = 0; j < NF; ++j)
+      asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+                   : "=f"(x[j].x), "=f"(x[j].y), "=f"(x[j].z), "=f"(x[j].w)
+                   : "r"(src + (128 * j + p) * 16)
+                   : "memory");
+  }
+
+  __device__ __forceinline__ void store(uint32_t hi, uint32_t lo, int p,
+                                        uint32_t box = R * 128,
+                                        int row0 = 0) const {
+#pragma unroll
+    for (int j = 0; j < NF; ++j) {
+      const int f = p + 128 * j, r = row0 + f % R, c4 = f / R;
+      const uint32_t off =
+          (c4 / 8) * box + r * 128 + (((c4 % 8) ^ (r % 8)) << 4);
+      uint32_t h[4], l[4];
+      split_tf32(x[j].x, h[0], l[0]);
+      split_tf32(x[j].y, h[1], l[1]);
+      split_tf32(x[j].z, h[2], l[2]);
+      split_tf32(x[j].w, h[3], l[3]);
+      sts128(hi + off, h[0], h[1], h[2], h[3]);
+      sts128(lo + off, l[0], l[1], l[2], l[3]);
+    }
+  }
+
+  // `store` and `store_t` at once, each value split once.
+  __device__ __forceinline__ void store_both(uint32_t hi, uint32_t lo,
+                                             uint32_t thi, uint32_t tlo,
+                                             int p) const {
+#pragma unroll
+    for (int j = 0; j < NF; ++j) {
+      const int f = p + 128 * j, r = f % R, c4 = f / R, s = k_slot(r);
+      const uint32_t off = (c4 / 8) * (R * 128) + r * 128 +
+                           (((c4 % 8) ^ (r % 8)) << 4);
+      const uint32_t col = (s / 32) * (D * 128) + (s % 4) * 4;
+      const int ch = (s % 32) / 4;
+      uint32_t h[4], l[4];
+      split_tf32(x[j].x, h[0], l[0]);
+      split_tf32(x[j].y, h[1], l[1]);
+      split_tf32(x[j].z, h[2], l[2]);
+      split_tf32(x[j].w, h[3], l[3]);
+      sts128(hi + off, h[0], h[1], h[2], h[3]);
+      sts128(lo + off, l[0], l[1], l[2], l[3]);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int d = 4 * c4 + i;
+        const uint32_t toff = col + d * 128 + ((ch ^ (d % 8)) << 4);
+        sts32(thi + toff, h[i]);
+        sts32(tlo + toff, l[i]);
+      }
+    }
+  }
+
+  __device__ __forceinline__ void store_t(uint32_t hi, uint32_t lo,
+                                          int p) const {
+#pragma unroll
+    for (int j = 0; j < NF; ++j) {
+      const int f = p + 128 * j, s = k_slot(f % R), c4 = f / R;
+      const uint32_t col = (s / 32) * (D * 128) + (s % 4) * 4;
+      const int ch = (s % 32) / 4;
+      const float e[4] = {x[j].x, x[j].y, x[j].z, x[j].w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int d = 4 * c4 + i;
+        const uint32_t off = col + d * 128 + ((ch ^ (d % 8)) << 4);
+        uint32_t h, l;
+        split_tf32(e[i], h, l);
+        sts32(hi + off, h);
+        sts32(lo + off, l);
+      }
+    }
+  }
+};
+
+template <int N>
+__device__ __forceinline__ void mma_rs(float (&d)[N / 2],
+                                       const uint32_t (&a)[4], uint64_t b,
+                                       int accumulate) {
+  if constexpr (N == 32)
+    wgmma_tf32_rs_n32(d, a, b, accumulate);
+  else
+    wgmma_tf32_rs_n64(d, a, b, accumulate);
+}
+
+// d (64 x N) = or += (a_hi + a_lo)(b_hi + b_lo) without a_lo b_lo, the
+// small terms first; A from registers, B at the hi and lo addresses.
+template <int N>
+__device__ __forceinline__ void mma3_rs(float (&d)[N / 2],
+                                        const uint32_t (&ahi)[4],
+                                        const uint32_t (&alo)[4],
+                                        uint32_t bhi, uint32_t blo,
+                                        int accumulate) {
+  mma_rs<N>(d, alo, kdesc(bhi), accumulate);
+  mma_rs<N>(d, ahi, kdesc(blo), 1);
+  mma_rs<N>(d, ahi, kdesc(bhi), 1);
+}
+
+template <int N>
+__device__ __forceinline__ void mma_ss(float (&d)[N / 2], uint64_t a,
+                                       uint64_t b, int accumulate) {
+  if constexpr (N == 32)
+    wgmma_tf32_ss_n32(d, a, b, accumulate);
+  else
+    wgmma_tf32_ss_n64(d, a, b, accumulate);
+}
+
+// The same with A from shared memory.
+template <int N>
+__device__ __forceinline__ void mma3_ss(float (&d)[N / 2], uint32_t ahi,
+                                        uint32_t alo, uint32_t bhi,
+                                        uint32_t blo, int accumulate) {
+  mma_ss<N>(d, kdesc(alo), kdesc(bhi), accumulate);
+  mma_ss<N>(d, kdesc(ahi), kdesc(blo), 1);
+  mma_ss<N>(d, kdesc(ahi), kdesc(bhi), 1);
+}
+
+// The register A operands of the K columns of a 64 x K accumulator
+// fragment x (k step j: columns 8j..8j+7, in k_slot order), hi and lo.
+template <int K>
+__device__ __forceinline__ void split_frag(const float (&x)[K / 2],
+                                           uint32_t (&hi)[K / 8][4],
+                                           uint32_t (&lo)[K / 8][4]) {
+#pragma unroll
+  for (int j = 0; j < K / 8; ++j) {
+    split_tf32(x[4 * j + 0], hi[j][0], lo[j][0]);   // (r, 2t)
+    split_tf32(x[4 * j + 2], hi[j][1], lo[j][1]);   // (r + 8, 2t)
+    split_tf32(x[4 * j + 1], hi[j][2], lo[j][2]);   // (r, 2t + 1)
+    split_tf32(x[4 * j + 3], hi[j][3], lo[j][3]);   // (r + 8, 2t + 1)
+  }
+}
+
+// The producer works in units of two U-row blocks (8 KB each): q's 128
+// rows in NQ units, then each key tile's K and V rows as one. A ring of
+// RAW units in flight by cp.async (64 KB at D 32) feeds it; each unit is
+// split into the q slot or a stage of the converted ring.
+template <int D>
+struct FwdLayout {
+  static constexpr int U = 2048 / D;             // rows a producer block
+  static constexpr int BN = U;                   // key rows a tile
+  static constexpr int NQ = BM / (2 * U);        // units of q's 128 rows
+  static constexpr int Q_HALF = BM * D * 4;      // q hi or lo, 128 rows
+  static constexpr int HALF = BN * D * 4;        // K hi, K lo, V^T hi or lo
+  static constexpr int STAGE = 4 * HALF;
+  static constexpr int STAGES = D == 32 ? 3 : 2;
+  static constexpr int RAW = D == 32 ? 4 : 2;    // units in flight
+  static constexpr int RAW_UNIT = 2 * U * D * 4;
+  static constexpr int SMEM = QSLOTS * 2 * Q_HALF + STAGES * STAGE +
+                              RAW * RAW_UNIT + 1024;
+};
+
+// A query block of the walk: block index -> (m block, b, h), heaviest
+// (last query rows) first, and the key tiles its rows see.
+struct Item {
+  int b, h, kvh, q0, ntiles;
+  __device__ __forceinline__ Item(int i, int B, int H, int KV, int Sq,
+                                  int Skv, int nm, bool causal, int bn) {
+    const int bh = i % (B * H);
+    h = bh % H;
+    b = bh / H;
+    kvh = h / (H / KV);
+    q0 = (nm - 1 - i / (B * H)) * BM;
+    int kv_end = Skv;
+    if (causal) kv_end = min(Skv, max(0, q0 + BM + Skv - Sq));
+    ntiles = (kv_end + bn - 1) / bn;
+  }
+};
+
+// Persistent: a block a streaming multiprocessor walks the query blocks
+// i = blockIdx.x, + gridDim.x, ... The producer runs ahead across them (q
+// of the next block into the other of QSLOTS slots, its tiles into the
+// ring) while the consumers finish the last one.
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+fa_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, float* __restrict__ o,
+               float* __restrict__ lse, int B, int H, int KV, int Sq,
+               int Skv, int nm, bool causal, float scale_log2) {
+  using L = FwdLayout<D>;
+  constexpr int BN = L::BN, U = L::U, NQ = L::NQ, STAGES = L::STAGES;
+  constexpr int KS = D / 8;             // k steps over D
+  constexpr int NO = D / 2;             // O accumulator registers a thread
+  constexpr int NS = BN / 2;            // S accumulator registers a thread
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t bars[2 * QSLOTS + 2 * STAGES];
+  const uint32_t s_q = (smem_u32(smem_raw) + 1023u) & ~1023u;  // + slot
+  const uint32_t ring = s_q + QSLOTS * 2 * L::Q_HALF;          // + stage
+  const uint32_t raw = ring + STAGES * L::STAGE;               // + unit
+  const uint32_t bar_qfull = smem_u32(&bars[0]);               // + 8 * slot
+  const uint32_t bar_qempty = smem_u32(&bars[QSLOTS]);
+  const uint32_t bar_full = smem_u32(&bars[2 * QSLOTS]);       // + 8 * stage
+  const uint32_t bar_empty = smem_u32(&bars[2 * QSLOTS + STAGES]);
+  const int items = nm * B * H;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < QSLOTS; ++s) {
+      mbar_init(bar_qfull + 8 * s, 128);  // one arrival a producer thread
+      mbar_init(bar_qempty + 8 * s, 8);   // one arrival a consumer warp
+    }
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(bar_full + 8 * s, 128);
+      mbar_init(bar_empty + 8 * s, 8);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // -- producer: q of each query block, then its (K, V) tiles, a unit at
+    //    a time; the copies run RAW units ahead
+    setmaxnreg_dec<PRODUCER_REGS>();
+    const int p = threadIdx.x;
+    if ((int)blockIdx.x >= items) return;
+    auto item = [&](int i) {
+      return Item(i, B, H, KV, Sq, Skv, nm, causal, BN);
+    };
+    int ci = blockIdx.x, cw = 0;        // the next unit to copy
+    Item cit = item(ci);
+    auto copy_next = [&](int slot) {
+      if (ci < items) {
+        const uint32_t dst = raw + slot * L::RAW_UNIT;
+        if (cw < NQ) {
+          const float* src = q + (size_t)(cit.b * H + cit.h) * Sq * D;
+          const int r0 = cit.q0 + 2 * U * cw;
+          Rows<D, U>::copy(dst, src, r0, Sq, p);
+          Rows<D, U>::copy(dst + L::RAW_UNIT / 2, src, r0 + U, Sq, p);
+        } else {
+          const size_t base = (size_t)(cit.b * KV + cit.kvh) * Skv * D;
+          const int r0 = (cw - NQ) * BN;
+          Rows<D, U>::copy(dst, k + base, r0, Skv, p);
+          Rows<D, U>::copy(dst + L::RAW_UNIT / 2, v + base, r0, Skv, p);
+        }
+        if (++cw == NQ + cit.ntiles) {
+          cw = 0;
+          ci += gridDim.x;
+          if (ci < items) cit = item(ci);
+        }
+      }
+      cp_async_commit();                // an empty group past the end
+    };
+#pragma unroll 1
+    for (int a = 0; a < L::RAW; ++a) copy_next(a);
+    Item it = item(blockIdx.x);
+    int w = 0, n = 0, t = 0;            // unit of the item, items, tiles
+#pragma unroll 1
+    for (int i = blockIdx.x, u = 0; i < items; ++u) {
+      const int slot = u % L::RAW;
+      cp_async_wait<L::RAW - 1>();      // this thread's copies of unit u
+      Rows<D, U> x, y;
+      x.read(raw + slot * L::RAW_UNIT, p);
+      y.read(raw + slot * L::RAW_UNIT + L::RAW_UNIT / 2, p);
+      if (w < NQ) {
+        const int qs = n % QSLOTS;
+        if (w == 0 && n >= QSLOTS)
+          mbar_wait(bar_qempty + 8 * qs, ((n / QSLOTS) + 1) & 1);
+        const uint32_t hi = s_q + qs * 2 * L::Q_HALF;
+        x.store(hi, hi + L::Q_HALF, p, BM * 128, 2 * U * w);
+        y.store(hi, hi + L::Q_HALF, p, BM * 128, 2 * U * w + U);
+        if (w == NQ - 1) {
+          fence_proxy_async();
+          mbar_arrive(bar_qfull + 8 * qs);
+        }
+      } else {
+        const int s = t % STAGES;
+        if (t >= STAGES) mbar_wait(bar_empty + 8 * s, ((t / STAGES) + 1) & 1);
+        const uint32_t st = ring + s * L::STAGE;
+        x.store(st, st + L::HALF, p);
+        y.store_t(st + 2 * L::HALF, st + 3 * L::HALF, p);
+        fence_proxy_async();
+        mbar_arrive(bar_full + 8 * s);
+        ++t;
+      }
+      copy_next(slot);                  // x and y are read: reuse the slot
+      if (++w == NQ + it.ntiles) {
+        w = 0;
+        ++n;
+        i += gridDim.x;
+        if (i < items) it = item(i);
+      }
+    }
+    return;
+  }
+
+  // -- consumers: 64 query rows each of every query block of the walk ------
+  setmaxnreg_inc<CONSUMER_REGS>();
+  const int cw = wg - 1;
+  const int t128 = threadIdx.x % 128;
+  const int lane = t128 % 32;
+  const int quad = lane % 4;
+  const int q_offset = Skv - Sq;
+  int t = 0;                            // tiles consumed
+  for (int i = blockIdx.x, n = 0; i < items; i += gridDim.x, ++n) {
+    const Item it(i, B, H, KV, Sq, Skv, nm, causal, BN);
+    const int wg_row0 = it.q0 + cw * 64;
+    const int r_lo = wg_row0 + (t128 / 32) * 16 + lane / 4;  // and + 8
+    const int slot = n % QSLOTS;
+    const uint32_t qhi = s_q + slot * 2 * L::Q_HALF + cw * 64 * 128;
+    const uint32_t qlo = qhi + L::Q_HALF;
+    mbar_wait(bar_qfull + 8 * slot, (n / QSLOTS) & 1);
+
+    float oacc[NO];
+#pragma unroll
+    for (int x = 0; x < NO; ++x) oacc[x] = 0.0f;
+    float m0 = -CUDART_INF_F, m1 = -CUDART_INF_F;  // rows r_lo, r_lo + 8
+    float l0 = 0.0f, l1 = 0.0f;                    // this thread's part
+
+    for (int j0 = 0; j0 < it.ntiles; ++j0, ++t) {
+      const int s = t % STAGES;
+      mbar_wait(bar_full + 8 * s, (t / STAGES) & 1);
+      const uint32_t st = ring + s * L::STAGE;
+
+      // S = q k^T, 64 x BN fp32, three tf32 products a k step
+      float sacc[NS];
+      fence_regs(sacc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        const uint32_t a = (kk / 4) * (BM * 128) + (kk % 4) * 32;
+        const uint32_t off = (kk / 4) * (BN * 128) + (kk % 4) * 32;
+        mma3_ss<BN>(sacc, qhi + a, qlo + a, st + off, st + L::HALF + off,
+                    kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(sacc);
+
+      // scale, mask, online softmax (base 2)
+      const int kv0 = j0 * BN;
+      const bool mask = kv0 + BN > Skv ||
+                        (causal && kv0 + BN - 1 > wg_row0 + q_offset);
+      float mx0 = -CUDART_INF_F, mx1 = -CUDART_INF_F;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          float x0 = sacc[4 * j + c] * scale_log2;
+          float x1 = sacc[4 * j + 2 + c] * scale_log2;
+          if (mask) {
+            const int col = kv0 + 8 * j + 2 * quad + c;
+            if (col >= Skv || (causal && col > r_lo + q_offset))
+              x0 = -CUDART_INF_F;
+            if (col >= Skv || (causal && col > r_lo + 8 + q_offset))
+              x1 = -CUDART_INF_F;
+          }
+          sacc[4 * j + c] = x0;
+          sacc[4 * j + 2 + c] = x1;
+          mx0 = fmaxf(mx0, x0);
+          mx1 = fmaxf(mx1, x1);
+        }
+      }
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+      }
+      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+      const float ms0 = mn0 == -CUDART_INF_F ? 0.0f : mn0;
+      const float ms1 = mn1 == -CUDART_INF_F ? 0.0f : mn1;
+      const float alpha0 = exp2f(m0 - ms0), alpha1 = exp2f(m1 - ms1);
+      m0 = mn0;
+      m1 = mn1;
+      float ps0 = 0.0f, ps1 = 0.0f;
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        sacc[4 * j + 0] = exp2f(sacc[4 * j + 0] - ms0);
+        sacc[4 * j + 1] = exp2f(sacc[4 * j + 1] - ms0);
+        sacc[4 * j + 2] = exp2f(sacc[4 * j + 2] - ms1);
+        sacc[4 * j + 3] = exp2f(sacc[4 * j + 3] - ms1);
+        ps0 += sacc[4 * j + 0] + sacc[4 * j + 1];
+        ps1 += sacc[4 * j + 2] + sacc[4 * j + 3];
+      }
+      uint32_t phi[BN / 8][4], plo[BN / 8][4];
+      split_frag<BN>(sacc, phi, plo);
+      l0 = alpha0 * l0 + ps0;
+      l1 = alpha1 * l1 + ps1;
+#pragma unroll
+      for (int j = 0; j < NO / 4; ++j) {
+        oacc[4 * j + 0] *= alpha0;
+        oacc[4 * j + 1] *= alpha0;
+        oacc[4 * j + 2] *= alpha1;
+        oacc[4 * j + 3] *= alpha1;
+      }
+
+      // O += (P_hi + P_lo)(V_hi + V_lo), V^T read K-major along the keys
+      fence_regs(oacc);
+      fence_regs(phi);
+      fence_regs(plo);
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const uint32_t off = (j / 4) * (D * 128) + (j % 4) * 32;
+        mma3_rs<D>(oacc, phi[j], plo[j], st + 2 * L::HALF + off,
+                   st + 3 * L::HALF + off, 1);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(oacc);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar_empty + 8 * s);
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar_qempty + 8 * slot);
+
+    // the row's four threads hold parts of l
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+      l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+    }
+    const float inv0 = 1.0f / (l0 == 0.0f ? 1.0f : l0);
+    const float inv1 = 1.0f / (l1 == 0.0f ? 1.0f : l1);
+    if (lse != nullptr && quad == 0) {
+      // natural-log row logsumexp: m is in log2 units of the scaled logits
+      constexpr float LN2 = 0.6931471805599453f;
+      float* lb = lse + (size_t)(it.b * H + it.h) * Sq;
+      if (r_lo < Sq)
+        lb[r_lo] = l0 == 0.0f ? -CUDART_INF_F : (m0 + log2f(l0)) * LN2;
+      if (r_lo + 8 < Sq)
+        lb[r_lo + 8] = l1 == 0.0f ? -CUDART_INF_F : (m1 + log2f(l1)) * LN2;
+    }
+    float* ob = o + (size_t)(it.b * H + it.h) * Sq * D;
+#pragma unroll
+    for (int j = 0; j < NO / 4; ++j) {
+      const int col = 8 * j + 2 * quad;
+      if (r_lo < Sq)
+        *reinterpret_cast<float2*>(ob + (size_t)r_lo * D + col) =
+            make_float2(oacc[4 * j + 0] * inv0, oacc[4 * j + 1] * inv0);
+      if (r_lo + 8 < Sq)
+        *reinterpret_cast<float2*>(ob + (size_t)(r_lo + 8) * D + col) =
+            make_float2(oacc[4 * j + 2] * inv1, oacc[4 * j + 3] * inv1);
+    }
+  }
+}
+
+// Streaming multiprocessors of the current device, read once a device.
+inline int sm_count() {
+  static int sms[port::kMaxDevices] = {};
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess) return 0;
+  if (dev < port::kMaxDevices && sms[dev] > 0) return sms[dev];
+  int n = 0;
+  if (cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+      cudaSuccess)
+    return 0;
+  if (dev < port::kMaxDevices) sms[dev] = n;
+  return n;
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           long long B, long long H, long long KV, long long Sq,
+           long long Skv, bool causal, float scale, cudaStream_t st) {
+  const int smem = FwdLayout<D>::SMEM;
+  static bool attr_set[port::kMaxDevices] = {};
+  const cudaError_t err =
+      port::set_smem_once(attr_set, fa_tf32_kernel<D>, smem);
+  if (err != cudaSuccess) return (int)err;
+  const long long nm = (Sq + BM - 1) / BM;
+  const long long items = nm * B * H;
+  const int sms = sm_count();
+  if (items > 0x7fffffffLL || sms < 1) return (int)cudaErrorInvalidValue;
+  const long long blocks = items < sms ? items : sms;
+  fa_tf32_kernel<D><<<(unsigned)blocks, THREADS, smem, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), lse, (int)B,
+      (int)H, (int)KV, (int)Sq, (int)Skv, (int)nm, causal, scale * LOG2E);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace tf32
+
+// Kernel bodies of the two entries, for the launch counts their wrappers
+// read (`flash_attention_launches`).
+enum Body {
+  kFwdWgmma = 0,      // bf16, D 64 and 128: tc::fa_wgmma_kernel
+  kFwdTf32 = 1,       // fp32, D 32 and 64: tf32::fa_tf32_kernel
+  kFwdCudaCores = 2,  // bf16 at D 32, fp32 at D 128: flash_attention_kernel
+  kBwdWgmma = 3,      // bf16, D 64 and 128: the three bwd_tc kernels
+  kBwdTf32 = 4,       // fp32, D 32: the three bwd_tf32 kernels
+  kBwdCudaCores = 5,  // bf16 at D 32, fp32 at D 64 and 128: bwd's three
+  kBodies = 6
+};
+
+// Launches of each body on the calling thread: a forward kernel, or a
+// backward's three kernels, on one slice of the batch.
+thread_local long long body_launches[kBodies] = {};
+
+// Batches a launch takes: the CUDA-core bodies put the batch on grid z.
+constexpr long long kBatchSlice = 65535;
+
+// One slice of `flash_attention_fwd`: pointers at its first batch.
+int fwd_slice(const void* q, const void* k, const void* v, void* o,
+              float* lse, int dtype, long long B, long long H, long long KV,
+              long long Sq, long long Skv, long long D, bool causal,
+              float scale, cudaStream_t st) {
+  int err = (int)cudaErrorInvalidValue;
+  Body body = kBodies;
+  if (dtype == 0 && (D == 32 || D == 64)) {
+    body = kFwdTf32;
+    err = D == 32 ? tf32::launch<32>(q, k, v, o, lse, B, H, KV, Sq, Skv,
+                                     causal, scale, st)
+                  : tf32::launch<64>(q, k, v, o, lse, B, H, KV, Sq, Skv,
+                                     causal, scale, st);
+  } else if (dtype == 0 && D == 128) {
+    body = kFwdCudaCores;
+    err = launch<float, 128>(q, k, v, o, lse, B, H, KV, Sq, Skv, causal,
+                             scale, st);
+  } else if (dtype == 1 && (D == 64 || D == 128)) {
+    body = kFwdWgmma;
+    err = D == 64 ? tc::launch<64>(q, k, v, o, lse, B, H, KV, Sq, Skv,
+                                   causal, scale, st)
+                  : tc::launch<128>(q, k, v, o, lse, B, H, KV, Sq, Skv,
+                                    causal, scale, st);
+  } else if (dtype == 1 && D == 32) {
+    body = kFwdCudaCores;
+    err = launch<__nv_bfloat16, 32>(q, k, v, o, lse, B, H, KV, Sq, Skv,
+                                    causal, scale, st);
+  }
+  if (err == 0) ++body_launches[body];
+  return err;
+}
+
 }  // namespace
 
+// Launches of a kernel body (enum Body: 0 bf16 forward on wgmma, 1 fp32
+// forward in 3xTF32, 2 forward on the CUDA cores, 3-5 the backward's the
+// same way) made on the calling thread, counted where they are launched:
+// one a forward kernel, or a backward's three kernels, on one slice of at
+// most 65,535 batches.
+extern "C" long long flash_attention_launches(int body) {
+  return body >= 0 && body < kBodies ? body_launches[body] : -1;
+}
+
 // q (B, H, Sq, D), k/v (B, KV, Skv, D), o (B, H, Sq, D), all contiguous
-// on one device, of one type: dtype 0 = fp32 (the CUDA-core body), 1 =
-// bf16 (the tensor cores at D 64 and 128, the CUDA-core body at D 32).
+// on one device, of one type: dtype 0 = fp32 (3xTF32 on the tensor cores
+// at D 32 and 64, the CUDA-core body at D 128), 1 = bf16 (the tensor
+// cores at D 64 and 128, the CUDA-core body at D 32). Any B >= 1.
 // lse: null (serving), or an fp32 (B, H, Sq) buffer that receives each
 // row's logsumexp of its scaled logits for the backward (natural log,
 // -inf for a row with no visible key); writing it changes no output bit.
-// D in {32, 64, 128}; H % KV == 0. Returns cudaGetLastError().
+// D in {32, 64, 128}; H % KV == 0. Returns the first cudaError_t that is
+// not cudaSuccess, else cudaSuccess.
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* o, float* lse,
                                    int dtype, long long B, long long H,
@@ -616,22 +1241,20 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    long long D, int causal, float scale,
                                    void* stream) {
   if (B < 1 || H < 1 || KV < 1 || H % KV != 0 || Sq < 1 || Skv < 1 ||
-      H > 65535 || B > 65535)
+      H > 65535 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0)
-    return launch_fp32(q, k, v, o, lse, B, H, KV, Sq, Skv, D, causal != 0,
-                       scale, st);
-  if (dtype == 1 && D == 128)
-    return tc::launch<128>(q, k, v, o, lse, B, H, KV, Sq, Skv, causal != 0,
-                           scale, st);
-  if (dtype == 1 && D == 64)
-    return tc::launch<64>(q, k, v, o, lse, B, H, KV, Sq, Skv, causal != 0,
-                          scale, st);
-  if (dtype == 1 && D == 32)
-    return launch<__nv_bfloat16, 32>(q, k, v, o, lse, B, H, KV, Sq, Skv,
-                                     causal != 0, scale, st);
-  return (int)cudaErrorInvalidValue;
+  const long long es = dtype == 0 ? 4 : 2;
+  for (long long b0 = 0; b0 < B; b0 += kBatchSlice) {
+    const long long nb = B - b0 < kBatchSlice ? B - b0 : kBatchSlice;
+    const long long qo = b0 * H * Sq * D * es, ko = b0 * KV * Skv * D * es;
+    const int err = fwd_slice(
+        static_cast<const char*>(q) + qo, static_cast<const char*>(k) + ko,
+        static_cast<const char*>(v) + ko, static_cast<char*>(o) + qo,
+        lse == nullptr ? nullptr : lse + b0 * H * Sq, dtype, nb, H, KV, Sq,
+        Skv, D, causal != 0, scale, (cudaStream_t)stream);
+    if (err != 0) return err;
+  }
+  return 0;
 }
 
 // ---------------------------------------------------------------------------
@@ -651,7 +1274,9 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
 // What bounds it on an H100 SXM: operations. The least work is five
 // products of Sq x Skv x D a head (S, dP, dV, dK, dQ: 10 * pairs * D
 // FLOPs, pairs = B * H * Sq * Skv, about half under the causal mask),
-// against the bytes of q, k, v, o, dO and the three gradients once.
+// against the bytes of q, k, v, o, dO and the three gradients once: in
+// bf16 at 989 TFLOP/s, in fp32 as 3 x 10 * pairs * D FLOPs at 495 TFLOP/s
+// of TF32 (3xTF32, as the forward).
 //
 // bf16 at D 64 and 128: the tensor cores (namespace bwd_tc), three
 // launches, each with a producer warpgroup (one thread issues every TMA
@@ -681,14 +1306,43 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
 // * D FLOPs (dK/dV: 2 score products + 2 x 2 split ones; dQ: 2 + 2), 2x
 // the least work, at up to 989 TFLOP/s.
 //
-// fp32 (any D) and bf16 at D 32 (a 64-byte row is below the swizzle):
-// the CUDA-core body (namespace bwd), three launches: bwd_delta_kernel
+// fp32 at D 32 (MiniLM's and BERT4Rec's): the tensor cores in 3xTF32
+// (namespace bwd_tf32), the same three launches and block shapes as
+// bwd_tc (prep_kernel, bwd_dkdv_tf32_kernel, bwd_dq_tf32_kernel; no
+// atomics, each sum in a fixed order), every product a_lo b_hi + a_hi
+// b_lo + a_hi b_hi on `wgmma` .tf32 as in the forward (emulated in
+// tests/test_torch_kernels_attention.py, where one TF32 product misses
+// the fp32 rule). .tf32 operands are K-major only, so the producer
+// warpgroup splits each input and lays out every operand a product
+// reads: the dK/dV kernel keeps K and V (hi, lo) and streams (Q, dO)
+// tiles both K-major along D (for S^T = K Q^T, dP^T = V dO^T) and
+// transposed (Q^T, dO^T, K-major along the queries, for dV += P^T dO and
+// dK += dS^T Q), each value split once for both; the dQ kernel keeps q
+// and dO and streams K and V along D and K^T along the keys (for dQ +=
+// dS K). Its input comes through a cp.async ring as the forward's. A
+// transposed copy writes its columns in the k order of a register A
+// operand taken from an accumulator fragment (0, 2, 4, 6, 1, 3, 5, 7
+// within each 8; P^T and dS^T enter from registers). The dK/dV consumers
+// read their columns' lse2 and Delta from the scratch while S^T and dP^T
+// run, and add dV and dK one after the other (both products' operands at
+// once would not fit the registers). At D 32 each kernel's kept rows,
+// ring and copies take 209-225 KB of shared memory: D 64 and 128 would
+// not fit. Executed: 3 x 14 * pairs * D FLOPs (S and dP in both kernels)
+// at up to 495 TFLOP/s.
+//
+// bf16 at D 32 (a 64-byte row is below the swizzle) and fp32 at D 64 and
+// 128: the CUDA-core body (namespace bwd, the first backward), three
+// launches: bwd_delta_kernel
 // (Delta, as above); bwd_dkdv_kernel, a block a key tile of BKV rows of
 // one (b, kv head) that keeps K and V in shared memory while it walks the
 // query tiles of the group that see it; bwd_dq_kernel, a block a query
 // tile that walks the key tiles its rows see. 64 x 64 tiles, fp32 in
 // shared memory, each product an ascending-d fmaf chain: exact fp32
 // products, 14 * pairs * D FLOPs at 67 TFLOP/s at best.
+//
+// Any batch: the entry runs batches in slices of at most 65,535 (the
+// CUDA-core body's grid z), each slice's three launches reusing the
+// scratch from its start.
 // ---------------------------------------------------------------------------
 namespace {
 namespace bwd {
@@ -989,27 +1643,6 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* o,
       tq, tk, tv, tg, lse, delta, static_cast<T*>(dq), (int)H, (int)KV,
       (int)Sq, (int)Skv, causal, scale);
   return (int)cudaGetLastError();
-}
-
-int launch_bwd_fp32(long long D, const void* q, const void* k,
-                    const void* v, const void* o, const void* dout,
-                    const float* lse, float* delta, void* dq, void* dk,
-                    void* dv, long long B, long long H, long long KV,
-                    long long Sq, long long Skv, bool causal, float scale,
-                    cudaStream_t st) {
-  switch (D) {
-    case 32:
-      return launch_bwd<float, 32>(q, k, v, o, dout, lse, delta, dq, dk, dv,
-                                   B, H, KV, Sq, Skv, causal, scale, st);
-    case 64:
-      return launch_bwd<float, 64>(q, k, v, o, dout, lse, delta, dq, dk, dv,
-                                   B, H, KV, Sq, Skv, causal, scale, st);
-    case 128:
-      return launch_bwd<float, 128>(q, k, v, o, dout, lse, delta, dq, dk, dv,
-                                    B, H, KV, Sq, Skv, causal, scale, st);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
 }
 
 }  // namespace bwd
@@ -1475,9 +2108,6 @@ bwd_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tq,    // 128 rows
   }
 }
 
-// Calls on this thread that launched this body's three kernels.
-thread_local long long calls = 0;
-
 // Rows of lse2 and Delta a (b, h) in the scratch.
 inline long long padded_rows(long long Sq) {
   return (Sq + PAD - 1) / PAD * PAD;
@@ -1540,17 +2170,593 @@ int launch(const void* q, const void* k, const void* v, const void* o,
       q128, do128, k64, v64, lse2, delta, static_cast<__nv_bfloat16*>(dq),
       (int)B, (int)H, (int)KV, (int)Sq, (int)Skv, (int)Sqp, (int)nm, causal,
       scale, sl2);
-  err = cudaGetLastError();
-  if (err == cudaSuccess) ++calls;
-  return (int)err;
+  return (int)cudaGetLastError();
 }
 
 }  // namespace bwd_tc
-}  // namespace
 
-// Calls of `flash_attention_bwd` on the calling thread that launched the
-// tensor-core body, counted where its kernels are launched.
-extern "C" long long flash_attention_bwd_tc_calls() { return bwd_tc::calls; }
+namespace bwd_tf32 {
+
+using namespace hopper;
+using tf32::kdesc;
+using tf32::mma3_rs;
+using tf32::mma3_ss;
+using tf32::Rows;
+using tf32::split_frag;
+
+constexpr int THREADS = 384;            // producer + 2 consumer warpgroups
+constexpr int BIG = 128;                // rows a block owns (2 x 64)
+constexpr int TILE = 64;                // rows of a streamed tile
+constexpr int STAGES = 2;               // converted tiles in flight
+constexpr int PRODUCER_REGS = 88;       // 128 x 88 + 256 x 208 <= 65,536
+constexpr int CONSUMER_REGS = 208;
+
+// The producer works in units of two 64-row blocks (8 KB each at D 32),
+// copied RAW units ahead by cp.async: first the block's two kept
+// matrices (a unit each: rows 0-63 and 64-127), then one unit a tile.
+template <int D>
+struct Layout {
+  static constexpr int BIG_HALF = BIG * D * 4;     // hi or lo of 128 rows
+  static constexpr int TILE_HALF = TILE * D * 4;   // hi or lo of 64 rows
+  // the two 128-row matrices a block keeps, hi and lo
+  static constexpr int KEEP = 4 * BIG_HALF;
+  static constexpr int RAW_UNIT = 2 * TILE * D * 4;
+  // dK/dV: a stage is Q, dO (hi, lo) K-major along D, then Q^T, dO^T (hi,
+  // lo) K-major along the queries
+  static constexpr int DKDV_STAGE = 8 * TILE_HALF;
+  static constexpr int DKDV_RAW = 2;
+  static constexpr int DKDV_SMEM =
+      KEEP + STAGES * DKDV_STAGE + DKDV_RAW * RAW_UNIT + 1024;
+  // dQ: a stage is K, V (hi, lo) K-major along D, then K^T (hi, lo)
+  static constexpr int DQ_STAGE = 6 * TILE_HALF;
+  static constexpr int DQ_RAW = 3;
+  static constexpr int DQ_SMEM =
+      KEEP + STAGES * DQ_STAGE + DQ_RAW * RAW_UNIT + 1024;
+};
+
+constexpr int PREP_THREADS = 256;
+
+// lse2 = lse * log2(e) (+inf where the row sees no key or lies past Sq)
+// and Delta = rowsum(dO o) (0 past Sq), Sqp rows a (b, h), as
+// bwd_tc::bwd_prep_kernel; D / 4 lanes a row, a float4 each, summed by
+// a fixed shuffle tree.
+template <int D>
+__global__ void __launch_bounds__(PREP_THREADS)
+prep_kernel(const float* __restrict__ o, const float* __restrict__ dout,
+            const float* __restrict__ lse, float* __restrict__ lse2,
+            float* __restrict__ delta, long long rows, int Sq, int Sqp) {
+  constexpr int LPR = D / 4;            // lanes a row
+  const long long r = ((long long)blockIdx.x * PREP_THREADS + threadIdx.x) /
+                      LPR;
+  const int part = threadIdx.x % LPR;
+  const bool in = r < rows;
+  const long long bh = in ? r / Sqp : 0;
+  const int row = in ? (int)(r % Sqp) : Sq;
+  float acc = 0.0f, l2 = CUDART_INF_F;
+  if (row < Sq) {
+    const size_t src = (size_t)(bh * Sq + row);
+    const float4 a = __ldg(reinterpret_cast<const float4*>(o + src * D) + part);
+    const float4 g =
+        __ldg(reinterpret_cast<const float4*>(dout + src * D) + part);
+    acc = fmaf(a.w, g.w, fmaf(a.z, g.z, fmaf(a.y, g.y, a.x * g.x)));
+    const float l = lse[src];
+    if (l != -CUDART_INF_F) l2 = l * tf32::LOG2E;
+  }
+#pragma unroll
+  for (int off = LPR / 2; off > 0; off >>= 1)
+    acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (in && part == 0) {
+    lse2[r] = l2;
+    delta[r] = acc;
+  }
+}
+
+// The producer's walk over a block's units: `copy(u, dst)` issues unit
+// u's copies (if u < n) and commits a group; `take(u)` waits for unit u,
+// reads it back and hands it to `put(u, x, y)`; the copies run RAW units
+// ahead.
+template <int D, int RAW, class Copy, class Put>
+__device__ __forceinline__ void walk_units(int n, uint32_t raw, int p,
+                                           Copy copy, Put put) {
+  constexpr int UNIT = 2 * TILE * D * 4;
+#pragma unroll 1
+  for (int u = 0; u < RAW; ++u) {
+    if (u < n) copy(u, raw + u * UNIT);
+    cp_async_commit();
+  }
+#pragma unroll 1
+  for (int u = 0; u < n; ++u) {
+    const uint32_t slot = raw + (u % RAW) * UNIT;
+    cp_async_wait<RAW - 1>();           // this thread's copies of unit u
+    Rows<D, TILE> x, y;
+    x.read(slot, p);
+    y.read(slot + UNIT / 2, p);
+    put(u, x, y);                       // x and y used: reuse the slot
+    if (u + RAW < n) copy(u + RAW, slot);
+    cp_async_commit();
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+bwd_dkdv_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v,
+                     const float* __restrict__ dout,
+                     const float* __restrict__ lse2,
+                     const float* __restrict__ delta, float* __restrict__ dk,
+                     float* __restrict__ dv, int B, int H, int KV, int Sq,
+                     int Skv, int Sqp, bool causal, float scale,
+                     float scale_log2) {
+  using L = Layout<D>;
+  constexpr int TH = L::TILE_HALF;
+  constexpr int KS = D / 8;             // k steps over D
+  constexpr int NA = D / 2;             // dK, dV accumulator registers
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t bars[1 + 2 * STAGES];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t s_khi = base, s_klo = base + L::BIG_HALF;
+  const uint32_t s_vhi = base + 2 * L::BIG_HALF;
+  const uint32_t s_vlo = base + 3 * L::BIG_HALF;
+  const uint32_t s_ring = base + L::KEEP;           // + stage * DKDV_STAGE
+  const uint32_t s_raw = s_ring + STAGES * L::DKDV_STAGE;
+  const uint32_t bar_kv = smem_u32(&bars[0]);
+  const uint32_t bar_full = smem_u32(&bars[1]);             // + 8 * stage
+  const uint32_t bar_empty = smem_u32(&bars[1 + STAGES]);   // + 8 * stage
+
+  // key tiles in order: under the causal mask the first sees the most
+  // query tiles, so the heaviest blocks start first
+  const int bkv = blockIdx.x % (B * KV);
+  const int k0 = (int)(blockIdx.x / (B * KV)) * BIG;
+  const int kvh = bkv % KV;
+  const int b = bkv / KV;
+  const int G = H / KV;
+  const int q_offset = Skv - Sq;
+  // the first query tile with a row that sees key k0; tiles t of the walk:
+  // head kvh * G + t / nqt, query tile qt0 + t % nqt
+  const int qt0 = causal ? max(0, k0 - q_offset) / TILE : 0;
+  const int nqt = max(0, (Sq + TILE - 1) / TILE - qt0);
+  const int ntiles = G * nqt;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_kv, 128);             // one arrival a producer thread
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(bar_full + 8 * s, 128);
+      mbar_init(bar_empty + 8 * s, 8);  // one arrival a consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // -- producer: K and V, then the (Q, dO) tiles, split and laid out
+    setmaxnreg_dec<PRODUCER_REGS>();
+    const int p = threadIdx.x;
+    const size_t kv_base = (size_t)(b * KV + kvh) * Skv * D;
+    auto copy = [&](int u, uint32_t dst) {
+      if (u < 2) {
+        const float* src = (u == 0 ? k : v) + kv_base;
+        Rows<D, TILE>::copy(dst, src, k0, Skv, p);
+        Rows<D, TILE>::copy(dst + L::RAW_UNIT / 2, src, k0 + TILE, Skv, p);
+      } else {
+        const int t = u - 2;
+        const int h = kvh * G + t / nqt;
+        const int q0 = (qt0 + t % nqt) * TILE;
+        const size_t qbase = (size_t)(b * H + h) * Sq * D;
+        Rows<D, TILE>::copy(dst, q + qbase, q0, Sq, p);
+        Rows<D, TILE>::copy(dst + L::RAW_UNIT / 2, dout + qbase, q0, Sq, p);
+      }
+    };
+    auto put = [&](int u, const Rows<D, TILE>& x, const Rows<D, TILE>& y) {
+      if (u < 2) {
+        const uint32_t hi = u == 0 ? s_khi : s_vhi;
+        x.store(hi, hi + L::BIG_HALF, p, BIG * 128, 0);
+        y.store(hi, hi + L::BIG_HALF, p, BIG * 128, TILE);
+        if (u == 1) {
+          fence_proxy_async();
+          mbar_arrive(bar_kv);
+        }
+        return;
+      }
+      const int t = u - 2, s = t % STAGES;
+      if (t >= STAGES) mbar_wait(bar_empty + 8 * s, ((t / STAGES) + 1) & 1);
+      const uint32_t st = s_ring + s * L::DKDV_STAGE;
+      x.store_both(st, st + TH, st + 4 * TH, st + 5 * TH, p);
+      y.store_both(st + 2 * TH, st + 3 * TH, st + 6 * TH, st + 7 * TH, p);
+      fence_proxy_async();
+      mbar_arrive(bar_full + 8 * s);
+    };
+    walk_units<D, L::DKDV_RAW>(2 + ntiles, s_raw, p, copy, put);
+    return;
+  }
+
+  // -- consumers: 64 key rows each -------------------------------------------
+  setmaxnreg_inc<CONSUMER_REGS>();
+  const int cw = wg - 1;
+  const int t128 = threadIdx.x % 128;
+  const int lane = t128 % 32;
+  const int quad = lane % 4;
+  const int kw0 = k0 + cw * 64;                        // the warpgroup's keys
+  const int key = kw0 + (t128 / 32) * 16 + lane / 4;   // and key + 8
+
+  float adk[NA], adv[NA];
+#pragma unroll
+  for (int i = 0; i < NA; ++i) adk[i] = adv[i] = 0.0f;
+
+  mbar_wait(bar_kv, 0);
+  const uint32_t kw = cw * 64 * 128;    // the warpgroup's rows in a kept half
+
+  for (int t = 0; t < ntiles; ++t) {
+    const int s = t % STAGES;
+    const int h = kvh * G + t / nqt;
+    const int q0 = (qt0 + t % nqt) * TILE;
+    mbar_wait(bar_full + 8 * s, (t / STAGES) & 1);
+    const uint32_t st = s_ring + s * L::DKDV_STAGE;
+
+    // S^T = K q^T and dP^T = V dO^T, 64 keys x 64 queries fp32
+    float sacc[32], pacc[32];
+    fence_regs(sacc);
+    fence_regs(pacc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      const uint32_t a = (kk / 4) * (BIG * 128) + kw + (kk % 4) * 32;
+      const uint32_t o = (kk / 4) * (TILE * 128) + (kk % 4) * 32;
+      mma3_ss<TILE>(sacc, s_khi + a, s_klo + a, st + o, st + TH + o, kk > 0);
+      mma3_ss<TILE>(pacc, s_vhi + a, s_vlo + a, st + 2 * TH + o,
+                    st + 3 * TH + o, kk > 0);
+    }
+    wgmma_commit();
+    // this thread's columns' lse2 and Delta while the products run (rows
+    // < Sqp: no bound check)
+    const size_t lrow = (size_t)(b * H + h) * Sqp + q0 + 2 * quad;
+    float2 lj[8], dj[8];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      lj[j] = __ldg(reinterpret_cast<const float2*>(lse2 + lrow + 8 * j));
+      dj[j] = __ldg(reinterpret_cast<const float2*>(delta + lrow + 8 * j));
+    }
+    wgmma_wait_all();
+    fence_regs(sacc);
+    fence_regs(pacc);
+
+    // P^T and dS^T in place: column c of the tile is query q0 + c
+    const bool mask = causal && kw0 + 63 > q0 + q_offset;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int col = 8 * j + 2 * quad + c;
+        const float l = c ? lj[j].y : lj[j].x, dl = c ? dj[j].y : dj[j].x;
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int x = 4 * j + 2 * i + c;
+          float p = exp2f(fmaf(sacc[x], scale_log2, -l));
+          if (mask && key + 8 * i > q0 + col + q_offset) p = 0.0f;
+          sacc[x] = p;
+          pacc[x] = p * (pacc[x] - dl);
+        }
+      }
+    }
+
+    // dV += P^T dO, then dK += dS^T q (dO^T, q^T K-major along the
+    // queries), one after the other: P's and dS's operands at once would
+    // not fit the registers
+    uint32_t phi[8][4], plo[8][4];
+    split_frag<TILE>(sacc, phi, plo);
+    fence_regs(adv);
+    fence_regs(phi);
+    fence_regs(plo);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const uint32_t off = (j / 4) * (D * 128) + (j % 4) * 32;
+      mma3_rs<D>(adv, phi[j], plo[j], st + 6 * TH + off, st + 7 * TH + off,
+                 1);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(adv);
+    uint32_t dhi[8][4], dlo[8][4];
+    split_frag<TILE>(pacc, dhi, dlo);
+    fence_regs(adk);
+    fence_regs(dhi);
+    fence_regs(dlo);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const uint32_t off = (j / 4) * (D * 128) + (j % 4) * 32;
+      mma3_rs<D>(adk, dhi[j], dlo[j], st + 4 * TH + off, st + 5 * TH + off,
+                 1);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(adv);
+    fence_regs(adk);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar_empty + 8 * s);
+  }
+
+  const size_t kv_base = (size_t)(b * KV + kvh) * Skv * D;
+#pragma unroll
+  for (int j = 0; j < NA / 4; ++j) {
+    const int col = 8 * j + 2 * quad;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      if (key + 8 * i >= Skv) continue;
+      const size_t off = kv_base + (size_t)(key + 8 * i) * D + col;
+      *reinterpret_cast<float2*>(dk + off) = make_float2(
+          adk[4 * j + 2 * i] * scale, adk[4 * j + 2 * i + 1] * scale);
+      *reinterpret_cast<float2*>(dv + off) =
+          make_float2(adv[4 * j + 2 * i], adv[4 * j + 2 * i + 1]);
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+bwd_dq_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v,
+                   const float* __restrict__ dout,
+                   const float* __restrict__ lse2,
+                   const float* __restrict__ delta, float* __restrict__ dq,
+                   int B, int H, int KV, int Sq, int Skv, int Sqp, int nm,
+                   bool causal, float scale, float scale_log2) {
+  using L = Layout<D>;
+  constexpr int TH = L::TILE_HALF;
+  constexpr int KS = D / 8;
+  constexpr int NA = D / 2;             // dQ accumulator registers
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t bars[1 + 2 * STAGES];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t s_qhi = base, s_qlo = base + L::BIG_HALF;
+  const uint32_t s_ghi = base + 2 * L::BIG_HALF;
+  const uint32_t s_glo = base + 3 * L::BIG_HALF;
+  const uint32_t s_ring = base + L::KEEP;           // + stage * DQ_STAGE
+  const uint32_t s_raw = s_ring + STAGES * L::DQ_STAGE;
+  const uint32_t bar_q = smem_u32(&bars[0]);
+  const uint32_t bar_full = smem_u32(&bars[1]);             // + 8 * stage
+  const uint32_t bar_empty = smem_u32(&bars[1 + STAGES]);   // + 8 * stage
+
+  // heaviest query block first: block index -> (m block, b, h)
+  const int bh = blockIdx.x % (B * H);
+  const int mb = nm - 1 - (int)(blockIdx.x / (B * H));
+  const int h = bh % H;
+  const int b = bh / H;
+  const int kvh = h / (H / KV);
+  const int q0 = mb * BIG;
+  const int q_offset = Skv - Sq;
+  int kv_end = Skv;
+  if (causal) kv_end = min(Skv, max(0, q0 + BIG + q_offset));
+  const int ntiles = (kv_end + TILE - 1) / TILE;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 128);              // one arrival a producer thread
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(bar_full + 8 * s, 128);
+      mbar_init(bar_empty + 8 * s, 8);  // one arrival a consumer warp
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // -- producer: q and dO, then the (K, V) tiles, split and laid out
+    setmaxnreg_dec<PRODUCER_REGS>();
+    const int p = threadIdx.x;
+    const size_t qbase = (size_t)(b * H + h) * Sq * D;
+    const size_t kv_base = (size_t)(b * KV + kvh) * Skv * D;
+    auto copy = [&](int u, uint32_t dst) {
+      if (u < 2) {
+        const float* src = (u == 0 ? q : dout) + qbase;
+        Rows<D, TILE>::copy(dst, src, q0, Sq, p);
+        Rows<D, TILE>::copy(dst + L::RAW_UNIT / 2, src, q0 + TILE, Sq, p);
+      } else {
+        const int r0 = (u - 2) * TILE;
+        Rows<D, TILE>::copy(dst, k + kv_base, r0, Skv, p);
+        Rows<D, TILE>::copy(dst + L::RAW_UNIT / 2, v + kv_base, r0, Skv, p);
+      }
+    };
+    auto put = [&](int u, const Rows<D, TILE>& x, const Rows<D, TILE>& y) {
+      if (u < 2) {
+        const uint32_t hi = u == 0 ? s_qhi : s_ghi;
+        x.store(hi, hi + L::BIG_HALF, p, BIG * 128, 0);
+        y.store(hi, hi + L::BIG_HALF, p, BIG * 128, TILE);
+        if (u == 1) {
+          fence_proxy_async();
+          mbar_arrive(bar_q);
+        }
+        return;
+      }
+      const int t = u - 2, s = t % STAGES;
+      if (t >= STAGES) mbar_wait(bar_empty + 8 * s, ((t / STAGES) + 1) & 1);
+      const uint32_t st = s_ring + s * L::DQ_STAGE;
+      x.store_both(st, st + TH, st + 4 * TH, st + 5 * TH, p);
+      y.store(st + 2 * TH, st + 3 * TH, p);
+      fence_proxy_async();
+      mbar_arrive(bar_full + 8 * s);
+    };
+    walk_units<D, L::DQ_RAW>(2 + ntiles, s_raw, p, copy, put);
+    return;
+  }
+
+  // -- consumers: 64 query rows each -----------------------------------------
+  setmaxnreg_inc<CONSUMER_REGS>();
+  const int cw = wg - 1;
+  const int t128 = threadIdx.x % 128;
+  const int lane = t128 % 32;
+  const int quad = lane % 4;
+  const int wg_row0 = q0 + cw * 64;
+  const int r_lo = wg_row0 + (t128 / 32) * 16 + lane / 4;    // and r_lo + 8
+  const size_t lrow = (size_t)bh * Sqp + r_lo;               // < Sqp rows
+  const float l0 = lse2[lrow], l1 = lse2[lrow + 8];
+  const float d0 = delta[lrow], d1 = delta[lrow + 8];
+
+  float adq[NA];
+#pragma unroll
+  for (int i = 0; i < NA; ++i) adq[i] = 0.0f;
+
+  mbar_wait(bar_q, 0);
+  const uint32_t qw = cw * 64 * 128;    // the warpgroup's rows in a kept half
+
+  for (int t = 0; t < ntiles; ++t) {
+    const int s = t % STAGES;
+    mbar_wait(bar_full + 8 * s, (t / STAGES) & 1);
+    const uint32_t st = s_ring + s * L::DQ_STAGE;
+
+    // S = q K^T and dP = dO V^T, 64 queries x 64 keys fp32
+    float sacc[32], pacc[32];
+    fence_regs(sacc);
+    fence_regs(pacc);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      const uint32_t a = (kk / 4) * (BIG * 128) + qw + (kk % 4) * 32;
+      const uint32_t o = (kk / 4) * (TILE * 128) + (kk % 4) * 32;
+      mma3_ss<TILE>(sacc, s_qhi + a, s_qlo + a, st + o, st + TH + o, kk > 0);
+      mma3_ss<TILE>(pacc, s_ghi + a, s_glo + a, st + 2 * TH + o,
+                    st + 3 * TH + o, kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(sacc);
+    fence_regs(pacc);
+
+    // dS in place of dP
+    const int kv0 = t * TILE;
+    const bool mask = kv0 + TILE > Skv ||
+                      (causal && kv0 + TILE - 1 > wg_row0 + q_offset);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        const int col = kv0 + 8 * j + 2 * quad + c;
+        float p0 = exp2f(fmaf(sacc[4 * j + c], scale_log2, -l0));
+        float p1 = exp2f(fmaf(sacc[4 * j + 2 + c], scale_log2, -l1));
+        if (mask) {
+          if (col >= Skv || (causal && col > r_lo + q_offset)) p0 = 0.0f;
+          if (col >= Skv || (causal && col > r_lo + 8 + q_offset)) p1 = 0.0f;
+        }
+        pacc[4 * j + c] = p0 * (pacc[4 * j + c] - d0);
+        pacc[4 * j + 2 + c] = p1 * (pacc[4 * j + 2 + c] - d1);
+      }
+    }
+
+    // dQ += dS K (K^T K-major along the keys)
+    uint32_t dhi[8][4], dlo[8][4];
+    split_frag<TILE>(pacc, dhi, dlo);
+    fence_regs(adq);
+    fence_regs(dhi);
+    fence_regs(dlo);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const uint32_t off = (j / 4) * (D * 128) + (j % 4) * 32;
+      mma3_rs<D>(adq, dhi[j], dlo[j], st + 4 * TH + off, st + 5 * TH + off,
+                 1);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(adq);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(bar_empty + 8 * s);
+  }
+
+  float* qb = dq + (size_t)(b * H + h) * Sq * D;
+#pragma unroll
+  for (int j = 0; j < NA / 4; ++j) {
+    const int col = 8 * j + 2 * quad;
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      if (r_lo + 8 * i >= Sq) continue;
+      *reinterpret_cast<float2*>(qb + (size_t)(r_lo + 8 * i) * D + col) =
+          make_float2(adq[4 * j + 2 * i] * scale,
+                      adq[4 * j + 2 * i + 1] * scale);
+    }
+  }
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, const void* o,
+           const void* dout, const float* lse, float* scratch, void* dq,
+           void* dk, void* dv, long long B, long long H, long long KV,
+           long long Sq, long long Skv, bool causal, float scale,
+           cudaStream_t st) {
+  using L = Layout<D>;
+  static bool set_dkdv[port::kMaxDevices] = {};
+  static bool set_dq[port::kMaxDevices] = {};
+  cudaError_t err = port::set_smem_once(set_dkdv, bwd_dkdv_tf32_kernel<D>,
+                                        L::DKDV_SMEM);
+  if (err == cudaSuccess)
+    err = port::set_smem_once(set_dq, bwd_dq_tf32_kernel<D>, L::DQ_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const long long Sqp = bwd_tc::padded_rows(Sq);
+  const long long rows = B * H * Sqp;
+  const long long nm = (Sq + BIG - 1) / BIG;
+  const long long g0 = (rows * (D / 4) + PREP_THREADS - 1) / PREP_THREADS;
+  const long long g1 = (Skv + BIG - 1) / BIG * B * KV;
+  const long long g2 = nm * B * H;
+  if (g0 > 0x7fffffffLL || g1 > 0x7fffffffLL || g2 > 0x7fffffffLL ||
+      rows > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  float* lse2 = scratch;
+  float* delta = scratch + rows;
+  const float sl2 = scale * tf32::LOG2E;
+  const float* tq = static_cast<const float*>(q);
+  const float* tk = static_cast<const float*>(k);
+  const float* tv = static_cast<const float*>(v);
+  const float* tg = static_cast<const float*>(dout);
+  prep_kernel<D><<<(unsigned)g0, PREP_THREADS, 0, st>>>(
+      static_cast<const float*>(o), tg, lse, lse2, delta, rows, (int)Sq,
+      (int)Sqp);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  bwd_dkdv_tf32_kernel<D><<<(unsigned)g1, THREADS, L::DKDV_SMEM, st>>>(
+      tq, tk, tv, tg, lse2, delta, static_cast<float*>(dk),
+      static_cast<float*>(dv), (int)B, (int)H, (int)KV, (int)Sq, (int)Skv,
+      (int)Sqp, causal, scale, sl2);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  bwd_dq_tf32_kernel<D><<<(unsigned)g2, THREADS, L::DQ_SMEM, st>>>(
+      tq, tk, tv, tg, lse2, delta, static_cast<float*>(dq), (int)B, (int)H,
+      (int)KV, (int)Sq, (int)Skv, (int)Sqp, (int)nm, causal, scale, sl2);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace bwd_tf32
+
+// One slice of `flash_attention_bwd`: pointers at its first batch.
+int bwd_slice(const void* q, const void* k, const void* v, const void* o,
+              const void* dout, const float* lse, float* scratch, void* dq,
+              void* dk, void* dv, int dtype, long long B, long long H,
+              long long KV, long long Sq, long long Skv, long long D,
+              bool causal, float scale, cudaStream_t st) {
+  int err = (int)cudaErrorInvalidValue;
+  Body body = kBodies;
+#define BWD_ARGS q, k, v, o, dout, lse, scratch, dq, dk, dv, B, H, KV, Sq, \
+                 Skv, causal, scale, st
+  if (dtype == 0 && D == 32) {
+    body = kBwdTf32;
+    err = bwd_tf32::launch<32>(BWD_ARGS);
+  } else if (dtype == 0 && (D == 64 || D == 128)) {
+    body = kBwdCudaCores;
+    err = D == 64 ? bwd::launch_bwd<float, 64>(BWD_ARGS)
+                  : bwd::launch_bwd<float, 128>(BWD_ARGS);
+  } else if (dtype == 1 && (D == 64 || D == 128)) {
+    body = kBwdWgmma;
+    err = D == 64 ? bwd_tc::launch<64>(BWD_ARGS)
+                  : bwd_tc::launch<128>(BWD_ARGS);
+  } else if (dtype == 1 && D == 32) {
+    body = kBwdCudaCores;
+    err = bwd::launch_bwd<__nv_bfloat16, 32>(BWD_ARGS);
+  }
+#undef BWD_ARGS
+  if (err == 0) ++body_launches[body];
+  return err;
+}
+
+}  // namespace
 
 // Floats of the fp32 scratch `flash_attention_bwd` takes as `delta`: two
 // arrays (lse * log2 e and Delta) of B * H * Sq rows, Sq rounded up to a
@@ -1565,9 +2771,11 @@ extern "C" long long flash_attention_bwd_scratch_floats(long long B,
 // v, dk, dv (B, KV, Skv, D); lse (B, H, Sq) fp32 as the forward wrote it;
 // delta an fp32 scratch of `flash_attention_bwd_scratch_floats(B, H, Sq)`
 // floats; all contiguous on one device, of one type (dtype 0 fp32, 1
-// bf16), D in {32, 64, 128}, H % KV == 0. Every element of dq, dk and dv
-// is written. Three launches on `stream` (bf16 at D 64 and 128 on the
-// tensor cores, else on the CUDA cores); returns the last cudaError_t.
+// bf16), D in {32, 64, 128}, H % KV == 0, any B >= 1. Every element of
+// dq, dk and dv is written. Three launches on `stream` a slice of at most
+// 65,535 batches (bf16 at D 64 and 128 and fp32 at D 32 on the tensor
+// cores, else on the CUDA cores); returns the first cudaError_t that is
+// not cudaSuccess, else cudaSuccess.
 extern "C" int flash_attention_bwd(const void* q, const void* k,
                                    const void* v, const void* o,
                                    const void* dout, const float* lse,
@@ -1577,22 +2785,23 @@ extern "C" int flash_attention_bwd(const void* q, const void* k,
                                    long long Skv, long long D, int causal,
                                    float scale, void* stream) {
   if (B < 1 || H < 1 || KV < 1 || H % KV != 0 || Sq < 1 || Skv < 1 ||
-      H > 65535 || B > 65535 || KV > 65535)
+      H > 65535 || KV > 65535 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0)
-    return bwd::launch_bwd_fp32(D, q, k, v, o, dout, lse, delta, dq, dk,
-                                dv, B, H, KV, Sq, Skv, causal != 0, scale,
-                                st);
-  if (dtype == 1 && D == 128)
-    return bwd_tc::launch<128>(q, k, v, o, dout, lse, delta, dq, dk, dv, B,
-                               H, KV, Sq, Skv, causal != 0, scale, st);
-  if (dtype == 1 && D == 64)
-    return bwd_tc::launch<64>(q, k, v, o, dout, lse, delta, dq, dk, dv, B, H,
-                              KV, Sq, Skv, causal != 0, scale, st);
-  if (dtype == 1 && D == 32)
-    return bwd::launch_bwd<__nv_bfloat16, 32>(q, k, v, o, dout, lse, delta,
-                                              dq, dk, dv, B, H, KV, Sq, Skv,
-                                              causal != 0, scale, st);
-  return (int)cudaErrorInvalidValue;
+  const long long es = dtype == 0 ? 4 : 2;
+  for (long long b0 = 0; b0 < B; b0 += kBatchSlice) {
+    const long long nb = B - b0 < kBatchSlice ? B - b0 : kBatchSlice;
+    const long long qo = b0 * H * Sq * D * es, ko = b0 * KV * Skv * D * es;
+    const char* cq = static_cast<const char*>(q);
+    const char* ck = static_cast<const char*>(k);
+    const char* cv = static_cast<const char*>(v);
+    const char* co = static_cast<const char*>(o);
+    const char* cg = static_cast<const char*>(dout);
+    const int err = bwd_slice(
+        cq + qo, ck + ko, cv + ko, co + qo, cg + qo, lse + b0 * H * Sq, delta,
+        static_cast<char*>(dq) + qo, static_cast<char*>(dk) + ko,
+        static_cast<char*>(dv) + ko, dtype, nb, H, KV, Sq, Skv, D,
+        causal != 0, scale, (cudaStream_t)stream);
+    if (err != 0) return err;
+  }
+  return 0;
 }

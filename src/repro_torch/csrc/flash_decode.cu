@@ -357,7 +357,16 @@ int launch_d(const void* q, const void* kc, const void* vc, void* out,
   }
 }
 
+// Batches a launch takes: the partials kernel puts the batch on grid z.
+constexpr long long kBatchSlice = 65535;
+
+// Partials launches (each with its merge, where one is asked for) made on
+// the calling thread: one a slice of at most 65,535 batches.
+thread_local long long launches = 0;
+
 }  // namespace
+
+extern "C" long long flash_decode_launches() { return launches; }
 
 // q (B, H, D), k_cache/v_cache (B, KV, S, D), contiguous, the caches
 // 16-byte aligned, of one type: dtype 0 = fp32, 1 = bf16. part: fp32 m
@@ -365,7 +374,9 @@ int launch_d(const void* q, const void* kc, const void* vc, void* out,
 // splits [s * bs, (s + 1) * bs), s < ns (ns * bs may stop short of S
 // where the splits past cache_len are not wanted). out (B, H, D) in q's
 // type, or NULL for the partials alone. D in {32, 64, 128}; H % KV == 0;
-// columns at or past cache_len are masked. Returns cudaGetLastError().
+// any B >= 1, in slices of at most 65,535 (the partials kernel's grid z);
+// columns at or past cache_len are masked. Returns the first cudaError_t
+// that is not cudaSuccess, else cudaSuccess.
 extern "C" int flash_decode_fwd(const void* q, const void* kc, const void* vc,
                                 void* out, float* part, int dtype,
                                 long long B, long long H, long long KV,
@@ -374,20 +385,33 @@ extern "C" int flash_decode_fwd(const void* q, const void* kc, const void* vc,
                                 void* stream) {
   if (B < 1 || H < 1 || KV < 1 || H % KV != 0 || S < 1 || bs < 1 ||
       ns < 1 || ns > 0x7fffffffLL || (ns - 1) * bs >= S || cache_len < 0 ||
-      H > 65535 || B > 65535)
+      H > 65535 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   if ((reinterpret_cast<uintptr_t>(kc) | reinterpret_cast<uintptr_t>(vc)) %
       16)
     return (int)cudaErrorMisalignedAddress;
   cudaStream_t st = (cudaStream_t)stream;
+  const long long es = dtype == 0 ? 4 : 2;
   float* m = part;
   float* l = m + B * H * ns;
   float* acc = l + B * H * ns;
-  if (dtype == 0)
-    return launch_d<float>(q, kc, vc, out, m, l, acc, B, H, KV, S, D,
-                           cache_len, bs, ns, scale, st);
-  if (dtype == 1)
-    return launch_d<__nv_bfloat16>(q, kc, vc, out, m, l, acc, B, H, KV, S,
-                                   D, cache_len, bs, ns, scale, st);
-  return (int)cudaErrorInvalidValue;
+  for (long long b0 = 0; b0 < B; b0 += kBatchSlice) {
+    const long long nb = B - b0 < kBatchSlice ? B - b0 : kBatchSlice;
+    const char* sq = static_cast<const char*>(q) + b0 * H * D * es;
+    const char* sk = static_cast<const char*>(kc) + b0 * KV * S * D * es;
+    const char* sv = static_cast<const char*>(vc) + b0 * KV * S * D * es;
+    char* so = out == nullptr ? nullptr
+                              : static_cast<char*>(out) + b0 * H * D * es;
+    const long long po = b0 * H * ns;
+    const int err =
+        dtype == 0
+            ? launch_d<float>(sq, sk, sv, so, m + po, l + po, acc + po * D,
+                              nb, H, KV, S, D, cache_len, bs, ns, scale, st)
+            : launch_d<__nv_bfloat16>(sq, sk, sv, so, m + po, l + po,
+                                      acc + po * D, nb, H, KV, S, D,
+                                      cache_len, bs, ns, scale, st);
+    if (err != 0) return err;
+    ++launches;
+  }
+  return 0;
 }

@@ -12,9 +12,18 @@ from .. import build
 from ..build import check
 from .plain import flash_attention_bwd_plain, flash_attention_plain
 
-launches = 0          # CUDA kernel launches of the forward
-bwd_launches = 0      # CUDA launches of ``flash_attention_bwd`` (one call)
-bwd_tc_launches = 0   # of those, on the tensor-core body (the library counts)
+# Launch counts, as the library counts them where it launches (one a call,
+# one a slice of 65,535 batches above): forward kernels, and backward passes
+# of three kernels each; of each, those of the tensor-core bodies
+launches = 0          # forward kernels
+tf32_launches = 0     # of those, fp32 in 3xTF32 (``fa_tf32_kernel``)
+bwd_launches = 0      # backward passes
+bwd_tc_launches = 0   # of those, bf16 on wgmma (``bwd_tc``)
+bwd_tf32_launches = 0  # of those, fp32 in 3xTF32 (``bwd_tf32``)
+
+# the library's body numbers (csrc/flash_attention.cu, enum Body)
+FWD_BODIES = {"wgmma": 0, "tf32": 1, "cuda cores": 2}
+BWD_BODIES = {"wgmma": 3, "tf32": 4, "cuda cores": 5}
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128)
@@ -23,7 +32,7 @@ _entries = None
 
 def _lib():
     """(library, ``flash_attention_fwd``, ``flash_attention_bwd``,
-    ``flash_attention_bwd_tc_calls``, ``flash_attention_bwd_scratch_floats``),
+    ``flash_attention_launches``, ``flash_attention_bwd_scratch_floats``),
     built, loaded and declared once."""
     global _entries
     if _entries is None:
@@ -38,14 +47,24 @@ def _lib():
                         + [ctypes.c_longlong] * 6
                         + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
         bwd.restype = ctypes.c_int
-        tc_calls = lib.flash_attention_bwd_tc_calls
-        tc_calls.argtypes = []
-        tc_calls.restype = ctypes.c_longlong
+        counts = lib.flash_attention_launches
+        counts.argtypes = [ctypes.c_int]
+        counts.restype = ctypes.c_longlong
         scratch = lib.flash_attention_bwd_scratch_floats
         scratch.argtypes = [ctypes.c_longlong] * 3
         scratch.restype = ctypes.c_longlong
-        _entries = (lib, fwd, bwd, tc_calls, scratch)
+        _entries = (lib, fwd, bwd, counts, scratch)
     return _entries
+
+
+def _bodies(counts, bodies: dict) -> dict:
+    """The library's launch count of each body on this thread."""
+    return {name: counts(i) for name, i in bodies.items()}
+
+
+def _made(counts, bodies: dict, before: dict) -> dict:
+    """Launches of each body since ``before``."""
+    return {name: counts(i) - before[name] for name, i in bodies.items()}
 
 
 def _call(dev: torch.device, fn, *args) -> int:
@@ -88,7 +107,7 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              causal: bool, want_lse: bool):
     """(o, lse or None): the kernel for CUDA tensors (contiguous inputs),
     the plain version for CPU tensors."""
-    global launches
+    global launches, tf32_launches
     with obs.span("kernel:flash_attention") as sp:
         b, h, sq, d, kv, skv = _check("flash_attention", q, k, v)
         pairs = b * h * sq * skv // (2 if causal else 1)
@@ -103,13 +122,16 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         o = torch.empty_like(q)
         lse = torch.empty((b, h, sq), dtype=torch.float32,
                           device=q.device) if want_lse else None
-        lib, fwd = _lib()[:2]
+        lib, fwd, _, counts, _ = _lib()
+        before = _bodies(counts, FWD_BODIES)
         err = _call(q.device, fwd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                     o.data_ptr(), None if lse is None else lse.data_ptr(),
                     DTYPES[q.dtype], b, h, kv, sq, skv, d, int(causal),
                     d ** -0.5)
         check(lib, err, "flash_attention_fwd")
-        launches += 1
+        made = _made(counts, FWD_BODIES, before)
+        launches += sum(made.values())
+        tf32_launches += made["tf32"]
         if sp is not obs.NOOP_SPAN:            # traced: span = device time
             torch.cuda.current_stream(q.device).synchronize()
         return o, lse
@@ -141,8 +163,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     D) in q's dtype: softmax(q k^T / sqrt(D)) v in fp32, causal aligned
     to the last Sq key positions, 0 at a row with no visible key. A CPU
     tensor runs the plain PyTorch version; a CUDA tensor launches the
-    kernel (D in 32, 64, 128): bf16 at D 64 and 128 on the tensor cores
-    (wgmma), fp32 and bf16 at D 32 on the CUDA cores. Differentiable:
+    kernel (D in 32, 64, 128; any B): bf16 at D 64 and 128 on the tensor
+    cores (wgmma), fp32 at D 32 and 64 on the tensor cores in 3xTF32,
+    bf16 at D 32 and fp32 at D 128 on the CUDA cores. Differentiable:
     where autograd records and an input requires grad, the forward also
     keeps each row's logsumexp and the backward is
     ``flash_attention_bwd`` (a kernel on the card); the output is the
@@ -172,10 +195,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     output's cotangent), from the forward's o and lse, in q's dtype with
     fp32 sums. A CPU tensor runs ``flash_attention_bwd_plain``; a CUDA
     tensor launches the backward kernel (three launches in one call, no
-    atomics: a rerun gives the same bits): bf16 at D 64 and 128 on the
-    tensor cores (``wgmma``, P and dS each as two bf16 terms), fp32 and
-    bf16 at D 32 on the CUDA cores."""
-    global bwd_launches, bwd_tc_launches
+    atomics: a rerun gives the same bits; any B): bf16 at D 64 and 128 on
+    the tensor cores (``wgmma``, P and dS each as two bf16 terms), fp32 at
+    D 32 on the tensor cores in 3xTF32 (every operand as two tf32 terms),
+    bf16 at D 32 and fp32 at D 64 and 128 on the CUDA cores."""
+    global bwd_launches, bwd_tc_launches, bwd_tf32_launches
     with obs.span("kernel:flash_attention_bwd") as sp:
         b, h, sq, d, kv, skv = _check("flash_attention_bwd", q, k, v)
         if o.shape != q.shape or do.shape != q.shape or \
@@ -189,24 +213,27 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         if q.device.type == "cpu":
             sp.add("flops", 10 * pairs * d)     # the plain five products
             return flash_attention_bwd_plain(q, k, v, o, do, lse, causal)
-        lib, _, bwd, tc_calls, scratch_floats = _lib()
+        lib, _, bwd, counts, scratch_floats = _lib()
         do = do.to(q.dtype)
         q, k, v, o, do = (t.contiguous() for t in (q, k, v, o, do))
         lse = lse.float().contiguous()
         dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
         scratch = torch.empty(scratch_floats(b, h, sq), dtype=torch.float32,
                               device=q.device)
-        tc0 = tc_calls()
+        before = _bodies(counts, BWD_BODIES)
         err = _call(q.device, bwd, *(t.data_ptr() for t in (
             q, k, v, o, do, lse, scratch, dq, dk, dv)), DTYPES[q.dtype], b,
             h, kv, sq, skv, d, int(causal), d ** -0.5)
         check(lib, err, "flash_attention_bwd")
-        tc = tc_calls() - tc0                   # this thread's last call
-        # what the body executed: the tensor cores' split P and dS double
-        # three of the five products; the CUDA cores recompute S and dP
-        sp.add("flops", (20 if tc else 14) * pairs * d)
-        bwd_launches += 1
-        bwd_tc_launches += tc
+        made = _made(counts, BWD_BODIES, before)
+        # what the body executed: bf16 wgmma splits P and dS (three of the
+        # five products doubled), 3xTF32 takes three products for each of
+        # seven (S and dP in both kernels), the CUDA cores recompute S, dP
+        sp.add("flops", (20 if made["wgmma"] else 42 if made["tf32"]
+                         else 14) * pairs * d)
+        bwd_launches += sum(made.values())
+        bwd_tc_launches += made["wgmma"]
+        bwd_tf32_launches += made["tf32"]
         if sp is not obs.NOOP_SPAN:
             torch.cuda.current_stream(q.device).synchronize()
         return dq, dk, dv

@@ -21,7 +21,9 @@ from ..build import check
 from .plain import (flash_decode_partials_plain, flash_decode_plain,
                     merge_partials)
 
-launches = 0          # library calls of ``flash_decode`` / its partials
+launches = 0          # partials launches of ``flash_decode`` / its partials
+                      # (one a call, one a slice of 65,535 batches above;
+                      # counted by the library)
 
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128)
@@ -44,6 +46,8 @@ def _entry():
                        + [ctypes.c_longlong] * 8
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
+        lib.flash_decode_launches.argtypes = []
+        lib.flash_decode_launches.restype = ctypes.c_longlong
         _fwd = (lib, fn)
     return _fwd
 
@@ -89,12 +93,14 @@ def _checked(q, k_cache, v_cache, cache_len):
     return b, h, kv, s, d, cache_len
 
 
-def _launch(q, k_cache, v_cache, out, part, dims, bs, ns):
+def _launch(q, k_cache, v_cache, out, part, dims, bs, ns) -> int:
     """One library call on the current stream of q's device: the
     partials into ``part`` (m, l, then acc, fp32), merged into ``out``
-    unless it is None."""
+    unless it is None. Returns the partials launches it made (the
+    library's count on this thread: one a slice of 65,535 batches)."""
     b, h, kv, s, d, cache_len = dims
     lib, fn = _entry()
+    before = lib.flash_decode_launches()
     idx = q.get_device()
     args = (q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             None if out is None else out.data_ptr(), part.data_ptr(),
@@ -106,6 +112,7 @@ def _launch(q, k_cache, v_cache, out, part, dims, bs, ns):
         with torch.cuda.device(idx):
             err = fn(*args)
     check(lib, err, "flash_decode_fwd")
+    return lib.flash_decode_launches() - before
 
 
 def _sm_count(q) -> int:
@@ -165,8 +172,8 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
         q, k_cache, v_cache = _cuda_inputs(q, k_cache, v_cache)
         out = torch.empty_like(q)
         part = q.new_empty(b * h * ns * (d + 2), dtype=torch.float32)
-        _launch(q, k_cache, v_cache, out, part, dims, bs, ns)
-        launches += 1
+        made = _launch(q, k_cache, v_cache, out, part, dims, bs, ns)
+        launches += made
         if sp is not obs.NOOP_SPAN:            # traced: span = device time
             torch.cuda.current_stream(q.device).synchronize()
         return out
@@ -202,10 +209,10 @@ def flash_decode_partials(q: torch.Tensor, k_cache: torch.Tensor,
         q, k_cache, v_cache = _cuda_inputs(q, k_cache, v_cache)
         n = b * h * ns
         part = q.new_empty(n * (d + 2), dtype=torch.float32)
-        _launch(q, k_cache, v_cache, None, part, dims, bs, ns)
+        made = _launch(q, k_cache, v_cache, None, part, dims, bs, ns)
+        launches += made
         m, l = part[:n].view(b, h, ns), part[n:2 * n].view(b, h, ns)
         acc = part[2 * n:].view(b, h, ns, d)
-        launches += 1
         if sp is not obs.NOOP_SPAN:            # traced: span = device time
             torch.cuda.current_stream(q.device).synchronize()
         return m, l, acc

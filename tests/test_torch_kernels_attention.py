@@ -508,3 +508,163 @@ def test_bf16_backward_needs_p_and_ds_split(b, h, kv, sq, skv, d, causal):
             f"{name} with P, dS rounded once: {ratio:.3g} x its limit"
     if causal and sq > skv:
         assert float(split[0][:, :, :sq - skv].abs().max()) == 0.0
+
+
+# ---------------------------------------------------------------------------
+# the rounding design of the fp32 bodies on the tensor cores (3xTF32)
+# ---------------------------------------------------------------------------
+LOG2E = 1.4426950408889634
+
+
+def _tf32(x):
+    """x rounded to tf32 (10 mantissa bits, to nearest, ties away from
+    zero), as ``cvt.rna.tf32.f32`` does: add half a unit of the 13 bits
+    dropped to the bit pattern, then clear them."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tc_product(eq, a, b, three):
+    """A product on the tensor cores in tf32, emulated in fp32: each
+    operand split as hi = tf32(x), lo = tf32(x - hi), and a b summed as
+    a_lo b_hi + a_hi b_lo + a_hi b_hi (``three``, the kernels' 3xTF32),
+    or one product of the operands rounded to tf32."""
+    if not three:
+        return torch.einsum(eq, _tf32(a), _tf32(b))
+    a_hi, b_hi = _tf32(a), _tf32(b)
+    a_lo, b_lo = _tf32(a - a_hi), _tf32(b - b_hi)
+    return (torch.einsum(eq, a_lo, b_hi) + torch.einsum(eq, a_hi, b_lo)
+            + torch.einsum(eq, a_hi, b_hi))
+
+
+def _visible(sq, skv, causal):
+    if not causal:
+        return torch.ones(sq, skv, dtype=torch.bool)
+    return torch.arange(sq)[:, None] + (skv - sq) >= torch.arange(skv)[None]
+
+
+def _tf32_forward(q, k, v, causal, three):
+    """The fp32 forward on the tensor cores (``fa_tf32_kernel``): S = q k^T
+    and O = P V as tensor-core products, the softmax in fp32 in base 2 on
+    S times scale * log2(e); returns (o, lse)."""
+    b, h, sq, d = q.shape
+    kv, skv = k.shape[1], k.shape[2]
+    qf = q.reshape(b, kv, h // kv, sq, d)
+    s = _tc_product("bkgqd,bkcd->bkgqc", qf, k, three) * (d ** -0.5 * LOG2E)
+    s = s.masked_fill(~_visible(sq, skv, causal), float("-inf"))
+    m = s.amax(-1, keepdim=True)
+    m = torch.where(torch.isneginf(m), 0.0, m)
+    p = torch.exp2(s - m)
+    l = p.sum(-1, keepdim=True)
+    o = _tc_product("bkgqc,bkcd->bkgqd", p, v, three) / torch.where(
+        l == 0, 1.0, l)
+    lse = torch.where(l == 0, float("-inf"), (m + torch.log2(l)) / LOG2E)
+    return o.reshape(b, h, sq, d), lse.reshape(b, h, sq)
+
+
+def _tf32_backward(q, k, v, o, do, lse, causal, three):
+    """The fp32 backward on the tensor cores (``bwd_tf32``): S = q k^T and
+    dP = dO V^T as tensor-core products, P = 2^(S scale log2(e) - lse
+    log2(e)) and dS = P (dP - Delta) in fp32, then dV = P^T dO, dK = scale
+    dS^T q and dQ = scale dS K as tensor-core products."""
+    b, h, sq, d = q.shape
+    kv, skv = k.shape[1], k.shape[2]
+    g, scale = h // kv, d ** -0.5
+    qf = q.reshape(b, kv, g, sq, d)
+    dof = do.reshape(b, kv, g, sq, d)
+    lse5 = lse.reshape(b, kv, g, sq, 1)
+    s = _tc_product("bkgqd,bkcd->bkgqc", qf, k, three)
+    dp = _tc_product("bkgqd,bkcd->bkgqc", dof, v, three)
+    lse2 = torch.where(torch.isneginf(lse5), float("inf"), lse5 * LOG2E)
+    p = torch.exp2(s * (scale * LOG2E) - lse2)
+    p = torch.where(_visible(sq, skv, causal), p, 0.0)
+    delta = (dof * o.reshape(b, kv, g, sq, d)).sum(-1, keepdim=True)
+    ds = p * (dp - delta)
+    dv = _tc_product("bkgqc,bkgqd->bkcd", p, dof, three)
+    dk = _tc_product("bkgqc,bkgqd->bkcd", ds, qf, three) * scale
+    dq = _tc_product("bkgqc,bkcd->bkgqd", ds, k, three) * scale
+    return dq.reshape(b, h, sq, d), dk, dv
+
+
+def test_tf32_rounding_is_the_cards():
+    """The emulation rounds as ``cvt.rna.tf32.f32``: to 10 mantissa bits,
+    ties away from zero, and hi + lo holds x to 2^-22 of |x|."""
+    x = torch.tensor([1.0, 1.0 + 2 ** -11, 1.0 + 2 ** -10 + 2 ** -11,
+                      -(1.0 + 2 ** -11), 1.0 + 2 ** -12, 3.14159265])
+    want = torch.tensor([1.0, 1.0 + 2 ** -10, 1.0 + 2 ** -9,
+                         -(1.0 + 2 ** -10), 1.0, 3.140625])
+    assert torch.equal(_tf32(x), want)
+    y = torch.from_numpy(_rand((4096,), 3))
+    hi = _tf32(y)
+    lo = _tf32(y - hi)
+    assert bool(((y - hi - lo).abs() <= 2.0 ** -22 * y.abs()).all())
+
+
+@pytest.mark.parametrize("b,h,kv,sq,skv,d,causal", [
+    (2, 2, 2, 200, 200, 32, False),     # BERT4Rec serve_p99 / train, cut
+    (2, 12, 12, 128, 128, 32, False),   # MiniLM encode, cut
+    (1, 8, 2, 100, 300, 32, True),      # GQA 4, causal, ragged tiles
+    (1, 4, 2, 100, 40, 64, True),       # D 64, 60 rows that see no key
+])
+def test_fp32_forward_needs_three_tf32_products(b, h, kv, sq, skv, d,
+                                                causal):
+    """The fp32 forward on the tensor cores holds the card's fp32 rule
+    against ``flash_attention_plain`` (max abs error <= 1e-4 and each
+    output within 1e-4 of its value plus 1e-4 of its row's largest, lse
+    by ``lse_agree``) with every product as three tf32 products (3xTF32);
+    one tf32 product misses it (by ~6-12x at these shapes). The 3xTF32
+    output also agrees with repro's reference."""
+    from repro_torch.testing import lse_agree
+    q, k, v = _rand((b, h, sq, d), 70), _rand((b, kv, skv, d), 71), \
+        _rand((b, kv, skv, d), 72)
+    tq, tk, tv = _t(q, k, v)
+    want, lse_p = flash_attention_plain(tq, tk, tv, causal, return_lse=True)
+    three, lse3 = _tf32_forward(tq, tk, tv, causal, True)
+    one, lse1 = _tf32_forward(tq, tk, tv, causal, False)
+    assert float((three - want).abs().max()) <= 1e-4
+    ok, ratio = rounding_agree(three, want, 1e-4)
+    assert ok, f"3xTF32: {ratio:.3g} x its limit"
+    ok, ratio = lse_agree(lse3, lse_p)
+    assert ok, f"3xTF32 lse: {ratio:.3g} x its limit"
+    ok, ratio = rounding_agree(one, want, 1e-4)
+    assert not ok and ratio > 4, f"one tf32 product: {ratio:.3g} x its limit"
+    assert not lse_agree(lse1, lse_p)[0]
+    if causal and sq > skv:
+        assert float(three[:, :, :sq - skv].abs().max()) == 0.0
+        assert bool(torch.isneginf(lse3[:, :, :sq - skv]).all())
+    else:
+        ref = np.asarray(repro_aref(jnp.asarray(q), jnp.asarray(k),
+                                    jnp.asarray(v), causal=causal))
+        np.testing.assert_allclose(three.numpy(), ref, **F32)
+
+
+@pytest.mark.parametrize("b,h,kv,sq,skv,causal", [
+    (2, 2, 2, 200, 200, False),         # BERT4Rec train, cut
+    (2, 12, 12, 128, 128, False),       # MiniLM, cut
+    (1, 8, 2, 100, 300, True),          # GQA 4, causal, ragged tiles
+    (1, 4, 2, 100, 40, True),           # 60 rows that see no key
+])
+def test_fp32_backward_needs_three_tf32_products(b, h, kv, sq, skv, causal):
+    """The fp32 backward on the tensor cores holds ``grads_agree``'s fp32
+    rule (1e-4 of each gradient's largest) against the plain backward
+    only with every product as three tf32 products: one tf32 product
+    misses it (by ~5-9x at these shapes)."""
+    from repro_torch.kernels.flash_attention.plain import (
+        flash_attention_bwd_plain)
+    from repro_torch.testing import grads_agree
+    d = 32
+    x = _t(*(_rand(s, 80 + i) for i, s in enumerate(
+        [(b, h, sq, d), (b, kv, skv, d), (b, kv, skv, d), (b, h, sq, d)])))
+    q, k, v, do = x
+    o, lse = flash_attention_plain(q, k, v, causal, return_lse=True)
+    want = flash_attention_bwd_plain(q, k, v, o, do, lse, causal)
+    three = _tf32_backward(q, k, v, o, do, lse, causal, True)
+    one = _tf32_backward(q, k, v, o, do, lse, causal, False)
+    for name, got3, got1, w in zip(("dq", "dk", "dv"), three, one, want):
+        ok, ratio = grads_agree(got3, w, False)
+        assert ok, f"{name} in 3xTF32: {ratio:.3g} x its limit"
+        ok, ratio = grads_agree(got1, w, False)
+        assert not ok and ratio > 2, \
+            f"{name} with one tf32 product: {ratio:.3g} x its limit"
+    if causal and sq > skv:
+        assert float(three[0][:, :, :sq - skv].abs().max()) == 0.0

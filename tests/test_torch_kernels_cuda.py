@@ -27,6 +27,13 @@ rounding a term apart); a bf16 table within one rounding step of
 bf16 (2**-7 of the value plus 1e-4 of the row's largest); NaN rows (an
 id >= V) at exactly the same bags.
 
+The fp32 attention bodies on the tensor cores (3xTF32: each product as
+three tf32 products of split operands, within ~2^-20 of the fp32 product)
+are held by the same fp32 rules, at MiniLM's and BERT4Rec's shapes, and
+bit for bit across two runs and across batch sizes. Every attention entry
+takes any batch: at B = 65,543 the library launches two slices and the
+outputs agree with the plain versions by the rules above.
+
 The backward kernels, against their plain versions on the same inputs:
 the forward kernel's row logsumexp within 1e-5 of max(1, |lse|) of the
 plain forward's, -inf at the same rows (``testing.lse_agree``); then
@@ -1150,8 +1157,9 @@ def _grads_agree(got, want, dtype, bound=(None,) * 3):
 ])
 def test_flash_attention_bwd_kernel_matches_plain(dev, dtype, b, h, kv, sq,
                                                   skv, d, causal):
-    """bf16 at D 64 and 128 runs the tensor-core body (its own launch
-    count moves), fp32 and bf16 at D 32 the CUDA-core body."""
+    """bf16 at D 64 and 128 runs the bf16 tensor-core body and fp32 at D
+    32 the 3xTF32 one (each its own launch count moves); bf16 at D 32 and
+    fp32 at D 64 and 128 the CUDA-core body."""
     q = _randn((b, h, sq, d), 90, dev, dtype)
     k = _randn((b, kv, skv, d), 91, dev, dtype)
     v = _randn((b, kv, skv, d), 92, dev, dtype)
@@ -1162,11 +1170,14 @@ def test_flash_attention_bwd_kernel_matches_plain(dev, dtype, b, h, kv, sq,
     ok, ratio = lse_agree(lse, lse_p)
     assert ok, f"lse is {ratio:.3g} x its limit from plain"
     before, before_tc = fa_ops.bwd_launches, fa_ops.bwd_tc_launches
+    before_tf32 = fa_ops.bwd_tf32_launches
     got = fa_ops.flash_attention_bwd(q, k, v, o, do, lse, causal)
     torch.cuda.synchronize()
     assert fa_ops.bwd_launches == before + 1
     tc = dtype == torch.bfloat16 and d in (64, 128)
     assert fa_ops.bwd_tc_launches == before_tc + tc
+    tf32 = dtype == torch.float32 and d == 32
+    assert fa_ops.bwd_tf32_launches == before_tf32 + tf32
     _grads_agree(got, flash_attention_bwd_plain(q, k, v, o, do, lse, causal),
                  dtype)
     # the chain: the plain backward on the plain forward's o and lse
@@ -1262,6 +1273,130 @@ def test_flash_attention_autograd_card_vs_cpu_plain(dev, causal):
         assert got.dtype == torch.bfloat16
         ok, ratio = grads_agree(got.cpu(), ref, True, e)
         assert ok, f"{ratio:.3g} x its limit from the CPU"
+
+
+# ---------------------------------------------------------------------------
+# the fp32 bodies on the tensor cores (3xTF32), and any batch
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize("b,h,kv,sq,skv,d,causal", [
+    (512, 2, 2, 200, 200, 32, False),      # BERT4Rec serve_p99
+    (256, 12, 12, 128, 128, 32, False),    # MiniLM encode
+    (2, 8, 2, 200, 333, 32, True),         # GQA 4, ragged tiles, causal
+    (1, 12, 2, 333, 200, 32, True),        # GQA 6, Sq > Skv: empty rows
+    (3, 4, 4, 65, 129, 32, False),
+    (2, 8, 2, 100, 300, 64, True),         # D 64
+    (1, 2, 2, 64, 40, 64, True),           # D 64, rows that see no key
+    (1, 4, 2, 191, 257, 128, False),       # D 128 (the CUDA-core body)
+])
+def test_fp32_attention_bodies_match_plain(dev, b, h, kv, sq, skv, d,
+                                           causal):
+    """fp32 at D 32 and 64 runs the forward in 3xTF32 on the tensor cores
+    (its own launch count moves), D 128 the CUDA-core body; the output
+    and lse against the plain forward by the fp32 rule, rows that see no
+    key 0 with lse -inf."""
+    q = _randn((b, h, sq, d), 120, dev, torch.float32)
+    k = _randn((b, kv, skv, d), 121, dev, torch.float32)
+    v = _randn((b, kv, skv, d), 122, dev, torch.float32)
+    before, tf0 = fa_ops.launches, fa_ops.tf32_launches
+    o, lse = fa_ops.flash_attention_with_lse(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert fa_ops.launches == before + 1
+    assert fa_ops.tf32_launches == tf0 + (d in (32, 64))
+    o_p, lse_p = flash_attention_plain(q, k, v, causal, return_lse=True)
+    _attention_agree(o, o_p, torch.float32)
+    ok, ratio = lse_agree(lse, lse_p)
+    assert ok, f"lse is {ratio:.3g} x its limit from plain"
+    assert torch.equal(o, fa_ops.flash_attention(q, k, v, causal))
+    if causal and sq > skv:
+        assert torch.all(o[:, :, :sq - skv] == 0)
+        assert bool(torch.isneginf(lse[:, :, :sq - skv]).all())
+
+
+@pytest.mark.parametrize("b,h,kv,sq,skv,causal", [
+    (256, 2, 2, 200, 200, False),          # BERT4Rec train_batch
+    (64, 12, 12, 128, 128, False),         # MiniLM's heads
+    (2, 8, 2, 200, 333, True),             # GQA 4, ragged tiles, causal
+    (1, 12, 2, 333, 200, True),            # GQA 6, Sq > Skv: empty rows
+    (3, 4, 4, 65, 129, False),
+])
+def test_fp32_backward_body_matches_plain(dev, b, h, kv, sq, skv, causal):
+    """fp32 at D 32: the backward in 3xTF32 on the tensor cores (its own
+    launch count moves) against the plain backward on the kernel's o and
+    lse and on the plain forward's, by the fp32 rule; two runs bit for
+    bit; rows that see no key get 0."""
+    d = 32
+    q, k, v, do = (_randn(s, 130 + i, dev, torch.float32) for i, s in
+                   enumerate([(b, h, sq, d), (b, kv, skv, d),
+                              (b, kv, skv, d), (b, h, sq, d)]))
+    o, lse = fa_ops.flash_attention_with_lse(q, k, v, causal)
+    before, tf0 = fa_ops.bwd_launches, fa_ops.bwd_tf32_launches
+    got = fa_ops.flash_attention_bwd(q, k, v, o, do, lse, causal)
+    torch.cuda.synchronize()
+    assert fa_ops.bwd_launches == before + 1
+    assert fa_ops.bwd_tf32_launches == tf0 + 1
+    _grads_agree(got, flash_attention_bwd_plain(q, k, v, o, do, lse, causal),
+                 torch.float32)
+    o_p, lse_p = flash_attention_plain(q, k, v, causal, return_lse=True)
+    _grads_agree(got, flash_attention_bwd_plain(q, k, v, o_p, do, lse_p,
+                                                causal), torch.float32)
+    again = fa_ops.flash_attention_bwd(q, k, v, o, do, lse, causal)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    if causal and sq > skv:
+        assert float(got[0][:, :, :sq - skv].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("d", [32, 64])
+def test_fp32_attention_is_batch_invariant(dev, d):
+    """A (b, h)'s forward output and lse, and its backward's gradients, do
+    not depend on the batch around it: b = 0 alone equals b = 0 inside a
+    batch of 32, bit for bit (BERT4Rec's shape)."""
+    b, h, s = 32, 2, 200
+    q, k, v, do = (_randn((b, h, s, d), 140 + i, dev, torch.float32)
+                   for i in range(4))
+    o, lse = fa_ops.flash_attention_with_lse(q, k, v, False)
+    o1, lse1 = fa_ops.flash_attention_with_lse(q[:1], k[:1], v[:1], False)
+    assert torch.equal(o[:1], o1) and torch.equal(lse[:1], lse1)
+    if d == 32:
+        grads = fa_ops.flash_attention_bwd(q, k, v, o, do, lse, False)
+        alone = fa_ops.flash_attention_bwd(q[:1], k[:1], v[:1], o1, do[:1],
+                                           lse1, False)
+        for x, y in zip(grads, alone):
+            assert torch.equal(x[:1], y)
+
+
+@pytest.mark.parametrize("dtype,d", [(torch.float32, 32),
+                                     (torch.bfloat16, 32),
+                                     (torch.bfloat16, 64)])
+def test_attention_takes_any_batch(dev, dtype, d):
+    """B = 65,543 (above the 65,535 a grid dimension holds): the forward,
+    the backward and flash_decode answer and agree with their plain
+    versions; the library launches each body twice (two batch slices)
+    and counts both."""
+    b, h, s = 65543, 2, 8
+    q, k, v, do = (_randn((b, h, s, d), 150 + i, dev, dtype)
+                   for i in range(4))
+    before = fa_ops.launches
+    o, lse = fa_ops.flash_attention_with_lse(q, k, v, True)
+    torch.cuda.synchronize()
+    assert fa_ops.launches == before + 2
+    o_p, lse_p = flash_attention_plain(q, k, v, True, return_lse=True)
+    _attention_agree(o, o_p, dtype)
+    ok, ratio = lse_agree(lse, lse_p)
+    assert ok, f"lse is {ratio:.3g} x its limit from plain"
+    before = fa_ops.bwd_launches
+    got = fa_ops.flash_attention_bwd(q, k, v, o, do, lse, True)
+    torch.cuda.synchronize()
+    assert fa_ops.bwd_launches == before + 2
+    _grads_agree(got, flash_attention_bwd_plain(q, k, v, o, do, lse, True),
+                 dtype)
+    del q, k, v, do, o, lse, got
+    qd = _randn((b, 4, d), 160, dev, dtype)
+    kc, vc = (_randn((b, 2, 40, d), 161 + i, dev, dtype) for i in range(2))
+    before = fd_ops.launches
+    out = fd_ops.flash_decode(qd, kc, vc, cache_len=33, bs=16)
+    torch.cuda.synchronize()
+    assert fd_ops.launches == before + 2
+    _attention_agree(out, flash_decode_plain(qd, kc, vc, 33, 16), dtype)
 
 
 @pytest.mark.parametrize("weighted", [False, True])
