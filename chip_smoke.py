@@ -165,21 +165,26 @@ Phases (any failure stops the script with a non-zero exit):
      forward kernels'; a ``{"phase10": ...}`` line gives each cell's
      losses, step times, peak memory and cuts (``reduced``);
   11. SchNet's train cells on the card: ``gather_segment_sum`` against its
-     plain version (forward, the gradient of x by the kernel, that of w;
-     bit for bit, two runs bit for bit) at molecule (8,192 edges into
+     plain versions (the forward kernel, and the backward kernel that
+     gives the gradients of x and of w in one pass; bit for bit, signed
+     zeros included, two runs bit for bit) at molecule (8,192 edges into
      3,840 atoms), its energy readout (D 1), minibatch_lg's smoke batch,
      a minibatch_lg batch from ``sample_subgraph`` (1,024 seeds, fanout
      15-10, over a seeded 232,965-node graph with lognormal out-degrees
      of mean 50: node 0, the padding edges' end, is hot) and a 2^22-edge
-     slice of ogb_products, timed against the plain version and
-     ``index_add_``; then the four cells through ``build_cell`` at their
+     slice of ogb_products, timed against the plain versions, the
+     library (``index_add_``) and, for the backward, the parent's path
+     (the forward kernel over the src order and ``weight_grad``); then
+     the four cells through ``build_cell`` at their
      published sizes, three AdamW steps each (ogb_products: 2,449,056
      nodes, 61,859,328 edges, the filter network in chunks of 2^22
      edges under checkpoint), one step on the sampled batch, grads card
      vs CPU at molecule and minibatch_lg, minibatch_lg at edge_chunk
      2^14 against one chunk, a checkpointed resume at molecule and two
-     ogb_products steps from one state, bit for bit. The cells' steps are
-     the kernel's "launches" below; a ``{"phase11": ...}`` line gives
+     ogb_products steps from one state, bit for bit; every cfconv
+     backward of the cells' steps launches the backward kernel and none
+     calls ``weight_grad``. The cells' steps are the two kernels'
+     "launches" below; a ``{"phase11": ...}`` line gives
      each cell's losses, step times, edges a second, peak memory, the
      ogb_products step's bound and the cuts (``reduced``).
   12. distribution on the card: (a) the collective path at world
@@ -350,6 +355,10 @@ KERNELS = {
         "src/repro_torch/csrc/segment_sum.cu",
         "src/repro/models/schnet.py:100 (jax.ops.segment_sum; no Pallas "
         "counterpart)"),
+    "gather_segment_sum_bwd": (
+        "src/repro_torch/csrc/segment_sum.cu",
+        "src/repro/models/schnet.py:99-100 (the VJP of jnp.take and "
+        "jax.ops.segment_sum; no Pallas counterpart)"),
 }
 TILE_KERNELS = ("topk_search", "temporal_window_topk", "topk_search_q8",
                 "temporal_window_topk_q8")
@@ -385,7 +394,8 @@ PTXAS_REPORT = (("flash_attention", "fa_wgmma_kernel"),
                 ("embedding_bag", "bag_bwd_chunks"),
                 ("embedding_bag", "bag_bwd_rows"),
                 ("segment_sum", "gss_chunks"),
-                ("segment_sum", "gss_rows"))
+                ("segment_sum", "gss_rows"),
+                ("segment_sum", "gss_bwd_chunks"))
 
 
 def ptxas_lines(log_text: str, kernel: str) -> list[str]:
@@ -3860,6 +3870,9 @@ SCHNET_CHUNK_CHECK = 1 << 14     # card: minibatch_lg at this edge_chunk
 # first edge chunk (2^22 edges of the dst-sorted batch; its plan_ms is
 # ``edge_chunks`` over the whole batch)
 OGB_CHUNK = "ogb_products chunk 0"
+# the parent's ogb_products step with the dx kernel and weight_grad (NVIDIA
+# H100 80GB HBM3, 700.00 W), for comparison
+OGB_PARENT = "2.893-2.933 s a step, peak 25.58 GB"
 # minibatch_lg on a sampled batch: a seeded graph of Reddit's 232,965
 # nodes, out-degrees lognormal (sigma 1.5) with mean 50, dst uniform
 REDDIT = dict(nodes=232_965, degree=50, sigma=1.5, seeds=1024,
@@ -3875,25 +3888,41 @@ def same_values(torch, a, b) -> bool:
                             torch.where(b.isnan(), 0.0, b)))
 
 
+def same_signed(torch, a, b) -> bool:
+    """``same_values``, signed zeros too: fp32 equal bit for bit where
+    not NaN."""
+    na, nb = a.isnan(), b.isnan()
+    return (a.shape == b.shape and torch.equal(na, nb)
+            and torch.equal(torch.where(na, 0.0, a).view(torch.int32),
+                            torch.where(nb, 0.0, b).view(torch.int32)))
+
+
 class SegmentCheck:
-    """``gather_segment_sum`` against its plain version on the card, bit
-    for bit: the forward over the plan's dst order, the gradient of x
-    over its src order, the gradient of w (two gathers and a product,
-    the same code both ways) through autograd; two runs of each bit for
-    bit; the largest |kernel - plain| over the non-NaN entries; times of
-    the kernel, the plain version and the library
-    (``out.index_add_(0, dst, x[src] * w)``: float atomics), and the
+    """``gather_segment_sum`` against its plain versions on the card, bit
+    for bit: the forward over the plan's dst order and the backward
+    kernel's dx and dw over its src order (``segment_sum_bwd``: both
+    gradients in one pass) against ``segment_sum_bwd_plain``, through
+    autograd and alone, signed zeros included; two runs of each bit for
+    bit; the largest |kernel - plain| over the non-NaN entries. Times of
+    the forward, its plain version and the library
+    (``out.index_add_(0, dst, x[src] * w)``: float atomics), and its
     bound (the bytes of w, of the gathered rows of x, of the indices and
     of out over 3.35 TB/s, an x of at most 50 MB counted at most its size
     once, as it stays in L2; 2 FLOPs an element, 1 without w). The
-    gradient of x the same way (``bwd_dx_*``: the cotangent's rows
-    gathered by dst, summed into the src rows; the library
-    ``dx.index_add_(0, src, g[dst] * w)``)."""
+    backward the same way (``bwd_*``: the library
+    ``dx.index_add_(0, src, g[dst] * w)`` plus ``x[src] * g[dst]``; the
+    bound's bytes: the cotangent's rows (once, as x above), w, the
+    indices, the rows of x the chunks read, dx and dw; 3 FLOPs an element
+    of an edge, 1 without w), beside the parent's path: the forward body
+    over the src order for dx (``parent_dx_ms``) plus ``weight_grad`` (two
+    gathers and a product in PyTorch, ``weight_grad_ms``), ``parent_ms``
+    their sum."""
 
     def __init__(self, torch, dev, seed: int):
         self.torch, self.dev = torch, dev
         self.gen = torch.Generator(device=dev).manual_seed(seed)
         self.out = {"err": 0.0, "times": []}
+        self.bwd = {"err": 0.0, "times": []}
 
     def randn(self, shape):
         return self.torch.randn(shape, generator=self.gen, device=self.dev)
@@ -3905,6 +3934,8 @@ class SegmentCheck:
         cotangent."""
         from repro_torch.kernels.segment_sum import (gather_segment_sum,
                                                      segment_sum,
+                                                     segment_sum_bwd,
+                                                     segment_sum_bwd_plain,
                                                      segment_sum_plain,
                                                      weight_grad)
 
@@ -3922,74 +3953,120 @@ class SegmentCheck:
         out = gather_segment_sum(xg, None, None, n_out, wg, plan=plan)
         out.backward(g)
         fwd = segment_sum(x, w, plan.fwd)
-        dx = segment_sum(g, w, plan.bwd)
-        err = 0.0
-        for name, got, want, again in (
-                ("forward", out.detach(), segment_sum_plain(
-                    x, w, plan.fwd), fwd),
-                ("dx", xg.grad, segment_sum_plain(g, w, plan.bwd), dx)):
-            check(same_values(torch, got, want),
-                  f"gather_segment_sum {what}: {name} differs from plain")
-            check(same_values(torch, got, again),
-                  f"gather_segment_sum {what}: two runs of {name} differ")
-            err = max(err, float(torch.where(
-                got.isnan() | want.isnan(), 0.0, got - want).abs().max()))
+        want_dx, want_dw = segment_sum_bwd_plain(x, g, w, plan)
+        dx, dw = segment_sum_bwd(x, g, w, plan)
+        pairs = [("forward", out.detach(), segment_sum_plain(x, w, plan.fwd),
+                  fwd, self.out), ("dx", xg.grad, want_dx, dx, self.bwd)]
         if w is not None:
-            check(same_values(torch, wg.grad, weight_grad(x, g, plan)),
-                  f"gather_segment_sum {what}: dw differs")
-        self.out["err"] = max(self.out["err"], err)
+            pairs.append(("dw", wg.grad, want_dw, dw, self.bwd))
+        err = {}
+        for name, got, want, again, into in pairs:
+            check(same_signed(torch, got, want),
+                  f"gather_segment_sum {what}: {name} differs from plain")
+            check(same_signed(torch, got, again),
+                  f"gather_segment_sum {what}: two runs of {name} differ")
+            err[name] = float(torch.where(
+                got.isnan() | want.isnan(), 0.0, got - want).abs().max()
+                if got.numel() else 0.0)
+            into["err"] = max(into["err"], err[name])
         hot = int(plan.fwd["count"].max()) if len(plan.fwd["count"]) else 0
         parts = int((plan.fwd["part"] >= 0).sum())
         src, dst = plan.src.long(), plan.dst.long()
         check(bool(((src >= 0) & (dst >= 0)).all()),
               "library inputs out of range")
         top = int(torch.bincount(dst).max())
-        del out, xg, wg, fwd, dx
+        chunks = len(plan.bwd["start"])
+        del out, xg, wg, fwd, dx, dw, want_dx, want_dw
 
         def library():
             rows = x[src]
             return torch.zeros((n_out, d), device=self.dev).index_add_(
                 0, dst, rows if w is None else rows * w)
 
-        def bwd():
-            return segment_sum(g, w, plan.bwd)
-
         def bwd_library():
             rows = g[dst]
-            return torch.zeros((n, d), device=self.dev).index_add_(
+            gx = torch.zeros((n, d), device=self.dev).index_add_(
                 0, src, rows if w is None else rows * w)
+            return gx, None if w is None else x[src] * rows
 
         rows = e * d * 4
         x_bytes = min(n * d * 4, rows) if n * d * 4 <= L2_BYTES else rows
         in_bytes = x_bytes + (rows if weighted else 0) + e * 8
         g_bytes = min(n_out * d * 4, rows) if n_out * d * 4 <= L2_BYTES \
             else rows
-        tb = cuda_ms(torch, bwd, iters)
-        tbp = cuda_ms(torch, lambda: segment_sum_plain(g, w, plan.bwd), 3, 1)
+        tb = cuda_ms(torch, lambda: segment_sum_bwd(x, g, w, plan), iters)
+        tbp = cuda_ms(torch, lambda: segment_sum_bwd_plain(x, g, w, plan), 3,
+                      1)
         tbl = cuda_ms(torch, bwd_library, iters, 1)
-        bb, bby = bound_ms(g_bytes + (rows if weighted else 0) + e * 8,
-                           n * d * 4, (2 if weighted else 1) * e * d)
+        tdx = cuda_ms(torch, lambda: segment_sum(g, w, plan.bwd), iters)
+        twg = cuda_ms(torch, lambda: weight_grad(x, g, plan), iters) \
+            if weighted else None
+        bb, bby = bound_ms(
+            g_bytes + (rows if weighted else 0) + e * 8
+            + (chunks * d * 4 if weighted else 0),
+            n * d * 4 + (rows if weighted else 0),
+            (3 if weighted else 1) * e * d)
         tk = cuda_ms(torch, lambda: segment_sum(x, w, plan.fwd), iters)
         tp = cuda_ms(torch, lambda: segment_sum_plain(x, w, plan.fwd), 3,
                      1)
         tl = cuda_ms(torch, library, iters, 1)
         b, by = bound_ms(in_bytes, n_out * d * 4,
                          (2 if weighted else 1) * e * d)
+        shape = dict(what=what, E=e, n_src=n, n_out=n_out, D=d)
         self.out["times"].append(dict(
-            what=what, E=e, n_src=n, n_out=n_out, D=d, ms=tk, plain_ms=tp,
-            library_ms=tl, bound_ms=b, bound_by=by, bwd_dx_ms=tb,
-            bwd_dx_plain_ms=tbp, bwd_dx_library_ms=tbl, bwd_dx_bound_ms=bb,
-            bwd_dx_bound_by=bby, plan_ms=plan_ms, most_edges_a_row=top,
-            longest_chunk=hot,
-            chunked_rows=parts, max_abs_err=err))
+            shape, ms=tk, plain_ms=tp, library_ms=tl, bound_ms=b,
+            bound_by=by, plan_ms=plan_ms, most_edges_a_row=top,
+            longest_chunk=hot, chunked_rows=parts,
+            max_abs_err=err["forward"]))
+        self.bwd["times"].append(dict(
+            shape, ms=tb, plain_ms=tbp, library_ms=tbl, bound_ms=bb,
+            bound_by=bby, parent_ms=tdx + (twg or 0.0), parent_dx_ms=tdx,
+            weight_grad_ms=twg, src_rows=chunks, gap=plan.bwd["gap"],
+            max_abs_err=max(v for k, v in err.items() if k != "forward")))
         del plan, x, w, g
         torch.cuda.empty_cache()
 
     def log_rows(self) -> None:
-        for row in self.out["times"]:
-            log("  gather_segment_sum: " + " ".join(
-                f"{key}={val:.4g}" if isinstance(val, float) else
-                f"{key}={val}" for key, val in row.items()))
+        for name, r in (("gather_segment_sum", self.out),
+                        ("gather_segment_sum_bwd", self.bwd)):
+            for row in r["times"]:
+                log(f"  {name}: " + " ".join(
+                    f"{key}={val:.4g}" if isinstance(val, float) else
+                    f"{key}={val}" for key, val in row.items()))
+
+
+class CfconvBackwards:
+    """Counts, over a block, the calls of ``segment_sum_bwd`` with a w
+    (SchNet's cfconv backwards: the readout's has none) and all of them,
+    and the calls of ``weight_grad``, which the card's backward must
+    never make (its kernel gives dw)."""
+
+    def __init__(self):
+        from repro_torch.kernels.segment_sum import ops as ss
+        from repro_torch.kernels.segment_sum import plain
+
+        self.mods = ss, plain
+        self.n = {"with_w": 0, "all": 0, "weight_grad": 0}
+
+    def __enter__(self):
+        ss, plain = self.mods
+        self.real = ss.segment_sum_bwd, plain.weight_grad
+
+        def bwd(x, g, w, plan, *args, **kwargs):
+            self.n["all"] += 1
+            self.n["with_w"] += w is not None
+            return self.real[0](x, g, w, plan, *args, **kwargs)
+
+        def wgrad(*args):
+            self.n["weight_grad"] += 1
+            return self.real[1](*args)
+
+        ss.segment_sum_bwd, plain.weight_grad = bwd, wgrad
+        return self
+
+    def __exit__(self, *exc):
+        ss, plain = self.mods
+        ss.segment_sum_bwd, plain.weight_grad = self.real
 
 
 def reddit_sampled_batch(torch, dev, cfg, seed: int) -> tuple[dict, dict]:
@@ -4054,10 +4131,35 @@ def ogb_step_bound(cfg, n: int, e: int) -> tuple[float, float]:
     return flops, flops / FP32_FLOPS * 1e3
 
 
+def cfconv_steps(torch, what: str, cell, params, opt_state, batches: list,
+                 counters: dict, main: dict, first_step: int = 0):
+    """``train_steps`` of a SchNet cell, checking that every cfconv
+    backward (an interaction and edge chunk a step) launched the backward
+    kernel and that none called ``weight_grad``."""
+    from repro_torch.models import schnet as sm
+
+    e = batches[0]["edge_index"].shape[1]
+    before = main["gather_segment_sum_bwd"]
+    with CfconvBackwards() as cb:
+        res = train_steps(torch, what, cell, params, opt_state, batches, e,
+                          counters, main, first_step=first_step)
+    want = (cell.model_cfg.n_interactions * max(1, -(-e // sm.EDGE_CHUNK))
+            * len(batches))
+    launched = main["gather_segment_sum_bwd"] - before
+    check(cb.n["with_w"] == want and launched == cb.n["all"]
+          and cb.n["weight_grad"] == 0,
+          f"{what}: {cb.n['with_w']} cfconv backwards of {want}, "
+          f"{launched} backward launches for {cb.n['all']} calls, "
+          f"weight_grad called {cb.n['weight_grad']} times")
+    log(f"  {what}: all {want} cfconv backwards launched "
+        f"gather_segment_sum_bwd, weight_grad never called")
+    return res
+
+
 def phase_schnet(torch, dev, kern: dict) -> dict:
-    """Phase 11. Returns the launches of ``gather_segment_sum`` on the
-    train path (the cells' steps, each step's count read from 0), not the
-    checks."""
+    """Phase 11. Returns the launches of ``gather_segment_sum`` and its
+    backward kernel on the train path (the cells' steps, each step's
+    count read from 0), not the checks."""
     from repro_torch.configs.schnet import SHAPES
     from repro_torch.kernels.segment_sum import EdgePlan
     from repro_torch.kernels.segment_sum import ops as ss
@@ -4070,8 +4172,9 @@ def phase_schnet(torch, dev, kern: dict) -> dict:
 
     t0 = time.perf_counter()
     reduced: list = []
-    counters = {"gather_segment_sum": (ss, "launches")}
-    main = {"gather_segment_sum": 0}
+    counters = {"gather_segment_sum": (ss, "launches"),
+                "gather_segment_sum_bwd": (ss, "bwd_launches")}
+    main = {k: 0 for k in counters}
     chk = SegmentCheck(torch, dev, SEED + 30)
     out: dict = {}
 
@@ -4120,18 +4223,17 @@ def phase_schnet(torch, dev, kern: dict) -> dict:
         params, opt_state = fresh(cell, SEED + 33)
         batch = batches[shape]
         e = batch["edge_index"].shape[1]
-        losses, hosts = train_steps(torch, f"{SCHNET} {shape}", cell,
-                                    params, opt_state,
-                                    [batch] * SCHNET_STEPS, e, counters,
-                                    main)
+        losses, hosts = cfconv_steps(torch, f"{SCHNET} {shape}", cell,
+                                     params, opt_state,
+                                     [batch] * SCHNET_STEPS, counters, main)
         out[shape] = dict(losses=losses, host_s=[h / 1e3 for h in hosts],
                           edges_a_s=[e / h * 1e3 for h in hosts],
                           peak_gb=peak_gb(torch))
         if shape == "minibatch_lg":               # and one sampled step
-            losses, hosts = train_steps(
+            losses, hosts = cfconv_steps(
                 torch, f"{SCHNET} minibatch_lg sampled", cell, params,
-                opt_state, [sampled], sampled["edge_index"].shape[1],
-                counters, main, first_step=SCHNET_STEPS)
+                opt_state, [sampled], counters, main,
+                first_step=SCHNET_STEPS)
             out["minibatch_lg_sampled"] = dict(
                 sinfo, loss=losses[0], host_s=hosts[0] / 1e3,
                 peak_gb=peak_gb(torch))
@@ -4213,11 +4315,14 @@ def phase_schnet(torch, dev, kern: dict) -> dict:
     params, opt_state = fresh(cell, SEED + 38)
     p0, o0 = clone(params), clone(opt_state)
     flops, bound = ogb_step_bound(cfg, n, e)
-    losses, hosts = train_steps(torch, f"{SCHNET} ogb_products", cell,
-                                params, opt_state, [batch] * SCHNET_STEPS, e,
-                                counters, main)
+    losses, hosts = cfconv_steps(torch, f"{SCHNET} ogb_products", cell,
+                                 params, opt_state, [batch] * SCHNET_STEPS,
+                                 counters, main)
     peak = peak_gb(torch)
     check(peak < 80.0, f"ogb_products peaked at {peak:.2f} GB")
+    log(f"  {SCHNET} ogb_products: steps {[round(h / 1e3, 4) for h in hosts]}"
+        f" s, peak {peak:.2f} GB (the parent's dx kernel + weight_grad: "
+        f"{OGB_PARENT})")
     log(f"  {SCHNET} ogb_products bound: {bound:.1f} ms a step ({flops:.4g} "
         f"FLOPs of products at 67 TFLOP/s fp32, rbf recomputed per chunk of "
         f"{sm.EDGE_CHUNK} edges)")
@@ -4251,11 +4356,12 @@ def phase_schnet(torch, dev, kern: dict) -> dict:
 
     chk.log_rows()
     kern["gather_segment_sum"] = chk.out
+    kern["gather_segment_sum_bwd"] = chk.bwd
     log(json.dumps({"phase11": dict(out, reduced=reduced)}))
     log(f"  launches on the train path (phase 11's steps): {main}; phase 11 "
         f"took {time.perf_counter() - t0:.1f} s")
-    check(main["gather_segment_sum"] > 0,
-          "gather_segment_sum was never launched on the SchNet train path")
+    for name, n in main.items():
+        check(n > 0, f"{name} was never launched on the SchNet train path")
     return main
 
 
@@ -6492,7 +6598,8 @@ def gnn_replay_rank(torch, rank: int, world: int, store: str, ref: str,
     edges and node rows), held to ``gnn_replay_reference``'s step by
     ``DIST_FP32`` (each m leaf, or ``FLOOR_TIMES`` x its
     ``edge_order_floor`` where that is larger). Returns the rank's losses, step ms, peaks, worst
-    ratios, collective tallies and ``gather_segment_sum`` launches."""
+    ratios, collective tallies and the launches of ``gather_segment_sum``
+    and its backward kernel."""
     import torch.distributed as dist
     from repro_torch.kernels.segment_sum import ops as ss
     from repro_torch.launch import collectives as col
@@ -6505,7 +6612,9 @@ def gnn_replay_rank(torch, rank: int, world: int, store: str, ref: str,
     dev = torch.device(dev_type, 0 if dev_type == "cuda" else None)
     dist.init_process_group("gloo", store=dist.FileStore(store, world),
                             rank=rank, world_size=world)
-    out = {"rank": rank, "cells": {}, "launches": 0}
+    names = {"gather_segment_sum": "launches",
+             "gather_segment_sum_bwd": "bwd_launches"}
+    out = {"rank": rank, "cells": {}, "launches": dict.fromkeys(names, 0)}
     try:
         mesh = make_host_mesh(*GNN_REPLAY, device_type=dev_type)
         want_all = torch.load(ref)
@@ -6519,7 +6628,7 @@ def gnn_replay_rank(torch, rank: int, world: int, store: str, ref: str,
             args = shard_args(cell, (params, None, batch, step0))
             torch.cuda.reset_peak_memory_stats()
             col.take_records()
-            before = ss.launches
+            before = {k: getattr(ss, a) for k, a in names.items()}
             torch.cuda.synchronize()
             t = time.perf_counter()
             p, o, loss = cell.fn(*args)
@@ -6527,7 +6636,8 @@ def gnn_replay_rank(torch, rank: int, world: int, store: str, ref: str,
             res = dict(step_ms=(time.perf_counter() - t) * 1e3,
                        loss=float(loss), peak_gb=peak_gb(torch),
                        collectives=col.collective_stats(col.take_records()))
-            out["launches"] += ss.launches - before
+            for k, a in names.items():
+                out["launches"][k] += getattr(ss, a) - before[k]
             rel = abs(float(loss) - float(want["loss"])) / abs(
                 float(want["loss"]))
             check(rel <= DIST_FP32["loss"], f"15(b) rank {rank} {shape}: "
@@ -6856,11 +6966,13 @@ def phase_gnn_mesh(torch, dev, ckpt: str, replay: dict) -> dict:
     then 14(b)'s checkpoint onto that world; (b) molecule and
     full_graph_sm on 2 x 2 as 4 gloo processes on the card; (c) the
     checkpoint round trip run beside 14(b) (``replay``: its results).
-    Returns the launches of ``gather_segment_sum`` on the mesh steps."""
+    Returns the launches of ``gather_segment_sum`` and its backward
+    kernel on the mesh steps."""
     from repro_torch.kernels.segment_sum import ops as ss
 
     t0 = time.perf_counter()
-    count = PathCounts({"gather_segment_sum": (ss, "launches")})
+    count = PathCounts({"gather_segment_sum": (ss, "launches"),
+                        "gather_segment_sum_bwd": (ss, "bwd_launches")})
     with tempfile.TemporaryDirectory(prefix="chip_smoke-gnn-") as work:
         a = phase_gnn_mesh_collective(torch, work, dev.type, count, ckpt)
         held = "bit for bit (loss, params, AdamW m)" if a["world"] == 1 \
@@ -6904,8 +7016,8 @@ def phase_gnn_mesh(torch, dev, ckpt: str, replay: dict) -> dict:
         f"({c['step2_s']:.1f} s) against the 2 x 2 run's step 2 "
         f"({[round(r['step2_ms'], 1) for r in saved]} ms): worst "
         f"{json.dumps(c['worst_step2'])} ({c['seconds']:.1f} s on one card)")
-    launches = count.n["gather_segment_sum"] + sum(r["launches"]
-                                                   for r in b["ranks"])
+    launches = {k: n + sum(r["launches"][k] for r in b["ranks"])
+                for k, n in count.n.items()}
     log(json.dumps({"phase15": dict(collective=a, replay=b, checkpoint=dict(
         c, ranks=[r["checkpoint"] for r in replay["ranks"]]),
         launches=launches, reduced=[
@@ -6913,11 +7025,11 @@ def phase_gnn_mesh(torch, dev, ckpt: str, replay: dict) -> dict:
             "published graphs' sizes; one step each",
             "15(c): 14(b)'s cut (Mistral-NeMo 2 of 40 layers, fp32, 2 x "
             "4096); the ranks share one card over gloo"])}))
-    log(f"  launches on phase 15's mesh steps: gather_segment_sum "
-        f"{launches}; phase 15 took {time.perf_counter() - t0:.1f} s")
-    check(launches > 0, "gather_segment_sum was never launched on phase "
-                        "15's mesh steps")
-    return {"gather_segment_sum": launches}
+    log(f"  launches on phase 15's mesh steps: {launches}; phase 15 took "
+        f"{time.perf_counter() - t0:.1f} s")
+    for name, n in launches.items():
+        check(n > 0, f"{name} was never launched on phase 15's mesh steps")
+    return launches
 
 
 def main() -> int:
@@ -7155,7 +7267,8 @@ def main() -> int:
                   "flash_attention_bwd": "nemo train_4k",
                   "flash_attention_bwd_tf32": "bert4rec train 256x200",
                   "embedding_bag_bwd": "dlrm train_batch",
-                  "gather_segment_sum": OGB_CHUNK}
+                  "gather_segment_sum": OGB_CHUNK,
+                  "gather_segment_sum_bwd": OGB_CHUNK}
     for name, (source, tpu) in KERNELS.items():
         if name in main_shape:
             at = next(r for r in kern[name]["times"]

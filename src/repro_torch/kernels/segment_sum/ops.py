@@ -1,18 +1,19 @@
-"""Wrapper of the gather-segment-sum kernel (csrc/segment_sum.cu):
+"""Wrapper of the gather-segment-sum kernels (csrc/segment_sum.cu):
 SchNet's message passing, its energy readout and the gradient of its atom
 embedding, summed in a fixed order with no atomics.
 
-``gather_segment_sum(x, src, dst, n_out, w)`` is differentiable: the
-gradient of x is the same kernel over the plan's src order, the gradient
-of w two forward gathers and a product (``plain.weight_grad``).
+``gather_segment_sum(x, src, dst, n_out, w)`` is differentiable: its
+backward (``segment_sum_bwd``) is one kernel over the plan's src order
+that gives the gradients of x and of w together (dx summed in a fixed
+order; dw[e] = x[src[e]] * g[dst[e]] from the rows it gathers for dx).
 ``take(table, ids)`` is a row gather (``jnp.take``) whose gradient is
 this kernel over the ids: SchNet's atom embedding and the recsys
 lookups (``models/recsys.lookup``) add their rows' gradients with it, in
 a fixed order, where ``index_select``'s backward adds them with atomics
-on the card. A CPU
-tensor runs the plain version (``plain.segment_sum_plain``), a CUDA
-tensor launches the kernel or raises; both sum the same terms in the same
-order, so they agree bit for bit."""
+on the card. A CPU tensor runs the plain versions
+(``plain.segment_sum_plain``, ``plain.segment_sum_bwd_plain``), a CUDA
+tensor launches the kernels or raises; both compute the same terms in
+the same order, so they agree bit for bit."""
 from __future__ import annotations
 
 import ctypes
@@ -22,26 +23,32 @@ import torch
 from ... import obs
 from .. import build
 from ..build import check
-from .plain import EdgePlan, segment_sum_plain, take_rows, weight_grad
+from .plain import (EdgePlan, segment_sum_bwd_plain, segment_sum_plain,
+                    take_rows)
 
-launches = 0          # calls of the CUDA entry (two launches each)
+launches = 0          # calls of the forward entry (two launches each)
+bwd_launches = 0      # calls of the backward entry (one or two launches)
+GAP_FILL = 64         # the backward zeroes dx's unreached rows itself
+                      # where no run of them is longer
 
 _entry = None
 
 
 def _lib():
-    """(library, ``gather_segment_sum_fwd``), built, loaded and declared
-    once."""
+    """(library, ``gather_segment_sum_fwd``, ``gather_segment_sum_bwd``),
+    built, loaded and declared once."""
     global _entry
     if _entry is None:
         lib = build.load("segment_sum")
+        p, n = ctypes.c_void_p, ctypes.c_longlong
         fn = lib.gather_segment_sum_fwd
-        fn.argtypes = ([ctypes.c_void_p, ctypes.c_longlong]
-                       + [ctypes.c_void_p] * 7 + [ctypes.c_longlong]
-                       + [ctypes.c_void_p] * 3 + [ctypes.c_longlong]
-                       + [ctypes.c_void_p] * 3)
+        fn.argtypes = [p, n] + [p] * 7 + [n] + [p] * 3 + [n] + [p] * 3
         fn.restype = ctypes.c_int
-        _entry = (lib, fn)
+        bwd = lib.gather_segment_sum_bwd
+        bwd.argtypes = ([p] * 3 + [n] + [p] * 6 + [n, n] + [p] * 3 + [n]
+                        + [p] * 2 + [n, ctypes.c_int, p, n] + [p] * 4)
+        bwd.restype = ctypes.c_int
+        _entry = (lib, fn, bwd)
     return _entry
 
 
@@ -100,7 +107,7 @@ def segment_sum(x: torch.Tensor, w: torch.Tensor | None,
         out = torch.zeros((n_out, d), dtype=torch.float32, device=dev)
         partial = torch.empty((order["parts"], d), dtype=torch.float32,
                               device=dev)
-        lib, fn = _lib()
+        lib, fn, _ = _lib()
         err = _call(dev, fn, x.data_ptr(), d, order["gather"].data_ptr(),
                     None if w is None else w.data_ptr(),
                     order["edge"].data_ptr(), order["start"].data_ptr(),
@@ -116,10 +123,81 @@ def segment_sum(x: torch.Tensor, w: torch.Tensor | None,
         return out
 
 
+def _ptr(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
+
+
+def segment_sum_bwd(x: torch.Tensor | None, g: torch.Tensor,
+                    w: torch.Tensor | None, plan: EdgePlan,
+                    dx: bool = True, dw: bool = True) -> tuple:
+    """Both gradients of ``segment_sum(x, w, plan.fwd)`` against the
+    cotangent ``g`` (plan.n_out, D) fp32: (dx (plan.n_src, D), dw (E, D)),
+    None where not asked for (``dx``, ``dw``) and dw None without w; x is
+    read only for dw. A CPU g runs ``segment_sum_bwd_plain``; a CUDA g
+    launches the kernel once (one pass over ``plan.bwd``, then the rows
+    of several chunks; no atomics)."""
+    global bwd_launches
+    dw = dw and w is not None
+    if not (dx or dw):
+        return None, None
+    with obs.span("kernel:gather_segment_sum_bwd") as sp:
+        order = plan.bwd
+        dev = g.device
+        d = g.shape[-1]
+        _check("g", g, order["n_x"], d, dev)
+        if w is not None:
+            _check("w", w, order["n_edges"], d, dev)
+        if dw:
+            _check("x", x, order["n_out"], d, dev)
+        n_rows, e = order["n_out"], order["n_edges"]
+        slots = len(order["edge"])
+        sp.add("rows", slots)
+        sp.add("bytes", slots * (d * 4 * (int(dx) * (w is not None)
+                                          + int(dw) + 1) + 8)
+               + (n_rows * d * 4 if dx else 0)
+               + (len(order["start"]) * d * 4 if dw else 0))
+        if dev.type == "cpu":
+            return segment_sum_bwd_plain(x, g, w, plan, dx, dw)
+        if dev.type != "cuda":
+            raise ValueError(f"gather_segment_sum runs on cpu or cuda, not "
+                             f"{dev}")
+        if order["edge"].device != dev:
+            raise ValueError(f"gather_segment_sum: the plan on "
+                             f"{order['edge'].device}, g on {dev}")
+        g = g.contiguous()
+        w = None if w is None else w.contiguous()
+        x = x.contiguous() if dw else None
+        chunks = len(order["start"])
+        fill = chunks > 0 and order["gap"] <= GAP_FILL
+        f32 = dict(dtype=torch.float32, device=dev)
+        gx = gw = partial = None
+        if dx:
+            gx = (torch.empty if fill else torch.zeros)((n_rows, d), **f32)
+            partial = torch.empty((order["parts"], d), **f32)
+        skip = plan.skip if dw else None
+        if dw:
+            gw = torch.empty((e, d), **f32)
+        lib, _, fn = _lib()
+        err = _call(dev, fn, _ptr(x), g.data_ptr(), _ptr(w), d,
+                    order["gather"].data_ptr(), order["edge"].data_ptr(),
+                    order["start"].data_ptr(), order["count"].data_ptr(),
+                    order["key"].data_ptr(), order["part"].data_ptr(),
+                    chunks, order["longest"], order["mfirst"].data_ptr(),
+                    order["mcount"].data_ptr(), order["mkey"].data_ptr(),
+                    len(order["mkey"]), _ptr(partial), _ptr(gx), n_rows,
+                    int(fill), _ptr(skip), 0 if skip is None else len(skip),
+                    plan.src.data_ptr(), plan.dst.data_ptr(), _ptr(gw))
+        check(lib, err, "gather_segment_sum_bwd")
+        bwd_launches += 1
+        if sp is not obs.NOOP_SPAN:            # traced: span = device time
+            torch.cuda.current_stream(dev).synchronize()
+        return gx, gw
+
+
 class _GatherSegmentSum(torch.autograd.Function):
-    """The forward over ``plan.fwd``; the gradient of x over ``plan.bwd``
-    (the cotangent's rows gathered by dst, summed into rows src), that of
-    w by ``weight_grad``."""
+    """The forward over ``plan.fwd``; both gradients by ``segment_sum_bwd``
+    over ``plan.bwd`` (the cotangent's rows gathered by dst: summed into
+    rows src for x, times x[src] for w), each only if asked for."""
 
     @staticmethod
     def forward(ctx, x, w, plan):
@@ -130,13 +208,9 @@ class _GatherSegmentSum(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, w = ctx.saved_tensors
-        plan = ctx.plan
-        g = g.contiguous()
-        dx = dw = None
-        if ctx.needs_input_grad[0]:
-            dx = segment_sum(g, w, plan.bwd)
-        if ctx.needs_input_grad[1]:
-            dw = weight_grad(x, g, plan)
+        dx, dw = segment_sum_bwd(x, g.contiguous(), w, ctx.plan,
+                                 ctx.needs_input_grad[0],
+                                 ctx.needs_input_grad[1])
         return dx, dw, None
 
 

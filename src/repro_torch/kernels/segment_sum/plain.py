@@ -15,6 +15,8 @@ kernel sums the same terms in the same order, so the two agree bit for
 bit, and two runs do too."""
 from __future__ import annotations
 
+import functools
+
 import torch
 
 CHUNK = 256           # edges one reduction step sums in order
@@ -45,6 +47,9 @@ def _order(key: torch.Tensor, keep: torch.Tensor, gather: torch.Tensor,
       mfirst, mcount, mkey (M,) int32   each row of more than one chunk:
                             its first partial, their count, the row;
       parts: the number of partials;
+      gap: the longest run of output rows no chunk reaches (``rows``
+                            when no edge is kept);
+      longest: the most slots of a chunk (0 when no edge is kept);
       n_x, n_out, n_edges: the rows of x and of the output, and the
                             edges (rows of w) it was made for."""
     dev = key.device
@@ -65,6 +70,12 @@ def _order(key: torch.Tensor, keep: torch.Tensor, gather: torch.Tensor,
     within = torch.arange(total, device=dev) - chunk_first[seg_of]
     start = seg_start[seg_of] + within * CHUNK
     count = torch.clamp(seg_len[seg_of] - within * CHUNK, max=CHUNK)
+    keys = torch.cat([torch.tensor([-1], device=dev), sorted_key[seg_start],
+                      torch.tensor([rows], device=dev)])
+    gap, longest = torch.stack([
+        (torch.diff(keys) - 1).max(),
+        torch.cat([seg_len, seg_len.new_zeros(1)]).max().clamp(
+            max=CHUNK)]).tolist()
     multi = n_chunks > 1
     in_multi = multi[seg_of]
     part = torch.where(in_multi, torch.cumsum(in_multi.long(), 0) - 1, -1)
@@ -75,7 +86,8 @@ def _order(key: torch.Tensor, keep: torch.Tensor, gather: torch.Tensor,
             "mfirst": part[chunk_first[multi]].to(i32),
             "mcount": n_chunks[multi].to(i32),
             "mkey": sorted_key[seg_start[multi]].to(i32),
-            "parts": int(in_multi.sum()), "n_x": n_x, "n_out": rows,
+            "parts": int(in_multi.sum()), "gap": gap, "longest": longest,
+            "n_x": n_x, "n_out": rows,
             "n_edges": key.shape[0]}
 
 
@@ -92,9 +104,12 @@ class EdgePlan:
                             range (src) or dropped (dst);
       fwd                   the forward's order (``_order``): the edges
                             of a kept dst by dst, gathering x[src];
-      bwd                   the gradient of x: the edges of a kept dst
-                            and an in-range src by src, gathering the
-                            cotangent's row dst.
+      bwd                   the gradients: the edges of a kept dst and
+                            an in-range src by src, gathering the
+                            cotangent's row dst;
+      skip                  the edges bwd leaves out: their gradient of
+                            w is a NaN row (src out of range) or
+                            x[src] * 0 (dst dropped).
     """
 
     def __init__(self, src: torch.Tensor, dst: torch.Tensor, n_src: int,
@@ -113,6 +128,13 @@ class EdgePlan:
         self.dst = torch.where(dst_ok, dst, -1).to(torch.int32)
         self.fwd = _order(dst, dst_ok, self.src, n_out, n_src)
         self.bwd = _order(src, src_ok & dst_ok, self.dst, n_src, n_out)
+
+    @functools.cached_property
+    def skip(self) -> torch.Tensor:
+        """The edges ``bwd`` leaves out, ascending (K,) int32, made at
+        first use (only the gradient of w reads them)."""
+        return ((self.src < 0) | (self.dst < 0)).nonzero()[:, 0].to(
+            torch.int32)
 
 
 def segment_sum_plain(x: torch.Tensor, w: torch.Tensor | None,
@@ -151,9 +173,21 @@ def weight_grad(x: torch.Tensor, g: torch.Tensor, plan: EdgePlan
                 ) -> torch.Tensor:
     """d out / d w against the cotangent ``g`` (n_out, D): dw[e] =
     x[src[e]] * g[dst[e]], a NaN row for an out-of-range src, 0 for a
-    dropped dst (NaN where both), as ``jax.vjp`` gives. Two gathers and
-    one product, the same on the CPU and the card."""
+    dropped dst (NaN where both), as ``jax.vjp`` gives: two gathers and
+    one product, which the backward kernel computes row by row."""
     return take_rows(x, plan.src) * take_rows(g, plan.dst, 0.0)
+
+
+def segment_sum_bwd_plain(x: torch.Tensor, g: torch.Tensor,
+                          w: torch.Tensor | None, plan: EdgePlan,
+                          dx: bool = True, dw: bool = True) -> tuple:
+    """Both gradients of ``segment_sum(x, w, plan.fwd)`` against the
+    cotangent ``g`` (n_out, D), as the backward kernel computes them:
+    (dx, dw), dx = ``segment_sum_plain(g, w, plan.bwd)`` (summed in the
+    kernel's order) and dw = ``weight_grad(x, g, plan)``; None where not
+    asked for, and dw None without w."""
+    return (segment_sum_plain(g, w, plan.bwd) if dx else None,
+            weight_grad(x, g, plan) if dw and w is not None else None)
 
 
 def gather_segment_sum_plain(x: torch.Tensor, src: torch.Tensor,

@@ -101,7 +101,8 @@ def _schnet(dev, args):
     extra = dict(shape=args.shape, nodes=nodes, edge_chunk=sm.EDGE_CHUNK)
     timers = {"plans_s": lambda: sm.edge_chunks(ei, nodes)}
     return (cell, params, opt_state, batch, {"edges": ei.shape[1]},
-            {"segment_sum_calls": (ss, "launches")}, extra, timers)
+            {"segment_sum_calls": (ss, "launches"),
+             "segment_sum_bwd_calls": (ss, "bwd_launches")}, extra, timers)
 
 
 SETUP = {NEMO: _nemo, "schnet": _schnet}

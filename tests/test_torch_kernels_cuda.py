@@ -55,9 +55,11 @@ of either backward are bit for bit equal.
 
 gather_segment_sum (SchNet's message passing) sums the plain version's
 terms in its order (edges sorted stably by row, chunks of 256, one
-rounded product and one rounded add an edge): its forward and the
-gradient of x equal the plain ones bit for bit, NaN rows (an
-out-of-range src) at the same places, and two runs too; the reduced
+rounded product and one rounded add an edge): its forward and its
+backward kernel's gradients of x and of w equal the plain ones
+(``segment_sum_bwd_plain``) bit for bit, signed zeros included, NaN rows
+(an out-of-range src) at the same places, rows no edge reaches 0, and
+two runs too; the reduced
 SchNet cells' loss and gradients repeat bit for bit on the card and stay
 within 1e-4 of each leaf's largest of the CPU's."""
 import numpy as np
@@ -1505,12 +1507,14 @@ def test_gather_segment_sum_kernel_matches_plain(dev, n, n_out, e, d, hot,
     plan = EdgePlan(src, dst, n, n_out)
     xg = x.clone().requires_grad_(True)
     wg = None if w is None else w.clone().requires_grad_(True)
-    before = ss_ops.launches
+    before = (ss_ops.launches, ss_ops.bwd_launches)
     out = gather_segment_sum(xg, None, None, n_out, wg, plan=plan)
     g = _randn((n_out, d), 300 + e, dev, torch.float32)
     out.backward(g)
     torch.cuda.synchronize()
-    assert ss_ops.launches == before + 2           # forward, dx
+    # the forward, then one backward call for dx and dw together
+    assert (ss_ops.launches, ss_ops.bwd_launches) == (before[0] + 1,
+                                                      before[1] + 1)
     assert _same(out, segment_sum_plain(x, w, plan.fwd))
     assert _same(xg.grad, segment_sum_plain(g, w, plan.bwd))
     if w is not None:
@@ -1519,6 +1523,114 @@ def test_gather_segment_sum_kernel_matches_plain(dev, n, n_out, e, d, hot,
         assert bool(out.isnan().any())
     again = gather_segment_sum(x, src, dst, n_out, w)
     assert _same(out.detach(), again)
+
+
+def _same_bits(a, b) -> bool:
+    """``_same``, and signed zeros equal too."""
+    na, nb = a.isnan(), b.isnan()
+    return (a.shape == b.shape and torch.equal(na, nb)
+            and torch.equal(torch.where(na, 0.0, a).view(torch.int32),
+                            torch.where(nb, 0.0, b).view(torch.int32)))
+
+
+def _dirty_cache(dev):
+    """Leaves a freed block of NaN in the caching allocator, so that a
+    ``torch.empty`` after it holds NaN where a kernel writes nothing."""
+    torch.full((1 << 24,), float("nan"), device=dev)
+
+
+@pytest.mark.parametrize("n,n_out,e,d,hot,bad,weighted", [
+    (3840, 3840, 8192, 64, False, False, True),        # molecule
+    (5000, 5000, 40_000, 64, True, False, True),       # a hot row 0
+    (700, 600, 9000, 64, False, True, True),           # NaN rows, dropped
+    (300, 200, 5000, 100, False, True, True),          # two float4 passes
+    (300, 200, 5000, 1, False, True, True),            # D 1, scalar body
+    (301, 200, 5000, 7, False, False, True),           # D 7, scalar body
+    (3840, 128, 3840, 1, False, False, False),         # readout, no w
+    (20_000, 3000, 6000, 64, False, False, True),      # rows no edge reaches
+])
+def test_gather_segment_sum_bwd_matches_plain(dev, n, n_out, e, d, hot, bad,
+                                              weighted):
+    """The backward kernel: dx and dw (each alone and both) equal
+    ``segment_sum_bwd_plain`` bit for bit, NaN at the same places, signed
+    zeros kept (a dropped dst gives x[src] * 0), every row of dx no edge
+    reaches 0 although the kernel, not a memset, writes it (dx comes from
+    ``torch.empty`` over a block of NaN), and two runs bit for bit."""
+    from repro_torch.kernels.segment_sum import (EdgePlan, segment_sum_bwd,
+                                                 segment_sum_bwd_plain)
+    from repro_torch.kernels.segment_sum import ops as ss_ops
+    x, w, src, dst = _segment_inputs(dev, n, n_out, e, d, 400 + e, hot, bad)
+    x = torch.where(torch.arange(n, device=dev)[:, None] % 3 == 0, -x.abs(),
+                    x)
+    w = w if weighted else None
+    plan = EdgePlan(src, dst, n, n_out)
+    g = _randn((n_out, d), 500 + e, dev, torch.float32)
+    g[::5] = -0.0
+    want_dx, want_dw = segment_sum_bwd_plain(x, g, w, plan)
+    reached = torch.zeros(n, dtype=torch.bool, device=dev)
+    reached[plan.bwd["key"].long()] = True
+    if n == 20_000:
+        assert not bool(reached.all())
+        assert plan.bwd["gap"] <= ss_ops.GAP_FILL    # the kernel zeroes
+    before = ss_ops.bwd_launches
+    runs = []
+    for _ in range(2):
+        _dirty_cache(dev)
+        runs.append(segment_sum_bwd(x, g, w, plan))
+    torch.cuda.synchronize()
+    assert ss_ops.bwd_launches == before + 2
+    for dx, dw in runs:
+        assert _same_bits(dx, want_dx)
+        assert not bool(dx[~reached].any())
+        if w is None:
+            assert dw is None
+        else:
+            assert _same_bits(dw, want_dw)
+    if bad and w is not None:
+        assert bool(runs[0][1].isnan().any())
+        dropped = plan.dst.long() < 0
+        assert bool((runs[0][1][dropped] == 0).any())
+    if w is not None:
+        _dirty_cache(dev)
+        dx, none = segment_sum_bwd(x, g, w, plan, dw=False)
+        assert none is None and _same_bits(dx, want_dx)
+        none, dw = segment_sum_bwd(x, g, w, plan, dx=False)
+        assert none is None and _same_bits(dw, want_dw)
+
+
+def test_gather_segment_sum_bwd_long_gap_and_no_edges(dev):
+    """A plan whose src order leaves more than ``GAP_FILL`` rows in a run
+    unreached takes a zeroed dx (the kernel then writes only its rows);
+    a plan with no kept edge gives dx 0 and dw from the skipped edges
+    alone; both equal the plain version bit for bit, and the path adds at
+    no index (``testing.accumulating_ops``)."""
+    from repro_torch.kernels.segment_sum import (EdgePlan, gather_segment_sum,
+                                                 segment_sum_bwd,
+                                                 segment_sum_bwd_plain)
+    from repro_torch.kernels.segment_sum import ops as ss_ops
+    from repro_torch.testing import accumulating_ops
+    n, n_out, e, d = 5000, 300, 2000, 64
+    x, w, src, dst = _segment_inputs(dev, n, n_out, e, d, 61)
+    src = src % 40 + 4000 * (torch.arange(e, device=dev) % 2)
+    plan = EdgePlan(src, dst, n, n_out)
+    assert plan.bwd["gap"] > ss_ops.GAP_FILL
+    g = _randn((n_out, d), 62, dev, torch.float32)
+    _dirty_cache(dev)
+    got = segment_sum_bwd(x, g, w, plan)
+    want = segment_sum_bwd_plain(x, g, w, plan)
+    assert _same_bits(got[0], want[0]) and _same_bits(got[1], want[1])
+    none = EdgePlan(src, torch.full_like(dst, -1), n, n_out)
+    _dirty_cache(dev)
+    got = segment_sum_bwd(x, g, w, none)
+    want = segment_sum_bwd_plain(x, g, w, none)
+    assert float(got[0].abs().max()) == 0.0
+    assert _same_bits(got[0], want[0]) and _same_bits(got[1], want[1])
+    xg = x.clone().requires_grad_(True)
+    wg = w.clone().requires_grad_(True)
+    gathered = accumulating_ops(lambda: gather_segment_sum(
+        xg, None, None, n_out, wg, plan=plan).backward(g))
+    assert gathered == []
+    assert _same(xg.grad, segment_sum_bwd_plain(x, g, w, plan)[0])
 
 
 def test_gather_segment_sum_rejects_bad_input(dev):

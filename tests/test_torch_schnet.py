@@ -25,7 +25,9 @@ from repro.models import schnet as rs
 from repro_torch.data import sampler
 from repro_torch.kernels.segment_sum import (EdgePlan, gather_segment_sum,
                                              gather_segment_sum_plain,
-                                             segment_sum)
+                                             segment_sum,
+                                             segment_sum_bwd_plain,
+                                             segment_sum_plain, weight_grad)
 from repro_torch.launch import steps
 from repro_torch.models import schnet as ps
 from repro_torch.models.bridge import tree_from_numpy, tree_to_numpy
@@ -136,6 +138,94 @@ def test_gather_segment_sum_grads_match_jax(name):
     _close(xt.grad, want_dx, vjp_abs(np.abs(g))[0])
     if w is not None:
         _close(wt.grad, want_dw, np.abs(np.asarray(want_dw)))
+
+
+def _same(a, b):
+    """Bit for bit where not NaN, NaN at the same places."""
+    assert a.shape == b.shape
+    assert torch.equal(a.isnan(), b.isnan())
+    assert torch.equal(torch.where(a.isnan(), 0.0, a).view(torch.int32),
+                       torch.where(b.isnan(), 0.0, b).view(torch.int32))
+
+
+@pytest.mark.parametrize("name", CASES)
+def test_segment_sum_bwd_plain_is_dx_and_weight_grad(name):
+    """The backward's plain version gives dx as the forward body summed
+    over the plan's src order and dw as ``weight_grad``, bit for bit
+    (signed zeros included), NaN at the same places; dw also equals
+    x[src] * g[dst] rounded once in numpy, with a NaN row for a bad src
+    and x[src] * 0 for a dropped dst. The plan's ``skip`` lists exactly
+    the edges its src order leaves out, ``gap`` the longest run of rows
+    no chunk of that order reaches (the kernel zeroes those rows itself
+    where it is short) and ``longest`` its most slots in a chunk."""
+    rng = np.random.default_rng(6)
+    x, src, dst, n_out, w = _case(name, rng)
+    n, d = x.shape
+    g = rng.standard_normal((n_out, d)).astype(np.float32)
+    g[::4, 0] = -0.0
+    plan = EdgePlan(_t(src), _t(dst), n, n_out)
+    wt = None if w is None else _t(w)
+    dx, dw = segment_sum_bwd_plain(_t(x), _t(g), wt, plan)
+    _same(dx, segment_sum_plain(_t(g), wt, plan.bwd))
+    if w is None:
+        assert dw is None
+    s = np.where(src < 0, src + n, src)
+    src_ok = (s >= 0) & (s < n)
+    dst_ok = (dst >= 0) & (dst < n_out)
+    if w is not None:
+        _same(dw, weight_grad(_t(x), _t(g), plan))
+        rows = np.where(src_ok[:, None], x[np.where(src_ok, s, 0)], np.nan)
+        cot = np.where(dst_ok[:, None], g[np.where(dst_ok, dst, 0)], 0.0)
+        _same(dw, _t((rows * cot).astype(np.float32)))
+        assert bool(dw.isnan().any()) == (name == "bad_src")
+    np.testing.assert_array_equal(plan.skip.numpy(),
+                                  np.flatnonzero(~(src_ok & dst_ok)))
+    reached = np.zeros(n + 2, bool)
+    reached[1:-1][s[src_ok & dst_ok]] = True
+    reached[0] = reached[-1] = True
+    assert plan.bwd["gap"] == int(np.diff(np.flatnonzero(reached)).max()) - 1
+    per_row = np.bincount(s[src_ok & dst_ok], minlength=n)
+    assert plan.bwd["longest"] == min(256, int(per_row.max()))
+    only_dx = segment_sum_bwd_plain(_t(x), _t(g), wt, plan, dw=False)
+    _same(only_dx[0], dx)
+    assert only_dx[1] is None
+    only_dw = segment_sum_bwd_plain(_t(x), _t(g), wt, plan, dx=False)
+    assert only_dw[0] is None
+    if w is not None:
+        _same(only_dw[1], dw)
+
+
+@pytest.mark.parametrize("wants", ["x", "w", "both"])
+@pytest.mark.parametrize("name", ["basic", "bad_src", "bad_dst", "hot_row"])
+def test_gather_segment_sum_autograd_asks_only_what_it_needs(name, wants):
+    """Autograd through ``gather_segment_sum`` with only x, only w or both
+    requiring grad: the gradients asked for equal ``segment_sum_bwd_plain``
+    bit for bit (the same whichever else is asked), the others stay
+    None, and the backward makes one call of ``segment_sum_bwd``."""
+    from repro_torch.kernels.segment_sum import ops as ss
+    rng = np.random.default_rng(7)
+    x, src, dst, n_out, w = _case(name, rng)
+    g = _t(rng.standard_normal((n_out, x.shape[1])).astype(np.float32))
+    plan = EdgePlan(_t(src), _t(dst), x.shape[0], n_out)
+    xt = _t(x).requires_grad_(wants in ("x", "both"))
+    wt = _t(w).requires_grad_(wants in ("w", "both"))
+    want_dx, want_dw = segment_sum_bwd_plain(_t(x), g, _t(w), plan)
+    calls = []
+    real = ss.segment_sum_bwd_plain
+    ss.segment_sum_bwd_plain = lambda *a: calls.append(a[4:]) or real(*a)
+    try:
+        gather_segment_sum(xt, None, None, n_out, wt, plan=plan).backward(g)
+    finally:
+        ss.segment_sum_bwd_plain = real
+    assert calls == [(wants != "w", wants != "x")]
+    if wants == "w":
+        assert xt.grad is None
+    else:
+        _same(xt.grad, want_dx)
+    if wants == "x":
+        assert wt.grad is None
+    else:
+        _same(wt.grad, want_dw)
 
 
 def test_plan_orders_and_reuse():
