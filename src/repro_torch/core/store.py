@@ -331,13 +331,14 @@ class LiveVectorLake:
         with span("store:query_batch") as sp:
             t_store = time.perf_counter()
             visible = self.tenants.visible_tids(visibility)
-            intents = [classify_query(t, at=at, window=window)
-                       for t in texts]
+            with span("classify"):
+                groups: dict[tuple, list[int]] = {}
+                for i, t in enumerate(texts):
+                    it = classify_query(t, at=at, window=window)
+                    groups.setdefault((it.mode, it.at, it.window),
+                                      []).append(i)
             with span("embed"):
                 vecs = self.embedder.embed(list(texts))
-            groups: dict[tuple, list[int]] = {}
-            for i, it in enumerate(intents):
-                groups.setdefault((it.mode, it.at, it.window), []).append(i)
             out: list[Optional[list[SearchResult]]] = [None] * len(texts)
             for (mode, g_at, g_window), idxs in groups.items():
                 q = vecs[idxs]
@@ -353,8 +354,9 @@ class LiveVectorLake:
                         tier = "cold"
                         res = self.temporal.query_at_batch(
                             q, g_at, k=k, visible=visible)
-                        for r in res:
-                            self.temporal.assert_no_leakage(r, g_at)
+                        with span("results"):
+                            for r in res:
+                                self.temporal.assert_no_leakage(r, g_at)
                     else:
                         assert mode == COMPARATIVE
                         tier = "cold"

@@ -502,8 +502,9 @@ class TemporalEngine:
         bounds = np.full(qp.shape[0], int(ts), np.int64)
         scores, idx = self._fused_topk(qp, nq, res, bounds, bounds + 1,
                                        min(k, res.n), visible=visible)
-        return [self._resident_results(res, scores[qi], idx[qi], k)
-                for qi in range(nq)]
+        with obs.span("results"):
+            return [self._resident_results(res, scores[qi], idx[qi], k)
+                    for qi in range(nq)]
 
     def _fused_topk(self, qp: np.ndarray, nq: int, res: ResidentHistory,
                     t0s: np.ndarray, t1s: np.ndarray, k: int,
@@ -607,8 +608,9 @@ class TemporalEngine:
         t1s = np.full(qp.shape[0], int(t1), np.int64)
         scores, idx = self._fused_topk(qp, nq, res, t0s, t1s,
                                        min(k, res.n), visible=visible)
-        return [self._resident_results(res, scores[qi], idx[qi], k)
-                for qi in range(nq)]
+        with obs.span("results"):
+            return [self._resident_results(res, scores[qi], idx[qi], k)
+                    for qi in range(nq)]
 
     def _oracle_window_batch(self, queries: np.ndarray, t0: int, t1: int,
                              k: int = 5,

@@ -799,7 +799,8 @@ class SegmentedIndex:
         top_s, top_g = merge_topk_candidates(
             np.concatenate(blocks_s, axis=1),
             np.concatenate(blocks_g, axis=1), auth, k)
-        return self._build_results(top_s, top_g, cat)
+        with obs.span("results"):
+            return self._build_results(top_s, top_g, cat)
 
     def _build_results(self, top_s: np.ndarray, top_g: np.ndarray,
                        cat: _Catalog) -> list[list[SearchResult]]:

@@ -41,6 +41,8 @@ from typing import Callable, Optional
 
 import numpy as np
 
+from .. import obs
+
 Q8_MAX = 127
 _SCALE_FLOOR = 1e-12
 
@@ -149,24 +151,26 @@ def rescore_topk(q: np.ndarray, pool_idx: np.ndarray,
     if k == 0:
         return (np.full((nq, 0), -np.inf, np.float32),
                 np.full((nq, 0), -1, np.int64))
-    uniq, inv = np.unique(np.clip(pool_idx, 0, None), return_inverse=True)
-    if isinstance(f32_rows, F32Rows):
-        rows = f32_rows.get(uniq)
-    elif callable(f32_rows):
-        rows = np.asarray(f32_rows(uniq), np.float32)
-    else:
-        rows = np.asarray(f32_rows, np.float32)[uniq]
-    # einsum, NOT @: the pool is tiny, and a threaded BLAS gemm here
-    # would leave OpenBLAS worker threads spinning right when the next
-    # int8 GEMM (torch/oneDNN pool) wants the cores
-    exact = np.einsum("qd,ud->qu", q, rows)               # (Q, U)
-    s = np.take_along_axis(exact, inv.reshape(nq, kp), axis=1)
-    s = np.where(pool_idx >= 0, s, -np.inf).astype(np.float32)
-    order = np.argsort(-s, axis=1, kind="stable")[:, :k]
-    top_s = np.take_along_axis(s, order, axis=1)
-    top_i = np.where(np.isfinite(top_s),
-                     np.take_along_axis(pool_idx, order, axis=1), -1)
-    return top_s, top_i
+    with obs.span("rescore"):
+        uniq, inv = np.unique(np.clip(pool_idx, 0, None),
+                              return_inverse=True)
+        if isinstance(f32_rows, F32Rows):
+            rows = f32_rows.get(uniq)
+        elif callable(f32_rows):
+            rows = np.asarray(f32_rows(uniq), np.float32)
+        else:
+            rows = np.asarray(f32_rows, np.float32)[uniq]
+        # einsum, NOT @: the pool is tiny, and a threaded BLAS gemm here
+        # would leave OpenBLAS worker threads spinning right when the next
+        # int8 GEMM (torch/oneDNN pool) wants the cores
+        exact = np.einsum("qd,ud->qu", q, rows)               # (Q, U)
+        s = np.take_along_axis(exact, inv.reshape(nq, kp), axis=1)
+        s = np.where(pool_idx >= 0, s, -np.inf).astype(np.float32)
+        order = np.argsort(-s, axis=1, kind="stable")[:, :k]
+        top_s = np.take_along_axis(s, order, axis=1)
+        top_i = np.where(np.isfinite(top_s),
+                         np.take_along_axis(pool_idx, order, axis=1), -1)
+        return top_s, top_i
 
 
 # ---------------------------------------------------------------------------

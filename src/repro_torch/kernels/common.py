@@ -13,6 +13,7 @@ import ctypes
 
 import torch
 
+from .. import obs
 from .build import check
 
 # the tile scans' two selection paths (csrc/topk_tile.cuh): a register
@@ -122,7 +123,7 @@ def bind(lib: ctypes.CDLL, entry: str, n_tensors: int) -> None:
 
 
 def launch_tile_scan(lib: ctypes.CDLL, entry: str, inputs: list,
-                     nq: int, n: int, d: int, k: int
+                     nq: int, n: int, d: int, k: int, sp=obs.NOOP_SPAN
                      ) -> tuple[torch.Tensor, torch.Tensor, int]:
     """Launch a tile-scan library call (csrc/topk_tile.cuh) on the current
     stream of the inputs' device, once a chunk of the queries
@@ -130,8 +131,9 @@ def launch_tile_scan(lib: ctypes.CDLL, entry: str, inputs: list,
     argument order. Any 1 <= k <= N: k <= 128 keeps a register list per
     query and merges the per-block candidates here; a larger k runs the
     radix select, which returns each query's k answers (ordered here with
-    one sort of k entries a query only for k > 8192). Returns (scores
-    (Q, k), ids (Q, k), number of library calls)."""
+    one sort of k entries a query only for k > 8192). Each library call
+    is a launch of the caller's kernel span ``sp`` (``Span.launch``).
+    Returns (scores (Q, k), ids (Q, k), number of library calls)."""
     dev = inputs[0].device
     with torch.cuda.device(dev):
         sms = torch.cuda.get_device_properties(dev).multi_processor_count
@@ -145,24 +147,29 @@ def launch_tile_scan(lib: ctypes.CDLL, entry: str, inputs: list,
                 out_i = torch.empty((qc, k), dtype=torch.int32, device=dev)
                 work = torch.empty(int(lib.topk_tile_work_bytes(qc, n, k)),
                                    dtype=torch.uint8, device=dev)
-                err = getattr(lib, entry)(
-                    *ptrs, out_s.data_ptr(), out_i.data_ptr(),
-                    work.data_ptr(), nq, n, d, k, gx, q_begin, qc, stream)
+                with sp.launch():
+                    err = getattr(lib, entry)(
+                        *ptrs, out_s.data_ptr(), out_i.data_ptr(),
+                        work.data_ptr(), nq, n, d, k, gx, q_begin, qc,
+                        stream)
                 check(lib, err, entry)
                 if k > ORDER_MAX:        # the k packed slots lead `work`
                     packed = work[:qc * k * 8].view(torch.int64).view(qc, k)
                     packed = torch.sort(packed, dim=1).values
-                    check(lib, lib.topk_tile_decode(
-                        packed.data_ptr(), out_s.data_ptr(),
-                        out_i.data_ptr(), qc, k, stream), "topk_tile_decode")
+                    with sp.launch():
+                        err = lib.topk_tile_decode(
+                            packed.data_ptr(), out_s.data_ptr(),
+                            out_i.data_ptr(), qc, k, stream)
+                    check(lib, err, "topk_tile_decode")
                 outs.append((out_s, out_i))
                 continue
             cand_s = torch.empty((gx, qc, k), dtype=torch.float32,
                                  device=dev)
             cand_i = torch.empty((gx, qc, k), dtype=torch.int32, device=dev)
-            err = getattr(lib, entry)(
-                *ptrs, cand_s.data_ptr(), cand_i.data_ptr(), None, nq, n, d,
-                k, gx, q_begin, qc, stream)
+            with sp.launch():
+                err = getattr(lib, entry)(
+                    *ptrs, cand_s.data_ptr(), cand_i.data_ptr(), None, nq, n,
+                    d, k, gx, q_begin, qc, stream)
             check(lib, err, entry)
             outs.append(merge_candidates(cand_s, cand_i, k))
         if len(outs) == 1:

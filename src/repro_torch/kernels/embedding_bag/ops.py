@@ -189,19 +189,19 @@ def _bag(table: torch.Tensor, indices, weights, combiner: str
     if combiner not in COMBINERS:
         raise ValueError(f"combiner must be 'sum' or 'mean', not "
                          f"{combiner!r}")
-    with obs.span("kernel:embedding_bag") as sp:
-        _check_table(table)
-        dev = table.device
-        indices = _on("indices", indices, torch.int32, dev)
-        if weights is not None:
-            weights = _on("weights", weights, torch.float32, dev)
-        wshape = None if weights is None else tuple(weights.shape)
-        if indices.dim() != 2 or wshape not in (None, indices.shape):
-            raise ValueError(f"embedding_bag: indices {tuple(indices.shape)}"
-                             f" must be (B, L) and weights {wshape} the "
-                             f"same")
-        (b, bag), (v, d) = indices.shape, table.shape
-        es = table.element_size()
+    _check_table(table)
+    dev = table.device
+    indices = _on("indices", indices, torch.int32, dev)
+    if weights is not None:
+        weights = _on("weights", weights, torch.float32, dev)
+    wshape = None if weights is None else tuple(weights.shape)
+    if indices.dim() != 2 or wshape not in (None, indices.shape):
+        raise ValueError(f"embedding_bag: indices {tuple(indices.shape)}"
+                         f" must be (B, L) and weights {wshape} the "
+                         f"same")
+    (b, bag), (v, d) = indices.shape, table.shape
+    es = table.element_size()
+    with obs.kernel_span("kernel:embedding_bag", dev) as sp:
         sp.add("rows", b * bag)
         sp.add("bytes", b * bag * (d * es + (4 if weights is None else 8))
                + b * d * es)
@@ -220,13 +220,12 @@ def _bag(table: torch.Tensor, indices, weights, combiner: str
             weights, ldw = _row_stride(weights)
             w_ptr = weights.data_ptr()
         lib, one, _, _ = _lib()
-        err = _call(dev, one, table.data_ptr(), indices.data_ptr(), w_ptr,
-                    out.data_ptr(), DTYPES[table.dtype], v, d, b, bag, ldi,
-                    ldw, COMBINERS[combiner])
+        with sp.launch():
+            err = _call(dev, one, table.data_ptr(), indices.data_ptr(),
+                        w_ptr, out.data_ptr(), DTYPES[table.dtype], v, d, b,
+                        bag, ldi, ldw, COMBINERS[combiner])
         check(lib, err, "embedding_bag_fwd")
         launches += 1
-        if sp is not obs.NOOP_SPAN:            # traced: span = device time
-            torch.cuda.current_stream(dev).synchronize()
         return out
 
 
@@ -258,32 +257,32 @@ def _grouped(tables, indices, weights=None, combiner: str = "sum",
     if combiner not in COMBINERS:
         raise ValueError(f"combiner must be 'sum' or 'mean', not "
                          f"{combiner!r}")
-    with obs.span("kernel:embedding_bag") as sp:
-        if not tables:
-            raise ValueError("embedding_bag_grouped: no tables")
-        t0 = tables[0]
-        _check_table(t0)
-        dev, dtype, f, d = t0.device, t0.dtype, len(tables), t0.shape[1]
-        indices = _on("indices", indices, torch.int32, dev)
-        if weights is not None:
-            weights = _on("weights", weights, torch.float32, dev)
-        wshape = None if weights is None else tuple(weights.shape)
-        if (indices.dim() != 3 or indices.shape[1] != f
-                or wshape not in (None, indices.shape)):
-            raise ValueError(f"embedding_bag_grouped: indices "
-                             f"{tuple(indices.shape)} must be (B, {f}, L) "
-                             f"and weights {wshape} the same")
-        b, _, bag = indices.shape
-        if out is None:
-            out = torch.empty((b, f, d), dtype=dtype, device=dev)
-        elif (out.shape != (b, f, d) or out.dtype != dtype
-              or out.device != dev or (d > 1 and out.stride(2) != 1)):
-            raise ValueError(f"embedding_bag_grouped: out "
-                             f"{tuple(out.shape)} {out.dtype} on "
-                             f"{out.device} must be ({b}, {f}, {d}) "
-                             f"{dtype} on {dev}, last dimension "
-                             f"contiguous")
-        es = t0.element_size()
+    if not tables:
+        raise ValueError("embedding_bag_grouped: no tables")
+    t0 = tables[0]
+    _check_table(t0)
+    dev, dtype, f, d = t0.device, t0.dtype, len(tables), t0.shape[1]
+    indices = _on("indices", indices, torch.int32, dev)
+    if weights is not None:
+        weights = _on("weights", weights, torch.float32, dev)
+    wshape = None if weights is None else tuple(weights.shape)
+    if (indices.dim() != 3 or indices.shape[1] != f
+            or wshape not in (None, indices.shape)):
+        raise ValueError(f"embedding_bag_grouped: indices "
+                         f"{tuple(indices.shape)} must be (B, {f}, L) "
+                         f"and weights {wshape} the same")
+    b, _, bag = indices.shape
+    if out is None:
+        out = torch.empty((b, f, d), dtype=dtype, device=dev)
+    elif (out.shape != (b, f, d) or out.dtype != dtype
+          or out.device != dev or (d > 1 and out.stride(2) != 1)):
+        raise ValueError(f"embedding_bag_grouped: out "
+                         f"{tuple(out.shape)} {out.dtype} on "
+                         f"{out.device} must be ({b}, {f}, {d}) "
+                         f"{dtype} on {dev}, last dimension "
+                         f"contiguous")
+    es = t0.element_size()
+    with obs.kernel_span("kernel:embedding_bag", dev) as sp:
         sp.add("rows", b * f * bag)
         sp.add("bytes", b * f * bag * (d * es + (4 if weights is None
                                                  else 8)) + b * f * d * es)
@@ -302,14 +301,13 @@ def _grouped(tables, indices, weights=None, combiner: str = "sum",
             weights, w_b, w_f = _slots(weights)
             w_ptr = weights.data_ptr()
         lib, _, grp, _ = _lib()
-        err = _call(dev, grp, desc, f, indices.data_ptr(), w_ptr,
-                    out.data_ptr(), DTYPES[dtype], d, b, bag, ids_b, ids_f,
-                    w_b, w_f, out.stride(0), out.stride(1),
-                    COMBINERS[combiner])
+        with sp.launch():
+            err = _call(dev, grp, desc, f, indices.data_ptr(), w_ptr,
+                        out.data_ptr(), DTYPES[dtype], d, b, bag, ids_b,
+                        ids_f, w_b, w_f, out.stride(0), out.stride(1),
+                        COMBINERS[combiner])
         check(lib, err, "embedding_bag_grouped_fwd")
         launches += 1
-        if sp is not obs.NOOP_SPAN:            # traced: span = device time
-            torch.cuda.current_stream(dev).synchronize()
         return out
 
 
@@ -371,24 +369,24 @@ def embedding_bag_grouped_bwd(sizes, dtype: torch.dtype, indices,
     if combiner not in COMBINERS:
         raise ValueError(f"combiner must be 'sum' or 'mean', not "
                          f"{combiner!r}")
-    with obs.span("kernel:embedding_bag_bwd") as sp:
-        dev = grad.device
-        indices = _on("indices", indices, torch.int32, dev)
-        if weights is not None:
-            weights = _on("weights", weights, torch.float32, dev)
-        b, f, bag = indices.shape
-        d = grad.shape[-1]
-        if (grad.dim() != 3 or tuple(grad.shape[:2]) != (b, f)
-                or len(sizes) != f or dtype not in DTYPES
-                or (weights is not None and weights.shape != indices.shape)):
-            raise ValueError(f"embedding_bag_grouped_bwd: grad "
-                             f"{tuple(grad.shape)}, indices "
-                             f"{tuple(indices.shape)}, {len(sizes)} sizes")
-        if b * f * bag >= 2 ** 31:
-            raise ValueError("embedding_bag_grouped_bwd: more than 2^31 "
-                             "slots")
-        seg = bag_segments(sizes, indices, weights, combiner)
-        es = torch.tensor([], dtype=dtype).element_size()
+    dev = grad.device
+    indices = _on("indices", indices, torch.int32, dev)
+    if weights is not None:
+        weights = _on("weights", weights, torch.float32, dev)
+    b, f, bag = indices.shape
+    d = grad.shape[-1]
+    if (grad.dim() != 3 or tuple(grad.shape[:2]) != (b, f)
+            or len(sizes) != f or dtype not in DTYPES
+            or (weights is not None and weights.shape != indices.shape)):
+        raise ValueError(f"embedding_bag_grouped_bwd: grad "
+                         f"{tuple(grad.shape)}, indices "
+                         f"{tuple(indices.shape)}, {len(sizes)} sizes")
+    if b * f * bag >= 2 ** 31:
+        raise ValueError("embedding_bag_grouped_bwd: more than 2^31 "
+                         "slots")
+    seg = bag_segments(sizes, indices, weights, combiner)
+    es = torch.tensor([], dtype=dtype).element_size()
+    with obs.kernel_span("kernel:embedding_bag_bwd", dev) as sp:
         sp.add("rows", len(seg["slot"]))
         sp.add("bytes", len(seg["slot"]) * (d * es + 8)
                + seg["rows"] * d * es)
@@ -405,17 +403,17 @@ def embedding_bag_grouped_bwd(sizes, dtype: torch.dtype, indices,
                               device=dev)
         coef = seg["coef"]
         lib, _, _, bwd = _lib()
-        err = _call(dev, bwd, grad.data_ptr(), DTYPES[dtype], grad.stride(0),
-                    grad.stride(1), f, bag, d, seg["slot"].data_ptr(),
-                    None if coef is None else coef.data_ptr(),
-                    seg["start"].data_ptr(), seg["count"].data_ptr(),
-                    seg["key"].data_ptr(), seg["part"].data_ptr(),
-                    len(seg["start"]), seg["multi_first"].data_ptr(),
-                    seg["multi_count"].data_ptr(),
-                    seg["multi_key"].data_ptr(), len(seg["multi_key"]),
-                    partial.data_ptr(), out.data_ptr())
+        with sp.launch():
+            err = _call(dev, bwd, grad.data_ptr(), DTYPES[dtype],
+                        grad.stride(0), grad.stride(1), f, bag, d,
+                        seg["slot"].data_ptr(),
+                        None if coef is None else coef.data_ptr(),
+                        seg["start"].data_ptr(), seg["count"].data_ptr(),
+                        seg["key"].data_ptr(), seg["part"].data_ptr(),
+                        len(seg["start"]), seg["multi_first"].data_ptr(),
+                        seg["multi_count"].data_ptr(),
+                        seg["multi_key"].data_ptr(), len(seg["multi_key"]),
+                        partial.data_ptr(), out.data_ptr())
         check(lib, err, "embedding_bag_grouped_bwd")
         bwd_launches += 1
-        if sp is not obs.NOOP_SPAN:
-            torch.cuda.current_stream(dev).synchronize()
         return out

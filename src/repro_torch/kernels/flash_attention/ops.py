@@ -108,9 +108,9 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """(o, lse or None): the kernel for CUDA tensors (contiguous inputs),
     the plain version for CPU tensors."""
     global launches, tf32_launches
-    with obs.span("kernel:flash_attention") as sp:
-        b, h, sq, d, kv, skv = _check("flash_attention", q, k, v)
-        pairs = b * h * sq * skv // (2 if causal else 1)
+    b, h, sq, d, kv, skv = _check("flash_attention", q, k, v)
+    pairs = b * h * sq * skv // (2 if causal else 1)
+    with obs.kernel_span("kernel:flash_attention", q.device) as sp:
         sp.add("flops", 4 * pairs * d)
         sp.add("bytes", (2 * b * h * sq + 2 * b * kv * skv) * d
                * q.element_size())
@@ -124,16 +124,16 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           device=q.device) if want_lse else None
         lib, fwd, _, counts, _ = _lib()
         before = _bodies(counts, FWD_BODIES)
-        err = _call(q.device, fwd, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                    o.data_ptr(), None if lse is None else lse.data_ptr(),
-                    DTYPES[q.dtype], b, h, kv, sq, skv, d, int(causal),
-                    d ** -0.5)
+        with sp.launch():
+            err = _call(q.device, fwd, q.data_ptr(), k.data_ptr(),
+                        v.data_ptr(), o.data_ptr(),
+                        None if lse is None else lse.data_ptr(),
+                        DTYPES[q.dtype], b, h, kv, sq, skv, d, int(causal),
+                        d ** -0.5)
         check(lib, err, "flash_attention_fwd")
         made = _made(counts, FWD_BODIES, before)
         launches += sum(made.values())
         tf32_launches += made["tf32"]
-        if sp is not obs.NOOP_SPAN:            # traced: span = device time
-            torch.cuda.current_stream(q.device).synchronize()
         return o, lse
 
 
@@ -200,14 +200,14 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     D 32 on the tensor cores in 3xTF32 (every operand as two tf32 terms),
     bf16 at D 32 and fp32 at D 64 and 128 on the CUDA cores."""
     global bwd_launches, bwd_tc_launches, bwd_tf32_launches
-    with obs.span("kernel:flash_attention_bwd") as sp:
-        b, h, sq, d, kv, skv = _check("flash_attention_bwd", q, k, v)
-        if o.shape != q.shape or do.shape != q.shape or \
-                tuple(lse.shape) != (b, h, sq):
-            raise ValueError(f"flash_attention_bwd: o {tuple(o.shape)}, do "
-                             f"{tuple(do.shape)}, lse {tuple(lse.shape)} do "
-                             f"not match q {tuple(q.shape)}")
-        pairs = b * h * sq * skv // (2 if causal else 1)
+    b, h, sq, d, kv, skv = _check("flash_attention_bwd", q, k, v)
+    if o.shape != q.shape or do.shape != q.shape or \
+            tuple(lse.shape) != (b, h, sq):
+        raise ValueError(f"flash_attention_bwd: o {tuple(o.shape)}, do "
+                         f"{tuple(do.shape)}, lse {tuple(lse.shape)} do "
+                         f"not match q {tuple(q.shape)}")
+    pairs = b * h * sq * skv // (2 if causal else 1)
+    with obs.kernel_span("kernel:flash_attention_bwd", q.device) as sp:
         sp.add("bytes", (4 * b * h * sq + 4 * b * kv * skv) * d
                * q.element_size())
         if q.device.type == "cpu":
@@ -221,9 +221,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         scratch = torch.empty(scratch_floats(b, h, sq), dtype=torch.float32,
                               device=q.device)
         before = _bodies(counts, BWD_BODIES)
-        err = _call(q.device, bwd, *(t.data_ptr() for t in (
-            q, k, v, o, do, lse, scratch, dq, dk, dv)), DTYPES[q.dtype], b,
-            h, kv, sq, skv, d, int(causal), d ** -0.5)
+        with sp.launch():
+            err = _call(q.device, bwd, *(t.data_ptr() for t in (
+                q, k, v, o, do, lse, scratch, dq, dk, dv)), DTYPES[q.dtype],
+                b, h, kv, sq, skv, d, int(causal), d ** -0.5)
         check(lib, err, "flash_attention_bwd")
         made = _made(counts, BWD_BODIES, before)
         # what the body executed: bf16 wgmma splits P and dS (three of the
@@ -234,6 +235,4 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         bwd_launches += sum(made.values())
         bwd_tc_launches += made["wgmma"]
         bwd_tf32_launches += made["tf32"]
-        if sp is not obs.NOOP_SPAN:
-            torch.cuda.current_stream(q.device).synchronize()
         return dq, dk, dv

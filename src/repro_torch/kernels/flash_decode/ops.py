@@ -154,9 +154,9 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
     one library call that launches the partials kernel and the merge
     kernel (D in 32, 64, 128)."""
     global launches
-    with obs.span("kernel:flash_decode") as sp:
-        dims = _checked(q, k_cache, v_cache, cache_len)
-        b, h, kv, s, d, cache_len = dims
+    dims = _checked(q, k_cache, v_cache, cache_len)
+    b, h, kv, s, d, cache_len = dims
+    with obs.kernel_span("kernel:flash_decode", q.device) as sp:
         _span(sp, dims, q.element_size())
         if bs is not None:
             bs = max(1, min(int(bs), s))
@@ -172,10 +172,9 @@ def flash_decode(q: torch.Tensor, k_cache: torch.Tensor,
         q, k_cache, v_cache = _cuda_inputs(q, k_cache, v_cache)
         out = torch.empty_like(q)
         part = q.new_empty(b * h * ns * (d + 2), dtype=torch.float32)
-        made = _launch(q, k_cache, v_cache, out, part, dims, bs, ns)
+        with sp.launch():
+            made = _launch(q, k_cache, v_cache, out, part, dims, bs, ns)
         launches += made
-        if sp is not obs.NOOP_SPAN:            # traced: span = device time
-            torch.cuda.current_stream(q.device).synchronize()
         return out
 
 
@@ -193,9 +192,9 @@ def flash_decode_partials(q: torch.Tensor, k_cache: torch.Tensor,
     launches the same partials kernel as ``flash_decode``, without the
     merge."""
     global launches
-    with obs.span("kernel:flash_decode") as sp:
-        dims = _checked(q, k_cache, v_cache, cache_len)
-        b, h, kv, s, d, cache_len = dims
+    dims = _checked(q, k_cache, v_cache, cache_len)
+    b, h, kv, s, d, cache_len = dims
+    with obs.kernel_span("kernel:flash_decode", q.device) as sp:
         _span(sp, dims, q.element_size())
         bs = max(1, min(int(bs), s))
         most = -(-s // bs)
@@ -209,12 +208,11 @@ def flash_decode_partials(q: torch.Tensor, k_cache: torch.Tensor,
         q, k_cache, v_cache = _cuda_inputs(q, k_cache, v_cache)
         n = b * h * ns
         part = q.new_empty(n * (d + 2), dtype=torch.float32)
-        made = _launch(q, k_cache, v_cache, None, part, dims, bs, ns)
+        with sp.launch():
+            made = _launch(q, k_cache, v_cache, None, part, dims, bs, ns)
         launches += made
         m, l = part[:n].view(b, h, ns), part[n:2 * n].view(b, h, ns)
         acc = part[2 * n:].view(b, h, ns, d)
-        if sp is not obs.NOOP_SPAN:            # traced: span = device time
-            torch.cuda.current_stream(q.device).synchronize()
         return m, l, acc
 
 

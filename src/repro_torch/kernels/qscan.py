@@ -46,10 +46,11 @@ def asym_scores_host(qs: np.ndarray, c8: np.ndarray) -> np.ndarray:
     numpy fallback: corpus blocks cast int8 -> fp32 into a reusable
     cache-resident buffer, then sgemm per block (one 1-byte/elem pass
     over the corpus instead of 4)."""
-    # rows/bytes are recorded by the enclosing *_q8 wrapper span — this
-    # span only times the host GEMM half so the tree shows where the
-    # scan went (int_mm vs the blocked numpy fallback).
-    with obs.span("kernel:asym_scores_host"):
+    # rows/bytes are recorded by the enclosing scan span — this span only
+    # times the host GEMM so the tree shows where the scan went. It is
+    # host work, so it carries no ``kernel:`` prefix (obs/cost.py counts
+    # those as device time).
+    with obs.span("ivf_gemm"):
         qs = np.ascontiguousarray(np.atleast_2d(qs), np.float32)
         c8 = np.ascontiguousarray(c8, np.int8)
         nq, d = qs.shape

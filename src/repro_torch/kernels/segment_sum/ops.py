@@ -83,14 +83,14 @@ def segment_sum(x: torch.Tensor, w: torch.Tensor | None,
     ``segment_sum_plain``; a CUDA x launches the kernel once (two
     launches, no atomics)."""
     global launches
-    with obs.span("kernel:gather_segment_sum") as sp:
-        dev = x.device
-        d = x.shape[-1]
-        _check("x", x, order["n_x"], d, dev)
-        if w is not None:
-            _check("w", w, order["n_edges"], d, dev)
-        n_out = order["n_out"]
-        slots = len(order["edge"])
+    dev = x.device
+    d = x.shape[-1]
+    _check("x", x, order["n_x"], d, dev)
+    if w is not None:
+        _check("w", w, order["n_edges"], d, dev)
+    n_out = order["n_out"]
+    slots = len(order["edge"])
+    with obs.kernel_span("kernel:gather_segment_sum", dev) as sp:
         sp.add("rows", slots)
         sp.add("bytes", slots * (d * 4 * (1 if w is None else 2) + 8)
                + n_out * d * 4)
@@ -108,18 +108,17 @@ def segment_sum(x: torch.Tensor, w: torch.Tensor | None,
         partial = torch.empty((order["parts"], d), dtype=torch.float32,
                               device=dev)
         lib, fn, _ = _lib()
-        err = _call(dev, fn, x.data_ptr(), d, order["gather"].data_ptr(),
-                    None if w is None else w.data_ptr(),
-                    order["edge"].data_ptr(), order["start"].data_ptr(),
-                    order["count"].data_ptr(), order["key"].data_ptr(),
-                    order["part"].data_ptr(), len(order["start"]),
-                    order["mfirst"].data_ptr(), order["mcount"].data_ptr(),
-                    order["mkey"].data_ptr(), len(order["mkey"]),
-                    partial.data_ptr(), out.data_ptr())
+        with sp.launch():
+            err = _call(dev, fn, x.data_ptr(), d, order["gather"].data_ptr(),
+                        None if w is None else w.data_ptr(),
+                        order["edge"].data_ptr(), order["start"].data_ptr(),
+                        order["count"].data_ptr(), order["key"].data_ptr(),
+                        order["part"].data_ptr(), len(order["start"]),
+                        order["mfirst"].data_ptr(), order["mcount"].data_ptr(),
+                        order["mkey"].data_ptr(), len(order["mkey"]),
+                        partial.data_ptr(), out.data_ptr())
         check(lib, err, "gather_segment_sum_fwd")
         launches += 1
-        if sp is not obs.NOOP_SPAN:            # traced: span = device time
-            torch.cuda.current_stream(dev).synchronize()
         return out
 
 
@@ -140,17 +139,17 @@ def segment_sum_bwd(x: torch.Tensor | None, g: torch.Tensor,
     dw = dw and w is not None
     if not (dx or dw):
         return None, None
-    with obs.span("kernel:gather_segment_sum_bwd") as sp:
-        order = plan.bwd
-        dev = g.device
-        d = g.shape[-1]
-        _check("g", g, order["n_x"], d, dev)
-        if w is not None:
-            _check("w", w, order["n_edges"], d, dev)
-        if dw:
-            _check("x", x, order["n_out"], d, dev)
-        n_rows, e = order["n_out"], order["n_edges"]
-        slots = len(order["edge"])
+    order = plan.bwd
+    dev = g.device
+    d = g.shape[-1]
+    _check("g", g, order["n_x"], d, dev)
+    if w is not None:
+        _check("w", w, order["n_edges"], d, dev)
+    if dw:
+        _check("x", x, order["n_out"], d, dev)
+    n_rows, e = order["n_out"], order["n_edges"]
+    slots = len(order["edge"])
+    with obs.kernel_span("kernel:gather_segment_sum_bwd", dev) as sp:
         sp.add("rows", slots)
         sp.add("bytes", slots * (d * 4 * (int(dx) * (w is not None)
                                           + int(dw) + 1) + 8)
@@ -178,19 +177,19 @@ def segment_sum_bwd(x: torch.Tensor | None, g: torch.Tensor,
         if dw:
             gw = torch.empty((e, d), **f32)
         lib, _, fn = _lib()
-        err = _call(dev, fn, _ptr(x), g.data_ptr(), _ptr(w), d,
-                    order["gather"].data_ptr(), order["edge"].data_ptr(),
-                    order["start"].data_ptr(), order["count"].data_ptr(),
-                    order["key"].data_ptr(), order["part"].data_ptr(),
-                    chunks, order["longest"], order["mfirst"].data_ptr(),
-                    order["mcount"].data_ptr(), order["mkey"].data_ptr(),
-                    len(order["mkey"]), _ptr(partial), _ptr(gx), n_rows,
-                    int(fill), _ptr(skip), 0 if skip is None else len(skip),
-                    plan.src.data_ptr(), plan.dst.data_ptr(), _ptr(gw))
+        with sp.launch():
+            err = _call(dev, fn, _ptr(x), g.data_ptr(), _ptr(w), d,
+                        order["gather"].data_ptr(), order["edge"].data_ptr(),
+                        order["start"].data_ptr(), order["count"].data_ptr(),
+                        order["key"].data_ptr(), order["part"].data_ptr(),
+                        chunks, order["longest"], order["mfirst"].data_ptr(),
+                        order["mcount"].data_ptr(), order["mkey"].data_ptr(),
+                        len(order["mkey"]), _ptr(partial), _ptr(gx), n_rows,
+                        int(fill), _ptr(skip),
+                        0 if skip is None else len(skip),
+                        plan.src.data_ptr(), plan.dst.data_ptr(), _ptr(gw))
         check(lib, err, "gather_segment_sum_bwd")
         bwd_launches += 1
-        if sp is not obs.NOOP_SPAN:            # traced: span = device time
-            torch.cuda.current_stream(dev).synchronize()
         return gx, gw
 
 

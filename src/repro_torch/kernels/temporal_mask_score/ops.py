@@ -78,38 +78,39 @@ def temporal_window_topk_q8(q, c8, scale, valid_from, valid_to, t0s, t1s,
 def _window(q, corpus, scale, valid_from, valid_to, t0s, t1s, k: int):
     q8 = scale is not None
     name = "temporal_window_topk_q8" if q8 else "temporal_window_topk"
-    with obs.span(f"kernel:{name}") as sp:
-        corpus = torch.as_tensor(corpus)
-        dev = corpus.device
-        q = torch.atleast_2d(torch.as_tensor(q))
-        vf = torch.as_tensor(valid_from)
-        vt = torch.as_tensor(valid_to)
-        check_tensor("corpus", corpus, torch.int8 if q8 else torch.float32,
-                     2, dev)
-        check_tensor("q", q, torch.float32, 2, dev)
-        check_tensor("valid_from", vf, torch.int64, 1, dev)
-        check_tensor("valid_to", vt, torch.int64, 1, dev)
-        nq, (n, d) = q.shape[0], corpus.shape
-        if q8:
-            scale = torch.as_tensor(scale, dtype=torch.float32).to(dev)
-            check_tensor("scale", scale, torch.float32, 1, dev)
-        if (q.shape[1] != d or vf.shape[0] != n or vt.shape[0] != n
-                or (q8 and scale.shape[0] != d)):
-            raise ValueError(f"shapes q {tuple(q.shape)}, corpus "
-                             f"{tuple(corpus.shape)}, valid_from "
-                             f"{tuple(vf.shape)}, valid_to "
-                             f"{tuple(vt.shape)}"
-                             + (f", scale {tuple(scale.shape)}" if q8
-                                else "") + " do not match")
-        t0 = torch.as_tensor(t0s, dtype=torch.int64).to(dev)
-        t1 = torch.as_tensor(t1s, dtype=torch.int64).to(dev)
-        t0 = torch.broadcast_to(t0, (nq,)).contiguous()
-        t1 = torch.broadcast_to(t1, (nq,)).contiguous()
-        k = int(min(k, n))
-        if k == 0 or nq == 0:
-            # empty history: nothing can ever be valid, whatever the window
-            return (torch.zeros((nq, 0), dtype=torch.float32, device=dev),
-                    torch.zeros((nq, 0), dtype=torch.int32, device=dev))
+    corpus = torch.as_tensor(corpus)
+    dev = corpus.device
+    q = torch.atleast_2d(torch.as_tensor(q))
+    vf = torch.as_tensor(valid_from)
+    vt = torch.as_tensor(valid_to)
+    check_tensor("corpus", corpus, torch.int8 if q8 else torch.float32,
+                 2, dev)
+    check_tensor("q", q, torch.float32, 2, dev)
+    check_tensor("valid_from", vf, torch.int64, 1, dev)
+    check_tensor("valid_to", vt, torch.int64, 1, dev)
+    nq, (n, d) = q.shape[0], corpus.shape
+    if q8:
+        scale = torch.as_tensor(scale, dtype=torch.float32).to(dev)
+        check_tensor("scale", scale, torch.float32, 1, dev)
+    if (q.shape[1] != d or vf.shape[0] != n or vt.shape[0] != n
+            or (q8 and scale.shape[0] != d)):
+        raise ValueError(f"shapes q {tuple(q.shape)}, corpus "
+                         f"{tuple(corpus.shape)}, valid_from "
+                         f"{tuple(vf.shape)}, valid_to "
+                         f"{tuple(vt.shape)}"
+                         + (f", scale {tuple(scale.shape)}" if q8
+                            else "") + " do not match")
+    t0 = torch.as_tensor(t0s, dtype=torch.int64).to(dev)
+    t1 = torch.as_tensor(t1s, dtype=torch.int64).to(dev)
+    t0 = torch.broadcast_to(t0, (nq,)).contiguous()
+    t1 = torch.broadcast_to(t1, (nq,)).contiguous()
+    k = int(min(k, n))
+    if k == 0 or nq == 0:
+        # empty history: nothing can ever be valid, whatever the window
+        return (torch.zeros((nq, 0), dtype=torch.float32, device=dev),
+                torch.zeros((nq, 0), dtype=torch.int32, device=dev))
+    qs = q * scale if q8 else q
+    with obs.kernel_span(f"kernel:{name}", dev) as sp:
         sp.add("rows", n)
         sp.add("bytes_streamed", n * d * (1 if q8 else 4))
         if dev.type == "cpu":
@@ -119,18 +120,11 @@ def _window(q, corpus, scale, valid_from, valid_to, t0s, t1s, k: int):
             return temporal_window_topk_plain(q, corpus, vf, vt, t0, t1, k)
         if dev.type != "cuda":
             raise ValueError(f"{name} runs on cpu or cuda, not {dev}")
-        if q8:
-            *out, nl = launch_tile_scan(_lib(), "temporal_window_topk_q8",
-                                        [q * scale, corpus, vf, vt, t0, t1],
-                                        nq, n, d, k)
-            _count(nl, True)
-        else:
-            *out, nl = launch_tile_scan(_lib(), "temporal_window_topk_f32",
-                                        [q, corpus, vf, vt, t0, t1], nq, n,
-                                        d, k)
-            _count(nl, False)
-        if sp is not obs.NOOP_SPAN:            # traced: span = device time
-            torch.cuda.current_stream(dev).synchronize()
+        *out, nl = launch_tile_scan(
+            _lib(), ("temporal_window_topk_q8" if q8
+                     else "temporal_window_topk_f32"),
+            [qs, corpus, vf, vt, t0, t1], nq, n, d, k, sp)
+        _count(nl, q8)
         return tuple(out)
 
 

@@ -68,30 +68,31 @@ def topk_search_q8(q, c8, scale, mask, k: int):
 def _search(q, corpus, scale, mask, k: int):
     q8 = scale is not None
     name = "topk_search_q8" if q8 else "topk_search"
-    with obs.span(f"kernel:{name}") as sp:
-        corpus = torch.as_tensor(corpus)
-        dev = corpus.device
-        q = torch.atleast_2d(torch.as_tensor(q))
-        mask = torch.as_tensor(mask)
-        check_tensor("corpus", corpus, torch.int8 if q8 else torch.float32,
-                     2, dev)
-        check_tensor("q", q, torch.float32, 2, dev)
-        check_tensor("mask", mask, torch.bool, 1, dev)
-        nq, (n, d) = q.shape[0], corpus.shape
-        if q8:
-            scale = torch.as_tensor(scale, dtype=torch.float32).to(dev)
-            check_tensor("scale", scale, torch.float32, 1, dev)
-        if (q.shape[1] != d or mask.shape[0] != n
-                or (q8 and scale.shape[0] != d)):
-            raise ValueError(f"shapes q {tuple(q.shape)}, corpus "
-                             f"{tuple(corpus.shape)}, mask "
-                             f"{tuple(mask.shape)}"
-                             + (f", scale {tuple(scale.shape)}" if q8
-                                else "") + " do not match")
-        k = int(min(k, n))
-        if k == 0 or nq == 0:
-            return (torch.zeros((nq, 0), dtype=torch.float32, device=dev),
-                    torch.zeros((nq, 0), dtype=torch.int32, device=dev))
+    corpus = torch.as_tensor(corpus)
+    dev = corpus.device
+    q = torch.atleast_2d(torch.as_tensor(q))
+    mask = torch.as_tensor(mask)
+    check_tensor("corpus", corpus, torch.int8 if q8 else torch.float32,
+                 2, dev)
+    check_tensor("q", q, torch.float32, 2, dev)
+    check_tensor("mask", mask, torch.bool, 1, dev)
+    nq, (n, d) = q.shape[0], corpus.shape
+    if q8:
+        scale = torch.as_tensor(scale, dtype=torch.float32).to(dev)
+        check_tensor("scale", scale, torch.float32, 1, dev)
+    if (q.shape[1] != d or mask.shape[0] != n
+            or (q8 and scale.shape[0] != d)):
+        raise ValueError(f"shapes q {tuple(q.shape)}, corpus "
+                         f"{tuple(corpus.shape)}, mask "
+                         f"{tuple(mask.shape)}"
+                         + (f", scale {tuple(scale.shape)}" if q8
+                            else "") + " do not match")
+    k = int(min(k, n))
+    if k == 0 or nq == 0:
+        return (torch.zeros((nq, 0), dtype=torch.float32, device=dev),
+                torch.zeros((nq, 0), dtype=torch.int32, device=dev))
+    qs = q * scale if q8 else q
+    with obs.kernel_span(f"kernel:{name}", dev) as sp:
         sp.add("rows", n)
         sp.add("bytes_streamed", n * d * (1 if q8 else 4))
         if dev.type == "cpu":
@@ -99,15 +100,8 @@ def _search(q, corpus, scale, mask, k: int):
                     else topk_search_plain(q, corpus, mask, k))
         if dev.type != "cuda":
             raise ValueError(f"{name} runs on cpu or cuda, not {dev}")
-        if q8:
-            *out, nl = launch_tile_scan(_lib(), "topk_search_q8",
-                                        [q * scale, corpus, mask], nq, n, d,
-                                        k)
-            _count(nl, True)
-        else:
-            *out, nl = launch_tile_scan(_lib(), "topk_search_f32",
-                                        [q, corpus, mask], nq, n, d, k)
-            _count(nl, False)
-        if sp is not obs.NOOP_SPAN:            # traced: span = device time
-            torch.cuda.current_stream(dev).synchronize()
+        *out, nl = launch_tile_scan(
+            _lib(), "topk_search_q8" if q8 else "topk_search_f32",
+            [qs, corpus, mask], nq, n, d, k, sp)
+        _count(nl, q8)
         return tuple(out)

@@ -6,10 +6,12 @@ tail-sampling flight recorder (recorder.py), kernel cost attribution
 
 Usage from any layer — no plumbing through call signatures:
 
-    from ..obs import span, add, scan_row_reads
+    from ..obs import add, kernel_span, scan_row_reads, span
     with span("fused_scan"):
         ...
         scan_row_reads(rows, nq, per_query=False, source="fused")
+    with kernel_span("kernel:topk_search", dev):     # around a launch
+        ...
 
 When no trace is active every call above is a shared-singleton no-op
 (no allocation, no clock read).
@@ -24,7 +26,8 @@ from .recorder import FLIGHT_RECORDER, FlightRecorder, classify_trace
 from .slo import SLO_ENGINE, SLOEngine, SLOSpec, intent_matches
 from .slowlog import SLOW_QUERIES, SlowQueryLog
 from .trace import (NOOP_SPAN, Span, Trace, add, current_trace, enabled,
-                    scan_row_reads, set_enabled, span, subtrace, trace)
+                    kernel_span, scan_row_reads, set_enabled, span,
+                    subtrace, trace)
 
 __all__ = [
     "Counter", "Gauge", "HistSnapshot", "Histogram", "MetricsRegistry",
@@ -36,5 +39,6 @@ __all__ = [
     "ObsHttpServer", "parse_prometheus_text", "prometheus_text",
     "trace_from_otlp", "trace_to_otlp",
     "NOOP_SPAN", "Span", "Trace", "add", "current_trace", "enabled",
-    "scan_row_reads", "set_enabled", "span", "subtrace", "trace",
+    "kernel_span", "scan_row_reads", "set_enabled", "span", "subtrace",
+    "trace",
 ]

@@ -13,10 +13,15 @@ mostly waited for admission/dispatch: shed load or add capacity).
 
 The peak is the HBM3 rate of the card the port targets, an NVIDIA
 H100 SXM (3.35 TB/s, NVIDIA's data sheet, at the full 700 W power
-limit). Kernel spans in this package synchronize the CUDA stream before
-they close while a trace is active, so their wall time covers the
-device work and the achieved fraction is a device figure; on CPU runs
-it is not, and the point there is the RELATIVE attribution.
+limit). Kernel spans never synchronize: on the card a traced kernel span
+carries ``device_ms``, read from a pair of CUDA events recorded as the
+span opens and closes, and the achieved fraction is computed from it, a
+device figure. The pair bounds the kernel time from above: it also
+holds the span's other device work (a candidate merge), and where the
+stream was idle as the span opened, the host's time to enqueue the
+launch, so the fraction is a lower bound. A span without it (a CPU run)
+falls back to its host wall time, and the point there is the RELATIVE
+attribution.
 
 Annotation happens on SERIALIZED trace dicts (the flight recorder's
 retained records), never on the hot path: serving pays for the raw
@@ -28,14 +33,21 @@ from __future__ import annotations
 PEAK_HBM_GBS = 3350.0
 
 
+def kernel_ms(span_dict: dict) -> float:
+    """A span's kernel time: its ``device_ms`` counter where the card
+    timed it (an upper bound), else its host wall time."""
+    dev = (span_dict.get("counters") or {}).get("device_ms")
+    return dev if dev is not None else span_dict.get("wall_ms", 0.0)
+
+
 def annotate_span(span_dict: dict) -> None:
     """Recursively annotate ``kernel:*`` spans that carry
     ``bytes_streamed`` with achieved_gbs + roofline_frac, in place."""
     counters = span_dict.get("counters")
+    ms = kernel_ms(span_dict)
     if (span_dict.get("name", "").startswith("kernel:") and counters
-            and counters.get("bytes_streamed")
-            and span_dict.get("wall_ms", 0) > 0):
-        gbs = counters["bytes_streamed"] / (span_dict["wall_ms"] / 1e3) / 1e9
+            and counters.get("bytes_streamed") and ms > 0):
+        gbs = counters["bytes_streamed"] / (ms / 1e3) / 1e9
         counters["achieved_gbs"] = round(gbs, 4)
         counters["roofline_frac"] = round(gbs / PEAK_HBM_GBS, 6)
     for child in span_dict.get("children", ()):
@@ -45,7 +57,7 @@ def annotate_span(span_dict: dict) -> None:
 def _fold(span_dict: dict, pred) -> float:
     total = sum(_fold(c, pred) for c in span_dict.get("children", ()))
     if pred(span_dict):
-        total += span_dict.get("wall_ms", 0.0)
+        total += kernel_ms(span_dict)
     return total
 
 

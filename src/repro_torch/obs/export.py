@@ -11,10 +11,12 @@ tests and the golden-file CI check lean on.
 
 **OTLP-shaped JSON spans** (``trace_to_otlp`` / ``trace_from_otlp``):
 a serialized trace tree as an OpenTelemetry ``resourceSpans`` document.
-Our spans carry durations, not wall-clock timestamps, so export packs
-synthetic times deterministically — a span starts where its previous
-sibling ended (the root at t=0) — and span/trace ids are md5 digests of
-the tree path, so the same trace always exports byte-identically.
+A span that carries its Unix-ns start and end (``start_unix_ns`` /
+``end_unix_ns``, which ``Trace.to_dict()`` writes from the root's clock
+offset) exports at those times; a serialized span without them gets
+synthetic times, packed deterministically — a span starts where its
+previous sibling ended (the root at t=0). Span/trace ids are md5 digests
+of the tree path, so the same trace always exports byte-identically.
 Counters become int/double attributes; the parent-id links carry the
 tree, and ``trace_from_otlp`` rebuilds the exact nested dict.
 
@@ -194,7 +196,8 @@ def _span_id(trace_id: str, path: tuple) -> str:
 def trace_to_otlp(trace_dict: dict,
                   service: str = "livevectorlake") -> dict:
     """One serialized trace (``Trace.to_dict()`` shape) as an OTLP JSON
-    document. Ids are md5 digests of the tree path and times are packed
+    document. Ids are md5 digests of the tree path; a span's times are
+    its own Unix-ns start and end where it carries them, else packed
     synthetically (siblings laid end to end from t=0), so the export is
     deterministic — same trace, same bytes."""
     trace_id = hashlib.md5(
@@ -203,7 +206,10 @@ def trace_to_otlp(trace_dict: dict,
 
     def _walk(sd: dict, path: tuple, parent: Optional[str],
               start_ns: int) -> int:
-        end_ns = start_ns + int(round(sd.get("wall_ms", 0.0) * 1e6))
+        if "start_unix_ns" in sd:
+            start_ns, end_ns = sd["start_unix_ns"], sd["end_unix_ns"]
+        else:
+            end_ns = start_ns + int(round(sd.get("wall_ms", 0.0) * 1e6))
         attrs = [{"key": k, "value": _otlp_value(v)}
                  for k, v in (sd.get("counters") or {}).items()]
         status = sd.get("status", "ok")
@@ -232,6 +238,9 @@ def trace_to_otlp(trace_dict: dict,
     _walk(root, (0,), None, 0)
     # trace-level fields ride on the ROOT span as trace.* attributes
     root_attrs = spans[0]["attributes"]
+    if "start_unix_ns" in root:         # the times are real: say so
+        root_attrs.append({"key": "trace.clock",
+                           "value": _otlp_value("unix")})
     if trace_dict.get("intent") is not None:
         root_attrs.append({"key": "trace.intent",
                            "value": _otlp_value(trace_dict["intent"])})
@@ -254,10 +263,13 @@ def trace_from_otlp(otlp: dict) -> dict:
     by_id: dict[str, dict] = {}
     roots: list[dict] = []
     order = {s["spanId"]: i for i, s in enumerate(spans)}
+    unix = any(a["key"] == "trace.clock" for s in spans
+               for a in s.get("attributes", ()))
     for s in spans:
-        wall = (int(s["endTimeUnixNano"])
-                - int(s["startTimeUnixNano"])) / 1e6
-        node: dict = {"name": s["name"], "wall_ms": round(wall, 3)}
+        t0, t1 = int(s["startTimeUnixNano"]), int(s["endTimeUnixNano"])
+        node: dict = {"name": s["name"], "wall_ms": round((t1 - t0) / 1e6, 3)}
+        if unix:
+            node["start_unix_ns"], node["end_unix_ns"] = t0, t1
         status = s.get("status", {})
         if status.get("code") == "STATUS_CODE_ERROR":
             node["status"] = status.get("message", "error")
@@ -268,6 +280,8 @@ def trace_from_otlp(otlp: dict) -> dict:
             key, val = a["key"], _from_otlp_value(a["value"])
             if key == "trace.intent":
                 intent = val
+            elif key == "trace.clock":
+                continue
             elif key.startswith("trace."):
                 trace_attrs[key[len("trace."):]] = val
             else:

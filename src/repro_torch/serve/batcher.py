@@ -51,7 +51,7 @@ import time
 from collections import deque
 from typing import Any, Callable, Optional
 
-from ..obs import FLIGHT_RECORDER, REGISTRY, SLO_ENGINE, trace
+from ..obs import FLIGHT_RECORDER, REGISTRY, SLO_ENGINE, span, trace
 from .deadline import DeadlineExceeded, deadline_scope
 
 
@@ -177,45 +177,48 @@ class Batcher:
     def submit(self, payload: Any,
                deadline_s: Optional[float] = None,
                tenant: str = "") -> Request:
-        now = time.perf_counter()
-        if deadline_s is None:
-            deadline_s = self.default_deadline_s
-        req = Request(self._next_id, payload,
-                      bucket=self.bucket_fn(payload),
-                      tenant=tenant,
-                      enqueued_at=now,
-                      deadline_at=(now + deadline_s)
-                      if deadline_s is not None else None)
-        self._next_id += 1
-        reason: Optional[str] = None
-        with self._qlock:
-            if (self.max_queue is not None
-                    and len(self._queue) >= self.max_queue):
-                reason = (f"queue at high watermark ({self.max_queue}) "
-                          f"— request {req.req_id} shed")
-            else:
-                reason = self._tenant_admit_locked(tenant, now)
-                if reason is None:
-                    self._queue.append(req)
-        if reason is not None:
-            self._complete([req], error=AdmissionRejected(reason))
-            self._c_rejected.inc()
-            REGISTRY.counter("batcher_tenant_rejected",
-                             batcher=self.label,
-                             tenant=tenant or "default").inc()
-            # a shed request never gets a trace, so the SLO engine and
-            # flight recorder hear about it HERE (DESIGN.md §15) — an
-            # admission rejection is always a bad event and always an
-            # interesting record
-            if SLO_ENGINE.active:
-                SLO_ENGINE.observe(tenant or "default", str(req.bucket),
-                                   None, ok=False)
-            if FLIGHT_RECORDER.enabled:
-                FLIGHT_RECORDER.observe_event(
-                    "admission_rejected", batcher=self.label,
-                    tenant=tenant or "default",
-                    intent=str(req.bucket), detail=reason)
-        return req
+        # in a closed loop a submit runs inside the batch that answered
+        # the request before it, so its span lands in that trace
+        with span("submit"):
+            now = time.perf_counter()
+            if deadline_s is None:
+                deadline_s = self.default_deadline_s
+            req = Request(self._next_id, payload,
+                          bucket=self.bucket_fn(payload),
+                          tenant=tenant,
+                          enqueued_at=now,
+                          deadline_at=(now + deadline_s)
+                          if deadline_s is not None else None)
+            self._next_id += 1
+            reason: Optional[str] = None
+            with self._qlock:
+                if (self.max_queue is not None
+                        and len(self._queue) >= self.max_queue):
+                    reason = (f"queue at high watermark ({self.max_queue}) "
+                              f"— request {req.req_id} shed")
+                else:
+                    reason = self._tenant_admit_locked(tenant, now)
+                    if reason is None:
+                        self._queue.append(req)
+            if reason is not None:
+                self._complete([req], error=AdmissionRejected(reason))
+                self._c_rejected.inc()
+                REGISTRY.counter("batcher_tenant_rejected",
+                                 batcher=self.label,
+                                 tenant=tenant or "default").inc()
+                # a shed request never gets a trace, so the SLO engine and
+                # flight recorder hear about it HERE (DESIGN.md §15) — an
+                # admission rejection is always a bad event and always an
+                # interesting record
+                if SLO_ENGINE.active:
+                    SLO_ENGINE.observe(tenant or "default", str(req.bucket),
+                                       None, ok=False)
+                if FLIGHT_RECORDER.enabled:
+                    FLIGHT_RECORDER.observe_event(
+                        "admission_rejected", batcher=self.label,
+                        tenant=tenant or "default",
+                        intent=str(req.bucket), detail=reason)
+            return req
 
     def _take_batch(self) -> list[Request]:
         with self._qlock:

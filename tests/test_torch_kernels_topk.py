@@ -250,3 +250,47 @@ def test_list_chunks_keep_the_candidates_within_budget():
     assert all(c % 32 == 0 for _, c in plan[:-1])
     _covers(plan, 2000)
     assert common.scan_chunks(32, 8192, 10, 64) == [(0, 32)]
+
+
+def test_list_chunks_hold_one_chunks_candidates_at_a_time(monkeypatch):
+    """The list path allocates a chunk's (grid_x, Q, k) candidates and
+    merges them before the next chunk's are made, so the candidates live
+    at each launch stay within ``CAND_BUDGET`` entries, whatever the
+    number of chunks. The card's API is stubbed and the budget cut, so
+    the launcher runs on the CPU over 4 chunks."""
+    import contextlib
+    import types
+    import weakref
+
+    gx, k, nq, n = 8, 4, 100, 64
+    monkeypatch.setattr(common, "CAND_BUDGET", 32 * gx * k)
+    live = {}
+    made = torch.empty
+
+    def empty(*shape, **kw):
+        t = made(*shape, **kw)
+        if t.dim() == 3:                          # a chunk's candidates
+            live[id(t)] = t.numel() * t.element_size()
+            weakref.finalize(t, live.pop, id(t), None)
+        return t
+
+    seen = []
+
+    def entry(*args):
+        seen.append(sum(live.values()))
+        return 0
+
+    lib = types.SimpleNamespace(topk_tile_grid_x=lambda *a: gx, scan=entry)
+    monkeypatch.setattr(torch, "empty", empty)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "get_device_properties",
+                        lambda dev: types.SimpleNamespace(
+                            multi_processor_count=132))
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev: types.SimpleNamespace(cuda_stream=0))
+    q = torch.zeros((nq, 16))
+    s, i, calls = common.launch_tile_scan(lib, "scan", [q], nq, n, 16, k)
+    assert calls == len(seen) == 4
+    assert s.shape == i.shape == (nq, k)
+    assert max(seen) == common.CAND_BUDGET * 8      # fp32 scores, i32 ids
